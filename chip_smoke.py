@@ -8,19 +8,28 @@ Phases, each of which raises on failure:
 1. build   -- compile the CUDA kernels from starway_tpu_torch/csrc with nvcc
 2. card    -- print the card's name and power limit (nvidia-smi)
 3. kernels -- each kernel against its plain PyTorch version at the serving
-              path's shapes: max error, median time (CUDA events), the
-              plain version's time, one PyTorch library call's time, and
-              the least time the card could take (bytes / 3.35 TB/s or
-              operations / 989 TFLOP/s, whichever is larger)
+              and training paths' shapes: max error, median time (CUDA
+              events), the plain version's time, one PyTorch library
+              call's time, and the least time the card could take (bytes /
+              3.35 TB/s or operations / 989 TFLOP/s, whichever is larger)
 4. serve   -- SlotServer on llama3-8b widths (bf16, 32 layers, random
               weights): 12 requests through 8 slots; first-token logits of
               one request against a forward through the plain attention
 5. int8    -- phase 4 again with an int8 KV cache and W8A16 weights
 6. parity  -- float32, 2 layers at the same widths: SlotServer's greedy
               tokens equal generate()'s for every request
-7. a JSON line of the kernels with their launches on the serving path
-   (phases 4 and 5) and the numbers of phase 3
-8. the last line: {"ok": true, "device": {...}}
+7. train   -- Trainer + adamw on llama3-8b widths cut to 4 layers (bf16,
+              remat "dots"), 6 steps on one [2, 2049] batch: loss per
+              step, median step ms, tokens/s, model FLOP share, one step
+              traced for the device-busy share and the top kernels
+8. train-parity -- float32, 2 layers, [1, 513]: loss and every gradient of
+              one step through the kernels against the same step through
+              the plain attention; the flash forward and each backward
+              pass launch once per layer
+9. a JSON line of the kernels with their launches on the serving path
+   (phases 4 and 5) and the training path (phase 7) and the numbers of
+   phase 3
+10. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -40,6 +49,15 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate (data sheet)
 BF16_TOL = 2e-2             # absolute, bf16 outputs: one rounding of O(1)
 LOGIT_REL_TOL = 5e-2        # bf16 logits after 32 layers, vs max |logit|
+# Gradients, against their largest value: bf16 one ulp (2^-7 < 1e-2), the
+# kernels and the plain version round p and ds at the same points; f32
+# 1e-4, sums of up to S products in another order.
+GRAD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# A float32 train step through 2 layers at full width, kernels against the
+# plain attention: the attention gradients differ in summation order, and
+# the 4096- and 14336-wide float32 matmuls carry that into every leaf.
+TRAIN_GRAD_REL_TOL = 1e-3
+LR_TRAIN = 2e-4  # AdamW on bf16 weights of ~0.016: steps above half an ulp
 SEED = 0
 
 
@@ -191,6 +209,8 @@ def phase_kernels(dev):
         replaces="starway_tpu/ops/pallas_attention.py:124 (_fwd_kernel)",
         max_abs_err=worst, **timed)
 
+    rows.update(flash_backward_rows(dev, randn))
+
     # -- int8 GEMV: decode (M=8) and prefill (M=512) rows, the llama3-8b
     # projection shapes and the lm_head.
     worst = 0.0
@@ -230,6 +250,115 @@ def phase_kernels(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return rows
+
+
+def visible_pairs(s_len: int, causal: bool, window=None) -> int:
+    """(q, k) pairs that the attention computes: what this run needs."""
+    if not causal:
+        return s_len * s_len
+    reach = np.minimum(np.arange(1, s_len + 1), window or s_len)
+    return int(reach.sum())
+
+
+def flash_backward_rows(dev, randn):
+    """The two backward kernels against flash_backward_reference: the
+    training shapes (B=2, S=2048 and B=1, S=4096, causal, GQA 4:1, bf16)
+    and small float32 / bfloat16 shapes (non-causal, window, uneven S,
+    other head sizes).  Timed at B=2, S=2048."""
+    import torch
+    import torch.nn.functional as F
+
+    from starway_tpu_torch.ops.flash import (flash_backward,
+                                             flash_backward_dkv,
+                                             flash_backward_dq,
+                                             flash_backward_reference,
+                                             flash_forward)
+
+    HQ, HKV = 32, 8
+    cases = [(2, HQ, HKV, 2048, 128, True, None, torch.bfloat16),
+             (1, HQ, HKV, 4096, 128, True, None, torch.bfloat16),
+             (2, 4, 2, 100, 128, True, None, torch.float32),
+             (2, 4, 4, 70, 64, False, None, torch.float32),
+             (1, 8, 2, 150, 16, True, 17, torch.float32),
+             (1, 4, 2, 130, 128, True, 40, torch.bfloat16),
+             (2, 4, 1, 256, 32, True, None, torch.bfloat16)]
+    worst = {"dkv": 0.0, "dq": 0.0}
+    timed = {}
+    for b, hq, hkv, s_len, d, causal, window, dt in cases:
+        q, do = randn(b, hq, s_len, d, dtype=dt), randn(b, hq, s_len, d,
+                                                        dtype=dt)
+        k, v = randn(b, hkv, s_len, d, dtype=dt), randn(b, hkv, s_len, d,
+                                                        dtype=dt)
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_forward(q, k, v, **kw)
+        got = flash_backward(q, k, v, o, lse, do, **kw)
+        want = flash_backward_reference(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        tol = GRAD_REL_TOL[str(dt).removeprefix("torch.")]
+        rel = [((g.float() - w.float()).abs().max()
+                / w.float().abs().max()).item() for g, w in zip(got, want)]
+        abs_err = [(g.float() - w.float()).abs().max().item()
+                   for g, w in zip(got, want)]
+        worst["dq"] = max(worst["dq"], abs_err[0])
+        worst["dkv"] = max(worst["dkv"], abs_err[1], abs_err[2])
+        log(f"flash_backward B={b} Hq={hq} Hkv={hkv} S={s_len} D={d} "
+            f"causal={causal} window={window} {dt}: max_abs_err dq/dk/dv "
+            f"{abs_err[0]:.3e}/{abs_err[1]:.3e}/{abs_err[2]:.3e}, "
+            f"relative to max |grad| {max(rel):.3e} (tol {tol})")
+        if not max(rel) <= tol:
+            raise AssertionError("flash_backward disagrees with its plain "
+                                 "version")
+        if s_len < 2048:
+            continue
+        delta = (do.float() * o.float()).sum(dim=-1)
+        kkw = dict(kw, sm_scale=d ** -0.5)
+        dkv_ms = cuda_ms(lambda: flash_backward_dkv(q, k, v, do, lse, delta,
+                                                    **kkw))
+        dq_ms = cuda_ms(lambda: flash_backward_dq(q, k, v, do, lse, delta,
+                                                  **kkw))
+        plain = cuda_ms(lambda: flash_backward_reference(q, k, v, o, lse, do,
+                                                         **kw), iters=5)
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            o_lib = F.scaled_dot_product_attention(
+                *leaves, is_causal=causal, enable_gqa=True)
+            lib = cuda_ms(lambda: torch.autograd.grad(
+                o_lib, leaves, do, retain_graph=True))
+            del o_lib, leaves
+        # One product: 2 * D flops per visible pair and q head.  Bytes:
+        # q, dO, k, v, lse and delta read once, the gradients written once.
+        flops = 2 * d * visible_pairs(s_len, causal, window) * hq * b
+        es = q.element_size()
+        io = es * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * b * hq * s_len
+        dkv_b = bound(io + es * 2 * k.numel(), 4 * flops)
+        dq_b = bound(io + es * q.numel(), 3 * flops)
+        log(f"  timed: dK/dV {dkv_ms:.4f} ms (bound {dkv_b[0]:.4f} ms, "
+            f"{dkv_b[1]}), dQ {dq_ms:.4f} ms (bound {dq_b[0]:.4f} ms, "
+            f"{dq_b[1]}); plain (both passes) {plain:.4f} ms, library "
+            f"(SDPA backward, both passes) {lib:.4f} ms")
+        if (b, s_len) == (2, 2048):
+            at = (f"B={b} Hq={hq} Hkv={hkv} D={d} S={s_len} causal bf16; "
+                  f"plain_ms and library_ms cover both passes")
+            timed["dkv"] = dict(ms=dkv_ms, plain_ms=plain,
+                                bound_ms=dkv_b[0], bound_by=dkv_b[1],
+                                library_ms=lib, timed_at=at)
+            timed["dq"] = dict(ms=dq_ms, plain_ms=plain, bound_ms=dq_b[0],
+                               bound_by=dq_b[1], library_ms=lib,
+                               timed_at=at)
+        del q, k, v, do, o, lse, got, want, delta
+        torch.cuda.empty_cache()
+    src = "starway_tpu_torch/csrc/flash_bwd.cu"
+    return {
+        "flash_backward_dkv": dict(
+            name="flash_attention_bwd_dkv", route="cuda", source=src,
+            replaces="starway_tpu/ops/pallas_attention.py:309 "
+                     "(_bwd_dkv_kernel)",
+            max_abs_err=worst["dkv"], **timed["dkv"]),
+        "flash_backward_dq": dict(
+            name="flash_attention_bwd_dq", route="cuda", source=src,
+            replaces="starway_tpu/ops/pallas_attention.py:364 "
+                     "(_bwd_dq_kernel)",
+            max_abs_err=worst["dq"], **timed["dq"])}
 
 
 def make_requests(cfg, n: int = 12):
@@ -339,6 +468,179 @@ def check_first_logits(params, cfg, prompt, max_len):
     return err / scale
 
 
+def train_batch(cfg, b: int, s_plus_1: int, seed: int, dev):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (b, s_plus_1))).to(dev)
+
+
+def model_flops(cfg, tokens: int, b: int, s_len: int) -> float:
+    """Model FLOPs of one training step: 6 * N * tokens over the matmul
+    weights (the layers' projections and the lm_head; the embedding is a
+    gather) plus the attention's two products, forward and backward
+    (3 x 4 * D per visible pair and q head), without remat's recompute."""
+    hd, L = cfg.head_dim, cfg.n_layers
+    per_layer = (cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+                 + cfg.n_heads * hd * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
+    n = L * per_layer + cfg.d_model * cfg.vocab_size
+    attn = 12 * hd * visible_pairs(s_len, True) * cfg.n_heads * b * L
+    return 6.0 * n * tokens + attn
+
+
+def kernel_family(name: str) -> str:
+    for key in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"):
+        if key in name:
+            return key
+    if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "matmul (cuBLAS)"
+    return "elementwise, reductions, copies"
+
+
+def trace_summary(prof, traced_ms: float) -> dict:
+    """Device time of one traced step: busy total, by kernel family, of
+    the optimizer (the trainer's profiler range "apply") and the top
+    kernels by name."""
+    import torch
+
+    phase_names = ("grad", "apply")
+    events = prof.key_averages()
+    # Device-side events, less the profiler ranges' own GPU spans.
+    kern = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in phase_names]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    family, by_name = {}, {}
+    for e in kern:
+        f = kernel_family(e.key)
+        family[f] = family.get(f, 0) + e.self_device_time_total / 1e3
+        by_name[e.key[:90]] = (by_name.get(e.key[:90], 0)
+                               + e.self_device_time_total / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # A host-side range's device time is that of the kernels its operations
+    # launched.  Only "apply" (the optimizer) is whole: autograd launches
+    # the backward's kernels from its own device thread, outside "grad".
+    optimizer_ms = sum(e.device_time_total / 1e3 for e in events
+                       if e.key == "apply"
+                       and e.device_type == torch.autograd.DeviceType.CPU)
+    return dict(traced_step_ms=traced_ms,
+                device_busy_ms=busy_us / 1e3 if busy_us else None,
+                device_ms_by_family={k: round(v, 3)
+                                     for k, v in family.items()},
+                device_ms_optimizer=round(optimizer_ms, 3),
+                top_kernels_ms={k: round(v, 3) for k, v in top})
+
+
+def phase_train(dev):
+    """Phase 7: Trainer + adamw, llama3-8b widths cut to 4 layers, bf16,
+    remat "dots", 6 steps on one batch.  Returns (stats, launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from starway_tpu_torch.models import LlamaConfig, Trainer, init_params
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.utils import adamw
+
+    B, S, STEPS = 2, 2048, 6
+    cfg = LlamaConfig.preset("llama3-8b", n_layers=4, remat=True,
+                             remat_policy="dots")
+    params = init_params(cfg, SEED + 3, device=dev)
+    batch = train_batch(cfg, B, S + 1, SEED + 4, dev)
+    trainer = Trainer(cfg, adamw(LR_TRAIN), params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[train] llama3-8b widths, {cfg.n_layers} layers (cut from 32), "
+        f"bf16, remat dots, AdamW lr {LR_TRAIN:g}, batch [{B}, {S + 1}], "
+        f"{STEPS} steps on one batch")
+    losses, step_ms, traced = [], [], {}
+    reset_launch_counts()
+    for i in range(STEPS):
+        if i == STEPS - 1:  # the last step, under the profiler
+            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                losses.append(trainer.step_sync(batch))
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t0) * 1e3
+            traced = trace_summary(prof, traced_ms)
+            continue
+        t0 = time.perf_counter()
+        losses.append(trainer.step_sync(batch))  # ends in loss.item()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  step {i + 1}: loss {losses[-1]:.4f}, {step_ms[-1]:.1f} ms")
+    counts = launch_counts()
+    log(f"  step {STEPS} (traced): loss {losses[-1]:.4f}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"training did not lower the loss: {losses}")
+    for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq"):
+        if counts[name] != STEPS * cfg.n_layers:
+            raise AssertionError(f"{name} launched {counts[name]} times in "
+                                 f"{STEPS} steps of {cfg.n_layers} layers")
+    med = statistics.median(step_ms[1:])  # step 1 warms up
+    flops = model_flops(cfg, B * S, B, S)
+    stats = dict(losses=losses, median_step_ms=med,
+                 first_step_ms=step_ms[0], tokens_per_s=B * S / med * 1e3,
+                 model_flop_share=flops / (med / 1e3) / BF16_FLOPS,
+                 model_tflop_per_step=flops / 1e12,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 telemetry_p50_us={k: round(v["p50_us"], 1) for k, v in
+                                   trainer.telemetry().items()},
+                 **traced)
+    if traced.get("device_busy_ms"):  # else: not measured (no CUDA events)
+        stats["device_idle_share"] = 1 - traced["device_busy_ms"] / med
+    del trainer, params
+    torch.cuda.empty_cache()
+    return stats, counts
+
+
+def phase_train_parity(dev):
+    """Phase 8: one float32 step at llama3-8b widths, 2 layers, through
+    the kernels against the same step through the plain attention."""
+    import torch
+
+    from starway_tpu_torch.models import LlamaConfig, init_params
+    from starway_tpu_torch.models.llama import value_and_grad
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.ops.attention import blockwise_attention
+    from starway_tpu_torch.utils.tree import tree_leaves
+
+    cfg = LlamaConfig.preset("llama3-8b", n_layers=2, dtype="float32",
+                             remat=True, remat_policy="dots")
+    params = init_params(cfg, SEED + 5, device=dev)
+    batch = train_batch(cfg, 1, 513, SEED + 6, dev)
+    log("[train-parity] float32, 2 layers, [1, 513], remat dots: kernels "
+        "against the plain attention")
+    reset_launch_counts()
+    loss, grads = value_and_grad(params, batch, cfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq"):
+        if counts[name] != cfg.n_layers:
+            raise AssertionError(f"{name} launched {counts[name]} times in "
+                                 f"one step of {cfg.n_layers} layers")
+
+    def plain_attn(q, k, v):
+        return blockwise_attention(q, k, v, causal=True)
+
+    want_loss, want = value_and_grad(params, batch, cfg, plain_attn)
+    loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+    worst = 0.0
+    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        worst = max(worst, ((g - w).abs().max() / w.abs().max()).item())
+    log(f"  loss {loss.item():.6f} vs plain {want_loss.item():.6f} (rel "
+        f"{loss_err:.2e}, tol 1e-5); worst gradient leaf error relative to "
+        f"its max {worst:.3e} (tol {TRAIN_GRAD_REL_TOL}); launches "
+        f"{counts}")
+    if not (loss_err <= 1e-5 and worst <= TRAIN_GRAD_REL_TOL):
+        raise AssertionError("the kernel train step disagrees with the "
+                             "plain-attention step")
+    del params, grads, want
+    torch.cuda.empty_cache()
+    return dict(loss_rel_err=loss_err, worst_grad_rel_err=worst)
+
+
 def main() -> int:
     import torch
 
@@ -405,7 +707,8 @@ def main() -> int:
     main_counts = {k: c4[k] + c5[k] for k in c4}
     log(f"  {st5}")
     log(f"  launches {c5}")
-    if not all(c5[k] > 0 for k in c5):
+    if not all(c5[k] > 0 for k in ("decode_attention", "flash_forward",
+                                    "int8_matmul")):
         raise AssertionError("the int8 serving run missed a kernel")
     check_first_logits(qparams, cfg8, reqs[0][0], 2048)
     del qparams
@@ -425,9 +728,18 @@ def main() -> int:
     log(f"  {len(done)} requests token-for-token equal; {st6}")
     del params32
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
-    # 7. kernels line: launches are the serving path's (phases 4 and 5,
-    # each counted from 0 just before its run and read just after).
+    # 7 + 8: the training path, counted, then its parity step.
+    st7, c7 = phase_train(dev)
+    log(f"  {st7}")
+    log(f"  launches {c7}")
+    st8 = phase_train_parity(dev)
+
+    # 9. kernels line: launches are the serving path's (phases 4 and 5)
+    # and the training path's (phase 7), each counted from 0 just before
+    # its run and read just after.
+    main_counts = {k: main_counts[k] + c7[k] for k in main_counts}
     kernels = []
     for key, row in rows.items():
         row = dict(row)
@@ -440,13 +752,18 @@ def main() -> int:
         f"admission, int8_matmul (W8A16 run) "
         f"{c5['int8_matmul'] / (8 * st5['chunks'] + admits):g} per decode "
         f"step or admission")
+    log(f"[summary] launches per training step (4 layers): "
+        f"flash_attention_fwd {c7['flash_forward'] / 6:g}, dK/dV "
+        f"{c7['flash_backward_dkv'] / 6:g}, dQ {c7['flash_backward_dq'] / 6:g}")
     log(f"[summary] decode chunks {st4['chunks']} bf16 + {st5['chunks']} "
         f"int8 of 8 steps each, serve wall {st4['wall_s']:.2f} s bf16 / "
-        f"{st5['wall_s']:.2f} s int8, total "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{st5['wall_s']:.2f} s int8; train median step "
+        f"{st7['median_step_ms']:.1f} ms, {st7['tokens_per_s']:.0f} tokens/s, "
+        f"model FLOP share {st7['model_flop_share']:.4f}; train-parity "
+        f"{st8}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 8. last line
+    # 10. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,17 +27,22 @@ def _tensor(a, device, dtype):
 
 
 def params_from_numpy(tree: dict, device="cuda",
-                      dtype: Optional[torch.dtype] = None) -> dict:
+                      dtype: Optional[torch.dtype] = None,
+                      requires_grad: bool = False) -> dict:
     """The torch tree of a numpy parameter tree, on ``device``.
 
     ``dtype`` casts the floating leaves (weights, norms, biases, the
     embedding); the int8 codes and the float32 scales of W8A16 pairs keep
-    their types."""
+    their types.  ``requires_grad`` marks those floating leaves as leaves
+    of autograd, ready to train."""
 
     def walk(node, keep_types: bool):
         if isinstance(node, dict):
             quant = "q" in node and "s" in node
             return {k: walk(v, keep_types or quant) for k, v in node.items()}
-        return _tensor(node, device, None if keep_types else dtype)
+        t = _tensor(node, device, None if keep_types else dtype)
+        if requires_grad and not keep_types and t.is_floating_point():
+            t.requires_grad_()
+        return t
 
     return walk(tree, False)

@@ -1,5 +1,5 @@
 """Llama family (RMSNorm + RoPE + GQA + SwiGLU) in PyTorch: the serving
-subset.
+and training subsets.
 
 Parameters are a dict tree with layer weights *stacked* on a leading
 ``[n_layers, ...]`` axis, the same layout as the JAX package's tree
@@ -10,8 +10,17 @@ follow the tensors, and :func:`init_params` makes the tree on ``cuda``
 unless told otherwise.
 
 Kernel dispatch is by tensor device: on CUDA, attention in the prompt pass
-runs the flash kernel (ops/flash.py) and W8A16 matmuls run the int8 GEMV
-kernel (ops/gemv.py); on the CPU the same functions run in plain PyTorch.
+runs the flash kernels (ops/flash.py, forward and, under autograd, the two
+backward passes) and W8A16 matmuls run the int8 GEMV kernel (ops/gemv.py);
+on the CPU the same functions run in plain PyTorch.
+
+Training: :func:`loss_fn` (mean next-token cross-entropy), a functional
+:func:`value_and_grad`, :func:`apply_updates` and :func:`make_train_step`
+(with gradient accumulation).  ``cfg.remat`` checkpoints each layer with
+``torch.utils.checkpoint``; ``remat_policy="dots"`` checkpoints only what
+the JAX package's "dots" chunks replay (the norms, rope and the gate
+activation), so matmul outputs and the attention's (o, lse) are saved and
+the flash forward runs once per layer and step.
 """
 
 from __future__ import annotations
@@ -24,7 +33,10 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from ..ops.attention import blockwise_attention
+from ..utils.tree import tree_leaves, tree_unflatten
 
 _MOE_TODO = ("mixture-of-experts models are not ported yet (ROADMAP.md, "
              "Queue 1: MoE with the parallel layer)")
@@ -208,14 +220,28 @@ def layer_params(layers: dict, i: int) -> dict:
             for name, w in layers.items()}
 
 
+def unstack_layers(layers: dict, n_layers: int) -> list:
+    """Every layer's slice of the stacked tree, from one ``unbind`` per
+    leaf: under autograd the gradient of each stacked leaf is then one
+    stack of the per-layer gradients, where indexing the leaf once per
+    layer would write a zero tensor the size of the whole stack for every
+    layer."""
+    split = {name: ({k: t.unbind(0) for k, t in w.items()}
+                    if isinstance(w, dict) else w.unbind(0))
+             for name, w in layers.items()}
+    return [layer_params(split, i) for i in range(n_layers)]
+
+
 def params_device(params: dict) -> torch.device:
     return params["embed"].device
 
 
 class LlamaModel(torch.nn.Module):
     """A thin module over the stacked parameter tree: the leaves are
-    buffers (so ``.to()`` moves them) and ``forward`` calls the functional
-    :func:`forward`."""
+    ``nn.Parameter``s (so ``.to()`` moves them and ``.parameters()`` hands
+    them to an optimizer) and ``forward`` calls the functional
+    :func:`forward`.  Floating leaves train; the int8 codes and float32
+    scales of W8A16 pairs do not."""
 
     def __init__(self, params: dict, cfg: LlamaConfig):
         super().__init__()
@@ -223,7 +249,9 @@ class LlamaModel(torch.nn.Module):
         self._paths = []
         for path, leaf in _flatten(params):
             name = "__".join(path)
-            self.register_buffer(name, leaf)
+            trains = leaf.is_floating_point() and path[-1] not in ("q", "s")
+            self.register_parameter(
+                name, torch.nn.Parameter(leaf, requires_grad=trains))
             self._paths.append((path, name))
 
     @property
@@ -373,6 +401,15 @@ def head_logits(h, final_norm_w, lm_head_w, eps: float):
     return matmul_w(rmsnorm(h, final_norm_w, eps), lm_head_w).float()
 
 
+def token_ce(logits, targets):
+    """Mean next-token cross-entropy of ``logits [..., V]`` against int ids
+    ``targets [...]``, as ``logsumexp - target_logit``: no log-softmax
+    tensor the size of the logits is kept for the backward."""
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return (lse - tl).mean()
+
+
 def default_attn(q, k, v, window: Optional[int] = None):
     """Causal attention: the flash kernel on CUDA, the blockwise loop on the
     CPU (same algebra, same GQA handling)."""
@@ -445,37 +482,81 @@ def qkv_proj(x, lp, cfg: LlamaConfig):
             v.reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2))
 
 
+def _gated(g, u, cfg: LlamaConfig):
+    """The MLP's gate activation times its up projection, in g's dtype."""
+    return mlp_gate_act(g, cfg).to(g.dtype) * u
+
+
+def _replayed(fn, *args):
+    """``fn(*args)`` whose intermediates are recomputed in the backward
+    (torch.utils.checkpoint) instead of kept."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _direct(fn, *args):
+    return fn(*args)
+
+
 def decoder_layer(lp, h, cfg: LlamaConfig, cos, sin, attn_fn: Callable):
     """One pre-norm decoder block on ``h [B, S, D]`` with one layer's
     params.  Returns ``(h, k, v)``: k/v are the post-RoPE grouped heads
-    (the KV-cache prefix).  Dense models only."""
+    (the KV-cache prefix).  Dense models only.
+
+    Under ``remat_policy="dots"`` (with autograd on) the norms, rope and
+    the gate activation run in checkpointed regions: the backward replays
+    them from the saved matmul outputs, the JAX package's chunked "dots"
+    structure.  The attention call and the matmuls stay outside every
+    region, so the flash forward never runs again in the backward."""
     if cfg.n_experts > 0:
         raise NotImplementedError(_MOE_TODO)
     B, S, _ = h.shape
-    x = rmsnorm(h, lp["attn_norm"], cfg.norm_eps)
+    chunked = (cfg.remat and cfg.remat_policy == "dots"
+               and torch.is_grad_enabled())
+    run = _replayed if chunked else _direct
+    x = run(rmsnorm, h, lp["attn_norm"], cfg.norm_eps)
     q, k, v = qkv_proj(x, lp, cfg)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q = run(apply_rope, q, cos, sin)
+    k = run(apply_rope, k, cos, sin)
     o = attn_fn(q, k, v)  # [B, H, S, Dh]
     o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
     h = h + matmul_w(o, lp["wo"])
-    x = rmsnorm(h, lp["mlp_norm"], cfg.norm_eps)
-    gate = mlp_gate_act(matmul_w(x, lp["w_gate"]), cfg).to(x.dtype)
-    h = h + matmul_w(gate * matmul_w(x, lp["w_up"]), lp["w_down"])
+    x = run(rmsnorm, h, lp["mlp_norm"], cfg.norm_eps)
+    gate = run(_gated, matmul_w(x, lp["w_gate"]), matmul_w(x, lp["w_up"]),
+               cfg)
+    h = h + matmul_w(gate, lp["w_down"])
     return h, k, v
 
 
+def _remat_wrap(layer: Callable, cfg: LlamaConfig) -> Callable:
+    """Full-layer remat (``cfg.remat`` without a policy): the whole layer,
+    attention included, is recomputed in the backward, so the flash
+    forward runs twice per layer and step.  "dots" lives inside
+    :func:`decoder_layer` instead."""
+    if not cfg.remat or cfg.remat_policy == "dots":
+        return layer
+
+    def wrapped(lp, h, *rest):
+        if not torch.is_grad_enabled():
+            return layer(lp, h, *rest)
+        return checkpoint(layer, lp, h, *rest, use_reentrant=False)
+
+    return wrapped
+
+
 def forward(params: dict, tokens, cfg: LlamaConfig,
-            attn_fn: Optional[Callable] = None, *, return_kv: bool = False,
-            last_only: bool = False, logit_positions=None):
+            attn_fn: Optional[Callable] = None, *, return_aux: bool = False,
+            return_kv: bool = False, last_only: bool = False,
+            logit_positions=None):
     """Next-token logits ``[B, S, V]`` (float32) for token ids ``[B, S]``.
 
-    ``return_kv`` also returns the post-RoPE grouped k/v of every layer,
-    stacked ``[n_layers, B, Hkv, S, Dh]`` (the KV-cache prefix), as
-    ``(logits, (k, v))``.  ``last_only`` computes logits for the last
-    position only (``[B, 1, V]``); ``logit_positions`` ([B] ints) for one
-    chosen position per row.  ``attn_fn(q, k, v)`` takes grouped kv and
-    defaults to :func:`default_attn`.
+    The return value is ``logits``, extended to a tuple ``(logits[, aux][,
+    (k, v)])`` by ``return_aux`` (the MoE balance term: a float32 zero for
+    the dense models the port runs) and ``return_kv`` (the post-RoPE
+    grouped k/v of every layer, stacked ``[n_layers, B, Hkv, S, Dh]``: the
+    KV-cache prefix).  ``last_only`` computes logits for the last position
+    only (``[B, 1, V]``); ``logit_positions`` ([B] ints) for one chosen
+    position per row.  ``attn_fn(q, k, v)`` takes grouped kv and defaults
+    to :func:`default_attn`.
     """
     if cfg.n_experts > 0:
         raise NotImplementedError(_MOE_TODO)
@@ -483,10 +564,10 @@ def forward(params: dict, tokens, cfg: LlamaConfig,
     B, S = tokens.shape
     cos, sin = cfg_rope_tables(cfg, S, device=tokens.device)
     h = embed_tokens(params, tokens, cfg)
+    layer = _remat_wrap(decoder_layer, cfg)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        h, k, v = decoder_layer(layer_params(params["layers"], i), h, cfg,
-                                cos, sin, attn_fn)
+    for lp in unstack_layers(params["layers"], cfg.n_layers):
+        h, k, v = layer(lp, h, cfg, cos, sin, attn_fn)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -495,8 +576,101 @@ def forward(params: dict, tokens, cfg: LlamaConfig,
     elif logit_positions is not None:
         idx = torch.as_tensor(logit_positions, device=h.device).long()
         h = torch.gather(h, 1, idx[:, None, None].expand(-1, 1, h.shape[-1]))
-    logits = head_logits(h, params["final_norm"], params["lm_head"],
-                         cfg.norm_eps)
+    out = (head_logits(h, params["final_norm"], params["lm_head"],
+                       cfg.norm_eps),)
+    if return_aux:
+        out += (torch.zeros((), dtype=torch.float32, device=h.device),)
     if return_kv:
-        return logits, (torch.stack(ks), torch.stack(vs))
-    return logits
+        out += ((torch.stack(ks), torch.stack(vs)),)
+    return out if len(out) > 1 else out[0]
+
+
+# ---------------------------------------------------------------- training
+
+
+def loss_fn(params: dict, batch, cfg: LlamaConfig,
+            attn_fn: Optional[Callable] = None):
+    """Causal LM loss: batch ``[B, S+1]`` token ids -> mean next-token
+    cross-entropy (float32 scalar)."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError(_MOE_TODO)
+    tokens, targets = batch[:, :-1], batch[:, 1:]
+    logits, _aux = forward(params, tokens, cfg, attn_fn, return_aux=True)
+    return token_ce(logits, targets)
+
+
+def value_and_grad(params: dict, batch, cfg: LlamaConfig,
+                   attn_fn: Optional[Callable] = None):
+    """``(loss, grads)`` of :func:`loss_fn` at ``params``, the grads a tree
+    like ``params`` in the leaves' dtypes (``jax.value_and_grad``'s
+    contract).  Leaves are taken as detached views, so ``params`` need
+    not require grad and gains no graph."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(params, leaves), batch, cfg, attn_fn)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def apply_updates(tx, params: dict, opt_state, grads, *,
+                  in_place: bool = True):
+    """Optimizer transform + parameter update ``p + u.to(p.dtype)``.
+    ``in_place`` adds into the parameter tensors (where the JAX step
+    donates its buffers); otherwise the returned tree holds new tensors
+    and ``params`` is left as it was."""
+    updates, opt_state = tx.update(grads, opt_state, params)
+    leaves = tree_leaves(params)
+    with torch.no_grad():
+        if in_place:
+            for p, u in zip(leaves, tree_leaves(updates)):
+                p.add_(u.to(p.dtype))
+            return params, opt_state
+        new = [p + u.to(p.dtype) for p, u in zip(leaves,
+                                                 tree_leaves(updates))]
+    return tree_unflatten(params, new), opt_state
+
+
+def make_train_step(cfg: LlamaConfig, tx,
+                    attn_fn: Optional[Callable] = None, *,
+                    accum_steps: int = 1, in_place: bool = True):
+    """One optimizer step: ``train_step(params, opt_state, batch) ->
+    (params, opt_state, loss)``.
+
+    ``accum_steps > 1`` splits the batch into that many equal microbatches
+    and accumulates their gradients in float32 before the one optimizer
+    update: activation memory scales with the microbatch while the math
+    matches the full-batch step (the mean of equal-size means is the
+    global mean).  The accumulated gradients are cast back to each
+    parameter's dtype, so the optimizer sees the dtypes of the
+    ``accum_steps=1`` path."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+    def train_step(params, opt_state, batch):
+        if accum_steps == 1:
+            loss, grads = value_and_grad(params, batch, cfg, attn_fn)
+        else:
+            B = batch.shape[0]
+            if B % accum_steps:
+                raise ValueError(
+                    f"batch {B} not divisible by accum_steps={accum_steps}")
+            chunks = batch.reshape(accum_steps, B // accum_steps,
+                                   *batch.shape[1:])
+            leaves = tree_leaves(params)
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in leaves]
+            loss = torch.zeros((), dtype=torch.float32, device=batch.device)
+            for chunk in chunks:
+                l, g = value_and_grad(params, chunk, cfg, attn_fn)
+                for a, gi in zip(acc, tree_leaves(g)):
+                    a.add_(gi.float())
+                loss = loss + l
+                del g  # free this microbatch's grads before the next one
+            loss = loss / accum_steps
+            grads = tree_unflatten(params, [
+                (a / accum_steps).to(p.dtype) for a, p in zip(acc, leaves)])
+        params, opt_state = apply_updates(tx, params, opt_state, grads,
+                                          in_place=in_place)
+        return params, opt_state, loss
+
+    return train_step

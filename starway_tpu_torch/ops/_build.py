@@ -39,6 +39,8 @@ SIGNATURES = {
     "sw_decode_attention": ([P] * 10 + [I] * 9 + [F, I, P], ctypes.c_int),
     "sw_decode_attention_smem": ([I, I], ctypes.c_size_t),
     "sw_flash_fwd": ([P] * 5 + [I] * 8 + [F, I, P], ctypes.c_int),
+    "sw_flash_bwd_dkv": ([P] * 8 + [I] * 10 + [F, I, P], ctypes.c_int),
+    "sw_flash_bwd_dq": ([P] * 7 + [I] * 10 + [F, I, P], ctypes.c_int),
     "sw_int8_matmul": ([P] * 4 + [I] * 5 + [P], ctypes.c_int),
 }
 

@@ -9,7 +9,9 @@ on a GPU machine with
 (the variable keeps tests/conftest.py from importing jax, which the GPU
 machine need not have).  Tolerances: float32 outputs 1e-5 (the kernels sum
 in another order than the plain versions), bfloat16 outputs 2e-2 (one
-bfloat16 rounding of O(1) values).  TF32 is off for the comparisons.
+bfloat16 rounding of O(1) values); gradients 1e-4 of max |grad| in
+float32 and 1e-2 (one bfloat16 ulp) in bfloat16, as they sum up to S
+products.  TF32 is off for the comparisons.
 """
 
 import numpy as np
@@ -20,7 +22,10 @@ from starway_tpu_torch.models import (LlamaConfig, SlotServer, generate,
                                       init_params)
 from starway_tpu_torch.ops.decode import (decode_attention,
                                           decode_attention_reference)
-from starway_tpu_torch.ops.flash import flash_forward, flash_forward_reference
+from starway_tpu_torch.ops.flash import (flash_backward,
+                                         flash_backward_dkv, flash_backward_dq,
+                                         flash_backward_reference,
+                                         flash_forward, flash_forward_reference)
 from starway_tpu_torch.ops.gemv import int8_matmul, int8_matmul_reference
 from starway_tpu_torch.ops.quantize import quantize_kv
 
@@ -130,3 +135,65 @@ def test_slot_server_on_cuda_matches_generate(dev, kv_quant, w8):
         out = generate(params, cfg, torch.tensor([prompt]), max_new)
         np.testing.assert_array_equal(done[rid],
                                       out[0, len(prompt):].cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,s,d,hq,hkv", [
+    (True, None, 100, 128, 4, 2), (False, None, 70, 64, 4, 4),
+    (True, 17, 150, 16, 8, 2), (True, None, 256, 32, 4, 1),
+    (True, 40, 130, 128, 4, 2), (False, None, 64, 64, 2, 2)])
+def test_flash_backward_kernels_match_plain(dev, dtype, causal, window, s, d,
+                                            hq, hkv):
+    """Both backward passes against flash_backward_reference: causal and
+    not, windows, uneven S, GQA 4:1 and 1:1, every compiled head size;
+    each pass launches once."""
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (2, hq, s, d), dtype, dev)
+    k = _randn(rng, (2, hkv, s, d), dtype, dev)
+    v = _randn(rng, (2, hkv, s, d), dtype, dev)
+    do = _randn(rng, (2, hq, s, d), dtype, dev)
+    o, lse = flash_forward(q, k, v, causal=causal, window=window)
+    before = (flash_backward_dkv.launches, flash_backward_dq.launches)
+    got = flash_backward(q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_backward_dkv.launches, flash_backward_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_backward_reference(q, k, v, o, lse, do, causal=causal,
+                                    window=window)
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=rel * w.float().abs().max().item())
+
+
+@pytest.mark.parametrize("policy", [None, "dots"])
+def test_train_step_on_cuda_matches_plain_attention(dev, policy):
+    """One value_and_grad step on the card through the flash kernels
+    against the same step through the plain attention (float32, debug
+    widths): loss rtol 1e-5, every gradient leaf within 1e-4 of its max;
+    the forward and each backward pass launch once per layer."""
+    from starway_tpu_torch.models import llama
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.ops.attention import blockwise_attention
+    from starway_tpu_torch.utils.tree import tree_leaves
+
+    cfg = LlamaConfig.preset("debug", remat=policy is not None,
+                             remat_policy=policy)
+    params = init_params(cfg, 0, device=dev)
+    batch = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 130))).to(dev)
+    reset_launch_counts()
+    loss, grads = llama.value_and_grad(params, batch, cfg)
+    counts = launch_counts()
+    for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq"):
+        assert counts[name] == cfg.n_layers, counts
+
+    def plain(q, k, v):
+        return blockwise_attention(q, k, v, causal=True)
+
+    want_loss, want = llama.value_and_grad(params, batch, cfg, plain)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item())

@@ -1,7 +1,7 @@
 """The port stands alone: no module of starway_tpu_torch, and not
-chip_smoke.py, imports jax or the JAX package; importing the serving stack
-leaves both out of sys.modules; and the entry points default to the GPU
-rather than falling back to the CPU."""
+chip_smoke.py, imports jax, optax or the JAX package; importing the
+serving and training stacks leaves them out of sys.modules; and the entry
+points default to the GPU rather than falling back to the CPU."""
 
 import ast
 import subprocess
@@ -12,12 +12,12 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "starway_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "starway_tpu")
 
 
 def _port_files():
     files = sorted((REPO / "starway_tpu_torch").rglob("*.py"))
-    assert len(files) >= 10
+    assert len(files) >= 17
     return files + [REPO / "chip_smoke.py"]
 
 
@@ -41,7 +41,8 @@ def test_port_module_imports_no_jax(path):
 def test_serving_import_keeps_jax_out_of_the_process():
     code = ("import sys, starway_tpu_torch.models.serving, "
             "starway_tpu_torch.ops.decode, starway_tpu_torch.ops.flash, "
-            "starway_tpu_torch.ops.gemv\n"
+            "starway_tpu_torch.ops.gemv, starway_tpu_torch.models.trainer, "
+            "starway_tpu_torch.utils.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "assert not bad, bad\n")

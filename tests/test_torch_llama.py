@@ -204,3 +204,22 @@ def test_unported_paths_raise():
         tgen.decode_step(tp, cache, torch.tensor([1]), 0, tcfg, rolling=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgen.prefill_rolling(tp, tcfg, torch.tensor([[1, 2]]))
+
+
+def test_trainer_unported_options_raise():
+    """The Trainer options that need unported layers refuse, naming
+    ROADMAP.md: the DP port (transport), mesh/fsdp (parallel layer), MoE."""
+    from starway_tpu_torch.models.trainer import Trainer
+    from starway_tpu_torch.utils.optim import adamw
+
+    _, tcfg, _, tp = _pair()
+    for kw in (dict(dp_port=object()), dict(mesh=object(), fsdp_axis="fsdp"),
+               dict(fsdp_axis="fsdp"), dict(moe_fn=lambda *a: a),
+               dict(with_moe_stats=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(tcfg, adamw(1e-3), tp, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(tl.LlamaConfig.preset("debug", n_experts=4), adamw(1e-3), tp)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tl.loss_fn(tp, torch.zeros((1, 3), dtype=torch.long),
+                   tl.LlamaConfig.preset("debug", n_experts=4))
