@@ -8,28 +8,40 @@ Phases, each of which raises on failure:
 1. build   -- compile the CUDA kernels from starway_tpu_torch/csrc with nvcc
 2. card    -- print the card's name and power limit (nvidia-smi)
 3. kernels -- each kernel against its plain PyTorch version at the serving
-              and training paths' shapes: max error, median time (CUDA
+              and training paths' shapes (the decode kernel also at C=128,
+              its row tiles; the paged kernel at 16 slots and at the
+              prefix-ingest shape): max error, median time (CUDA
               events), the plain version's time, one PyTorch library
               call's time, and the least time the card could take (bytes /
               3.35 TB/s or operations / 989 TFLOP/s, whichever is larger)
 4. serve   -- SlotServer on llama3-8b widths (bf16, 32 layers, random
               weights): 12 requests through 8 slots; first-token logits of
               one request against a forward through the plain attention
-5. int8    -- phase 4 again with an int8 KV cache and W8A16 weights
-6. parity  -- float32, 2 layers at the same widths: SlotServer's greedy
+5. paged   -- PagedSlotServer on the same weights: 16 slots, max_len
+              4096, page 64, a 529-page pool, a 1000-token system prompt
+              registered once and 24 requests (12 continue the prompt);
+              the paged kernel launches 32 times per decode step and per
+              prefixed admission; first-token logits of a prefixed request
+              against a forward of prefix + suffix through the plain
+              attention
+6. int8    -- phase 4 again with an int8 KV cache and W8A16 weights
+7. parity  -- float32, 2 layers at the same widths: SlotServer's greedy
               tokens equal generate()'s for every request
-7. train   -- Trainer + adamw on llama3-8b widths cut to 4 layers (bf16,
+8. paged-parity -- the same weights: PagedSlotServer without and with a
+              registered prefix, and SlotServer with it, give the greedy
+              tokens of generate(prefix + suffix)
+9. train   -- Trainer + adamw on llama3-8b widths cut to 4 layers (bf16,
               remat "dots"), 6 steps on one [2, 2049] batch: loss per
               step, median step ms, tokens/s, model FLOP share, one step
               traced for the device-busy share and the top kernels
-8. train-parity -- float32, 2 layers, [1, 513]: loss and every gradient of
+10. train-parity -- float32, 2 layers, [1, 513]: loss and every gradient of
               one step through the kernels against the same step through
               the plain attention; the flash forward and each backward
               pass launch once per layer
-9. a JSON line of the kernels with their launches on the serving path
-   (phases 4 and 5) and the training path (phase 7) and the numbers of
+11. a JSON line of the kernels with their launches on the serving paths
+   (phases 4, 5 and 6) and the training path (phase 9) and the numbers of
    phase 3
-10. the last line: {"ok": true, "device": {...}}
+12. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -165,13 +177,15 @@ def phase_kernels(dev):
                                      timed_at=f"B={B} Hq={HQ} Hkv={HKV} "
                                               f"D={D} T={T} C=1 bf16 "
                                               f"ragged pos")
+    del k16, v16, k8, v8, ks, vs
+    c128, c128_err = row_tiled_decode(dev, randn)
     rows["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="starway_tpu_torch/csrc/decode_attention.cu",
         replaces="starway_tpu/ops/pallas_decode.py:150 "
                  "(_decode_stream_kernel; also :107 _decode_kernel)",
-        max_abs_err=worst, **timed)
-    del k16, v16, k8, v8, ks, vs
+        max_abs_err=max(worst, c128_err), **timed, c128=c128)
+    rows["paged_decode_attention"] = paged_rows(dev, randn, rng)
 
     # -- flash forward: admission prefill shapes, causal GQA 4:1, bf16.
     worst = 0.0
@@ -250,6 +264,148 @@ def phase_kernels(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return rows
+
+
+def decode_work(pos, n_q: int, hkv: int, hq: int, d: int, elem: int):
+    """(bytes, flops) that cached decode attention needs: the live keys of
+    each row (positions < pos + C) read once from k and v, q read and the
+    output written once; two products of 2 * D per visible (query, key)
+    pair and q head."""
+    pos = np.asarray(pos, np.int64)
+    keys = int((pos + n_q).sum())
+    pairs = int((n_q * pos + n_q * (n_q + 1) // 2).sum())
+    n_bytes = 2 * keys * hkv * d * elem + 2 * len(pos) * hq * n_q * d * elem
+    return n_bytes, 4 * pairs * hq * d
+
+
+def row_tiled_decode(dev, randn):
+    """The decode kernel at C=128 (a suffix ingest: 512 query rows per kv
+    head, eight row tiles), dense and int8, against its plain version;
+    timed dense.  Returns (timing dict, worst error)."""
+    import torch
+    import torch.nn.functional as F
+
+    from starway_tpu_torch.ops.decode import (decode_attention,
+                                              decode_attention_reference)
+    from starway_tpu_torch.ops.quantize import quantize_kv
+
+    B, HQ, HKV, D, T, C, POS = 1, 32, 8, 128, 4096, 128, 1000
+    q = randn(B, HQ, C, D)
+    k16, v16 = randn(B, HKV, T, D), randn(B, HKV, T, D)
+    pos = torch.full((B,), POS, dtype=torch.int32, device=dev)
+    worst, timed = 0.0, None
+    for quant in (False, True):
+        kw = {}
+        kc, vc = k16, v16
+        if quant:
+            kc, kw["k_scale"] = quantize_kv(k16)
+            vc, kw["v_scale"] = quantize_kv(v16)
+        got = decode_attention(q, kc, vc, pos, **kw)
+        want = decode_attention_reference(q, kc, vc, pos, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        log(f"decode_attention C={C} (row tiles) int8={quant}: max_abs_err "
+            f"{err:.3e} (tol {BF16_TOL})")
+        if not err <= BF16_TOL:
+            raise AssertionError("the row-tiled decode kernel disagrees "
+                                 "with its plain version")
+        if quant:
+            continue
+        ms = cuda_ms(lambda: decode_attention(q, kc, vc, pos))
+        plain = cuda_ms(lambda: decode_attention_reference(q, kc, vc, pos),
+                        iters=5)
+        mask = (torch.arange(T, device=dev)[None, :]
+                <= POS + torch.arange(C, device=dev)[:, None])
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k16, v16, attn_mask=mask, enable_gqa=True))
+        b_ms, b_by = bound(*decode_work([POS], C, HKV, HQ, D, 2))
+        log(f"  timed: {ms:.4f} ms, plain {plain:.4f} ms, library (SDPA, "
+            f"mask) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        timed = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib,
+                     timed_at=f"B={B} Hq={HQ} Hkv={HKV} D={D} T={T} C={C} "
+                              f"pos={POS} bf16")
+    return timed, worst
+
+
+def paged_rows(dev, randn, rng):
+    """The paged kernel against its plain version at the serving shape (16
+    slots, page 64, ragged cursors over a scrambled table whose entries
+    past each cursor point far outside the pool) at C=1, and at the
+    prefix-ingest shape (one slot at position 1000, C=128).  Timed at
+    C=1; the library call is SDPA over the dense view gathered beforehand
+    (the gather is not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from starway_tpu_torch.ops.decode import decode_attention
+    from starway_tpu_torch.ops.paged import (gather_logical,
+                                             paged_decode_attention,
+                                             paged_decode_attention_reference)
+
+    HQ, HKV, D, PAGE, MAX_LEN = 32, 8, 128, 64, 4096
+    max_pages = MAX_LEN // PAGE
+    worst, timed = 0.0, {}
+    for b, n_q in ((16, 1), (1, 128)):
+        pos_np = (rng.integers(100, 2001, b) if n_q == 1
+                  else np.full(b, 1000)).astype(np.int32)
+        n_pages = 1 + b * max_pages
+        table = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+        table = table.reshape(b, max_pages)
+        last = (pos_np + n_q - 1) // PAGE
+        for i in range(b):
+            table[i, last[i] + 1:] = 2 ** 30 + i  # never read
+        kp, vp = randn(n_pages, HKV, PAGE, D), randn(n_pages, HKV, PAGE, D)
+        q = randn(b, HQ, n_q, D)
+        table_d = torch.from_numpy(table).to(dev)
+        pos = torch.from_numpy(pos_np).to(dev)
+        got = paged_decode_attention(q, kp, vp, table_d, pos)
+        want = paged_decode_attention_reference(q, kp, vp, table_d, pos)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        b_ms, b_by = bound(*decode_work(pos_np, n_q, HKV, HQ, D, 2))
+        ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, table_d, pos))
+        plain = cuda_ms(lambda: paged_decode_attention_reference(
+            q, kp, vp, table_d, pos), iters=5)
+        n_live = int(last.max()) + 1
+        live = torch.where(torch.arange(n_live, device=dev)[None, :]
+                           <= torch.from_numpy(last).to(dev)[:, None],
+                           table_d[:, :n_live], 0)
+        kd, vd = gather_logical(kp, live), gather_logical(vp, live)
+        t_len = n_live * PAGE
+        mask = (torch.arange(t_len, device=dev)[None, None, None, :]
+                <= pos[:, None, None, None]
+                + torch.arange(n_q, device=dev)[None, None, :, None])
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kd, vd, attn_mask=mask, enable_gqa=True))
+        # The dense decode kernel over the same live keys, laid out
+        # contiguously: what the page indirection costs.
+        dense = cuda_ms(lambda: decode_attention(q, kd, vd, pos))
+        log(f"paged_decode_attention B={b} C={n_q} page={PAGE} pos "
+            f"{pos_np.min()}-{pos_np.max()}: max_abs_err {err:.3e} (tol "
+            f"{BF16_TOL}); {ms:.4f} ms, plain {plain:.4f} ms, library (SDPA "
+            f"over the pre-gathered dense view, gather excluded) {lib:.4f} "
+            f"ms, the dense decode kernel over that view {dense:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        if not err <= BF16_TOL:
+            raise AssertionError("paged_decode_attention disagrees with its "
+                                 "plain version")
+        timed[n_q] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=lib, dense_kernel_ms=dense,
+                          timed_at=f"B={b} Hq={HQ} Hkv={HKV} D={D} "
+                                   f"page={PAGE} C={n_q} bf16, pos "
+                                   f"{pos_np.min()}-{pos_np.max()}, "
+                                   f"scrambled table; library_ms is SDPA "
+                                   f"over the pre-gathered dense view")
+        del kp, vp, kd, vd
+        torch.cuda.empty_cache()
+    return dict(name="paged_decode_attention", route="cuda",
+                source="starway_tpu_torch/csrc/paged_attention.cu",
+                replaces="starway_tpu/ops/pallas_paged.py:46 "
+                         "(_paged_stream_kernel)",
+                max_abs_err=worst, **timed[1], c128=timed[128])
 
 
 def visible_pairs(s_len: int, causal: bool, window=None) -> int:
@@ -362,61 +518,98 @@ def flash_backward_rows(dev, randn):
 
 
 def make_requests(cfg, n: int = 12):
+    """(tokens, budget, prefixed) with no prefix: prompts of 50-1500
+    tokens, budgets of 16-64."""
     rng = np.random.default_rng(SEED + 1)
-    return [(rng.integers(1, cfg.vocab_size, int(p)).tolist(), int(m))
+    return [(rng.integers(1, cfg.vocab_size, int(p)).tolist(), int(m), False)
             for p, m in zip(rng.integers(50, 1501, n), rng.integers(16, 65, n))]
 
 
-def serve(params, cfg, reqs, *, n_slots=8, max_len=2048, chunk=8):
-    """Drive SlotServer over ``reqs``; returns (finished, stats)."""
+def make_paged_requests(cfg):
+    """A 1000-token system prompt and 24 requests: 12 plain (prompts of
+    100-1500 tokens) and 12 that continue the prompt (suffixes of 20-300
+    tokens), budgets of 16-64, interleaved."""
+    rng = np.random.default_rng(SEED + 7)
+    prefix = rng.integers(1, cfg.vocab_size, 1000).tolist()
+    reqs = []
+    for i in range(24):
+        lo, hi = (20, 301) if i % 2 else (100, 1501)
+        n = int(rng.integers(lo, hi))
+        reqs.append((rng.integers(1, cfg.vocab_size, n).tolist(),
+                     int(rng.integers(16, 65)), bool(i % 2)))
+    return prefix, reqs
+
+
+class TimedChunks:
+    """Mixin for SlotServer and PagedSlotServer: host time of every decode
+    chunk, one steady chunk traced, and the peak of the paged pool's pages
+    in use."""
+
+    def __init__(self, *args, **kwargs):
+        self.chunk_ms, self.traced, self.peak_pages = [], {}, 0
+        super().__init__(*args, **kwargs)
+
+    def _run_chunk(self):
+        import torch
+
+        torch.cuda.synchronize()
+        if len(self.chunk_ms) == 2 and not self.traced:  # a steady chunk
+            out = self._traced_chunk()
+        else:
+            t0 = time.perf_counter()
+            out = super()._run_chunk()  # ends with a device-to-host copy
+            self.chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        self.peak_pages = max(self.peak_pages,
+                              getattr(self, "pages_in_use", 0))
+        return out
+
+    def _traced_chunk(self):
+        """One chunk under torch.profiler: its summed kernel time is the
+        device's busy time for a chunk.  The tracer's own start-up and
+        event processing are timed too, and left out of the run's wall
+        time."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        t_call = time.perf_counter()
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            out = super()._run_chunk()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_us = sum(
+            getattr(e, "self_device_time_total", 0)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        self.traced.update(
+            traced_chunk_ms=wall_ms,
+            device_busy_ms=busy_us / 1e3 if busy_us else None,
+            tracer_overhead_s=time.perf_counter() - t_call - wall_ms / 1e3)
+        return out
+
+
+def serve(params, cfg, reqs, *, server=None, prefix=None, n_slots=8,
+          max_len=2048, chunk=8, **kw):
+    """Drive ``server`` (SlotServer by default) over ``reqs`` of (tokens,
+    budget, prefixed); with ``prefix`` registered first, a prefixed
+    request's tokens are its suffix.  Returns (finished, stats, server)."""
     import torch
 
     from starway_tpu_torch.models import SlotServer
 
-    chunk_ms, traced = [], {}
-
-    class TimedServer(SlotServer):
-        def _run_chunk(self):
-            torch.cuda.synchronize()
-            if len(chunk_ms) == 2 and not traced:  # trace one steady chunk
-                return self._traced_chunk()
-            t0 = time.perf_counter()
-            out = super()._run_chunk()  # ends with a device-to-host copy
-            chunk_ms.append((time.perf_counter() - t0) * 1e3)
-            return out
-
-        def _traced_chunk(self):
-            """One chunk under torch.profiler: its summed kernel time is the
-            device's busy time for a chunk.  The tracer's own start-up and
-            event processing are timed too, and left out of the run's
-            wall time."""
-            from torch.profiler import ProfilerActivity, profile
-
-            t_call = time.perf_counter()
-            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-            with profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                out = super()._run_chunk()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            busy_us = sum(
-                getattr(e, "self_device_time_total", 0)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-            traced.update(
-                traced_chunk_ms=wall_ms,
-                device_busy_ms=busy_us / 1e3 if busy_us else None,
-                tracer_overhead_s=time.perf_counter() - t_call - wall_ms / 1e3)
-            return out
-
-    srv = TimedServer(params, cfg, n_slots=n_slots, max_len=max_len,
-                      chunk=chunk, seed=SEED)
+    timed = type("Timed", (TimedChunks, server or SlotServer), {})
+    srv = timed(params, cfg, n_slots=n_slots, max_len=max_len, chunk=chunk,
+                seed=SEED, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rids = [srv.submit(p, m) for p, m in reqs]
+    pid = None if prefix is None else srv.register_prefix(prefix)
+    rids = [srv.submit(p, m, prefix=pid if w else None) for p, m, w in reqs]
     done = srv.run()
     torch.cuda.synchronize()
+    traced = srv.traced
     wall = time.perf_counter() - t0 - traced.get("tracer_overhead_s", 0.0)
-    for rid, (_p, m) in zip(rids, reqs):
+    chunk_ms = srv.chunk_ms
+    for rid, (_p, m, _w) in zip(rids, reqs):
         got = done.get(rid)
         if got is None or len(got) != m:
             raise AssertionError(f"request {rid} finished with "
@@ -424,7 +617,7 @@ def serve(params, cfg, reqs, *, n_slots=8, max_len=2048, chunk=8):
                                  f"tokens, budget {m}")
         if not ((got >= 0) & (got < cfg.vocab_size)).all():
             raise AssertionError(f"request {rid} emitted out-of-vocab ids")
-    n_tok = sum(m for _p, m in reqs)
+    n_tok = sum(m for _p, m, _w in reqs)
     stats = dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
                  chunks=len(chunk_ms) + bool(traced),
                  median_chunk_ms=statistics.median(chunk_ms), **traced)
@@ -432,7 +625,15 @@ def serve(params, cfg, reqs, *, n_slots=8, max_len=2048, chunk=8):
         # Against an untraced chunk: tracing slows the host, not the device.
         stats["device_idle_share"] = (
             1 - traced["device_busy_ms"] / stats["median_chunk_ms"])
-    return dict(zip(rids, (done[r] for r in rids))), stats
+    if srv.peak_pages:
+        stats["peak_pages_in_use"] = srv.peak_pages
+    return dict(zip(rids, (done[r] for r in rids))), stats, srv
+
+
+def plain_attn(q, k, v):
+    from starway_tpu_torch.ops.flash import flash_forward_reference
+
+    return flash_forward_reference(q, k, v, causal=True)[0]
 
 
 def check_first_logits(params, cfg, prompt, max_len):
@@ -443,7 +644,6 @@ def check_first_logits(params, cfg, prompt, max_len):
     from starway_tpu_torch.models.generate import prefill
     from starway_tpu_torch.models.llama import forward
     from starway_tpu_torch.models.serving import _bucket, default_buckets
-    from starway_tpu_torch.ops.flash import flash_forward_reference
 
     dev = params["embed"].device
     pb = _bucket(len(prompt), default_buckets(max_len))
@@ -451,11 +651,37 @@ def check_first_logits(params, cfg, prompt, max_len):
     padded[0, :len(prompt)] = torch.tensor(prompt, device=dev)
     last = torch.tensor([len(prompt) - 1], device=dev)
     got, _ = prefill(params, cfg, padded, pb, logit_positions=last)
-
-    def plain_attn(q, k, v):
-        return flash_forward_reference(q, k, v, causal=True)[0]
-
     want = forward(params, padded, cfg, plain_attn, logit_positions=last)[:, 0]
+    return compare_logits(got, want)
+
+
+def check_prefixed_logits(srv, params, cfg, prefix, suffix):
+    """First-token logits of a request that continues the server's
+    registered prefix, as a prefixed admission computes them (the prefix
+    pages from the flash prefill, the tail page copied, the suffix through
+    the paged kernel at C = its bucket) into free pool pages, against a
+    forward of prefix + suffix through the plain attention."""
+    import torch
+
+    from starway_tpu_torch.models.llama import forward
+
+    pid = next(iter(srv._prefixes))
+    shared = srv._prefixes[pid][0][0]
+    n_own = srv._own_pages(len(suffix), pid)
+    row = np.zeros(srv.max_pages, np.int32)
+    row[:len(shared)] = shared
+    row[len(shared):len(shared) + n_own] = srv._peek_free(n_own)
+    got = srv._ingest_prefixed(row, np.asarray(suffix, np.int64), pid)
+    dev = params["embed"].device
+    full = torch.tensor([list(prefix) + list(suffix)], device=dev)
+    last = torch.tensor([full.shape[1] - 1], device=dev)
+    want = forward(params, full, cfg, plain_attn, logit_positions=last)[:, 0]
+    return compare_logits(got, want)
+
+
+def compare_logits(got, want):
+    """Logits of the kernels' path against the plain path's, within
+    LOGIT_REL_TOL of max |logit|."""
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     same_top = bool((got.argmax(-1) == want.argmax(-1)).all())
@@ -466,6 +692,91 @@ def check_first_logits(params, cfg, prompt, max_len):
         raise AssertionError("first-token logits disagree with the plain "
                              "forward")
     return err / scale
+
+
+def phase_paged(params, cfg):
+    """Phase 5: PagedSlotServer on llama3-8b widths (bf16, 32 layers) with
+    a shared 1000-token system prompt.  Returns (stats, launches)."""
+    from starway_tpu_torch.models import PagedSlotServer
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    n_slots, max_len, page, chunk = 16, 4096, 64, 8
+    # 33 pages a slot is this traffic's worst case: a 2048 bucket and its
+    # budget, or the prompt's 1000 tokens, a 512 bucket and its budget.
+    n_pages = n_slots * 33 + 1
+    kv_bytes = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    prefix, reqs = make_paged_requests(cfg)
+    n_prefixed = sum(w for _p, _m, w in reqs)
+    log(f"[paged] llama3-8b bf16, 32 layers, PagedSlotServer n_slots="
+        f"{n_slots} max_len={max_len} page={page} chunk={chunk} n_pages="
+        f"{n_pages}: pool {n_pages * page * kv_bytes / 1e9:.2f} GB for "
+        f"{n_pages * page} tokens, where a dense cache of {n_slots} x "
+        f"{max_len} would take {n_slots * max_len * kv_bytes / 1e9:.2f} GB; "
+        f"a {len(prefix)}-token system prompt, {len(reqs) - n_prefixed} "
+        f"plain requests and {n_prefixed} that continue the prompt")
+    reset_launch_counts()
+    done, stats, srv = serve(params, cfg, reqs, server=PagedSlotServer,
+                             prefix=prefix, n_slots=n_slots, max_len=max_len,
+                             chunk=chunk, page=page, n_pages=n_pages)
+    counts = launch_counts()
+    log(f"  {stats}")
+    log(f"  launches {counts}")
+    want = cfg.n_layers * (chunk * stats["chunks"] + n_prefixed)
+    if counts["paged_decode_attention"] != want:
+        raise AssertionError(
+            f"paged_decode_attention launched {counts['paged_decode_attention']}"
+            f" times, not {cfg.n_layers} per decode step and per prefixed "
+            f"admission ({want})")
+    if counts["decode_attention"] or not counts["flash_forward"]:
+        raise AssertionError("the paged run must decode through the paged "
+                             "kernel only and prefill through flash")
+    if srv.pages_in_use != len(prefix) // page:
+        raise AssertionError(f"{srv.pages_in_use} pages in use after the run;"
+                             f" the prompt's {len(prefix) // page} expected")
+    suffix = next(p for p, _m, w in reqs if w)
+    stats["prefixed_logit_rel_err"] = check_prefixed_logits(
+        srv, params, cfg, prefix, suffix)
+    del srv, done
+    return stats, counts
+
+
+def phase_paged_parity(params, cfg):
+    """Phase 8: float32, 2 layers, full widths.  PagedSlotServer without
+    and with a registered prefix, and SlotServer with it: greedy tokens
+    equal generate(prefix + suffix) for every request."""
+    import torch
+
+    from starway_tpu_torch.models import PagedSlotServer, SlotServer, generate
+
+    rng = np.random.default_rng(SEED + 8)
+    prefix = rng.integers(1, cfg.vocab_size, 300).tolist()
+    reqs = []
+    for i in range(6):
+        lo, hi = (10, 101) if i % 2 else (50, 401)
+        reqs.append((rng.integers(1, cfg.vocab_size, int(rng.integers(lo, hi)))
+                     .tolist(), int(rng.integers(8, 25)), bool(i % 2)))
+    full = [(prefix if w else []) + p for p, _m, w in reqs]
+    want = [generate(params, cfg, torch.tensor([f]), m, max_len=2048)
+            [0, len(f):].cpu().numpy() for f, (_p, m, _w) in zip(full, reqs)]
+    runs = (("PagedSlotServer, prompts in full", PagedSlotServer, None,
+             [(f, m, False) for f, (_p, m, _w) in zip(full, reqs)]),
+            ("PagedSlotServer, prefix registered", PagedSlotServer, prefix,
+             reqs),
+            ("SlotServer, prefix registered", SlotServer, prefix, reqs))
+    out = {}
+    for name, server, pre, rq in runs:
+        kw = dict(page=64) if server is PagedSlotServer else {}
+        done, stats = serve(params, cfg, rq, server=server, prefix=pre,
+                            n_slots=4, max_len=2048, **kw)[:2]
+        for rid, w in zip(done, want):
+            if not np.array_equal(done[rid], w):
+                raise AssertionError(f"{name}, request {rid}: {done[rid]} "
+                                     f"!= generate {w}")
+        log(f"  {name}: {len(done)} requests token-for-token equal to "
+            f"generate(prefix + suffix); median chunk "
+            f"{stats['median_chunk_ms']:.1f} ms")
+        out[name] = stats["median_chunk_ms"]
+    return out
 
 
 def train_batch(cfg, b: int, s_plus_1: int, seed: int, dev):
@@ -677,16 +988,16 @@ def main() -> int:
     rows = phase_kernels(dev)
     log(f"[kernels] done at {time.perf_counter() - t_start:.1f} s")
 
-    # 4 + 5: the serving path, counted.
+    # 4 + 5 + 6: the serving paths, counted.
     cfg = LlamaConfig.preset("llama3-8b")  # bf16, 32 layers, full widths
     reqs = make_requests(cfg)
     params = init_params(cfg, SEED, device=dev)
     torch.cuda.synchronize()
     log("[serve] llama3-8b bf16, 32 layers, n_slots=8 max_len=2048 chunk=8, "
         f"{len(reqs)} requests, prompts "
-        f"{min(len(p) for p, _ in reqs)}-{max(len(p) for p, _ in reqs)}")
+        f"{min(len(r[0]) for r in reqs)}-{max(len(r[0]) for r in reqs)}")
     reset_launch_counts()
-    _done, st4 = serve(params, cfg, reqs)
+    st4 = serve(params, cfg, reqs)[1]
     c4 = launch_counts()
     log(f"  {st4}")
     log(f"  launches {c4}")
@@ -694,6 +1005,10 @@ def main() -> int:
         raise AssertionError("the bf16 serving run launched no decode or "
                              "flash kernel")
     check_first_logits(params, cfg, reqs[0][0], 2048)
+    torch.cuda.empty_cache()
+
+    st_paged, c_paged = phase_paged(params, cfg)
+    torch.cuda.empty_cache()
 
     cfg8 = LlamaConfig.preset("llama3-8b", kv_quant="int8")
     qparams = quantize_params(params)
@@ -702,9 +1017,9 @@ def main() -> int:
     torch.cuda.synchronize()
     log("[int8] int8 KV cache + W8A16 weights, same requests")
     reset_launch_counts()
-    _done, st5 = serve(qparams, cfg8, reqs)
+    st5 = serve(qparams, cfg8, reqs)[1]
     c5 = launch_counts()
-    main_counts = {k: c4[k] + c5[k] for k in c4}
+    main_counts = {k: c4[k] + c_paged[k] + c5[k] for k in c4}
     log(f"  {st5}")
     log(f"  launches {c5}")
     if not all(c5[k] > 0 for k in ("decode_attention", "flash_forward",
@@ -714,30 +1029,33 @@ def main() -> int:
     del qparams
     torch.cuda.empty_cache()
 
-    # 6. parity: float32, 2 layers, same widths.
+    # 7 + 8. parity: float32, 2 layers, same widths.
     cfg32 = LlamaConfig.preset("llama3-8b", n_layers=2, dtype="float32")
     params32 = init_params(cfg32, SEED + 2, device=dev)
     log("[parity] float32, 2 layers: SlotServer vs generate(), greedy")
-    done, st6 = serve(params32, cfg32, reqs)
-    for rid, (prompt, m) in zip(done, reqs):
+    done, st6 = serve(params32, cfg32, reqs)[:2]
+    for rid, (prompt, m, _w) in zip(done, reqs):
         want = generate(params32, cfg32, torch.tensor([prompt]), m,
                         max_len=2048)[0, len(prompt):].cpu().numpy()
         if not np.array_equal(done[rid], want):
             raise AssertionError(f"request {rid}: SlotServer {done[rid]} != "
                                  f"generate {want}")
     log(f"  {len(done)} requests token-for-token equal; {st6}")
+    log("[paged-parity] float32, 2 layers: PagedSlotServer and prefix "
+        "caching vs generate(prefix + suffix), greedy")
+    st_pp = phase_paged_parity(params32, cfg32)
     del params32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # 7 + 8: the training path, counted, then its parity step.
+    # 9 + 10: the training path, counted, then its parity step.
     st7, c7 = phase_train(dev)
     log(f"  {st7}")
     log(f"  launches {c7}")
     st8 = phase_train_parity(dev)
 
-    # 9. kernels line: launches are the serving path's (phases 4 and 5)
-    # and the training path's (phase 7), each counted from 0 just before
+    # 11. kernels line: launches are the serving paths' (phases 4, 5 and
+    # 6) and the training path's (phase 9), each counted from 0 just before
     # its run and read just after.
     main_counts = {k: main_counts[k] + c7[k] for k in main_counts}
     kernels = []
@@ -752,6 +1070,15 @@ def main() -> int:
         f"admission, int8_matmul (W8A16 run) "
         f"{c5['int8_matmul'] / (8 * st5['chunks'] + admits):g} per decode "
         f"step or admission")
+    paged_steps = 8 * st_paged["chunks"]
+    log(f"[summary] paged run: paged_decode_attention "
+        f"{c_paged['paged_decode_attention']} launches = 32 x ({paged_steps} "
+        f"decode steps + 12 prefixed admissions); "
+        f"{st_paged['tokens_per_s']:.1f} tokens/s, median chunk "
+        f"{st_paged['median_chunk_ms']:.1f} ms, idle share "
+        f"{st_paged.get('device_idle_share')}, peak pages in use "
+        f"{st_paged.get('peak_pages_in_use')}; paged-parity chunk ms "
+        f"{st_pp}")
     log(f"[summary] launches per training step (4 layers): "
         f"flash_attention_fwd {c7['flash_forward'] / 6:g}, dK/dV "
         f"{c7['flash_backward_dkv'] / 6:g}, dQ {c7['flash_backward_dq'] / 6:g}")
@@ -763,7 +1090,7 @@ def main() -> int:
         f"{st8}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 10. last line
+    # 12. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,11 +16,24 @@
 * **Greedy continuous batching equals standalone ``generate()``** for
   every request, whatever the interleaving: same prefill, same decode
   step, same masking.
+* **Prefix caching.**  ``register_prefix`` prefills a shared prefix once
+  into a standalone ``[L, 1, Hkv, bucket, Dh]`` cache; a prefixed
+  admission copies its rows into the slot where position < plen (bucket
+  junk above the prefix must not land where suffix positions would attend
+  it) and ingests the suffix through one
+  :func:`~starway_tpu_torch.models.speculative.chunk_decode_step` against
+  the slot's own rows (write-then-attend), so a prefixed request generates
+  exactly what ``generate(prefix + suffix)`` would, while admission
+  compute scales with the suffix.
 
 The cache is updated in place.  Errors of the device (out of memory, a
 failed kernel launch) propagate out of ``step()``; a request is never
-silently re-queued.  Prefix caching, sliding-window (rolling) models and
-MoE models are not ported yet and raise ``NotImplementedError``.
+silently re-queued.  Sliding-window (rolling) models and MoE models are
+not ported yet and raise ``NotImplementedError``.  Subclasses (the paged
+server, models/paged.py) replace the cache through the hooks
+``_make_cache``, ``_post_init``, ``_on_slot_freed``, ``_decode_one``,
+``_admit_plain``, ``_admit_prefixed``, ``_admissible`` and
+``_check_pages``.
 """
 
 from __future__ import annotations
@@ -103,6 +116,10 @@ class SlotServer:
     ``run()`` loops until everything queued has finished.  Generated tokens
     include the terminating eos (when ``eos_id`` fires).
 
+    ``register_prefix(tokens)`` prefills a shared prefix once; requests
+    submitted with ``prefix=pid`` continue it with their own tokens, and
+    generate exactly what ``generate(prefix + suffix)`` would.
+
     ``on_tokens(rid, tokens, done)`` fires inside ``step()``: once per
     request per step with that step's new tokens (done=False), and once
     with ``([], True)`` when the request finishes.  A cancelled request
@@ -121,8 +138,7 @@ class SlotServer:
         if cfg.sliding_window is not None:
             raise NotImplementedError(
                 "sliding-window models serve through rolling caches, which "
-                "are not ported yet (ROADMAP.md, Queue 1: rolling and "
-                "prefix paths)")
+                "are not ported yet (ROADMAP.md, Queue 1: rolling paths)")
         if n_slots < 1 or chunk < 1:
             raise ValueError(f"need n_slots >= 1 and chunk >= 1, got "
                              f"{n_slots}/{chunk}")
@@ -146,60 +162,179 @@ class SlotServer:
         self.rope = cfg_rope_tables(cfg, max_len, device=self.device)
 
         dev = self.device
-        self.cache = init_cache(cfg, n_slots, max_len, device=dev)
+        self.cache = self._make_cache()
         self.token = torch.zeros(n_slots, dtype=torch.long, device=dev)
         self.pos = torch.zeros(n_slots, dtype=torch.int32, device=dev)
         self.live = torch.zeros(n_slots, dtype=torch.bool, device=dev)
         self.remaining = torch.zeros(n_slots, dtype=torch.int32, device=dev)
 
         self._next_rid = 0
-        self._pending: deque = deque()
+        self._pending: deque = deque()  # (rid, prompt, max_new, prefix)
         self._slot_rid: dict[int, int] = {}
         self._collected: dict[int, list] = {}
+        self._prefixes: dict[int, tuple] = {}  # pid -> (prefix state, plen)
+        self._next_pid = 0
         self.on_tokens = on_tokens
         self._step = make_chunk_scan_step(
-            lambda cache, token, pos: decode_step(
-                self.params, cache, token, pos, self.cfg, self.rope),
-            max_len, *self.sampling, self.eos_id, self.generator)
+            self._decode_one, max_len, *self.sampling, self.eos_id,
+            self.generator)
+        self._post_init()
+
+    # ------------------------------------------------------------- hooks
+    def _make_cache(self):
+        return init_cache(self.cfg, self.n_slots, self.max_len,
+                          device=self.device)
+
+    def _post_init(self) -> None:
+        """Subclass hook, called at the end of ``__init__``."""
+
+    def _on_slot_freed(self, slot: int) -> None:
+        """Subclass hook: a slot's request finished or was cancelled (the
+        paged server returns its pages to the pool here)."""
+
+    def _decode_one(self, cache, token, pos):
+        """One decode step of every slot: ``(logits [n_slots, V], cache)``."""
+        return decode_step(self.params, cache, token, pos, self.cfg,
+                           self.rope)
+
+    def _check_pages(self, prompt_len: int, prefix: Optional[int]) -> None:
+        """Subclass hook of ``submit``: refuse a request that the cache
+        could never admit (the dense cache admits every valid request)."""
+
+    def _admissible(self, prompt_len: int, prefix: Optional[int]) -> bool:
+        """Subclass hook of ``step``: whether the head of the queue can be
+        admitted now (False keeps it queued)."""
+        return True
 
     # ------------------------------------------------------------ intake
-    def register_prefix(self, tokens) -> int:
-        """Prefix caching ingests the suffix through the speculative chunk
-        decode step, which is not ported yet."""
-        raise NotImplementedError(
-            "prefix caching needs speculative.chunk_decode_step, which is "
-            "not ported yet (ROADMAP.md, Queue 1: rolling and prefix paths)")
+    def _padded(self, tokens: np.ndarray, width: int) -> torch.Tensor:
+        """``tokens`` right-padded with zeros to ``[1, width]`` on the
+        device."""
+        padded = torch.zeros((1, width), dtype=torch.long)
+        padded[0, :len(tokens)] = torch.from_numpy(tokens)
+        return padded.to(self.device)
 
-    def submit(self, prompt, max_new_tokens: int) -> int:
-        """Queue one request; returns its id (resolved by step()/run())."""
+    def _prefill_bucket(self, tokens: np.ndarray, width: int):
+        """Prefill ``tokens`` padded to ``width``: ``(logits [1, V] at the
+        last real token, cache [L, 1, Hkv, width, ...])``."""
+        last = torch.tensor([len(tokens) - 1], device=self.device)
+        return prefill(self.params, self.cfg, self._padded(tokens, width),
+                       width, logit_positions=last)
+
+    def _check_prefix_tokens(self, tokens) -> np.ndarray:
+        tokens = np.asarray(tokens, np.int64).reshape(-1)
+        if len(tokens) < 1:
+            raise ValueError("empty prefix")
+        if len(tokens) + self.buckets[0] + 1 > self.max_len:
+            # The suffix ingest writes bucket-wide, so a prefix must leave
+            # at least the smallest bucket plus one generated token;
+            # checked before a prefill is spent on a prefix no submit()
+            # could use.
+            raise ValueError(
+                f"prefix ({len(tokens)}) + smallest suffix bucket "
+                f"({self.buckets[0]}) + 1 exceeds max_len={self.max_len}")
+        return tokens
+
+    def register_prefix(self, tokens) -> int:
+        """Prefill a shared prefix (system prompt, few-shot preamble) once
+        and return its id; requests submitted with ``prefix=pid`` reuse its
+        cache rows instead of prefilling them.  Its ``[L, 1, Hkv, bucket,
+        ...]`` cache stays on the device until :meth:`drop_prefix`."""
+        tokens = self._check_prefix_tokens(tokens)
+        _logits, small = self._prefill_bucket(
+            tokens, _bucket(len(tokens), self.buckets))
+        pid = self._next_pid
+        self._next_pid += 1
+        self._prefixes[pid] = (small, len(tokens))
+        return pid
+
+    def _refuse_drop_if_queued(self, pid: int) -> None:
+        if any(p == pid for _rid, _pr, _mn, p in self._pending):
+            raise ValueError(
+                f"prefix {pid} is still referenced by queued requests; "
+                f"run()/step() them first")
+
+    def drop_prefix(self, pid: int) -> None:
+        """Free a registered prefix's cache rows.  Refuses while a queued
+        request references it (admitted requests no longer need it)."""
+        self._refuse_drop_if_queued(pid)
+        del self._prefixes[pid]
+
+    def submit(self, prompt, max_new_tokens: int,
+               prefix: Optional[int] = None) -> int:
+        """Queue one request; returns its id (resolved by step()/run()).
+
+        ``prefix``: a :meth:`register_prefix` id; ``prompt`` is then the
+        suffix that continues it."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if len(prompt) < 1:
             raise ValueError("empty prompt")
-        if len(prompt) + max_new_tokens > self.max_len:
+        plen = 0
+        if prefix is not None:
+            if prefix not in self._prefixes:
+                raise KeyError(f"unknown prefix id {prefix}")
+            plen = self._prefixes[prefix][1]
+        if plen + len(prompt) + max_new_tokens > self.max_len:
             raise ValueError(
-                f"prompt ({len(prompt)}) + max_new ({max_new_tokens}) "
-                f"exceeds max_len={self.max_len}")
-        _bucket(len(prompt), self.buckets)  # refuse now, not at admission
+                f"prefix ({plen}) + prompt ({len(prompt)}) + max_new "
+                f"({max_new_tokens}) exceeds max_len={self.max_len}")
+        # Refuse now what admission could not place, not after the request
+        # has left the queue.
+        sb = _bucket(len(prompt), self.buckets)
+        if prefix is not None and plen + sb > self.max_len:
+            raise ValueError(
+                f"prefix ({plen}) + suffix bucket ({sb}, rounded up from "
+                f"{len(prompt)}) exceeds max_len={self.max_len}: the suffix "
+                f"ingest writes bucket-wide")
+        self._check_pages(len(prompt), prefix)
         rid = self._next_rid
         self._next_rid += 1
-        self._pending.append((rid, prompt, int(max_new_tokens)))
+        self._pending.append((rid, prompt, int(max_new_tokens), prefix))
         return rid
 
     # ------------------------------------------------------------- engine
-    def _admit(self, slot: int, rid: int, prompt: np.ndarray,
-               max_new: int) -> None:
-        pb = _bucket(len(prompt), self.buckets)
-        padded = torch.zeros((1, pb), dtype=torch.long)
-        padded[0, :len(prompt)] = torch.from_numpy(prompt)
-        last = torch.tensor([len(prompt) - 1], device=self.device)
-        logits, small = prefill(self.params, self.cfg,
-                                padded.to(self.device), pb,
-                                logit_positions=last)
-        tok = _write_slot_and_sample(self.cache, small, logits, slot,
-                                     self.generator, *self.sampling)
-        self._finish_admit(slot, rid, tok, len(prompt), max_new)
+    def _admit(self, slot: int, rid: int, prompt: np.ndarray, max_new: int,
+               prefix: Optional[int] = None) -> None:
+        if prefix is None:
+            tok = self._admit_plain(slot, prompt)
+            cursor = len(prompt)
+        else:
+            if prefix not in self._prefixes:
+                raise KeyError(f"prefix {prefix} was dropped while request "
+                               f"{rid} waited in the queue")
+            tok = self._admit_prefixed(slot, prompt, prefix)
+            cursor = self._prefixes[prefix][1] + len(prompt)
+        self._finish_admit(slot, rid, tok, cursor, max_new)
+
+    def _admit_plain(self, slot: int, prompt: np.ndarray):
+        """Prefill ``prompt`` into ``slot``; returns its first token."""
+        logits, small = self._prefill_bucket(
+            prompt, _bucket(len(prompt), self.buckets))
+        return _write_slot_and_sample(self.cache, small, logits, slot,
+                                      self.generator, *self.sampling)
+
+    def _admit_prefixed(self, slot: int, suffix: np.ndarray, prefix: int):
+        """File the prefix's rows into positions < plen of ``slot`` (the
+        slot's other rows stay), ingest the suffix at ``plen ..`` through
+        :func:`chunk_decode_step` on the slot's rows in place (int8 scales
+        ride along: every leaf's T axis is at index 3), and sample from
+        the suffix's last real position.  Returns the first token."""
+        from .speculative import chunk_decode_step
+
+        small, plen = self._prefixes[prefix]
+        rows = {name: t[:, slot:slot + 1] for name, t in self.cache.items()}
+        for name, row in rows.items():
+            row[:, :, :, :plen] = small[name][:, :, :, :plen]
+        # Suffix columns past its length are junk at positions above the
+        # cursor: masked out of every real token's attention and
+        # overwritten by decode before the cursor reaches them.
+        tokens = self._padded(suffix, _bucket(len(suffix), self.buckets))
+        logits, _ = chunk_decode_step(self.params, rows, tokens, plen,
+                                      self.cfg, self.rope)
+        return _sample(logits[:, len(suffix) - 1], self.generator,
+                       *self.sampling)[0]
 
     def _finish_admit(self, slot: int, rid: int, tok, cursor: int,
                       max_new: int) -> None:
@@ -236,6 +371,7 @@ class SlotServer:
                 self.remaining[slot] = 0
                 del self._slot_rid[slot]
                 self._collected.pop(rid, None)
+                self._on_slot_freed(slot)
                 return True
         return False
 
@@ -251,6 +387,7 @@ class SlotServer:
                 finished[rid] = np.asarray(self._collected.pop(rid),
                                            np.int32)
                 self._slot_rid.pop(slot, None)
+                self._on_slot_freed(slot)
                 if self.on_tokens is not None:
                     self.on_tokens(rid, [], True)
 
@@ -261,8 +398,10 @@ class SlotServer:
         self._harvest_dead(finished)  # 1-token / instant-eos admissions
         free = [s for s in range(self.n_slots) if s not in self._slot_rid]
         while free and self._pending:
-            rid, prompt, max_new = self._pending.popleft()
-            self._admit(free.pop(0), rid, prompt, max_new)
+            _rid, prompt, _max_new, prefix = self._pending[0]
+            if not self._admissible(len(prompt), prefix):
+                break  # stays queued until in-flight requests free room
+            self._admit(free.pop(0), *self._pending.popleft())
         self._harvest_dead(finished)
         if not self._slot_rid:
             return finished

@@ -1,7 +1,8 @@
 """Attention, quantization and the hand-written CUDA kernels of the port:
-``decode.decode_attention``, ``flash.flash_forward``,
-``flash.flash_backward_dkv`` / ``flash.flash_backward_dq`` and
-``gemv.int8_matmul``, each beside its plain PyTorch version.
+``decode.decode_attention``, ``paged.paged_decode_attention``,
+``flash.flash_forward``, ``flash.flash_backward_dkv`` /
+``flash.flash_backward_dq`` and ``gemv.int8_matmul``, each beside its
+plain PyTorch version.
 
 Importing these modules builds nothing; the kernels compile on first use
 (``_build.library``)."""
@@ -11,8 +12,10 @@ def _wrappers() -> dict:
     from .decode import decode_attention
     from .flash import flash_backward_dkv, flash_backward_dq, flash_forward
     from .gemv import int8_matmul
+    from .paged import paged_decode_attention
 
     return {"decode_attention": decode_attention,
+            "paged_decode_attention": paged_decode_attention,
             "flash_forward": flash_forward,
             "flash_backward_dkv": flash_backward_dkv,
             "flash_backward_dq": flash_backward_dq,

@@ -42,6 +42,7 @@ SIGNATURES = {
     "sw_flash_bwd_dkv": ([P] * 8 + [I] * 10 + [F, I, P], ctypes.c_int),
     "sw_flash_bwd_dq": ([P] * 7 + [I] * 10 + [F, I, P], ctypes.c_int),
     "sw_int8_matmul": ([P] * 4 + [I] * 5 + [P], ctypes.c_int),
+    "sw_paged_attention": ([P] * 9 + [I] * 9 + [F, P], ctypes.c_int),
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,12 @@
 """Cached decode attention: the hand-written CUDA kernel
 (csrc/decode_attention.cu) and its plain PyTorch version.
 
-A thread block attends the ``n_rep`` grouped query heads of C consecutive
-positions of one (batch row, kv head) against a share of the narrow
-cache's live tiles, reading each once; a second kernel merges the shares
-(split over T).  See the kernel source for what bounds it.
+A thread block attends up to ``ROW_TILE`` of the ``n_rep * C`` query rows
+(the grouped heads of C consecutive positions) of one (batch row, kv
+head) against a share of the narrow cache's live tiles, reading each
+once; a second kernel merges the shares (split over T).  More rows (a
+suffix ingest) run as a grid axis over row tiles.  See the kernel source
+for what bounds it.
 :func:`decode_attention` launches the kernel for CUDA tensors and takes
 :func:`decode_attention_reference` only for CPU tensors.
 
@@ -22,7 +24,27 @@ from . import _build
 from .attention import NEG_BIG
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's compiled head sizes
-TILE = 32  # keys per kernel tile (kBK in the source)
+TILE = 32  # keys per kernel tile (kBK in csrc/decode_tiles.cuh)
+ROW_TILE = 64  # query rows per block (kRowTile there)
+
+
+def split_count(b: int, hkv: int, rows: int, t: int, device) -> int:
+    """Blocks over T per (batch row, kv head, row tile): enough to give
+    every SM a few blocks, and no more than the cache has tiles."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n_rt = -(-rows // ROW_TILE)
+    return max(1, min(-(-4 * sms // (b * hkv * n_rt)), -(-t // TILE)))
+
+
+def check_smem(lib, rows: int, d: int, device) -> None:
+    """Raise if one block of the kernel needs more shared memory than the
+    card allows (it holds at most ROW_TILE query rows)."""
+    smem = lib.sw_decode_attention_smem(rows, d)
+    props = torch.cuda.get_device_properties(device)
+    allowed = props.shared_memory_per_block_optin
+    if smem > allowed:
+        raise ValueError(f"head_dim {d} needs {smem} bytes of shared memory "
+                         f"per block; the card allows {allowed}")
 
 
 def _check_args(q, k_cache, v_cache, k_scale, v_scale, window):
@@ -154,16 +176,8 @@ def decode_attention(q, k_cache, v_cache, pos, *,
                          "loads; they must be 16-byte aligned")
     pos_arr = _pos_rows(pos, b, q.device)
     lib = _build.library()
-    smem = lib.sw_decode_attention_smem(rows, d)
-    props = torch.cuda.get_device_properties(q.device)
-    if smem > props.shared_memory_per_block_optin:
-        raise ValueError(f"{rows} query rows of head_dim {d} need {smem} "
-                         f"bytes of shared memory; the card allows "
-                         f"{props.shared_memory_per_block_optin}")
-    # Split the live tiles of each (row, kv head) over enough blocks to
-    # give every SM a few.
-    n_split = max(1, min(-(-4 * props.multi_processor_count // (b * hkv)),
-                         -(-t // TILE)))
+    check_smem(lib, rows, d, q.device)
+    n_split = split_count(b, hkv, rows, t, q.device)
     out = torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=q.device)
     o_part = torch.empty((b * hkv, n_split, rows, d), **f32)

@@ -18,10 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from starway_tpu_torch.models import (LlamaConfig, SlotServer, generate,
-                                      init_params)
+from starway_tpu_torch.models import (LlamaConfig, PagedSlotServer,
+                                      SlotServer, generate, init_params)
 from starway_tpu_torch.ops.decode import (decode_attention,
                                           decode_attention_reference)
+from starway_tpu_torch.ops.paged import (paged_decode_attention,
+                                         paged_decode_attention_reference)
 from starway_tpu_torch.ops.flash import (flash_backward,
                                          flash_backward_dkv, flash_backward_dq,
                                          flash_backward_reference,
@@ -69,6 +71,57 @@ def test_decode_kernel_matches_plain(dev, dtype, quant, n_q, window, d):
     torch.cuda.synchronize()
     assert decode_attention.launches == before + 1
     want = decode_attention_reference(q, k, v, pos, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("n_q", [128, 512])
+def test_decode_kernel_row_tiles_match_plain(dev, dtype, quant, n_q):
+    """A suffix ingest's n_rep * C query rows (512 and 2048 at n_rep=4,
+    D=128) run as tiles of the grid's row axis."""
+    rng = np.random.default_rng(6)
+    b, hq, hkv, t, d = 2, 8, 2, 1100, 128
+    q = _randn(rng, (b, hq, n_q, d), dtype, dev)
+    k = _randn(rng, (b, hkv, t, d), dtype, dev)
+    v = _randn(rng, (b, hkv, t, d), dtype, dev)
+    pos = torch.tensor([0, t - n_q - 37], dtype=torch.int32, device=dev)
+    kw = {}
+    if quant:
+        k, kw["k_scale"] = quantize_kv(k)
+        v, kw["v_scale"] = quantize_kv(v)
+    got = decode_attention(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    want = decode_attention_reference(q, k, v, pos, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 64, 128])
+@pytest.mark.parametrize("n_q", [1, 128])
+def test_paged_kernel_matches_plain(dev, dtype, page, n_q):
+    """Scrambled tables whose entries past each cursor are far out of the
+    pool (a read of one would fault), cursors on and off page edges."""
+    rng = np.random.default_rng(7)
+    b, hq, hkv, d, max_pages = 3, 8, 2, 128, 2048 // page
+    n_pages = b * max_pages + 3
+    pos = np.asarray([page - 1, 1000, 2048 - n_q], np.int32)
+    table = rng.permutation(n_pages)[:b * max_pages].reshape(b, max_pages)
+    table = table.astype(np.int32)
+    for i, p in enumerate(pos):
+        table[i, (p + n_q - 1) // page + 1:] = 2 ** 30 + i
+    q = _randn(rng, (b, hq, n_q, d), dtype, dev)
+    kp = _randn(rng, (n_pages, hkv, page, d), dtype, dev)
+    vp = _randn(rng, (n_pages, hkv, page, d), dtype, dev)
+    table_d = torch.from_numpy(table).to(dev)
+    pos_d = torch.from_numpy(pos).to(dev)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(q, kp, vp, table_d, pos_d)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    want = paged_decode_attention_reference(q, kp, vp, table_d, pos_d)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
 
@@ -135,6 +188,40 @@ def test_slot_server_on_cuda_matches_generate(dev, kv_quant, w8):
         out = generate(params, cfg, torch.tensor([prompt]), max_new)
         np.testing.assert_array_equal(done[rid],
                                       out[0, len(prompt):].cpu().numpy())
+
+
+def test_paged_and_prefix_servers_on_cuda_match_generate(dev):
+    """Paged serving with and without a shared prefix, and the dense
+    server's prefix caching, on the card: greedy tokens equal generate()'s
+    (float32, debug widths); the paged kernel runs every decode step."""
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = LlamaConfig.preset("debug")
+    params = init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(8)
+    prefix = list(rng.integers(1, cfg.vocab_size, 37))
+    reqs = [(list(rng.integers(1, cfg.vocab_size, n)), m, w)
+            for n, m, w in [(3, 6, True), (7, 4, False), (12, 9, True),
+                            (50, 5, False), (2, 11, True)]]
+    for make in (lambda: PagedSlotServer(params, cfg, n_slots=2, max_len=128,
+                                         page=16, n_pages=20, chunk=4),
+                 lambda: SlotServer(params, cfg, n_slots=2, max_len=128,
+                                    chunk=4)):
+        srv = make()
+        reset_launch_counts()
+        pid = srv.register_prefix(prefix)
+        rids = [srv.submit(p, m, prefix=pid if w else None)
+                for p, m, w in reqs]
+        done = srv.run()
+        counts = launch_counts()
+        paged = isinstance(srv, PagedSlotServer)
+        assert (counts["paged_decode_attention"] > 0) == paged, counts
+        assert (counts["decode_attention"] > 0) != paged, counts
+        for rid, (p, m, w) in zip(rids, reqs):
+            full = (prefix if w else []) + p
+            out = generate(params, cfg, torch.tensor([full]), m)
+            np.testing.assert_array_equal(done[rid],
+                                          out[0, len(full):].cpu().numpy())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

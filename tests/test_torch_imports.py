@@ -63,3 +63,14 @@ def test_entry_points_default_to_cuda():
     with pytest.raises((RuntimeError, AssertionError)):
         init_cache(cfg, 1, 8)
     assert init_params(cfg, 0, device="cpu")["embed"].device.type == "cpu"
+
+
+def test_paged_import_keeps_jax_out_of_the_process():
+    code = ("import sys, starway_tpu_torch.models.paged\n"
+            "assert 'starway_tpu_torch.ops.paged' in sys.modules\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

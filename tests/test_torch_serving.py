@@ -142,8 +142,8 @@ def test_serving_validation_and_unported(params):
         srv.submit(list(range(1, 30)), 10)
     with pytest.raises(ValueError, match="n_slots"):
         SlotServer(params, cfg, n_slots=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srv.register_prefix([1, 2, 3])
+    with pytest.raises(ValueError, match="smallest suffix bucket"):
+        srv.register_prefix(list(range(1, 32)))  # leaves no suffix room
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlotServer(params, LlamaConfig.preset("debug", sliding_window=8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
