@@ -13,7 +13,8 @@ Phases, each of which raises on failure:
               prefix-ingest shape): max error, median time (CUDA
               events), the plain version's time, one PyTorch library
               call's time, and the least time the card could take (bytes /
-              3.35 TB/s or operations / 989 TFLOP/s, whichever is larger)
+              3.35 TB/s or operations / 989 TFLOP/s, whichever is larger);
+              the ring-step kernels at train-ring's shapes and offsets
 4. serve   -- SlotServer on llama3-8b widths (bf16, 32 layers, random
               weights): 12 requests through 8 slots; first-token logits of
               one request against a forward through the plain attention
@@ -38,10 +39,21 @@ Phases, each of which raises on failure:
               one step through the kernels against the same step through
               the plain attention; the flash forward and each backward
               pass launch once per layer
-11. a JSON line of the kernels with their launches on the serving paths
-   (phases 4, 5 and 6) and the training path (phase 9) and the numbers of
-   phase 3
-12. the last line: {"ok": true, "device": {...}}
+11. train-ring -- the Trainer with sequence-parallel ring attention
+              (make_sharded_attn on make_mesh({"sp": 4}): four shards of
+              1024 tokens in this process) at llama3-8b widths cut to 4
+              layers, bf16, remat "dots", one [1, 4097] batch: 6 steps
+              with the ring layout, 6 with zigzag, then 6 with the flash
+              attention as the yardstick; losses, step ms, tokens/s, model
+              FLOP share, idle share of a traced step, peak memory; the
+              ring-step kernels launch exactly n^2 (zigzag 2 n^2 + n) times
+              a layer, forward and backward
+12. train-ring-parity -- float32, 2 layers, [1, 513], sp = 4: ring and
+              zigzag through the kernels against the plain attention
+13. a JSON line of the kernels with their launches on the serving paths
+   (phases 4, 5 and 6) and the training paths (phases 9 and 11) and the
+   numbers of phase 3
+14. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -49,6 +61,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -224,6 +237,7 @@ def phase_kernels(dev):
         max_abs_err=worst, **timed)
 
     rows.update(flash_backward_rows(dev, randn))
+    rows.update(ring_kernel_rows(dev, randn))
 
     # -- int8 GEMV: decode (M=8) and prefill (M=512) rows, the llama3-8b
     # projection shapes and the lm_head.
@@ -483,24 +497,30 @@ def flash_backward_rows(dev, randn):
             del o_lib, leaves
         # One product: 2 * D flops per visible pair and q head.  Bytes:
         # q, dO, k, v, lse and delta read once, the gradients written once.
+        # Each pass is bound by its own outputs: dK/dV needs s, dp, dv and
+        # dk (4 products), dQ needs s, dp and dq (3).  The backward as one
+        # function needs 5, so the two bounds sum past the pair's own.
         flops = 2 * d * visible_pairs(s_len, causal, window) * hq * b
         es = q.element_size()
         io = es * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * b * hq * s_len
         dkv_b = bound(io + es * 2 * k.numel(), 4 * flops)
         dq_b = bound(io + es * q.numel(), 3 * flops)
+        pair_b = bound(io + es * (q.numel() + 2 * k.numel()), 5 * flops)
         log(f"  timed: dK/dV {dkv_ms:.4f} ms (bound {dkv_b[0]:.4f} ms, "
             f"{dkv_b[1]}), dQ {dq_ms:.4f} ms (bound {dq_b[0]:.4f} ms, "
-            f"{dq_b[1]}); plain (both passes) {plain:.4f} ms, library "
-            f"(SDPA backward, both passes) {lib:.4f} ms")
+            f"{dq_b[1]}); both passes as one function: bound "
+            f"{pair_b[0]:.4f} ms ({pair_b[1]}), plain {plain:.4f} ms, "
+            f"library (SDPA backward) {lib:.4f} ms")
         if (b, s_len) == (2, 2048):
             at = (f"B={b} Hq={hq} Hkv={hkv} D={d} S={s_len} causal bf16; "
                   f"plain_ms and library_ms cover both passes")
             timed["dkv"] = dict(ms=dkv_ms, plain_ms=plain,
                                 bound_ms=dkv_b[0], bound_by=dkv_b[1],
-                                library_ms=lib, timed_at=at)
+                                library_ms=lib, timed_at=at,
+                                both_passes_bound_ms=pair_b[0])
             timed["dq"] = dict(ms=dq_ms, plain_ms=plain, bound_ms=dq_b[0],
                                bound_by=dq_b[1], library_ms=lib,
-                               timed_at=at)
+                               timed_at=at, both_passes_bound_ms=pair_b[0])
         del q, k, v, do, o, lse, got, want, delta
         torch.cuda.empty_cache()
     src = "starway_tpu_torch/csrc/flash_bwd.cu"
@@ -515,6 +535,163 @@ def flash_backward_rows(dev, randn):
             replaces="starway_tpu/ops/pallas_attention.py:364 "
                      "(_bwd_dq_kernel)",
             max_abs_err=worst["dq"], **timed["dq"])}
+
+
+def ring_kernel_rows(dev, randn):
+    """The ring-step kernels (#7 flash_partial, #8 flash_partial_bwd)
+    against their plain versions at train-ring's shard shape (q [1, 32,
+    1024, 128] bf16, k/v [1, 8, 1024, 128]) and offsets: a whole past
+    block, the diagonal, a dead block, a band edge (window 700) and a
+    block whose first 512 rows see no key.  Rows that see nothing must be
+    exactly the identity (o = 0, m = NEG_BIG, l = 0) and their gradients
+    exactly 0.  The backward runs from the step's own lse and delta.
+    Timed at every offset; the kernels line carries the past block's
+    numbers, the library calls are SDPA's forward and backward over the
+    same block (which return o and lse, not (o, m, l))."""
+    import torch
+    import torch.nn.functional as F
+
+    from starway_tpu_torch.ops.attention import NEG_BIG
+    from starway_tpu_torch.ops.flash import (flash_partial,
+                                             flash_partial_bwd,
+                                             flash_partial_bwd_reference,
+                                             flash_partial_reference)
+
+    HQ, HKV, T, D = 32, 8, 1024, 128
+    q, do = randn(1, HQ, T, D), randn(1, HQ, T, D)
+    k, v = randn(1, HKV, T, D), randn(1, HKV, T, D)
+    cases = (("past", 1024, 0, None), ("diagonal", 1024, 1024, None),
+             ("dead", 0, 1024, None), ("band edge", 1024, 0, 700),
+             ("first rows dead", 0, 512, None))
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    by_case = {}
+    for name, q_off, kv_off, window in cases:
+        kw = dict(causal=True, window=window)
+        o, m, l = flash_partial(q, k, v, q_off, kv_off, **kw)
+        o_r, m_r, l_r = flash_partial_reference(q, k, v, q_off, kv_off, **kw)
+        torch.cuda.synchronize()
+        dead = l_r == 0
+        exact = bool((o[dead] == 0).all() and (l[dead] == 0).all()
+                     and (m[dead] == NEG_BIG).all())
+        live = ~dead
+        o_rel = o_err = 0.0
+        if live.any():
+            # o / l is a softmax average of ~N(0, 1) values: ~0.05 on rows
+            # that see the whole block, O(1) on rows that see a few keys.
+            # Held against its largest value, so a dropped or misplaced
+            # tile shows on the whole-block rows too.
+            o_n = (o / l.clamp(min=1e-30)[..., None])[live]
+            o_rn = (o_r / l_r.clamp(min=1e-30)[..., None])[live]
+            o_err = (o_n - o_rn).abs().max().item()
+            o_rel = o_err / o_rn.abs().max().item()
+            m_err = (m[live] - m_r[live]).abs().max().item()
+            l_rel = ((l[live] - l_r[live]) / l_r[live]).abs().max().item()
+        else:
+            m_err = l_rel = 0.0
+        worst["fwd"] = max(worst["fwd"], o_err, m_err)
+        lse = torch.where(live, m + torch.log(l.clamp(min=1e-30)),
+                          torch.zeros_like(m))
+        delta = (do.float() * o / l.clamp(min=1e-30)[..., None]).sum(-1)
+        g = flash_partial_bwd(q, do, k, v, lse, delta, q_off, kv_off, **kw)
+        g_r = flash_partial_bwd_reference(q, do, k, v, lse, delta, q_off,
+                                          kv_off, **kw)
+        torch.cuda.synchronize()
+        rel = []
+        for a, b in zip(g, g_r):
+            scale = b.abs().max().item()
+            if scale == 0:
+                exact = exact and bool((a == 0).all())
+                rel.append(0.0)
+            else:
+                rel.append((a - b).abs().max().item() / scale)
+        worst["bwd"] = max(worst["bwd"], max(rel))
+        fwd_ms = cuda_ms(lambda: flash_partial(q, k, v, q_off, kv_off, **kw))
+        bwd_ms = cuda_ms(lambda: flash_partial_bwd(q, do, k, v, lse, delta,
+                                                   q_off, kv_off, **kw))
+        qp = q_off + np.arange(T)[:, None]
+        kp = kv_off + np.arange(T)[None, :]
+        vis = qp >= kp
+        if window is not None:
+            vis &= kp > qp - window
+        pairs = int(vis.sum())
+        # Forward: 2 products of 2 * D flops per visible pair and q head;
+        # q, k, v read, o, m, l (float32) written.  Backward: the function
+        # (dq, dk, dv) needs 5 products (s, dp, dv, dk, dq); q, dO, k, v,
+        # lse, delta read once, the float32 gradients written once.  The
+        # kernel's two passes recompute s and dp (7 products): that is its
+        # design, not the function's need.
+        fwd_b = bound(2 * (q.numel() + 2 * k.numel()) + 4 * (q.numel()
+                                                             + 2 * HQ * T),
+                      4 * D * pairs * HQ)
+        bwd_b = bound(2 * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * HQ * T
+                      + 4 * (q.numel() + 2 * k.numel()), 10 * D * pairs * HQ)
+        by_case[name] = dict(
+            q_offset=q_off, kv_offset=kv_off, window=window,
+            visible_pairs=pairs, ms=fwd_ms, bwd_ms=bwd_ms,
+            bound_ms=fwd_b[0], bwd_bound_ms=bwd_b[0],
+            identity_exact=exact)
+        tol = GRAD_REL_TOL["bfloat16"]
+        log(f"flash_partial {name} (q_off {q_off}, kv_off {kv_off}, window "
+            f"{window}): o/l max_abs_err {o_err:.3e}, relative to max |o/l| "
+            f"{o_rel:.3e} (tol {tol}), m {m_err:.3e} (tol 1e-3), l rel "
+            f"{l_rel:.3e} (tol 1e-3); identity rows exact {exact}; "
+            f"{fwd_ms:.4f} ms (bound {fwd_b[0]:.4f} ms, {fwd_b[1]}); "
+            f"flash_partial_bwd rel err dq/dk/dv {rel[0]:.3e}/{rel[1]:.3e}/"
+            f"{rel[2]:.3e} (tol {tol}), {bwd_ms:.4f} ms (bound "
+            f"{bwd_b[0]:.4f} ms, {bwd_b[1]})")
+        if not (o_rel <= tol and m_err <= 1e-3 and l_rel <= 1e-3
+                and exact and max(rel) <= tol):
+            raise AssertionError(f"the ring-step kernels disagree with their "
+                                 f"plain versions ({name})")
+        if name == "past":
+            timed = dict(
+                fwd_plain=cuda_ms(lambda: flash_partial_reference(
+                    q, k, v, q_off, kv_off, **kw), iters=5),
+                bwd_plain=cuda_ms(lambda: flash_partial_bwd_reference(
+                    q, do, k, v, lse, delta, q_off, kv_off, **kw), iters=5),
+                fwd_lib=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, enable_gqa=True)),
+                fwd_b=fwd_b, bwd_b=bwd_b)
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                o_lib = F.scaled_dot_product_attention(*leaves,
+                                                       enable_gqa=True)
+                timed["bwd_lib"] = cuda_ms(lambda: torch.autograd.grad(
+                    o_lib, leaves, do, retain_graph=True))
+                del o_lib, leaves
+        if name == "diagonal":
+            by_case[name]["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True))
+        del o, m, l, o_r, m_r, l_r, g, g_r
+    log(f"  past block: flash_partial {by_case['past']['ms']:.4f} ms, plain "
+        f"{timed['fwd_plain']:.4f} ms, library (SDPA, no mask) "
+        f"{timed['fwd_lib']:.4f} ms; flash_partial_bwd "
+        f"{by_case['past']['bwd_ms']:.4f} ms, plain {timed['bwd_plain']:.4f} "
+        f"ms, library (SDPA backward) {timed['bwd_lib']:.4f} ms")
+    torch.cuda.empty_cache()
+    at = (f"B=1 Hq={HQ} Hkv={HKV} D={D} T=Tkv={T} bf16, past block (q_off "
+          f"1024, kv_off 0); by_offset has every offset")
+    src = "starway_tpu_torch/csrc/"
+    return {
+        "flash_partial": dict(
+            name="flash_partial", route="cuda", source=src + "flash_fwd.cu",
+            replaces="starway_tpu/ops/pallas_attention.py:580 "
+                     "(_partial_kernel, entry flash_partial :640)",
+            max_abs_err=worst["fwd"], ms=by_case["past"]["ms"],
+            plain_ms=timed["fwd_plain"], bound_ms=timed["fwd_b"][0],
+            bound_by=timed["fwd_b"][1], library_ms=timed["fwd_lib"],
+            timed_at=at, by_offset=by_case),
+        "flash_partial_bwd": dict(
+            name="flash_partial_bwd", route="cuda",
+            source=src + "flash_bwd.cu",
+            replaces="starway_tpu/ops/pallas_attention.py:734 "
+                     "(flash_partial_bwd, through _run_bwd_passes :406)",
+            max_abs_err=worst["bwd"], ms=by_case["past"]["bwd_ms"],
+            plain_ms=timed["bwd_plain"], bound_ms=timed["bwd_b"][0],
+            bound_by=timed["bwd_b"][1], library_ms=timed["bwd_lib"],
+            timed_at=at + "; both passes, float32 outputs; max_abs_err is "
+                          "relative to max |grad|")}
 
 
 def make_requests(cfg, n: int = 12):
@@ -801,7 +978,8 @@ def model_flops(cfg, tokens: int, b: int, s_len: int) -> float:
 
 
 def kernel_family(name: str) -> str:
-    for key in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"):
+    for key in ("flash_partial", "flash_bwd_dkv", "flash_bwd_dq",
+                "flash_fwd"):
         if key in name:
             return key
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma")):
@@ -843,11 +1021,80 @@ def trace_summary(prof, traced_ms: float) -> dict:
                 top_kernels_ms={k: round(v, 3) for k, v in top})
 
 
-def phase_train(dev):
-    """Phase 7: Trainer + adamw, llama3-8b widths cut to 4 layers, bf16,
-    remat "dots", 6 steps on one batch.  Returns (stats, launches)."""
+def fresh_peak() -> dict:
+    """Reset the peak; return the memory allocated now and what the cycle
+    collector freed first.  That is device memory an earlier phase left in
+    a reference cycle past its last name, which a user pays for until the
+    collector runs: 0 expected (the servers held their weights and cache
+    in one until their chunk step stopped being kept on the server)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    freed = before - torch.cuda.memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"  device memory freed by the cycle collector: {freed / 1e9:.3f} GB")
+    return dict(memory_at_start_gb=torch.cuda.memory_allocated() / 1e9,
+                memory_in_cycles_gb=freed / 1e9)
+
+
+def train_steps(trainer, batch, steps: int):
+    """``steps`` Trainer steps on one batch, the last under the profiler.
+    Returns (losses, host ms of the untraced steps, trace summary)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    losses, step_ms, traced = [], [], {}
+    for i in range(steps):
+        if i == steps - 1:  # the last step, under the profiler
+            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                losses.append(trainer.step_sync(batch))
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t0) * 1e3
+            traced = trace_summary(prof, traced_ms)
+            log(f"  step {steps} (traced): loss {losses[-1]:.4f}")
+            continue
+        t0 = time.perf_counter()
+        losses.append(trainer.step_sync(batch))  # ends in loss.item()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  step {i + 1}: loss {losses[-1]:.4f}, {step_ms[-1]:.1f} ms")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"training did not lower the loss: {losses}")
+    return losses, step_ms, traced
+
+
+def train_stats(cfg, trainer, losses, step_ms, traced, b: int, s_len: int,
+                mem: dict):
+    """The training metrics of one run (PERF.md section 2); ``mem`` is
+    :func:`fresh_peak`'s reading when the run started (weights, optimizer
+    state and whatever an earlier phase still holds)."""
+    import torch
+
+    med = statistics.median(step_ms[1:])  # step 1 warms up
+    flops = model_flops(cfg, b * s_len, b, s_len)
+    stats = dict(losses=losses, median_step_ms=med,
+                 **mem,
+                 first_step_ms=step_ms[0], tokens_per_s=b * s_len / med * 1e3,
+                 model_flop_share=flops / (med / 1e3) / BF16_FLOPS,
+                 model_tflop_per_step=flops / 1e12,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 telemetry_p50_us={k: round(v["p50_us"], 1) for k, v in
+                                   trainer.telemetry().items()},
+                 **traced)
+    if traced.get("device_busy_ms"):  # else: not measured (no CUDA events)
+        stats["device_idle_share"] = 1 - traced["device_busy_ms"] / med
+    return stats
+
+
+def phase_train(dev):
+    """Phase 9: Trainer + adamw, llama3-8b widths cut to 4 layers, bf16,
+    remat "dots", 6 steps on one batch.  Returns (stats, launches)."""
+    import torch
 
     from starway_tpu_torch.models import LlamaConfig, Trainer, init_params
     from starway_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -859,48 +1106,18 @@ def phase_train(dev):
     params = init_params(cfg, SEED + 3, device=dev)
     batch = train_batch(cfg, B, S + 1, SEED + 4, dev)
     trainer = Trainer(cfg, adamw(LR_TRAIN), params)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    mem = fresh_peak()
     log(f"[train] llama3-8b widths, {cfg.n_layers} layers (cut from 32), "
         f"bf16, remat dots, AdamW lr {LR_TRAIN:g}, batch [{B}, {S + 1}], "
         f"{STEPS} steps on one batch")
-    losses, step_ms, traced = [], [], {}
     reset_launch_counts()
-    for i in range(STEPS):
-        if i == STEPS - 1:  # the last step, under the profiler
-            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-            with profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                losses.append(trainer.step_sync(batch))
-                torch.cuda.synchronize()
-                traced_ms = (time.perf_counter() - t0) * 1e3
-            traced = trace_summary(prof, traced_ms)
-            continue
-        t0 = time.perf_counter()
-        losses.append(trainer.step_sync(batch))  # ends in loss.item()
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        log(f"  step {i + 1}: loss {losses[-1]:.4f}, {step_ms[-1]:.1f} ms")
+    losses, step_ms, traced = train_steps(trainer, batch, STEPS)
     counts = launch_counts()
-    log(f"  step {STEPS} (traced): loss {losses[-1]:.4f}")
-    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"training did not lower the loss: {losses}")
     for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq"):
         if counts[name] != STEPS * cfg.n_layers:
             raise AssertionError(f"{name} launched {counts[name]} times in "
                                  f"{STEPS} steps of {cfg.n_layers} layers")
-    med = statistics.median(step_ms[1:])  # step 1 warms up
-    flops = model_flops(cfg, B * S, B, S)
-    stats = dict(losses=losses, median_step_ms=med,
-                 first_step_ms=step_ms[0], tokens_per_s=B * S / med * 1e3,
-                 model_flop_share=flops / (med / 1e3) / BF16_FLOPS,
-                 model_tflop_per_step=flops / 1e12,
-                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                 telemetry_p50_us={k: round(v["p50_us"], 1) for k, v in
-                                   trainer.telemetry().items()},
-                 **traced)
-    if traced.get("device_busy_ms"):  # else: not measured (no CUDA events)
-        stats["device_idle_share"] = 1 - traced["device_busy_ms"] / med
+    stats = train_stats(cfg, trainer, losses, step_ms, traced, B, S, mem)
     del trainer, params
     torch.cuda.empty_cache()
     return stats, counts
@@ -950,6 +1167,190 @@ def phase_train_parity(dev):
     del params, grads, want
     torch.cuda.empty_cache()
     return dict(loss_rel_err=loss_err, worst_grad_rel_err=worst)
+
+
+def block_rel_err(got, want, block: int = 512) -> float:
+    """The largest ``||got - want|| / ||want||`` over blocks of ``block``
+    sequence rows (dim 2): a row that sees a few keys has outputs of O(1)
+    and one that sees thousands of ~0.02, so each block is held to its
+    own size."""
+    err = 0.0
+    for g, w in zip(got.float().split(block, 2), want.float().split(block, 2)):
+        err = max(err, ((g - w).norm() / w.norm()).item())
+    return err
+
+
+def ring_attention_check(mesh, dev, s_len: int = 4096) -> dict:
+    """One layer's attention at train-ring's shapes (q [1, 32, 4096, 128]
+    bf16, k/v [1, 8, 4096, 128]): the ring and zigzag attn_fns' output and
+    (dq, dk, dv) against the flash kernel's on the same inputs, each
+    within GRAD_REL_TOL in every 512-row block.  This holds zigzag's half
+    blocks (T 512) and its hi-lo pairs (causal=False) at bf16."""
+    import torch
+
+    from starway_tpu_torch.models import make_sharded_attn
+    from starway_tpu_torch.ops.flash import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, do = randn(1, 32, s_len, 128), randn(1, 32, s_len, 128)
+    k, v = randn(1, 8, s_len, 128), randn(1, 8, s_len, 128)
+
+    def run(fn):
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            o = fn(*leaves)
+            return [o.detach(), *torch.autograd.grad(o, leaves, do)]
+
+    want = run(lambda a, b, c: flash_attention(a, b, c, causal=True))
+    tol = GRAD_REL_TOL["bfloat16"]
+    out = {}
+    for layout in ("ring", "zigzag"):
+        got = run(make_sharded_attn(mesh, layout=layout))
+        errs = [block_rel_err(g, w) for g, w in zip(got, want)]
+        log(f"  {layout} attention vs flash_attention, [1, 32, {s_len}, 128] "
+            f"bf16: worst 512-row block error relative to its norm o/dq/dk/"
+            f"dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}/{errs[3]:.3e} "
+            f"(tol {tol})")
+        if not max(errs) <= tol:
+            raise AssertionError(f"{layout} ring attention disagrees with "
+                                 f"the flash attention at bf16")
+        out[layout] = max(errs)
+    del q, k, v, do, want, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_ring(dev):
+    """Phase 11: the Trainer with ring attention over make_mesh({"sp": 4})
+    on this card, ring then zigzag, then the flash attention on the same
+    batch as the yardstick; each run from the same initial weights, freed
+    before the next.  Returns (stats by run, launches summed over the
+    runs)."""
+    import torch
+
+    from starway_tpu_torch.models import (LlamaConfig, Trainer, init_params,
+                                          make_sharded_attn)
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.parallel import make_mesh
+    from starway_tpu_torch.utils import adamw
+
+    B, S, STEPS, SP = 1, 4096, 6, 4
+    cfg = LlamaConfig.preset("llama3-8b", n_layers=4, remat=True,
+                             remat_policy="dots")
+    batch = train_batch(cfg, B, S + 1, SEED + 9, dev)
+    mesh = make_mesh({"sp": SP}, device=dev)
+    per_layer = {"ring": SP * SP, "zigzag": 2 * SP * SP + SP}
+    log(f"[train-ring] one layer's attention, ring and zigzag on {mesh}")
+    attn_err = ring_attention_check(mesh, dev)
+    runs = (("ring", make_sharded_attn(mesh)),
+            ("zigzag", make_sharded_attn(mesh, layout="zigzag")),
+            ("flash", None))
+    out, total = {}, {}
+    for name, attn in runs:
+        log(f"[train-ring] {name}: llama3-8b widths, {cfg.n_layers} layers, "
+            f"bf16, remat dots, AdamW lr {LR_TRAIN:g}, batch [{B}, {S + 1}], "
+            f"{STEPS} steps; {mesh}, shards of {S // SP} tokens")
+        params = init_params(cfg, SEED + 3, device=dev)
+        trainer = Trainer(cfg, adamw(LR_TRAIN), params, attn_fn=attn)
+        mem = fresh_peak()
+        reset_launch_counts()
+        losses, step_ms, traced = train_steps(trainer, batch, STEPS)
+        counts = launch_counts()
+        stats = train_stats(cfg, trainer, losses, step_ms, traced, B, S,
+                            mem)
+        stats["launches"] = {k: c for k, c in counts.items() if c}
+        log(f"  {stats}")
+        if name in per_layer:
+            want = STEPS * cfg.n_layers * per_layer[name]
+            got = (counts["flash_partial"], counts["flash_partial_bwd"])
+            if got != (want, want) or counts["flash_forward"] or counts[
+                    "flash_backward_dkv"] or counts["flash_backward_dq"]:
+                raise AssertionError(
+                    f"{name}: flash_partial / flash_partial_bwd launched "
+                    f"{got}, not {want} each ({STEPS} steps x "
+                    f"{cfg.n_layers} layers x {per_layer[name]}), or a plain "
+                    f"flash kernel ran: {counts}")
+        elif counts["flash_partial"] or counts["flash_forward"] != (
+                STEPS * cfg.n_layers):
+            raise AssertionError(f"the flash run's launches: {counts}")
+        total = {k: total.get(k, 0) + c for k, c in counts.items()}
+        out[name] = stats
+        del trainer, params
+        torch.cuda.empty_cache()
+    for name in per_layer:
+        gap = (abs(out[name]["losses"][0] - out["flash"]["losses"][0])
+               / abs(out["flash"]["losses"][0]))
+        out[name]["first_loss_rel_gap"] = gap
+        out[name]["attention_block_rel_err"] = attn_err[name]
+        log(f"  {name}: first-step loss {out[name]['losses'][0]:.6f} vs flash "
+            f"{out['flash']['losses'][0]:.6f}, relative gap {gap:.3e} (tol "
+            f"1e-2); median step {out[name]['median_step_ms']:.1f} ms vs "
+            f"flash {out['flash']['median_step_ms']:.1f} ms")
+        if not gap <= 1e-2:
+            raise AssertionError(f"{name}: the first-step loss is {gap:.3e} "
+                                 f"from the flash run's")
+    return out, total
+
+
+def phase_train_ring_parity(dev):
+    """Phase 12: one float32 step, llama3-8b widths, 2 layers, [1, 513],
+    sp = 4: ring and zigzag through the kernels against the same step
+    through the plain attention."""
+    import torch
+
+    from starway_tpu_torch.models import (LlamaConfig, init_params,
+                                          make_sharded_attn)
+    from starway_tpu_torch.models.llama import value_and_grad
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.ops.attention import blockwise_attention
+    from starway_tpu_torch.parallel import make_mesh
+    from starway_tpu_torch.utils.tree import tree_leaves
+
+    SP = 4
+    cfg = LlamaConfig.preset("llama3-8b", n_layers=2, dtype="float32",
+                             remat=True, remat_policy="dots")
+    params = init_params(cfg, SEED + 5, device=dev)
+    batch = train_batch(cfg, 1, 513, SEED + 6, dev)
+    mesh = make_mesh({"sp": SP}, device=dev)
+    log(f"[train-ring-parity] float32, 2 layers, [1, 513], remat dots, "
+        f"{mesh}: ring and zigzag kernels against the plain attention")
+
+    def plain_attn(q, k, v):
+        return blockwise_attention(q, k, v, causal=True)
+
+    want_loss, want = value_and_grad(params, batch, cfg, plain_attn)
+    out = {}
+    for layout, per_layer in (("ring", SP * SP), ("zigzag", 2 * SP * SP + SP)):
+        reset_launch_counts()
+        loss, grads = value_and_grad(params, batch, cfg,
+                                     make_sharded_attn(mesh, layout=layout))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        n = cfg.n_layers * per_layer
+        if (counts["flash_partial"], counts["flash_partial_bwd"]) != (n, n):
+            raise AssertionError(f"{layout}: launches {counts}, want {n} "
+                                 f"flash_partial and flash_partial_bwd")
+        loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+        worst = 0.0
+        for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+            worst = max(worst, ((g - w).abs().max() / w.abs().max()).item())
+        log(f"  {layout}: loss {loss.item():.6f} vs plain "
+            f"{want_loss.item():.6f} (rel {loss_err:.2e}, tol 1e-5); worst "
+            f"gradient leaf error relative to its max {worst:.3e} (tol "
+            f"{TRAIN_GRAD_REL_TOL}); {n} launches of each ring-step kernel")
+        if not (loss_err <= 1e-5 and worst <= TRAIN_GRAD_REL_TOL):
+            raise AssertionError(f"the {layout} ring step disagrees with the "
+                                 f"plain-attention step")
+        out[layout] = dict(loss_rel_err=loss_err, worst_grad_rel_err=worst)
+        del grads
+    del params, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1054,10 +1455,15 @@ def main() -> int:
     log(f"  launches {c7}")
     st8 = phase_train_parity(dev)
 
-    # 11. kernels line: launches are the serving paths' (phases 4, 5 and
-    # 6) and the training path's (phase 9), each counted from 0 just before
-    # its run and read just after.
-    main_counts = {k: main_counts[k] + c7[k] for k in main_counts}
+    # 11 + 12: the training path with ring attention, then its parity.
+    st_ring, c_ring = phase_train_ring(dev)
+    st_rp = phase_train_ring_parity(dev)
+
+    # 13. kernels line: launches are the serving paths' (phases 4, 5 and
+    # 6) and the training paths' (phases 9 and 11), each counted from 0
+    # just before its run and read just after.
+    main_counts = {k: main_counts[k] + c7[k] + c_ring[k]
+                   for k in main_counts}
     kernels = []
     for key, row in rows.items():
         row = dict(row)
@@ -1088,9 +1494,18 @@ def main() -> int:
         f"{st7['median_step_ms']:.1f} ms, {st7['tokens_per_s']:.0f} tokens/s, "
         f"model FLOP share {st7['model_flop_share']:.4f}; train-parity "
         f"{st8}; total {time.perf_counter() - t_start:.1f} s")
+    for name, st in st_ring.items():
+        log(f"[summary] train-ring {name}: median step "
+            f"{st['median_step_ms']:.1f} ms, {st['tokens_per_s']:.0f} "
+            f"tokens/s, model FLOP share {st['model_flop_share']:.4f}, idle "
+            f"share {st.get('device_idle_share')}, peak memory "
+            f"{st['peak_memory_gb']:.2f} GB, first-step loss gap "
+            f"{st.get('first_loss_rel_gap')}, one layer's attention vs flash "
+            f"{st.get('attention_block_rel_err')}, launches {st['launches']}")
+    log(f"[summary] train-ring-parity {st_rp}")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 12. last line
+    # 14. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernels starway_tpu/ops/pallas_attention.py
 // _bwd_dkv_kernel (pass A) and _bwd_dq_kernel (pass B), with _bwd_block's
-// recompute (driven there by _run_bwd_passes / _bwd_impl).
+// recompute (driven there by _run_bwd_passes / _bwd_impl), and the ring
+// step's flash_partial_bwd, which runs the same two passes at ring offsets
+// and writes float32.
 //
 // Both passes recompute, per [64 q x 64 k] tile,
 //   s = q k^T * sm_scale (masked),  p = exp(s - lse),
@@ -21,10 +23,15 @@
 // query heads of its kv head times the live q tiles, accumulating
 //   dv += p^T dO,  dk += ds^T q
 // in float32 registers, so dk/dv sum the grouped query heads with no
-// atomics.  It writes dk * sm_scale and dv in k's dtype.
+// atomics.  It writes dk * sm_scale and dv in the output type TO.
 // Pass B (q-stationary): one block per (batch * q head, 64-row q tile); it
 // holds q and dO and walks the live kv tiles, accumulating dq += ds k, and
 // writes dq * sm_scale.  Both passes are deterministic.
+//
+// The output type TO is the input dtype T for plain attention and float32
+// for a ring step (flash_partial_bwd), whose n contributions the ring sums
+// in float32: rounding each to bf16 first would add n roundings.  The
+// internal rounding points follow T either way.
 //
 // Live tiles follow the TPU kernels' tests: with causal masking a tile is
 // dead when every key lies after every query, and with a window also when
@@ -152,11 +159,11 @@ constexpr size_t smem_bytes(int n_sq) {
 }
 
 // Pass A: dK, dV.  Grid (kv tiles, B * Hkv).
-template <typename T, int D>
+template <typename T, typename TO, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ delta, TO* __restrict__ dk, TO* __restrict__ dv,
     int hq, int hkv, int s_len, int kv_len, int causal, int window,
     float sm_scale, int q_off, int kv_off) {
   constexpr int DP = D + 1;
@@ -234,18 +241,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const size_t off = base + static_cast<size_t>(key) * D + tx + 16 * j;
-      dk[off] = sw_from_float<T>(acc_k[i][j] * sm_scale);
-      dv[off] = sw_from_float<T>(acc_v[i][j]);
+      dk[off] = sw_from_float<TO>(acc_k[i][j] * sm_scale);
+      dv[off] = sw_from_float<TO>(acc_v[i][j]);
     }
   }
 }
 
 // Pass B: dQ.  Grid (q tiles, B * Hq).
-template <typename T, int D>
+template <typename T, typename TO, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int hq, int hkv,
+    const float* __restrict__ delta, TO* __restrict__ dq, int hq, int hkv,
     int s_len, int kv_len, int causal, int window, float sm_scale, int q_off,
     int kv_off) {
   constexpr int DP = D + 1;
@@ -310,7 +317,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
       dq[bh * s_len * D + static_cast<size_t>(r) * D + tx + 16 * j] =
-          sw_from_float<T>(acc[i][j] * sm_scale);
+          sw_from_float<TO>(acc[i][j] * sm_scale);
   }
 }
 
@@ -322,9 +329,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, typename TO, int D>
 int launch_dkv(const Args& a) {
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  auto kernel = flash_bwd_dkv_kernel<T, TO, D>;
   const size_t smem = smem_bytes<D>(2);
   sw_allow_smem(kernel, smem);
   dim3 grid((a.kv_len + kBK - 1) / kBK, a.b * a.hkv);
@@ -332,14 +339,14 @@ int launch_dkv(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.hq, a.hkv, a.s_len,
+      static_cast<TO*>(a.dk), static_cast<TO*>(a.dv), a.hq, a.hkv, a.s_len,
       a.kv_len, a.causal, a.window, a.sm_scale, a.q_off, a.kv_off);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, typename TO, int D>
 int launch_dq(const Args& a) {
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_kernel<T, TO, D>;
   const size_t smem = smem_bytes<D>(1);
   sw_allow_smem(kernel, smem);
   dim3 grid((a.s_len + kBQ - 1) / kBQ, a.b * a.hq);
@@ -347,50 +354,54 @@ int launch_dq(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dq), a.hq, a.hkv, a.s_len, a.kv_len, a.causal,
+      static_cast<TO*>(a.dq), a.hq, a.hkv, a.s_len, a.kv_len, a.causal,
       a.window, a.sm_scale, a.q_off, a.kv_off);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kDkv>
+template <typename T, typename TO, bool kDkv>
 int dispatch(const Args& a, int d) {
   switch (d) {
     case 16:
-      return kDkv ? launch_dkv<T, 16>(a) : launch_dq<T, 16>(a);
+      return kDkv ? launch_dkv<T, TO, 16>(a) : launch_dq<T, TO, 16>(a);
     case 32:
-      return kDkv ? launch_dkv<T, 32>(a) : launch_dq<T, 32>(a);
+      return kDkv ? launch_dkv<T, TO, 32>(a) : launch_dq<T, TO, 32>(a);
     case 64:
-      return kDkv ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
+      return kDkv ? launch_dkv<T, TO, 64>(a) : launch_dq<T, TO, 64>(a);
     case 128:
-      return kDkv ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
+      return kDkv ? launch_dkv<T, TO, 128>(a) : launch_dq<T, TO, 128>(a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// Output type: the input's, or float32 when ``out_f32`` (a ring step).
 template <bool kDkv>
-int run(const Args& a, int d, int is_bf16) {
-  return is_bf16 ? dispatch<__nv_bfloat16, kDkv>(a, d)
-                 : dispatch<float, kDkv>(a, d);
+int run(const Args& a, int d, int out_f32, int is_bf16) {
+  if (!is_bf16) return dispatch<float, float, kDkv>(a, d);
+  return out_f32 ? dispatch<__nv_bfloat16, float, kDkv>(a, d)
+                 : dispatch<__nv_bfloat16, __nv_bfloat16, kDkv>(a, d);
 }
 
 }  // namespace
 
 // Pass A.  q/dout [B, Hq, S, D], k/v [B, Hkv, Skv, D], lse/delta [B, Hq, S]
-// float32; writes dk/dv [B, Hkv, Skv, D] in the input dtype.  D in
-// {16, 32, 64, 128}; window 0 for none; q_off/kv_off are the global
-// positions of row 0 of q and of k.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unsupported D).
+// float32; writes dk/dv [B, Hkv, Skv, D] in the input dtype, or in float32
+// when out_f32.  D in {16, 32, 64, 128}; window 0 for none; q_off/kv_off
+// are the global positions of row 0 of q and of k.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported D).
 extern "C" int sw_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dk, void* dv, int b,
                                 int hq, int hkv, int s_len, int kv_len, int d,
                                 int causal, int window, int q_off, int kv_off,
-                                float sm_scale, int is_bf16, void* stream) {
+                                float sm_scale, int out_f32, int is_bf16,
+                                void* stream) {
   const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, b, hq, hkv, s_len,
                kv_len, causal, window, q_off, kv_off, sm_scale,
                static_cast<cudaStream_t>(stream)};
-  return run<true>(a, d, is_bf16);
+  return run<true>(a, d, out_f32, is_bf16);
 }
 
 // Pass B.  Same inputs as pass A; writes dq [B, Hq, S, D].
@@ -399,9 +410,10 @@ extern "C" int sw_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* delta, void* dq, int b, int hq,
                                int hkv, int s_len, int kv_len, int d,
                                int causal, int window, int q_off, int kv_off,
-                               float sm_scale, int is_bf16, void* stream) {
+                               float sm_scale, int out_f32, int is_bf16,
+                               void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, b, hq, hkv,
                s_len, kv_len, causal, window, q_off, kv_off, sm_scale,
                static_cast<cudaStream_t>(stream)};
-  return run<false>(a, d, is_bf16);
+  return run<false>(a, d, out_f32, is_bf16);
 }

@@ -7,7 +7,7 @@ pool (paged), the training harness (trainer), and numpy tree conversion
 from .convert import params_from_numpy
 from .generate import decode_step, generate, init_cache, prefill
 from .llama import (LlamaConfig, LlamaModel, forward, init_params, loss_fn,
-                    make_train_step)
+                    make_sharded_attn, make_train_step)
 from .paged import PagedSlotServer, init_paged_pool, paged_decode_step
 from .serving import SlotServer
 from .speculative import chunk_decode_step
@@ -16,6 +16,7 @@ from .trainer import Trainer
 __all__ = [
     "LlamaConfig", "LlamaModel", "PagedSlotServer", "SlotServer", "Trainer",
     "chunk_decode_step", "decode_step", "forward", "generate", "init_cache",
-    "init_paged_pool", "init_params", "loss_fn", "make_train_step",
+    "init_paged_pool", "init_params", "loss_fn", "make_sharded_attn",
+    "make_train_step",
     "paged_decode_step", "params_from_numpy", "prefill",
 ]

@@ -14,6 +14,9 @@ runs the flash kernels (ops/flash.py, forward and, under autograd, the two
 backward passes) and W8A16 matmuls run the int8 GEMV kernel (ops/gemv.py);
 on the CPU the same functions run in plain PyTorch.
 
+Sequence parallelism: :func:`make_sharded_attn` gives ring attention
+(parallel/ring_attention.py) as the ``attn_fn``.
+
 Training: :func:`loss_fn` (mean next-token cross-entropy), a functional
 :func:`value_and_grad`, :func:`apply_updates` and :func:`make_train_step`
 (with gradient accumulation).  ``cfg.remat`` checkpoints each layer with
@@ -441,6 +444,47 @@ def resolve_attn_fn(cfg: LlamaConfig, attn_fn: Optional[Callable]) -> Callable:
                 f"attn_fn was built with window={declared} but "
                 f"cfg.sliding_window={cfg.sliding_window}")
     return attn_fn
+
+
+def make_sharded_attn(mesh, *, seq_axis: str = "sp", dp_axis: str = "dp",
+                      tp_axis: str = "tp", layout: str = "ring",
+                      window: Optional[int] = None):
+    """Sequence-parallel ring attention as the model's ``attn_fn``
+    (``forward``, ``value_and_grad``, ``Trainer(attn_fn=...)``): q/k/v
+    arrive ``[B, H, S, Dh]`` with grouped kv, the sequence is cut into the
+    ``seq_axis`` shards of ``mesh`` (parallel/sharding.py) and the narrow
+    kv shards rotate around the ring (parallel/ring_attention.py).
+
+    ``layout="zigzag"`` is the load-balanced causal layout (a sequence
+    permutation per call).  ``window``: the sliding band (match
+    ``cfg.sliding_window``; the returned fn declares ``handles_window`` so
+    :func:`resolve_attn_fn` admits it on windowed configs), ring layout
+    only.  The model runs whole sequences in one process, so the mesh
+    holds every shard here (no process group).  ``dp_axis``/``tp_axis``
+    keep the JAX signature; :func:`~starway_tpu_torch.parallel.make_mesh`
+    already refuses those axes above size 1, so they are not read."""
+    from ..parallel.ring_attention import (make_ring_attention,
+                                           make_zigzag_ring_attention)
+
+    if layout not in ("ring", "zigzag"):
+        raise ValueError(f"unknown attention layout {layout!r}; expected "
+                         f"'ring' or 'zigzag'")
+    if window is not None and layout != "ring":
+        raise ValueError(
+            "window is supported on the plain ring layout only (zigzag's "
+            "interleaved shards break the contiguous band-skip argument)")
+    if mesh.world > 1:
+        raise NotImplementedError(
+            "the model is not split over processes: make_sharded_attn "
+            "takes a mesh without a process group (ROADMAP.md, Queue 1 "
+            "item 13)")
+    if layout == "zigzag":
+        return make_zigzag_ring_attention(mesh, seq_axis)
+    fn = make_ring_attention(mesh, seq_axis, causal=True, window=window)
+    if window is not None:
+        fn.handles_window = True
+        fn.window = window  # resolve_attn_fn cross-checks the config
+    return fn
 
 
 # ----------------------------------------------------------------- forward

@@ -175,9 +175,6 @@ class SlotServer:
         self._prefixes: dict[int, tuple] = {}  # pid -> (prefix state, plen)
         self._next_pid = 0
         self.on_tokens = on_tokens
-        self._step = make_chunk_scan_step(
-            self._decode_one, max_len, *self.sampling, self.eos_id,
-            self.generator)
         self._post_init()
 
     # ------------------------------------------------------------- hooks
@@ -425,10 +422,16 @@ class SlotServer:
     def _run_chunk(self):
         """Advance every slot ``chunk`` steps on the device; returns host
         ``(tokens [chunk, n_slots], mask [chunk, n_slots])``."""
+        # Built per chunk, not kept on self: a stored closure over the
+        # bound _decode_one would put the server, and with it the weights
+        # and the cache, in a reference cycle that outlives the last name.
+        step = make_chunk_scan_step(self._decode_one, self.max_len,
+                                    *self.sampling, self.eos_id,
+                                    self.generator)
         state = (self.cache, self.token, self.pos, self.live, self.remaining)
         toks, mask = [], []
         for _ in range(self.chunk):
-            state, (nxt, emitted) = self._step(*state)
+            state, (nxt, emitted) = step(*state)
             toks.append(nxt)
             mask.append(emitted)
         self.cache, self.token, self.pos, self.live, self.remaining = state

@@ -1,8 +1,10 @@
 """Attention, quantization and the hand-written CUDA kernels of the port:
 ``decode.decode_attention``, ``paged.paged_decode_attention``,
 ``flash.flash_forward``, ``flash.flash_backward_dkv`` /
-``flash.flash_backward_dq`` and ``gemv.int8_matmul``, each beside its
-plain PyTorch version.
+``flash.flash_backward_dq``, the ring step's ``flash.flash_partial`` and
+``flash.flash_partial_bwd``, and ``gemv.int8_matmul``, each beside its
+plain PyTorch version.  ``collectives`` rotates sequence shards around a
+mesh axis (parallel/sharding.py).
 
 Importing these modules builds nothing; the kernels compile on first use
 (``_build.library``)."""
@@ -10,7 +12,8 @@ Importing these modules builds nothing; the kernels compile on first use
 
 def _wrappers() -> dict:
     from .decode import decode_attention
-    from .flash import flash_backward_dkv, flash_backward_dq, flash_forward
+    from .flash import (flash_backward_dkv, flash_backward_dq, flash_forward,
+                        flash_partial, flash_partial_bwd)
     from .gemv import int8_matmul
     from .paged import paged_decode_attention
 
@@ -19,6 +22,8 @@ def _wrappers() -> dict:
             "flash_forward": flash_forward,
             "flash_backward_dkv": flash_backward_dkv,
             "flash_backward_dq": flash_backward_dq,
+            "flash_partial": flash_partial,
+            "flash_partial_bwd": flash_partial_bwd,
             "int8_matmul": int8_matmul}
 
 

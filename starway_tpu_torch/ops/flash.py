@@ -1,5 +1,6 @@
-"""Flash attention, forward and backward: the hand-written CUDA kernels
-(csrc/flash_fwd.cu, csrc/flash_bwd.cu) and their plain PyTorch versions.
+"""Flash attention, forward and backward, and the ring step's partials:
+the hand-written CUDA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) and
+their plain PyTorch versions.
 
 Layouts: ``q [B, Hq, S, D]``, ``k/v [B, Hkv, Skv, D]`` (grouped kv is
 taken as it is; query head h reads kv head ``h // n_rep``).  The forward
@@ -8,6 +9,12 @@ backward recomputes the probabilities from that lse in two passes (dK/dV
 kv-stationary, dQ q-stationary).  :func:`flash_attention` is
 differentiable through a ``torch.autograd.Function`` whose backward is the
 two kernels, as the JAX package's ``custom_vjp`` is.
+
+A ring step (parallel/ring_attention.py) runs :func:`flash_partial`, the
+unnormalised partial ``(o, m, l)`` of q against one kv shard at global
+offsets, and :func:`flash_partial_bwd`, the same two backward passes at
+those offsets with float32 outputs, from the globally merged lse and
+delta.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import NEG_BIG, repeat_kv
+from .attention import NEG_BIG, partial_attention, repeat_kv
 
 HEAD_DIMS = (16, 32, 64, 128)  # the kernels' compiled head sizes
 
@@ -57,12 +64,13 @@ def _check_kernel_args(tensors, name):
             raise ValueError(f"{name} needs contiguous tensors")
 
 
-def _mask(s_len, kv_len, causal, window, device):
-    """[S, Skv] visibility, or None when every key is visible."""
+def _mask(s_len, kv_len, causal, window, device, q_offset=0, kv_offset=0):
+    """[S, Skv] visibility at global offsets, or None when every key is
+    visible."""
     if not causal:
         return None
-    qp = torch.arange(s_len, device=device)[:, None]
-    kp = torch.arange(kv_len, device=device)[None, :]
+    qp = q_offset + torch.arange(s_len, device=device)[:, None]
+    kp = kv_offset + torch.arange(kv_len, device=device)[None, :]
     mask = qp >= kp
     if window is not None:
         mask = mask & (kp > qp - window)
@@ -129,6 +137,34 @@ flash_forward.launches = 0
 # ------------------------------------------------------------------ backward
 
 
+def _backward_plain(q, k, v, do, lse, delta, causal, window, sm_scale,
+                    q_offset=0, kv_offset=0):
+    """The backward passes' function: float32 ``(dq, dk, dv)``, dk/dv
+    summed per kv head, with the kernels' rounding points."""
+    b, hq, s_len, d = q.shape
+    hkv, kv_len = k.shape[1], k.shape[2]
+    n_rep = hq // hkv
+    kx = repeat_kv(k, n_rep).float()
+    vx = repeat_kv(v, n_rep).float()
+    qf, dof = q.float(), do.float()
+    s = torch.matmul(qf, kx.transpose(-1, -2)) * sm_scale
+    p = torch.exp(s - lse.float()[..., None])
+    mask = _mask(s_len, kv_len, causal, window, q.device, q_offset, kv_offset)
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    dp = torch.matmul(dof, vx.transpose(-1, -2))
+    ds = p * (dp - delta.float()[..., None])
+    ds_r = ds.to(q.dtype).float()
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    dk = torch.matmul(ds_r.transpose(-1, -2), qf) * sm_scale
+    dq = torch.matmul(ds_r, kx) * sm_scale
+
+    def group(x):  # [B, Hq, Skv, D] -> [B, Hkv, Skv, D], summed per kv head
+        return x.reshape(b, hkv, n_rep, kv_len, d).sum(dim=2)
+
+    return dq, group(dk), group(dv)
+
+
 def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool = False,
                              sm_scale: Optional[float] = None,
                              window: Optional[int] = None):
@@ -145,39 +181,25 @@ def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool = False,
     _check_args(q, k, v, causal, window)
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq, dk, dv = _backward_plain(q, k, v, do, lse, delta, causal, window,
+                                 sm_scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd(entry, outs, q, k, v, do, lse, delta, causal, window,
+                sm_scale, q_offset, kv_offset):
+    """One backward pass (``entry`` of the library) into ``outs``: the
+    input dtype, or float32 for a ring step."""
     b, hq, s_len, d = q.shape
-    hkv, kv_len = k.shape[1], k.shape[2]
-    n_rep = hq // hkv
-    kx = repeat_kv(k, n_rep).float()
-    vx = repeat_kv(v, n_rep).float()
-    qf, dof = q.float(), do.float()
-    s = torch.matmul(qf, kx.transpose(-1, -2)) * sm_scale
-    p = torch.exp(s - lse.float()[..., None])
-    mask = _mask(s_len, kv_len, causal, window, q.device)
-    if mask is not None:
-        p = torch.where(mask, p, torch.zeros_like(p))
-    delta = (dof * o.float()).sum(dim=-1)
-    dp = torch.matmul(dof, vx.transpose(-1, -2))
-    ds = p * (dp - delta[..., None])
-    ds_r = ds.to(q.dtype).float()
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
-    dk = torch.matmul(ds_r.transpose(-1, -2), qf) * sm_scale
-    dq = torch.matmul(ds_r, kx) * sm_scale
-
-    def group(x):  # [B, Hq, Skv, D] -> [B, Hkv, Skv, D], summed per kv head
-        return x.reshape(b, hkv, n_rep, kv_len, d).sum(dim=2)
-
-    return dq.to(q.dtype), group(dk).to(k.dtype), group(dv).to(v.dtype)
-
-
-def _bwd_args(q, k, v, do, lse, delta, causal, window, sm_scale, q_offset,
-              kv_offset):
-    b, hq, s_len, d = q.shape
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr()), (
+    err = getattr(_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
         b, hq, k.shape[1], s_len, k.shape[2], d, int(causal),
         0 if window is None else int(window), int(q_offset), int(kv_offset),
-        float(sm_scale), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+        float(sm_scale), int(outs[0].dtype == torch.float32),
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+    _build.check(err, entry)
 
 
 def _check_bwd(q, k, v, do, lse, delta, name):
@@ -193,19 +215,14 @@ def _check_bwd(q, k, v, do, lse, delta, name):
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
-                       sm_scale: float, window: Optional[int] = None,
-                       q_offset: int = 0, kv_offset: int = 0):
+                       sm_scale: float, window: Optional[int] = None):
     """Pass A of the backward on CUDA tensors: ``(dk, dv)`` in k's dtype,
     from ``lse`` and ``delta = rowsum(dO * O)`` (both ``[B, Hq, S]``
-    float32).  ``q_offset``/``kv_offset`` are the global positions of the
-    first q row and key (0 for plain attention)."""
+    float32)."""
     _check_bwd(q, k, v, do, lse, delta, "flash_backward_dkv")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, causal, window, sm_scale,
-                           q_offset, kv_offset)
-    err = _build.library().sw_flash_bwd_dkv(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *rest)
-    _build.check(err, "flash_backward_dkv")
+    _launch_bwd("sw_flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, causal,
+                window, sm_scale, 0, 0)
     flash_backward_dkv.launches += 1
     return dk, dv
 
@@ -214,16 +231,13 @@ flash_backward_dkv.launches = 0
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = False,
-                      sm_scale: float, window: Optional[int] = None,
-                      q_offset: int = 0, kv_offset: int = 0):
+                      sm_scale: float, window: Optional[int] = None):
     """Pass B of the backward on CUDA tensors: ``dq`` in q's dtype; the
     arguments are pass A's."""
     _check_bwd(q, k, v, do, lse, delta, "flash_backward_dq")
     dq = torch.empty_like(q)
-    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, causal, window, sm_scale,
-                           q_offset, kv_offset)
-    err = _build.library().sw_flash_bwd_dq(*ptrs, dq.data_ptr(), *rest)
-    _build.check(err, "flash_backward_dq")
+    _launch_bwd("sw_flash_bwd_dq", (dq,), q, k, v, do, lse, delta, causal,
+                window, sm_scale, 0, 0)
     flash_backward_dq.launches += 1
     return dq
 
@@ -281,3 +295,107 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     return _Flash.apply(q, k, v, causal, float(sm_scale), window)[0]
+
+
+# ------------------------------------------------------------ ring steps
+
+
+def flash_partial_reference(q, k, v, q_offset: int, kv_offset: int, *,
+                            causal: bool = True,
+                            sm_scale: Optional[float] = None,
+                            window: Optional[int] = None):
+    """The partial kernel's function in plain PyTorch, on any device:
+    ops/attention.py's ``partial_attention`` over the expanded kv heads
+    (scores float32, p rounded to v's dtype before ``p @ v``)."""
+    _check_args(q, k, v, causal, window)
+    n_rep = q.shape[1] // k.shape[1]
+    return partial_attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
+                             q_offset=q_offset, kv_offset=kv_offset,
+                             causal=causal, sm_scale=sm_scale, window=window)
+
+
+def flash_partial(q, k, v, q_offset: int, kv_offset: int, *,
+                  causal: bool = True, sm_scale: Optional[float] = None,
+                  window: Optional[int] = None):
+    """One ring step's attention partial: q ``[B, Hq, T, D]`` at global
+    position ``q_offset`` against one kv shard ``[B, Hkv, Tkv, D]`` at
+    ``kv_offset``.  Returns ``(o, m, l)`` in the mergeable unnormalised
+    form of ops/attention.py ``partial_attention``: o ``[B, Hq, T, D]``, m
+    and l ``[B, Hq, T]``, all float32; a row that sees no key is the
+    identity (o = 0, m = NEG_BIG, l = 0).  ``window`` (requires
+    ``causal``) is the sliding band.  CUDA tensors launch the kernel
+    (csrc/flash_fwd.cu, flash_partial_kernel), CPU tensors take
+    :func:`flash_partial_reference`.  Not differentiable: ring attention's
+    autograd Function pairs it with :func:`flash_partial_bwd`."""
+    _check_args(q, k, v, causal, window)
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if not q.is_cuda:
+        return flash_partial_reference(q, k, v, q_offset, kv_offset,
+                                       causal=causal, sm_scale=sm_scale,
+                                       window=window)
+    _check_kernel_args((q, k, v), "flash_partial")
+    b, hq, s_len, d = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty(q.shape, **f32)
+    m = torch.empty((b, hq, s_len), **f32)
+    l = torch.empty((b, hq, s_len), **f32)
+    err = _build.library().sw_flash_partial(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
+        l.data_ptr(), b, hq, k.shape[1], s_len, k.shape[2], d, int(causal),
+        0 if window is None else int(window), int(q_offset), int(kv_offset),
+        float(sm_scale), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+    _build.check(err, "flash_partial")
+    flash_partial.launches += 1
+    return o, m, l
+
+
+flash_partial.launches = 0
+
+
+def flash_partial_bwd_reference(q, do, k, v, lse, delta, q_offset: int,
+                                kv_offset: int, *, causal: bool = True,
+                                sm_scale: Optional[float] = None,
+                                window: Optional[int] = None):
+    """The ring step's backward in plain PyTorch, on any device (the JAX
+    package's ``_step_bwd``, with the kernels' rounding points): float32
+    ``(dq, dk, dv)``, dk/dv grouped."""
+    _check_args(q, k, v, causal, window)
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    return _backward_plain(q, k, v, do, lse, delta, causal, window, sm_scale,
+                           q_offset, kv_offset)
+
+
+def flash_partial_bwd(q, do, k, v, lse, delta, q_offset: int, kv_offset: int,
+                      *, causal: bool = True,
+                      sm_scale: Optional[float] = None,
+                      window: Optional[int] = None):
+    """One ring step's gradient contributions ``(dq, dk, dv)``, float32,
+    dk/dv grouped ``[B, Hkv, Tkv, D]``, from the *globally merged* ``lse``
+    and ``delta = rowsum(dO * O)`` (``[B, Hq, T]`` float32): with global
+    statistics each step's contribution is its slice of the full gradient,
+    so the contributions sum across the ring.  CUDA tensors launch both
+    backward kernels (csrc/flash_bwd.cu) with float32 outputs, counted as
+    one launch of this wrapper; CPU tensors take
+    :func:`flash_partial_bwd_reference`."""
+    _check_args(q, k, v, causal, window)
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if not q.is_cuda:
+        return flash_partial_bwd_reference(q, do, k, v, lse, delta, q_offset,
+                                           kv_offset, causal=causal,
+                                           sm_scale=sm_scale, window=window)
+    _check_bwd(q, k, v, do, lse, delta, "flash_partial_bwd")
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    args = (q, k, v, do, lse, delta, causal, window, sm_scale, q_offset,
+            kv_offset)
+    _launch_bwd("sw_flash_bwd_dkv", (dk, dv), *args)
+    _launch_bwd("sw_flash_bwd_dq", (dq,), *args)
+    flash_partial_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_partial_bwd.launches = 0

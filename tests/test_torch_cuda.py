@@ -24,10 +24,14 @@ from starway_tpu_torch.ops.decode import (decode_attention,
                                           decode_attention_reference)
 from starway_tpu_torch.ops.paged import (paged_decode_attention,
                                          paged_decode_attention_reference)
+from starway_tpu_torch.ops.attention import NEG_BIG
 from starway_tpu_torch.ops.flash import (flash_backward,
                                          flash_backward_dkv, flash_backward_dq,
                                          flash_backward_reference,
-                                         flash_forward, flash_forward_reference)
+                                         flash_forward, flash_forward_reference,
+                                         flash_partial, flash_partial_bwd,
+                                         flash_partial_bwd_reference,
+                                         flash_partial_reference)
 from starway_tpu_torch.ops.gemv import int8_matmul, int8_matmul_reference
 from starway_tpu_torch.ops.quantize import quantize_kv
 
@@ -282,5 +286,140 @@ def test_train_step_on_cuda_matches_plain_attention(dev, policy):
     want_loss, want = llama.value_and_grad(params, batch, cfg, plain)
     torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
     for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item())
+
+
+# Ring steps: (q_offset, kv_offset, window, causal) at T = Tkv = 130 (a
+# ragged last tile): a whole past block, the diagonal, a dead block whose
+# last live tile index (q_off + q0 + 63 - kv_off) / 64 is negative, a
+# dead block just past the diagonal, a band edge, rows 0..63 dead and the
+# rest partly live, and an unmasked pair.
+RING_STEPS = [(130, 0, None, True), (130, 130, None, True),
+              (0, 300, None, True), (0, 130, None, True),
+              (130, 0, 70, True), (0, 64, None, True),
+              (0, 130, None, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_off,kv_off,window,causal", RING_STEPS)
+def test_flash_partial_kernel_matches_plain(dev, dtype, q_off, kv_off,
+                                            window, causal):
+    """The ring step's partial against flash_partial_reference, GQA 4:1:
+    o / l to the output tolerance, m and l to float32 summation order, and
+    rows that see no key exactly the identity (o = 0, m = NEG_BIG, l = 0);
+    one launch."""
+    rng = np.random.default_rng(9)
+    t, d = 130, 64
+    q = _randn(rng, (2, 8, t, d), dtype, dev)
+    k = _randn(rng, (2, 2, t, d), dtype, dev)
+    v = _randn(rng, (2, 2, t, d), dtype, dev)
+    kw = dict(causal=causal, window=window)
+    before = flash_partial.launches
+    o, m, l = flash_partial(q, k, v, q_off, kv_off, **kw)
+    torch.cuda.synchronize()
+    assert flash_partial.launches == before + 1
+    o_r, m_r, l_r = flash_partial_reference(q, k, v, q_off, kv_off, **kw)
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    dead = l_r == 0
+    assert (o[dead] == 0).all() and (l[dead] == 0).all()
+    assert (m[dead] == NEG_BIG).all()
+    live = ~dead
+    torch.testing.assert_close(m[live], m_r[live], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(l[live], l_r[live], atol=0, rtol=1e-4)
+    torch.testing.assert_close((o / l.clamp(min=1e-30)[..., None])[live],
+                               (o_r / l_r.clamp(min=1e-30)[..., None])[live],
+                               atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_off,kv_off,window,causal", RING_STEPS)
+def test_flash_partial_bwd_kernels_match_plain(dev, dtype, q_off, kv_off,
+                                               window, causal):
+    """The ring step's gradients in float32 against the plain step, from
+    lse and delta of the whole attention; dead steps give exact zeros.
+    One count on flash_partial_bwd and none on the plain backward's
+    wrappers."""
+    rng = np.random.default_rng(10)
+    t, d = 130, 64
+    q, do = (_randn(rng, (2, 8, t, d), dtype, dev) for _ in range(2))
+    k, v = (_randn(rng, (2, 2, t, d), dtype, dev) for _ in range(2))
+    lse = torch.from_numpy(rng.uniform(3.0, 5.0, (2, 8, t)).astype(
+        np.float32)).to(dev)
+    delta = _randn(rng, (2, 8, t), torch.float32, dev)
+    kw = dict(causal=causal, window=window)
+    before = (flash_partial_bwd.launches, flash_backward_dkv.launches,
+              flash_backward_dq.launches)
+    got = flash_partial_bwd(q, do, k, v, lse, delta, q_off, kv_off, **kw)
+    torch.cuda.synchronize()
+    assert (flash_partial_bwd.launches, flash_backward_dkv.launches,
+            flash_backward_dq.launches) == (before[0] + 1, *before[1:])
+    want = flash_partial_bwd_reference(q, do, k, v, lse, delta, q_off,
+                                       kv_off, **kw)
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        scale = w.abs().max().item()
+        if scale == 0:
+            assert (g == 0).all()
+            continue
+        torch.testing.assert_close(g, w, rtol=0, atol=rel * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_keeps_the_input_dtype(dev, dtype):
+    """The plain backward's passes write the input dtype after the ring
+    step's float32 outputs were added to the same kernels."""
+    rng = np.random.default_rng(11)
+    q, do = (_randn(rng, (1, 4, 96, 32), dtype, dev) for _ in range(2))
+    k, v = (_randn(rng, (1, 2, 96, 32), dtype, dev) for _ in range(2))
+    o, lse = flash_forward(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, causal=True,
+                                sm_scale=32 ** -0.5)
+    dq = flash_backward_dq(q, k, v, do, lse, delta, causal=True,
+                           sm_scale=32 ** -0.5)
+    f32 = flash_partial_bwd(q, do, k, v, lse, delta, 0, 0, causal=True)
+    torch.cuda.synchronize()
+    for g, w in zip((dq, dk, dv), f32):
+        assert g.dtype == dtype and w.dtype == torch.float32
+        torch.testing.assert_close(g.float(), w.to(dtype).float(), rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("layout,window", [("ring", None), ("zigzag", None),
+                                           ("ring", 90)])
+def test_ring_attention_on_cuda_matches_cpu(dev, layout, window):
+    """Ring attention through the kernels on the card against the same
+    ring through the plain steps on the CPU (float32, sp = 4, GQA 2):
+    output 1e-5, gradients 1e-4 of max |grad|; n^2 (zigzag 2 n^2 + n)
+    partial launches forward and backward when no band skips a step."""
+    from starway_tpu_torch.parallel import (make_mesh, make_ring_attention,
+                                            make_zigzag_ring_attention)
+
+    rng = np.random.default_rng(12)
+    q, vd = (rng.standard_normal((2, 4, 512, 64), np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((2, 2, 512, 64), np.float32)
+            for _ in range(2))
+    res, launched = {}, {}
+    for where in (dev, torch.device("cpu")):
+        mesh = make_mesh({"sp": 4}, device=where)
+        fn = (make_ring_attention(mesh, window=window) if layout == "ring"
+              else make_zigzag_ring_attention(mesh))
+        leaves = [torch.from_numpy(x).to(where).requires_grad_()
+                  for x in (q, k, v)]
+        before = (flash_partial.launches, flash_partial_bwd.launches)
+        out = fn(*leaves)
+        (out * torch.from_numpy(vd).to(where)).sum().backward()
+        launched[where.type] = (flash_partial.launches - before[0],
+                                flash_partial_bwd.launches - before[1])
+        res[where.type] = [out.detach().cpu()] + [x.grad.cpu()
+                                                  for x in leaves]
+    assert launched["cpu"] == (0, 0)
+    if window is None:
+        n = 16 if layout == "ring" else 36
+        assert launched["cuda"] == (n, n)
+    for g, w in zip(res["cuda"], res["cpu"]):
         torch.testing.assert_close(g, w, rtol=0,
                                    atol=1e-4 * w.abs().max().item())

@@ -74,3 +74,23 @@ def test_paged_import_keeps_jax_out_of_the_process():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_parallel_import_keeps_jax_out_of_the_process():
+    code = ("import sys, starway_tpu_torch.parallel, "
+            "starway_tpu_torch.ops.collectives\n"
+            "assert 'starway_tpu_torch.parallel.ring_attention' in "
+            "sys.modules\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_scan_covers_the_parallel_layer():
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {"starway_tpu_torch/parallel/ring_attention.py",
+            "starway_tpu_torch/parallel/sharding.py",
+            "starway_tpu_torch/ops/collectives.py"} <= scanned

@@ -239,3 +239,32 @@ def test_generate_ragged_logprobs_eos_match_jax(jparams, params):
     with pytest.raises(ValueError, match="prompt_lengths"):
         generate(params, tcfg, torch.as_tensor(prompt), 2,
                  prompt_lengths=[0, 1, 2])
+
+
+@pytest.mark.parametrize("server", ["SlotServer", "PagedSlotServer"])
+def test_server_frees_its_weights_without_the_cycle_collector(server):
+    """A served-out server holds its weights and cache in no reference
+    cycle: dropping the last names frees them at once, with the cycle
+    collector off."""
+    import gc
+    import weakref
+
+    from starway_tpu_torch.models import PagedSlotServer
+    from starway_tpu_torch.utils.tree import tree_leaves
+
+    cls, kw = ((SlotServer, {}) if server == "SlotServer"
+               else (PagedSlotServer, dict(page=16)))
+    cfg = LlamaConfig.preset("debug")
+    jp = jax_init_params(jax.random.PRNGKey(1), JaxConfig.preset("debug"))
+    params = params_from_numpy(tree_to_numpy(jp), device="cpu")
+    embed = weakref.ref(params["embed"])
+    srv = cls(params, cfg, n_slots=2, max_len=64, chunk=4, **kw)
+    srv.submit([3, 1, 4], 5)
+    srv.run()
+    cache = weakref.ref(tree_leaves(srv.cache)[0])
+    gc.disable()
+    try:
+        del params, srv
+        assert embed() is None and cache() is None
+    finally:
+        gc.enable()
