@@ -6,6 +6,9 @@
 Phases, each of which raises on failure:
 
 1. build   -- compile the CUDA kernels from starway_tpu_torch/csrc with nvcc
+              (and flash_bwd.cu once more with -Xptxas -v: the
+              tensor-core backward's registers and spills, logged at the
+              end)
 2. card    -- print the card's name and power limit (nvidia-smi)
 3. kernels -- each kernel against its plain PyTorch version at the serving
               and training paths' shapes (the decode kernel also at C=128,
@@ -14,7 +17,11 @@ Phases, each of which raises on failure:
               events), the plain version's time, one PyTorch library
               call's time, and the least time the card could take (bytes /
               3.35 TB/s or operations / 989 TFLOP/s, whichever is larger);
-              the ring-step kernels at train-ring's shapes and offsets
+              the ring-step kernels at train-ring's shapes and offsets;
+              the flash backward's achieved TFLOP/s (on its 7 products
+              and the function's 5) and its ratio to SDPA's backward;
+              pass A's split over query heads against none at zigzag's
+              and the ring's shard shapes
 4. serve   -- SlotServer on llama3-8b widths (bf16, 32 layers, random
               weights): 12 requests through 8 slots; first-token logits of
               one request against a forward through the plain attention
@@ -45,9 +52,11 @@ Phases, each of which raises on failure:
               layers, bf16, remat "dots", one [1, 4097] batch: 6 steps
               with the ring layout, 6 with zigzag, then 6 with the flash
               attention as the yardstick; losses, step ms, tokens/s, model
-              FLOP share, idle share of a traced step, peak memory; the
-              ring-step kernels launch exactly n^2 (zigzag 2 n^2 + n) times
-              a layer, forward and backward
+              FLOP share, idle share of a traced step, peak memory, the
+              ring/flash and zigzag/flash step ratios and each ring-step
+              kernel's device ms in the traced step; the ring-step kernels
+              launch exactly n^2 (zigzag 2 n^2 + n) times a layer, forward
+              and backward
 12. train-ring-parity -- float32, 2 layers, [1, 513], sp = 4: ring and
               zigzag through the kernels against the plain attention
 13. a JSON line of the kernels with their launches on the serving paths
@@ -78,6 +87,8 @@ LOGIT_REL_TOL = 5e-2        # bf16 logits after 32 layers, vs max |logit|
 # kernels and the plain version round p and ds at the same points; f32
 # 1e-4, sums of up to S products in another order.
 GRAD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# The backward kernels' design, for the kernels line (csrc/flash_bwd.cu).
+BWD_ROUTE = "cuda (mma.sync bf16; FMA float32)"
 # A float32 train step through 2 layers at full width, kernels against the
 # plain attention: the attention gradients differ in summation order, and
 # the 4096- and 14336-wide float32 matmuls carry that into every leaf.
@@ -238,6 +249,7 @@ def phase_kernels(dev):
 
     rows.update(flash_backward_rows(dev, randn))
     rows.update(ring_kernel_rows(dev, randn))
+    rows["flash_partial_bwd"]["split_effect"] = split_effect(dev)
 
     # -- int8 GEMV: decode (M=8) and prefill (M=512) rows, the llama3-8b
     # projection shapes and the lm_head.
@@ -434,7 +446,9 @@ def flash_backward_rows(dev, randn):
     """The two backward kernels against flash_backward_reference: the
     training shapes (B=2, S=2048 and B=1, S=4096, causal, GQA 4:1, bf16)
     and small float32 / bfloat16 shapes (non-causal, window, uneven S,
-    other head sizes).  Timed at B=2, S=2048."""
+    other head sizes).  Timed at B=2, S=2048 (the kernels line) and at
+    B=1, S=4096 (``at_b1_s4096``), each with its achieved TFLOP/s and its
+    ratio to SDPA's backward."""
     import torch
     import torch.nn.functional as F
 
@@ -506,35 +520,52 @@ def flash_backward_rows(dev, randn):
         dkv_b = bound(io + es * 2 * k.numel(), 4 * flops)
         dq_b = bound(io + es * q.numel(), 3 * flops)
         pair_b = bound(io + es * (q.numel() + 2 * k.numel()), 5 * flops)
+        rates = bwd_rates(dkv_ms + dq_ms, flops, lib)
         log(f"  timed: dK/dV {dkv_ms:.4f} ms (bound {dkv_b[0]:.4f} ms, "
-            f"{dkv_b[1]}), dQ {dq_ms:.4f} ms (bound {dq_b[0]:.4f} ms, "
-            f"{dq_b[1]}); both passes as one function: bound "
-            f"{pair_b[0]:.4f} ms ({pair_b[1]}), plain {plain:.4f} ms, "
-            f"library (SDPA backward) {lib:.4f} ms")
+            f"{dkv_b[1]}, {4 * flops / dkv_ms / 1e9:.1f} TFLOP/s), dQ "
+            f"{dq_ms:.4f} ms (bound {dq_b[0]:.4f} ms, {dq_b[1]}, "
+            f"{3 * flops / dq_ms / 1e9:.1f} TFLOP/s); both passes "
+            f"{dkv_ms + dq_ms:.4f} ms, {rates['tflops_7']:.1f} TFLOP/s on "
+            f"the kernels' 7 products, {rates['tflops_5']:.1f} on the "
+            f"function's 5, {rates['vs_library']:.2f}x the library's time; "
+            f"as one function: bound {pair_b[0]:.4f} ms ({pair_b[1]}), "
+            f"plain {plain:.4f} ms, library (SDPA backward) {lib:.4f} ms")
+        at = (f"B={b} Hq={hq} Hkv={hkv} D={d} S={s_len} causal bf16; "
+              f"plain_ms and library_ms cover both passes")
+        row = dict(timed_at=at, both_passes_ms=dkv_ms + dq_ms,
+                   both_passes_bound_ms=pair_b[0], plain_ms=plain,
+                   library_ms=lib, **rates)
         if (b, s_len) == (2, 2048):
-            at = (f"B={b} Hq={hq} Hkv={hkv} D={d} S={s_len} causal bf16; "
-                  f"plain_ms and library_ms cover both passes")
-            timed["dkv"] = dict(ms=dkv_ms, plain_ms=plain,
-                                bound_ms=dkv_b[0], bound_by=dkv_b[1],
-                                library_ms=lib, timed_at=at,
-                                both_passes_bound_ms=pair_b[0])
-            timed["dq"] = dict(ms=dq_ms, plain_ms=plain, bound_ms=dq_b[0],
-                               bound_by=dq_b[1], library_ms=lib,
-                               timed_at=at, both_passes_bound_ms=pair_b[0])
+            timed["dkv"] = dict(row, ms=dkv_ms, bound_ms=dkv_b[0],
+                                bound_by=dkv_b[1])
+            timed["dq"] = dict(row, ms=dq_ms, bound_ms=dq_b[0],
+                               bound_by=dq_b[1])
+        else:
+            timed["long"] = dict(row, dkv_ms=dkv_ms, dq_ms=dq_ms)
         del q, k, v, do, o, lse, got, want, delta
         torch.cuda.empty_cache()
     src = "starway_tpu_torch/csrc/flash_bwd.cu"
     return {
         "flash_backward_dkv": dict(
-            name="flash_attention_bwd_dkv", route="cuda", source=src,
+            name="flash_attention_bwd_dkv", route=BWD_ROUTE, source=src,
             replaces="starway_tpu/ops/pallas_attention.py:309 "
                      "(_bwd_dkv_kernel)",
-            max_abs_err=worst["dkv"], **timed["dkv"]),
+            max_abs_err=worst["dkv"], **timed["dkv"],
+            at_b1_s4096=timed["long"]),
         "flash_backward_dq": dict(
-            name="flash_attention_bwd_dq", route="cuda", source=src,
+            name="flash_attention_bwd_dq", route=BWD_ROUTE, source=src,
             replaces="starway_tpu/ops/pallas_attention.py:364 "
                      "(_bwd_dq_kernel)",
             max_abs_err=worst["dq"], **timed["dq"])}
+
+
+def bwd_rates(ms: float, flops: float, library_ms: float) -> dict:
+    """Achieved rates of both backward passes from ``flops`` = 2 * D per
+    visible pair and q head (one product): on the kernels' own 7 products
+    (both passes recompute s and dp) and on the function's 5, and the
+    time against the library call's on the same inputs."""
+    return dict(tflops_7=7 * flops / ms / 1e9, tflops_5=5 * flops / ms / 1e9,
+                vs_library=ms / library_ms)
 
 
 def ring_kernel_rows(dev, randn):
@@ -629,6 +660,8 @@ def ring_kernel_rows(dev, randn):
             q_offset=q_off, kv_offset=kv_off, window=window,
             visible_pairs=pairs, ms=fwd_ms, bwd_ms=bwd_ms,
             bound_ms=fwd_b[0], bwd_bound_ms=bwd_b[0],
+            bwd_tflops_7=14 * D * pairs * HQ / bwd_ms / 1e9,
+            bwd_tflops_5=10 * D * pairs * HQ / bwd_ms / 1e9,
             identity_exact=exact)
         tol = GRAD_REL_TOL["bfloat16"]
         log(f"flash_partial {name} (q_off {q_off}, kv_off {kv_off}, window "
@@ -638,7 +671,10 @@ def ring_kernel_rows(dev, randn):
             f"{fwd_ms:.4f} ms (bound {fwd_b[0]:.4f} ms, {fwd_b[1]}); "
             f"flash_partial_bwd rel err dq/dk/dv {rel[0]:.3e}/{rel[1]:.3e}/"
             f"{rel[2]:.3e} (tol {tol}), {bwd_ms:.4f} ms (bound "
-            f"{bwd_b[0]:.4f} ms, {bwd_b[1]})")
+            f"{bwd_b[0]:.4f} ms, {bwd_b[1]}; "
+            f"{by_case[name]['bwd_tflops_7']:.1f} TFLOP/s on the kernels' 7 "
+            f"products, {by_case[name]['bwd_tflops_5']:.1f} on the "
+            f"function's 5)")
         if not (o_rel <= tol and m_err <= 1e-3 and l_rel <= 1e-3
                 and exact and max(rel) <= tol):
             raise AssertionError(f"the ring-step kernels disagree with their "
@@ -664,11 +700,16 @@ def ring_kernel_rows(dev, randn):
                 lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True))
         del o, m, l, o_r, m_r, l_r, g, g_r
-    log(f"  past block: flash_partial {by_case['past']['ms']:.4f} ms, plain "
+    past = by_case["past"]
+    past["bwd_vs_library"] = past["bwd_ms"] / timed["bwd_lib"]
+    log(f"  past block: flash_partial {past['ms']:.4f} ms, plain "
         f"{timed['fwd_plain']:.4f} ms, library (SDPA, no mask) "
         f"{timed['fwd_lib']:.4f} ms; flash_partial_bwd "
-        f"{by_case['past']['bwd_ms']:.4f} ms, plain {timed['bwd_plain']:.4f} "
-        f"ms, library (SDPA backward) {timed['bwd_lib']:.4f} ms")
+        f"{past['bwd_ms']:.4f} ms ({past['bwd_tflops_7']:.1f} / "
+        f"{past['bwd_tflops_5']:.1f} TFLOP/s on 7 / 5 products, "
+        f"{past['bwd_vs_library']:.2f}x the library's time), plain "
+        f"{timed['bwd_plain']:.4f} ms, library (SDPA backward) "
+        f"{timed['bwd_lib']:.4f} ms")
     torch.cuda.empty_cache()
     at = (f"B=1 Hq={HQ} Hkv={HKV} D={D} T=Tkv={T} bf16, past block (q_off "
           f"1024, kv_off 0); by_offset has every offset")
@@ -683,15 +724,96 @@ def ring_kernel_rows(dev, randn):
             bound_by=timed["fwd_b"][1], library_ms=timed["fwd_lib"],
             timed_at=at, by_offset=by_case),
         "flash_partial_bwd": dict(
-            name="flash_partial_bwd", route="cuda",
+            name="flash_partial_bwd", route=BWD_ROUTE,
             source=src + "flash_bwd.cu",
             replaces="starway_tpu/ops/pallas_attention.py:734 "
                      "(flash_partial_bwd, through _run_bwd_passes :406)",
             max_abs_err=worst["bwd"], ms=by_case["past"]["bwd_ms"],
             plain_ms=timed["bwd_plain"], bound_ms=timed["bwd_b"][0],
             bound_by=timed["bwd_b"][1], library_ms=timed["bwd_lib"],
+            tflops_7=past["bwd_tflops_7"], tflops_5=past["bwd_tflops_5"],
+            vs_library=past["bwd_vs_library"],
             timed_at=at + "; both passes, float32 outputs; max_abs_err is "
                           "relative to max |grad|")}
+
+
+def back_to_back(fn, n: int = 100):
+    """(device us, host enqueue us) a call of ``n`` calls in a row: CUDA
+    events around the run, and the host clock before any synchronize."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    end.synchronize()
+    return start.elapsed_time(end) / n * 1e3, host_us
+
+
+def split_effect(dev) -> dict:
+    """Pass A's split over query heads (ops/flash.py dkv_splits) against
+    no split, in this call: flash_partial_bwd at zigzag's half shard (T =
+    512, an unmasked hi-lo pair) and at the ring's past block (T = 1024),
+    llama3-8b heads, bf16.  Device us a call over back-to-back calls (the
+    host's enqueue is the limit where it is the larger), the host's
+    enqueue us a call, and the two results held against each other (1e-5
+    of max |grad|: float32 partials summed in another order).  Its inputs
+    come from a generator of its own, so the checks after it in phase 3
+    see the inputs they saw before it was added."""
+    import torch
+
+    from starway_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    chosen = flash.dkv_splits
+    out = {}
+    for name, t, q_off, causal in (("zigzag half shard", 512, 2048, False),
+                                   ("ring past block", 1024, 1024, True)):
+        q, do = randn(1, 32, t, 128), randn(1, 32, t, 128)
+        k, v = randn(1, 8, t, 128), randn(1, 8, t, 128)
+        lse = 4.0 + torch.rand(1, 32, t, generator=gen, device=dev)
+        delta = torch.randn(1, 32, t, generator=gen, device=dev)
+
+        def call():
+            return flash.flash_partial_bwd(q, do, k, v, lse, delta, q_off, 0,
+                                           causal=causal)
+
+        row, grads = {"splits": chosen(1, 8, t, 4)}, []
+        for label, fn in (("split", chosen), ("no split", lambda *a: 1)):
+            flash.dkv_splits = fn
+            try:
+                grads.append(call())
+                row[label] = dict(zip(("device_us", "host_us"),
+                                      back_to_back(call)))
+            finally:
+                flash.dkv_splits = chosen
+        err = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(*grads))
+        log(f"  pass A's split at the {name} (T={t}, {row['splits']} ways): "
+            f"{row['split']['device_us']:.1f} us a call (host "
+            f"{row['split']['host_us']:.1f}), without it "
+            f"{row['no split']['device_us']:.1f} us (host "
+            f"{row['no split']['host_us']:.1f}); gradients agree to "
+            f"{err:.2e} of max |grad| (tol 1e-5)")
+        if not err <= 1e-5:
+            raise AssertionError(f"the split pass A disagrees with the "
+                                 f"unsplit one at the {name}")
+        out[name] = dict(row, rel_err=err)
+        del q, do, k, v, lse, delta, grads
+    torch.cuda.empty_cache()
+    return out
 
 
 def make_requests(cfg, n: int = 12):
@@ -1282,11 +1404,21 @@ def phase_train_ring(dev):
         out[name] = stats
         del trainer, params
         torch.cuda.empty_cache()
+    flash_ms = out["flash"]["median_step_ms"]
     for name in per_layer:
         gap = (abs(out[name]["losses"][0] - out["flash"]["losses"][0])
                / abs(out["flash"]["losses"][0]))
         out[name]["first_loss_rel_gap"] = gap
         out[name]["attention_block_rel_err"] = attn_err[name]
+        out[name]["step_vs_flash"] = out[name]["median_step_ms"] / flash_ms
+        fam = out[name].get("device_ms_by_family", {})
+        ff = out["flash"].get("device_ms_by_family", {})
+        log(f"  {name}/flash step ratio {out[name]['step_vs_flash']:.3f}; "
+            f"device ms in the traced step: flash_partial "
+            f"{fam.get('flash_partial')}, dK/dV pass "
+            f"{fam.get('flash_bwd_dkv')}, dQ pass {fam.get('flash_bwd_dq')} "
+            f"(flash run: forward {ff.get('flash_fwd')}, dK/dV "
+            f"{ff.get('flash_bwd_dkv')}, dQ {ff.get('flash_bwd_dq')})")
         log(f"  {name}: first-step loss {out[name]['losses'][0]:.6f} vs flash "
             f"{out['flash']['losses'][0]:.6f}, relative gap {gap:.3e} (tol "
             f"1e-2); median step {out[name]['median_step_ms']:.1f} ms vs "
@@ -1353,6 +1485,52 @@ def phase_train_ring_parity(dev):
     return out
 
 
+def start_ptxas_report(build):
+    """Compile csrc/flash_bwd.cu once more with ``-Xptxas -v`` (into a
+    scratch object, beside the build) for the tensor-core kernels'
+    registers and spills; :func:`finish_ptxas_report` reads it."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = str(build.BUILD_DIR / "flash_bwd_ptxas_report.o")
+    return subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+         str(build.CSRC), "-c", str(build.CSRC / "flash_bwd.cu"), "-o", out],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_ptxas_report(proc) -> dict:
+    """{kernel (pass, TO, D): (registers, spill store bytes, spill load
+    bytes)} of the two tensor-core backward kernels, from ptxas."""
+    import re
+
+    text, _ = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{text[-3000:]}")
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"flash_bwd_(dkv|dq)_mma_kernelI(\w+?)Li(\d+)E",
+                          m.group(1))
+            to = None if k is None else (
+                "f32" if k.group(2) == "f" else "bf16")
+            name = None if k is None else f"{k.group(1)} {to} D={k.group(3)}"
+            spill = (None, None)  # read from the lines that follow
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name] = (int(m.group(1)), *spill)
+            name = None
+    log(f"[registers] tensor-core backward kernels (ptxas, sm_90a): "
+        f"(registers a thread, spill store bytes, spill load bytes) {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1371,7 +1549,8 @@ def main() -> int:
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
 
-    # 1. build
+    # 1. build; the backward's register report compiles beside the rest
+    ptxas = start_ptxas_report(_build)
     _build.build(force=True)
     log(f"[build] kernels built from {_build.CSRC} in "
         f"{_build.build_seconds:.2f} s")
@@ -1458,6 +1637,10 @@ def main() -> int:
     # 11 + 12: the training path with ring attention, then its parity.
     st_ring, c_ring = phase_train_ring(dev)
     st_rp = phase_train_ring_parity(dev)
+
+    regs = finish_ptxas_report(ptxas)
+    rows["flash_backward_dkv"]["registers"] = regs
+    rows["flash_backward_dq"]["registers"] = regs
 
     # 13. kernels line: launches are the serving paths' (phases 4, 5 and
     # 6) and the training paths' (phases 9 and 11), each counted from 0

@@ -41,6 +41,8 @@ SIGNATURES = {
     "sw_flash_fwd": ([P] * 5 + [I] * 8 + [F, I, P], ctypes.c_int),
     "sw_flash_partial": ([P] * 6 + [I] * 10 + [F, I, P], ctypes.c_int),
     "sw_flash_bwd_dkv": ([P] * 8 + [I] * 10 + [F, I, I, P], ctypes.c_int),
+    "sw_flash_bwd_dkv_split": ([P] * 8 + [I] * 10 + [F, I, I, I, P],
+                               ctypes.c_int),
     "sw_flash_bwd_dq": ([P] * 7 + [I] * 10 + [F, I, I, P], ctypes.c_int),
     "sw_int8_matmul": ([P] * 4 + [I] * 5 + [P], ctypes.c_int),
     "sw_paged_attention": ([P] * 9 + [I] * 9 + [F, P], ctypes.c_int),

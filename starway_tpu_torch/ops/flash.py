@@ -6,7 +6,9 @@ Layouts: ``q [B, Hq, S, D]``, ``k/v [B, Hkv, Skv, D]`` (grouped kv is
 taken as it is; query head h reads kv head ``h // n_rep``).  The forward
 returns the output and the row log-sum-exp ``lse [B, Hq, S]`` float32; the
 backward recomputes the probabilities from that lse in two passes (dK/dV
-kv-stationary, dQ q-stationary).  :func:`flash_attention` is
+kv-stationary, dQ q-stationary; bf16 on the tensor cores, float32 on FMA
+units), the dK/dV pass split over query heads when its grid is too small
+for the card (:func:`dkv_splits`).  :func:`flash_attention` is
 differentiable through a ``torch.autograd.Function`` whose backward is the
 two kernels, as the JAX package's ``custom_vjp`` is.
 
@@ -187,19 +189,67 @@ def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _launch_bwd(entry, outs, q, k, v, do, lse, delta, causal, window,
-                sm_scale, q_offset, kv_offset):
-    """One backward pass (``entry`` of the library) into ``outs``: the
-    input dtype, or float32 for a ring step."""
+def _bwd_launcher(q, k, v, do, lse, delta, causal, window, sm_scale,
+                  q_offset, kv_offset):
+    """``launch(entry, out_ptrs, out_f32, *extra)``: one backward pass
+    (``entry`` of the library) into the outputs at ``out_ptrs``, float32
+    when ``out_f32`` (a ring step or a split pass A) else the input dtype;
+    ``extra`` are the entry's arguments after ``is_bf16`` (a split's
+    count).  The arguments both passes share are read once: a ring calls
+    the passes 2 n^2 + n times a layer, and the host's time counts."""
+    lib = _build.library()
     b, hq, s_len, d = q.shape
-    err = getattr(_build.library(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
-        b, hq, k.shape[1], s_len, k.shape[2], d, int(causal),
-        0 if window is None else int(window), int(q_offset), int(kv_offset),
-        float(sm_scale), int(outs[0].dtype == torch.float32),
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
-    _build.check(err, entry)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    tail = (b, hq, k.shape[1], s_len, k.shape[2], d, int(causal),
+            0 if window is None else int(window), int(q_offset),
+            int(kv_offset), float(sm_scale))
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    stream = _build.stream_ptr(q)
+
+    def launch(entry, out_ptrs, out_f32, *extra):
+        err = getattr(lib, entry)(*head, *out_ptrs, *tail, int(out_f32),
+                                  is_bf16, *extra, stream)
+        _build.check(err, entry)
+
+    return launch
+
+
+N_SMS = 132   # streaming multiprocessors of an H100 SXM
+TILE = 64     # rows of the backward kernels' q and kv tiles
+
+
+def dkv_splits(b: int, hkv: int, kv_len: int, n_rep: int) -> int:
+    """How many ways pass A splits each kv head's walk over its ``n_rep``
+    query heads: 1 when its grid (kv tiles x B * Hkv blocks) already
+    holds two blocks for each of the card's SMs, else the least divisor of
+    ``n_rep`` that brings it there (``n_rep`` at most).  A ring shard
+    (T = 1024, B = 1, 8 kv heads: 128 blocks) splits 4 ways; plain
+    training at B = 2, S = 2048 (512 blocks) does not split."""
+    blocks = -(-kv_len // TILE) * b * hkv
+    for n in range(1, n_rep + 1):
+        if n_rep % n == 0 and blocks * n >= 2 * N_SMS:
+            return n
+    return n_rep
+
+
+def _dkv(launch, k, n_rep, out_dtype):
+    """Pass A into ``(dk, dv)`` of ``out_dtype``.  A split pass writes one
+    float32 partial a split; the partials are summed here in a fixed order
+    (deterministic, no atomics) before any cast to ``out_dtype``."""
+    n = dkv_splits(k.shape[0], k.shape[1], k.shape[2], n_rep)
+    if n == 1:
+        dk = torch.empty(k.shape, dtype=out_dtype, device=k.device)
+        dv = torch.empty_like(dk)
+        launch("sw_flash_bwd_dkv", (dk.data_ptr(), dv.data_ptr()),
+               out_dtype == torch.float32)
+        return dk, dv
+    part = torch.empty((2, n, *k.shape), dtype=torch.float32,
+                       device=k.device)
+    ptr = part.data_ptr()
+    launch("sw_flash_bwd_dkv_split", (ptr, ptr + 4 * n * k.numel()), True, n)
+    dk, dv = part.sum(dim=1).to(out_dtype).unbind(0)
+    return dk, dv
 
 
 def _check_bwd(q, k, v, do, lse, delta, name):
@@ -220,9 +270,9 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
     from ``lse`` and ``delta = rowsum(dO * O)`` (both ``[B, Hq, S]``
     float32)."""
     _check_bwd(q, k, v, do, lse, delta, "flash_backward_dkv")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("sw_flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, causal,
-                window, sm_scale, 0, 0)
+    launch = _bwd_launcher(q, k, v, do, lse, delta, causal, window, sm_scale,
+                           0, 0)
+    dk, dv = _dkv(launch, k, q.shape[1] // k.shape[1], k.dtype)
     flash_backward_dkv.launches += 1
     return dk, dv
 
@@ -236,8 +286,8 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     arguments are pass A's."""
     _check_bwd(q, k, v, do, lse, delta, "flash_backward_dq")
     dq = torch.empty_like(q)
-    _launch_bwd("sw_flash_bwd_dq", (dq,), q, k, v, do, lse, delta, causal,
-                window, sm_scale, 0, 0)
+    _bwd_launcher(q, k, v, do, lse, delta, causal, window, sm_scale, 0, 0)(
+        "sw_flash_bwd_dq", (dq.data_ptr(),), q.dtype == torch.float32)
     flash_backward_dq.launches += 1
     return dq
 
@@ -387,13 +437,11 @@ def flash_partial_bwd(q, do, k, v, lse, delta, q_offset: int, kv_offset: int,
                                            kv_offset, causal=causal,
                                            sm_scale=sm_scale, window=window)
     _check_bwd(q, k, v, do, lse, delta, "flash_partial_bwd")
+    launch = _bwd_launcher(q, k, v, do, lse, delta, causal, window, sm_scale,
+                           q_offset, kv_offset)
+    dk, dv = _dkv(launch, k, q.shape[1] // k.shape[1], torch.float32)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    args = (q, k, v, do, lse, delta, causal, window, sm_scale, q_offset,
-            kv_offset)
-    _launch_bwd("sw_flash_bwd_dkv", (dk, dv), *args)
-    _launch_bwd("sw_flash_bwd_dq", (dq,), *args)
+    launch("sw_flash_bwd_dq", (dq.data_ptr(),), True)
     flash_partial_bwd.launches += 1
     return dq, dk, dv
 

@@ -229,20 +229,26 @@ def test_paged_and_prefix_servers_on_cuda_match_generate(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,window,s,d,hq,hkv", [
-    (True, None, 100, 128, 4, 2), (False, None, 70, 64, 4, 4),
-    (True, 17, 150, 16, 8, 2), (True, None, 256, 32, 4, 1),
-    (True, 40, 130, 128, 4, 2), (False, None, 64, 64, 2, 2)])
-def test_flash_backward_kernels_match_plain(dev, dtype, causal, window, s, d,
-                                            hq, hkv):
+@pytest.mark.parametrize("b,causal,window,s,d,hq,hkv", [
+    (2, True, None, 100, 128, 4, 2), (2, False, None, 70, 64, 4, 4),
+    (2, True, 17, 150, 16, 8, 2), (2, True, None, 256, 32, 4, 1),
+    (2, True, 40, 130, 128, 4, 2), (2, False, None, 64, 64, 2, 2),
+    (1, True, None, 1000, 128, 8, 8), (1, True, None, 1000, 128, 8, 2),
+    (1, True, None, 1000, 128, 8, 1), (1, True, None, 2048, 128, 8, 8),
+    (1, True, None, 2048, 128, 8, 2), (1, True, None, 2048, 128, 8, 1),
+    (1, True, 100, 1000, 128, 8, 2)])
+def test_flash_backward_kernels_match_plain(dev, dtype, b, causal, window, s,
+                                            d, hq, hkv):
     """Both backward passes against flash_backward_reference: causal and
-    not, windows, uneven S, GQA 4:1 and 1:1, every compiled head size;
-    each pass launches once."""
+    not, windows (one ending inside a tile), uneven S, GQA 8:1, 4:1, 2:1
+    and 1:1, every compiled head size, grids small enough that pass A
+    splits its query heads (ops/flash.py dkv_splits) and the training
+    shapes' per-sequence length; each pass launches once."""
     rng = np.random.default_rng(4)
-    q = _randn(rng, (2, hq, s, d), dtype, dev)
-    k = _randn(rng, (2, hkv, s, d), dtype, dev)
-    v = _randn(rng, (2, hkv, s, d), dtype, dev)
-    do = _randn(rng, (2, hq, s, d), dtype, dev)
+    q = _randn(rng, (b, hq, s, d), dtype, dev)
+    k = _randn(rng, (b, hkv, s, d), dtype, dev)
+    v = _randn(rng, (b, hkv, s, d), dtype, dev)
+    do = _randn(rng, (b, hq, s, d), dtype, dev)
     o, lse = flash_forward(q, k, v, causal=causal, window=window)
     before = (flash_backward_dkv.launches, flash_backward_dq.launches)
     got = flash_backward(q, k, v, o, lse, do, causal=causal, window=window)
@@ -256,6 +262,24 @@ def test_flash_backward_kernels_match_plain(dev, dtype, causal, window, s, d,
         assert g.dtype == dtype and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), rtol=0,
                                    atol=rel * w.float().abs().max().item())
+
+
+@pytest.mark.parametrize("b,s,hq,hkv", [(2, 2048, 32, 8), (1, 1000, 8, 2)])
+def test_flash_backward_bf16_is_deterministic(dev, b, s, hq, hkv):
+    """Two bf16 backward calls on the same inputs give identical bits: no
+    atomics, and a split pass A sums its partials in a fixed order (the
+    second shape splits, the first does not)."""
+    rng = np.random.default_rng(13)
+    q, do = (_randn(rng, (b, hq, s, 128), torch.bfloat16, dev)
+             for _ in range(2))
+    k, v = (_randn(rng, (b, hkv, s, 128), torch.bfloat16, dev)
+            for _ in range(2))
+    o, lse = flash_forward(q, k, v, causal=True)
+    first = flash_backward(q, k, v, o, lse, do, causal=True)
+    second = flash_backward(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("policy", [None, "dots"])
@@ -334,14 +358,16 @@ def test_flash_partial_kernel_matches_plain(dev, dtype, q_off, kv_off,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("q_off,kv_off,window,causal", RING_STEPS)
+@pytest.mark.parametrize("d", [64, 128])
 def test_flash_partial_bwd_kernels_match_plain(dev, dtype, q_off, kv_off,
-                                               window, causal):
+                                               window, causal, d):
     """The ring step's gradients in float32 against the plain step, from
     lse and delta of the whole attention; dead steps give exact zeros.
     One count on flash_partial_bwd and none on the plain backward's
-    wrappers."""
+    wrappers.  The grid (3 kv tiles x 4 kv heads) is small enough that
+    pass A splits its query heads, as at the ring's shards."""
     rng = np.random.default_rng(10)
-    t, d = 130, 64
+    t = 130
     q, do = (_randn(rng, (2, 8, t, d), dtype, dev) for _ in range(2))
     k, v = (_randn(rng, (2, 2, t, d), dtype, dev) for _ in range(2))
     lse = torch.from_numpy(rng.uniform(3.0, 5.0, (2, 8, t)).astype(

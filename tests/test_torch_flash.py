@@ -147,3 +147,58 @@ def test_flash_backward_matches_jax_bf16():
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(to_numpy(g), w,
                                    atol=1e-2 * np.abs(w).max())
+
+
+def test_dkv_splits_on_the_main_paths_shapes():
+    """Pass A's split over query heads (ops/flash.py dkv_splits): none for
+    plain training (B=2, S=2048, 8 kv heads: 512 blocks on 132 SMs); more
+    than one at a ring shard (T=1024) and at a zigzag half shard (T=512);
+    always a divisor of n_rep, and never past it."""
+    assert tflash.dkv_splits(2, 8, 2048, 4) == 1
+    assert tflash.dkv_splits(1, 8, 4096, 4) == 1
+    for t in (1024, 512):
+        n = tflash.dkv_splits(1, 8, t, 4)
+        assert n > 1 and 4 % n == 0
+    for b, hkv, t, n_rep in [(1, 1, 64, 8), (2, 2, 130, 4), (1, 8, 130, 1),
+                             (1, 2, 1000, 6)]:
+        n = tflash.dkv_splits(b, hkv, t, n_rep)
+        assert 1 <= n <= n_rep and n_rep % n == 0
+    assert tflash.dkv_splits(1, 1, 64, 8) == 8
+    assert tflash.dkv_splits(1, 8, 130, 1) == 1
+
+
+@pytest.mark.parametrize("causal,window,n_split", [(True, None, 2),
+                                                   (True, 9, 4),
+                                                   (False, None, 4)])
+def test_dkv_split_partials_sum_to_the_whole(causal, window, n_split):
+    """The algebra of a split pass A: the backward's function run on each
+    group of query heads (split z takes heads [z * n_rep / n, (z + 1) *
+    n_rep / n) of every kv head) gives dk/dv partials that sum to the
+    whole pass's, and dq rows that are the whole's (float32, 1e-6 of the
+    largest value: one summation-order rounding of values up to ~20)."""
+    b, hq, hkv, s, d = 2, 8, 2, 40, 16
+    n_rep = hq // hkv
+    rng = np.random.default_rng(8)
+    q, do = (to_torch(rng.standard_normal((b, hq, s, d), np.float32))
+             for _ in range(2))
+    k, v = (to_torch(rng.standard_normal((b, hkv, s, d), np.float32))
+            for _ in range(2))
+    lse = to_torch(rng.uniform(2.0, 4.0, (b, hq, s)).astype(np.float32))
+    delta = to_torch(rng.standard_normal((b, hq, s)).astype(np.float32))
+    args = (causal, window, d ** -0.5, 0, 0)
+    dq, dk, dv = tflash._backward_plain(q, k, v, do, lse, delta, *args)
+    per = n_rep // n_split
+    dk_sum, dv_sum = torch.zeros_like(dk), torch.zeros_like(dv)
+    for z in range(n_split):
+        heads = [h * n_rep + r for h in range(hkv)
+                 for r in range(z * per, (z + 1) * per)]
+        gq, gk, gv = tflash._backward_plain(
+            q[:, heads], k, v, do[:, heads], lse[:, heads], delta[:, heads],
+            *args)
+        torch.testing.assert_close(gq, dq[:, heads], rtol=0,
+                                   atol=1e-6 * dq.abs().max().item())
+        dk_sum += gk
+        dv_sum += gv
+    for got, want in ((dk_sum, dk), (dv_sum, dv)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-6 * want.abs().max().item())
