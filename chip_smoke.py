@@ -6,9 +6,9 @@
 Phases, each of which raises on failure:
 
 1. build   -- compile the CUDA kernels from starway_tpu_torch/csrc with nvcc
-              (and flash_bwd.cu once more with -Xptxas -v: the
-              tensor-core backward's registers and spills, logged at the
-              end)
+              (and flash_bwd.cu and int8_gemv.cu once more with -Xptxas
+              -v: the tensor-core backward's and GEMV's registers and
+              spills, logged at the end)
 2. card    -- print the card's name and power limit (nvidia-smi)
 3. kernels -- each kernel against its plain PyTorch version at the serving
               and training paths' shapes (the decode kernel also at C=128,
@@ -21,7 +21,11 @@ Phases, each of which raises on failure:
               the flash backward's achieved TFLOP/s (on its 7 products
               and the function's 5) and its ratio to SDPA's backward;
               pass A's split over query heads against none at zigzag's
-              and the ring's shard shapes
+              and the ring's shard shapes; the int8 GEMV at every shape
+              of the W8A16 serving path (decode M=8; the admission
+              buckets and M=512, 2048), device ms a call with the weight
+              cold beside torch.matmul on the dequantized weight, and the
+              GEMV ms of one decode step and of phase 4's 12 admissions
 4. serve   -- SlotServer on llama3-8b widths (bf16, 32 layers, random
               weights): 12 requests through 8 slots; first-token logits of
               one request against a forward through the plain attention
@@ -32,7 +36,9 @@ Phases, each of which raises on failure:
               prefixed admission; first-token logits of a prefixed request
               against a forward of prefix + suffix through the plain
               attention
-6. int8    -- phase 4 again with an int8 KV cache and W8A16 weights
+6. int8    -- phase 4 again with an int8 KV cache and W8A16 weights; the
+              GEMV launches in both regimes (decode and prefill).  Phases
+              4-6 log admission seconds (wall - the decode chunks)
 7. parity  -- float32, 2 layers at the same widths: SlotServer's greedy
               tokens equal generate()'s for every request
 8. paged-parity -- the same weights: PagedSlotServer without and with a
@@ -269,48 +275,172 @@ def phase_kernels(dev):
     rows.update(ring_kernel_rows(dev, randn))
     rows["flash_partial_bwd"]["split_effect"] = split_effect(dev)
 
-    # -- int8 GEMV: decode (M=8) and prefill (M=512) rows, the llama3-8b
-    # projection shapes and the lm_head.
-    worst = 0.0
-    timed = None
-    for d, f in ((4096, 14336), (14336, 4096), (4096, 128256)):
+    rows["int8_matmul"] = gemv_rows(dev, randn)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The W8A16 serving path's projections: (name, D, F, launches a layer);
+# the lm_head runs once a step, and at admission on the last row only.
+GEMV_LAYER = (("wq/wo", 4096, 4096, 2), ("wk/wv", 4096, 1024, 2),
+              ("gate/up", 4096, 14336, 2), ("down", 14336, 4096, 1))
+GEMV_HEAD = ("lm_head", 4096, 128256)
+N_LAYERS = 32
+
+
+def admission_buckets(max_len: int = 2048) -> list:
+    """The prefill M of each of phase 4's requests (its bucket)."""
+    from starway_tpu_torch.models import LlamaConfig
+    from starway_tpu_torch.models.serving import _bucket, default_buckets
+
+    reqs = make_requests(LlamaConfig.preset("llama3-8b"))
+    return [_bucket(len(p), default_buckets(max_len)) for p, _m, _w in reqs]
+
+
+def cold_copies(t, min_bytes: int = 256 << 20) -> list:
+    """``t`` and enough copies of it that cycling through them reads more
+    than the 50 MB L2 between two uses of one copy: a decode step finds
+    each layer's weight in HBM, not in L2."""
+    n = max(1, -(-min_bytes // (t.numel() * t.element_size())))
+    return [t] + [t.clone() for _ in range(n - 1)]
+
+
+def graph_ms(call, copies, n: int = 20) -> float:
+    """Device ms of one ``call(copy)``: n calls, each on the next of
+    ``copies``, captured in one CUDA graph and replayed (median of 10
+    replays); the host's enqueue is not in it."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for i in range(3):
+            call(copies[i % len(copies)])
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for i in range(n):
+            call(copies[i % len(copies)])
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
+def gemv_rows(dev, randn) -> dict:
+    """Phase 3's int8 GEMV: every shape of the W8A16 serving path at
+    decode M=8, the layer shapes at every admission bucket of phase 4's
+    requests and at M=512 and 2048, the lm_head at M=1 (admission's last
+    row) and M=512; each held against its plain version (max(BF16_TOL,
+    GEMV_ULPS bf16 ulps of |want|) per element) and timed as device ms a
+    call (graph_ms, the weight cold) beside torch.matmul on the
+    dequantized bf16 weight timed the same way, the plain version (CUDA
+    events) and the bound; the host's enqueue us of a call beside
+    torch.matmul's.  Logs the GEMV ms of one decode step and of the 12
+    admissions.  Returns the kernels line's row, timed at M=8, D=4096,
+    F=14336 as in earlier runs."""
+    import torch
+
+    from starway_tpu_torch.ops.gemv import (_n_sms, gemv_plan, int8_matmul,
+                                            int8_matmul_reference)
+    from starway_tpu_torch.ops.quantize import quantize_weight
+
+    buckets = admission_buckets()
+    n_sms = _n_sms(dev.index or 0)
+    table, worst, worst_excess = {}, 0.0, 0.0
+    for name, d, f in [g[:3] for g in GEMV_LAYER] + [GEMV_HEAD]:
         w = quantize_weight(randn(d, f, dtype=torch.float32) * d ** -0.5)
         wq, sc = w["q"], w["s"]
+        del w
         w_deq = (wq.float() * sc).to(torch.bfloat16)
-        for m in (8, 512):
+        wqs, w_deqs = cold_copies(wq), cold_copies(w_deq)
+        ms_list = ((1, 8, 512) if name == "lm_head"
+                   else sorted({8, 512, 2048, *buckets}))
+        for m in ms_list:
             x = randn(m, d)
             got = int8_matmul(x, wq, sc)
             want = int8_matmul_reference(x, wq, sc)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             excess = gemv_excess(got, want)
-            worst = max(worst, err)
-            ms = cuda_ms(lambda: int8_matmul(x, wq, sc))
-            plain = cuda_ms(lambda: int8_matmul_reference(x, wq, sc), iters=5)
-            lib = cuda_ms(lambda: torch.matmul(x, w_deq))
+            worst, worst_excess = max(worst, err), max(worst_excess, excess)
+            ms = graph_ms(lambda c: int8_matmul(x, c, sc), wqs)
+            lib = graph_ms(lambda c: torch.matmul(x, c), w_deqs)
+            plain = cuda_ms(lambda: int8_matmul_reference(x, wq, sc),
+                            iters=3, warmup=1)
+            host_us = back_to_back(lambda: int8_matmul(x, wq, sc), 50)[1]
+            lib_host_us = back_to_back(lambda: torch.matmul(x, w_deq), 50)[1]
             n_bytes = d * f + 4 * f + 2 * m * d + 2 * m * f
-            b_ms, b_by = bound(n_bytes, 2 * m * d * f)
-            log(f"int8_matmul M={m} D={d} F={f}: max_abs_err {err:.3e}, "
-                f"{excess:.3f} of the tolerance (max({BF16_TOL}, "
-                f"{GEMV_ULPS} bf16 ulps of |want|)); {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, library {lib:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by})")
+            flops = 2 * m * d * f
+            b_ms, b_by = bound(n_bytes, flops)
+            regime, splits = gemv_plan(m, d, f, n_sms)
+            rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if b_by == "operations"
+                    else f"{n_bytes / ms / 1e6:.1f} GB/s")
+            log(f"int8_matmul {name} M={m} D={d} F={f} ({regime}, {splits} "
+                f"splits): max_abs_err {err:.3e}, {excess:.3f} of the "
+                f"tolerance (max({BF16_TOL}, {GEMV_ULPS} bf16 ulps of "
+                f"|want|)); {ms:.4f} ms ({rate}, {b_ms / ms:.3f} of the "
+                f"bound {b_ms:.4f} ms, {b_by}), torch.matmul {lib:.4f} ms "
+                f"({ms / lib:.2f}x), plain {plain:.4f} ms; host enqueue "
+                f"{host_us:.1f} us a call (torch.matmul {lib_host_us:.1f})")
             if not excess <= 1:
-                raise AssertionError("int8_matmul disagrees with its plain "
-                                     "version")
-            if (m, d, f) == (8, 4096, 14336):
-                timed = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib,
-                             timed_at=f"M={m} D={d} F={f} bf16")
-        del w, wq, sc, w_deq
-    rows["int8_matmul"] = dict(
+                raise AssertionError(f"int8_matmul disagrees with its plain "
+                                     f"version at M={m} D={d} F={f}")
+            table[(m, d, f)] = dict(
+                shape=name, m=m, d=d, f=f, regime=regime, splits=splits,
+                ms=ms, library_ms=lib, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, bound_share=b_ms / ms, max_abs_err=err,
+                tol_share=excess, host_us=host_us, library_host_us=lib_host_us)
+            del x, got, want
+        del wq, sc, w_deq, wqs, w_deqs
+        torch.cuda.empty_cache()
+
+    def step_ms(m, key):
+        return N_LAYERS * sum(k * table[(m, d, f)][key]
+                              for _n, d, f, k in GEMV_LAYER)
+
+    head = (GEMV_HEAD[1], GEMV_HEAD[2])
+    decode = {key: step_ms(8, key) + table[(8, *head)][key]
+              for key in ("ms", "library_ms", "bound_ms")}
+    admit = {key: sum(step_ms(b, key) + table[(1, *head)][key]
+                      for b in buckets)
+             for key in ("ms", "library_ms", "bound_ms")}
+    log(f"[gemv] one decode step (M=8: 32 x (2 wq/wo + 2 wk/wv + 2 gate/up "
+        f"+ down) + lm_head, 225 launches): {decode['ms']:.4f} ms against "
+        f"its bound {decode['bound_ms']:.4f} ms (torch.matmul "
+        f"{decode['library_ms']:.4f}); the 12 admissions (M = buckets "
+        f"{buckets}, 224 launches each + the lm_head at M=1): "
+        f"{admit['ms']:.4f} ms (bound {admit['bound_ms']:.4f}, torch.matmul "
+        f"{admit['library_ms']:.4f})")
+    for m in (512, 2048):
+        worst_x = max(r["ms"] / r["library_ms"] for r in table.values()
+                      if r["m"] == m)
+        log(f"[gemv] M={m}: slowest row {worst_x:.2f}x torch.matmul")
+    worst_x = max(r["ms"] / r["library_ms"] for r in table.values()
+                  if r["m"] == 8)
+    log(f"[gemv] M=8: slowest row {worst_x:.2f}x torch.matmul")
+    timed = table[(8, 4096, 14336)]
+    return dict(
         name="int8_matmul", route="cuda",
         source="starway_tpu_torch/csrc/int8_gemv.cu",
         replaces="starway_tpu/ops/pallas_gemv.py:32 (_gemv_kernel)",
-        max_abs_err=worst, **timed)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    return rows
+        max_abs_err=worst, tol_share=worst_excess,
+        **{k: timed[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+        timed_at="M=8 D=4096 F=14336 bf16 (decode regime), device ms a "
+                 "call, weight cold",
+        decode_step=decode, admissions=admit,
+        rows=[dict(r) for r in table.values()])
 
 
 def decode_work(pos, n_q: int, hkv: int, hq: int, d: int, elem: int):
@@ -938,9 +1068,13 @@ def serve(params, cfg, reqs, *, server=None, prefix=None, n_slots=8,
         if not ((got >= 0) & (got < cfg.vocab_size)).all():
             raise AssertionError(f"request {rid} emitted out-of-vocab ids")
     n_tok = sum(m for _p, m, _w in reqs)
+    # Admission (prefills, slot writes, the first tokens) is the wall time
+    # outside the decode chunks.
+    decode_s = (sum(chunk_ms) + traced.get("traced_chunk_ms", 0.0)) / 1e3
     stats = dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
                  chunks=len(chunk_ms) + bool(traced),
-                 median_chunk_ms=statistics.median(chunk_ms), **traced)
+                 median_chunk_ms=statistics.median(chunk_ms),
+                 admission_s=wall - decode_s, **traced)
     if traced.get("device_busy_ms"):  # else: not measured (no CUDA events)
         # Against an untraced chunk: tracing slows the host, not the device.
         stats["device_idle_share"] = (
@@ -1506,49 +1640,70 @@ def phase_train_ring_parity(dev):
     return out
 
 
+PTXAS_SOURCES = ("flash_bwd.cu", "int8_gemv.cu")
+
+
 def start_ptxas_report(build):
-    """Compile csrc/flash_bwd.cu once more with ``-Xptxas -v`` (into a
-    scratch object, beside the build) for the tensor-core kernels'
-    registers and spills; :func:`finish_ptxas_report` reads it."""
+    """Compile csrc/flash_bwd.cu and csrc/int8_gemv.cu once more with
+    ``-Xptxas -v`` (into scratch objects, beside the build) for the
+    tensor-core kernels' registers and spills; :func:`finish_ptxas_report`
+    reads them."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = str(build.BUILD_DIR / "flash_bwd_ptxas_report.o")
-    return subprocess.Popen(
+    return [subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-         str(build.CSRC), "-c", str(build.CSRC / "flash_bwd.cu"), "-o", out],
+         str(build.CSRC), "-c", str(build.CSRC / src), "-o",
+         str(build.BUILD_DIR / f"{src}.ptxas_report.o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in PTXAS_SOURCES]
 
 
-def finish_ptxas_report(proc) -> dict:
-    """{kernel (pass, TO, D): (registers, spill store bytes, spill load
-    bytes)} of the two tensor-core backward kernels, from ptxas."""
+def ptxas_kernel(mangled: str):
+    """A short name for a tensor-core kernel of the report, else None."""
     import re
 
-    text, _ = proc.communicate(timeout=600)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{text[-3000:]}")
-    out, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            k = re.search(r"flash_bwd_(dkv|dq)_mma_kernelI(\w+?)Li(\d+)E",
-                          m.group(1))
-            to = None if k is None else (
-                "f32" if k.group(2) == "f" else "bf16")
-            name = None if k is None else f"{k.group(1)} {to} D={k.group(3)}"
-            spill = (None, None)  # read from the lines that follow
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spill = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[name] = (int(m.group(1)), *spill)
-            name = None
-    log(f"[registers] tensor-core backward kernels (ptxas, sm_90a): "
-        f"(registers a thread, spill store bytes, spill load bytes) {out}")
+    k = re.search(r"flash_bwd_(dkv|dq)_mma_kernelI(\w+?)Li(\d+)E", mangled)
+    if k:
+        to = "f32" if k.group(2) == "f" else "bf16"
+        return f"{k.group(1)} {to} D={k.group(3)}"
+    k = re.search(r"gemv_(decode|prefill)_kernelILi(\d+)ELb([01])E", mangled)
+    if k:
+        size = "NT" if k.group(1) == "decode" else "BM"
+        vec = "vec" if k.group(3) == "1" else "elementwise"
+        return f"gemv {k.group(1)} {size}={k.group(2)} {vec}"
+    return None
+
+
+def finish_ptxas_report(procs) -> dict:
+    """{source: {kernel: (registers, spill store bytes, spill load
+    bytes)}} of the tensor-core backward and GEMV kernels, from ptxas."""
+    import re
+
+    out = {}
+    for src, proc in zip(PTXAS_SOURCES, procs):
+        text, _ = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc -Xptxas -v failed on {src}:\n"
+                               f"{text[-3000:]}")
+        regs, name = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = ptxas_kernel(m.group(1))
+                spill = (None, None)  # read from the lines that follow
+                continue
+            if name is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs[name] = (int(m.group(1)), *spill)
+                name = None
+        out[src] = regs
+        log(f"[registers] {src} (ptxas, sm_90a): (registers a thread, spill "
+            f"store bytes, spill load bytes) {regs}")
     return out
 
 
@@ -1565,6 +1720,7 @@ def main() -> int:
     from starway_tpu_torch.models import LlamaConfig, generate, init_params
     from starway_tpu_torch.ops import (_build, launch_counts,
                                        reset_launch_counts)
+    from starway_tpu_torch.ops.gemv import int8_matmul
     from starway_tpu_torch.ops.quantize import quantize_params
 
     dev = torch.device("cuda:0")
@@ -1620,12 +1776,17 @@ def main() -> int:
     reset_launch_counts()
     st5 = serve(qparams, cfg8, reqs)[1]
     c5 = launch_counts()
+    by_regime = dict(int8_matmul.regime_launches)
     main_counts = {k: c4[k] + c_paged[k] + c5[k] for k in c4}
     log(f"  {st5}")
     log(f"  launches {c5}")
+    log(f"  int8_matmul launches by regime {by_regime}")
     if not all(c5[k] > 0 for k in ("decode_attention", "flash_forward",
                                     "int8_matmul")):
         raise AssertionError("the int8 serving run missed a kernel")
+    if not (by_regime["decode"] > 0 and by_regime["prefill"] > 0):
+        raise AssertionError("the W8A16 run did not launch the GEMV in both "
+                             "regimes")
     check_first_logits(qparams, cfg8, reqs[0][0], 2048)
     del qparams
     torch.cuda.empty_cache()
@@ -1660,8 +1821,9 @@ def main() -> int:
     st_rp = phase_train_ring_parity(dev)
 
     regs = finish_ptxas_report(ptxas)
-    rows["flash_backward_dkv"]["registers"] = regs
-    rows["flash_backward_dq"]["registers"] = regs
+    rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
+    rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
+    rows["int8_matmul"]["registers"] = regs["int8_gemv.cu"]
 
     # 13. kernels line: launches are the serving paths' (phases 4, 5 and
     # 6) and the training paths' (phases 9 and 11), each counted from 0
@@ -1673,6 +1835,9 @@ def main() -> int:
         row = dict(row)
         row["launches"] = main_counts[key]
         kernels.append(row)
+    # Only the W8A16 run (phase 6) launches the GEMV; the others' counts
+    # of it are 0 and in main_counts.
+    kernels[list(rows).index("int8_matmul")]["launches_by_regime"] = by_regime
     steps, admits = 8 * st4["chunks"], len(reqs)  # per serving run
     log(f"[summary] launches per serving step: decode_attention "
         f"{c4['decode_attention'] / steps:g} per decode step, "
@@ -1694,7 +1859,11 @@ def main() -> int:
         f"{c7['flash_backward_dkv'] / 6:g}, dQ {c7['flash_backward_dq'] / 6:g}")
     log(f"[summary] decode chunks {st4['chunks']} bf16 + {st5['chunks']} "
         f"int8 of 8 steps each, serve wall {st4['wall_s']:.2f} s bf16 / "
-        f"{st5['wall_s']:.2f} s int8; train median step "
+        f"{st5['wall_s']:.2f} s int8 (admission {st4['admission_s']:.2f} / "
+        f"{st5['admission_s']:.2f} s, paged {st_paged['admission_s']:.2f} s), "
+        f"{st4['tokens_per_s']:.1f} / {st5['tokens_per_s']:.1f} tokens/s, "
+        f"idle share {st4.get('device_idle_share')} / "
+        f"{st5.get('device_idle_share')}; train median step "
         f"{st7['median_step_ms']:.1f} ms, {st7['tokens_per_s']:.0f} tokens/s, "
         f"model FLOP share {st7['model_flop_share']:.4f}; train-parity "
         f"{st8}; total {time.perf_counter() - t_start:.1f} s")

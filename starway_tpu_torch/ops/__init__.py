@@ -35,3 +35,5 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "regime_launches"):  # int8_matmul, by regime
+            fn.regime_launches = dict.fromkeys(fn.regime_launches, 0)

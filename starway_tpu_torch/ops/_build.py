@@ -44,7 +44,7 @@ SIGNATURES = {
     "sw_flash_bwd_dkv_split": ([P] * 8 + [I] * 10 + [F, I, I, I, P],
                                ctypes.c_int),
     "sw_flash_bwd_dq": ([P] * 7 + [I] * 10 + [F, I, I, P], ctypes.c_int),
-    "sw_int8_matmul": ([P] * 4 + [I] * 5 + [P], ctypes.c_int),
+    "sw_int8_matmul": ([P] * 4 + [I] * 9 + [P], ctypes.c_int),
     "sw_paged_attention": ([P] * 9 + [I] * 9 + [F, P], ctypes.c_int),
 }
 
@@ -141,7 +141,11 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    """PyTorch's current stream on ``t``'s device, as a pointer."""
+    """PyTorch's current stream on ``t``'s device, as a pointer (the raw
+    query where this PyTorch has it: a decode step asks ~300 times)."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream

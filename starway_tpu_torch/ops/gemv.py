@@ -1,16 +1,35 @@
-"""Int8-weight matmul (W8A16): the hand-written CUDA kernel
-(csrc/int8_gemv.cu) and its plain PyTorch version.
+"""Int8-weight matmul (W8A16): the hand-written CUDA kernels
+(csrc/int8_gemv.cu) and their plain PyTorch version.
 
 ``x [M, D] @ (wq int8 [D, F] * scale f32 [F]) -> [M, F]`` in x's dtype,
 accumulated in float32 with the per-column scale applied after the
 product (ops/quantize.py:quantize_weight).
+
+A bfloat16 x takes one of two regimes on the tensor cores, chosen by
+:func:`gemv_plan` from the shapes alone: "decode" (M up to
+``DECODE_MAX_M``: the weight stream bounds it, and D is split so that
+every SM holds about two blocks) or "prefill" (above: the multiply-adds
+bound it, and D is split only where the grid is under one block an SM).
+The splits of an output tile are one thread block cluster that sums its
+float32 partials in split order in shared memory: no workspace, no
+second kernel, and two calls give identical bits.  A float32 x takes the
+FMA kernel ("fma").
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
+
+DECODE_MAX_M = 32    # the crossover: M above it runs the prefill regime
+DECODE_COLS = 128    # F columns a decode block
+PREFILL_COLS = 256   # F columns a prefill block
+SPLIT_UNIT = {"decode": 16, "prefill": 64}  # rows of D: a k16 step, a stage
+MAX_SPLITS = {"decode": 16, "prefill": 8}  # a tile's splits: one cluster
+REGIMES = ("decode", "prefill", "fma")
 
 
 def _check_args(x, wq, scale):
@@ -24,6 +43,59 @@ def _check_args(x, wq, scale):
                          f"{scale.dtype} {tuple(scale.shape)}")
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def prefill_tile_m(m: int) -> int:
+    """Rows of x a prefill block takes: 64 up to M = 64, else 128."""
+    return 64 if m <= 64 else 128
+
+
+def _tiles(regime: str, m: int, f: int) -> int:
+    if regime == "decode":
+        return _cdiv(f, DECODE_COLS)
+    return _cdiv(f, PREFILL_COLS) * _cdiv(m, prefill_tile_m(m))
+
+
+def gemv_plan(m: int, d: int, f: int, n_sms: int) -> tuple[str, int]:
+    """(regime, splits) of a bfloat16 ``[m, d] @ [d, f]``: "decode" for m
+    up to ``DECODE_MAX_M``, else "prefill"; D is cut into ``splits``
+    chunks of :func:`split_chunk` rows, and an output tile's splits are
+    one thread block cluster (``MAX_SPLITS``).
+
+    Decode streams the weight: enough splits for about 2 blocks an SM at
+    M up to 16 (bytes in flight), 1 above (twice the x rows and registers
+    a block); rounding the chunk to whole k steps may leave a little less.
+    Prefill multiplies: the largest power of two that keeps the grid
+    within one wave (a block an SM), and a cluster of 8 only while its
+    grid fills at most half the card (more clusters of 8 than the card
+    co-schedules ran slower than clusters of 4, and odd sizes slower than
+    the powers of two beside them, on the H100)."""
+    regime = "decode" if m <= DECODE_MAX_M else "prefill"
+    tiles = _tiles(regime, m, f)
+    cap = MAX_SPLITS[regime]
+    if regime == "decode":
+        per_sm = 2 if m <= 16 else 1
+        want = min(_cdiv(per_sm * n_sms, tiles), cap)
+    else:
+        want = 1
+        while want < cap and tiles * 2 * want <= n_sms:
+            want *= 2
+        if want == cap and 2 * tiles * want > n_sms:
+            want //= 2
+    if want <= 1:
+        return regime, 1
+    return regime, _cdiv(d, split_chunk(d, regime, want))
+
+
+def split_chunk(d: int, regime: str, splits: int) -> int:
+    """Rows of D each split sums, whole k steps of the regime's kernel:
+    split z takes rows [z * chunk, min((z + 1) * chunk, d))."""
+    unit = SPLIT_UNIT[regime]
+    return _cdiv(_cdiv(d, splits), unit) * unit
+
+
 def int8_matmul_reference(x, wq, scale):
     """The kernel's function in plain PyTorch: ``(x @ wq) * scale`` in
     float32, cast to x's dtype."""
@@ -31,33 +103,72 @@ def int8_matmul_reference(x, wq, scale):
     return ((x.float() @ wq.float()) * scale).to(x.dtype)
 
 
+def int8_matmul_split_reference(x, wq, scale, chunk: int):
+    """The split kernels' order of summation in plain PyTorch: float32
+    partial products over D chunks of ``chunk`` rows, summed chunk by
+    chunk, then scaled and cast to x's dtype."""
+    _check_args(x, wq, scale)
+    acc = torch.zeros((x.shape[0], wq.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for r in range(0, x.shape[1], chunk):
+        acc += x[:, r:r + chunk].float() @ wq[r:r + chunk].float()
+    return (acc * scale).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(m: int, d: int, f: int, bf16: bool, index: int):
+    """(regime, its code for the C entry point, prefill rows a block,
+    splits, chunk) of one call; cached, as a decode step makes ~225."""
+    if not bf16:
+        return "fma", 0, 0, 1, d
+    regime, splits = gemv_plan(m, d, f, _n_sms(index))
+    code, tile_m = (1, 0) if regime == "decode" else (2, prefill_tile_m(m))
+    return regime, code, tile_m, splits, split_chunk(d, regime, splits)
+
+
 def int8_matmul(x, wq, scale):
     """``x [M, D] @ (wq int8 [D, F] * scale f32 [F]) -> [M, F]``.
 
-    CUDA tensors launch the kernel (csrc/int8_gemv.cu), CPU tensors take
-    :func:`int8_matmul_reference`."""
+    CUDA tensors launch the kernels (csrc/int8_gemv.cu) in the regime of
+    :func:`gemv_plan`, CPU tensors take :func:`int8_matmul_reference`."""
     _check_args(x, wq, scale)
     if not x.is_cuda:
         return int8_matmul_reference(x, wq, scale)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
-    for t in (x, wq, scale):
+    for t in (wq, scale):
         if t.device != x.device:
             raise ValueError(f"tensor on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError("int8_matmul needs contiguous tensors")
+    if not (x.is_contiguous() and wq.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError("int8_matmul needs contiguous tensors")
     m, d = x.shape
     f = wq.shape[1]
     out = torch.empty((m, f), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    vec = f % 16 == 0 and wq.data_ptr() % 16 == 0  # 16-byte weight loads
+    bf16 = x.dtype == torch.bfloat16
+    regime, code, tile_m, splits, chunk = _launch_plan(
+        m, d, f, bf16, x.device.index or 0)
+    xp, wp = x.data_ptr(), wq.data_ptr()
+    vec = f % 16 == 0 and wp % 16 == 0  # 16-byte weight loads
+    if regime == "decode":  # and 8-byte loads of x
+        vec = vec and d % 4 == 0 and xp % 8 == 0
+    elif regime == "prefill":  # and 16-byte copies of x
+        vec = vec and d % 8 == 0 and xp % 16 == 0
     err = _build.library().sw_int8_matmul(
-        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), m, d,
-        f, int(x.dtype == torch.bfloat16), int(vec), _build.stream_ptr(x))
+        xp, wp, scale.data_ptr(), out.data_ptr(), m, d, f, int(bf16),
+        int(vec), code, tile_m, splits, chunk, _build.stream_ptr(x))
     _build.check(err, "int8_matmul")
     int8_matmul.launches += 1
+    int8_matmul.regime_launches[regime] += 1
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.regime_launches = dict.fromkeys(REGIMES, 0)

@@ -33,7 +33,10 @@ from starway_tpu_torch.ops.flash import (flash_backward,
                                          flash_partial, flash_partial_bwd,
                                          flash_partial_bwd_reference,
                                          flash_partial_reference)
-from starway_tpu_torch.ops.gemv import int8_matmul, int8_matmul_reference
+from starway_tpu_torch.ops.gemv import (gemv_plan, int8_matmul,
+                                        int8_matmul_reference,
+                                        int8_matmul_split_reference,
+                                        split_chunk)
 from starway_tpu_torch.ops.quantize import quantize_kv
 
 pytestmark = pytest.mark.cuda
@@ -149,16 +152,28 @@ def test_flash_kernel_matches_plain(dev, dtype, causal, window, s, d):
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,d,f", [(1, 64, 128), (8, 200, 1000),
-                                   (40, 96, 333), (130, 256, 520),
-                                   (3, 300, 4096), (70, 160, 1024)])
-def test_int8_matmul_kernel_matches_plain(dev, dtype, m, d, f):
-    rng = np.random.default_rng(2)
+def _gemv_operands(seed, m, d, f, dtype, dev):
+    rng = np.random.default_rng(seed)
     x = _randn(rng, (m, d), dtype, dev)
     wq = torch.from_numpy(rng.integers(-127, 128, (d, f), dtype=np.int8)).to(dev)
     scale = torch.from_numpy(
         rng.uniform(0.5, 1.5, f).astype(np.float32) / (127 * d ** 0.5)).to(dev)
+    return x, wq, scale
+
+
+# Both sides of the decode/prefill crossover (M = 32 | 33), split and
+# unsplit D, ragged M, D and F, and element-load paths: F % 16 != 0
+# (1000, 333, 520), D % 8 != 0 (300, 12) and D % 4 != 0 (201).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,f", [(1, 64, 128), (8, 200, 1000),
+                                   (40, 96, 333), (130, 256, 520),
+                                   (3, 300, 4096), (70, 160, 1024),
+                                   (32, 2048, 640), (33, 2048, 640),
+                                   (16, 1024, 256), (17, 512, 384),
+                                   (24, 201, 160), (64, 12, 4096),
+                                   (65, 1000, 2048), (300, 520, 1040)])
+def test_int8_matmul_kernel_matches_plain(dev, dtype, m, d, f):
+    x, wq, scale = _gemv_operands(2, m, d, f, dtype, dev)
     got = int8_matmul(x, wq, scale)
     torch.cuda.synchronize()
     want = int8_matmul_reference(x, wq, scale)
@@ -178,6 +193,39 @@ def assert_gemv_close(got, want):
     tol = (2 * ulp).clamp(min=2e-2)
     excess = ((got.float() - want).abs() / tol).max().item()
     assert excess <= 1, f"worst element at {excess:.3f} of its tolerance"
+
+
+@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize("d,f", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096), (4096, 128256)])
+def test_int8_matmul_main_path_shapes(dev, m, d, f):
+    """llama3-8b's projections and lm_head at decode M=8 and prefill
+    M=512, bf16: the regime gemv_plan picks launches, and the result
+    matches the plain version and the split sum in the kernel's order."""
+    x, wq, scale = _gemv_operands(4, m, d, f, torch.bfloat16, dev)
+    regime, splits = gemv_plan(
+        m, d, f, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert regime == ("decode" if m == 8 else "prefill")
+    before = dict(int8_matmul.regime_launches)
+    got = int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.regime_launches[regime] == before[regime] + 1
+    assert_gemv_close(got, int8_matmul_reference(x, wq, scale))
+    assert_gemv_close(got, int8_matmul_split_reference(
+        x, wq, scale, split_chunk(d, regime, splits)))
+
+
+@pytest.mark.parametrize("m,d,f", [(8, 4096, 4096), (8, 4096, 128256),
+                                   (24, 14336, 1024), (512, 4096, 4096),
+                                   (96, 1024, 2000), (2048, 4096, 1024)])
+def test_int8_matmul_bf16_is_deterministic(dev, m, d, f):
+    """Two bf16 calls on the same inputs give identical bits in both
+    regimes, split or not: no atomics, partials summed in split order."""
+    x, wq, scale = _gemv_operands(5, m, d, f, torch.bfloat16, dev)
+    first = int8_matmul(x, wq, scale)
+    second = int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("kv_quant,w8", [("none", False), ("int8", False),

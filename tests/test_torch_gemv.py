@@ -1,7 +1,8 @@
 """The port's int8 matmul (starway_tpu_torch.ops.gemv) against the JAX
 package's Pallas GEMV kernel in interpret mode, with a ragged F and
 M > 8 (the port tiles M), and the port's ``matmul_w`` dispatch against
-JAX's on raw and quantized weights.
+JAX's on raw and quantized weights; the kernels' plan (regime and split of
+D) at the serving path's shapes, and the split's order of summation.
 
 On the CPU the port's wrapper takes its plain PyTorch version; the CUDA
 kernel is held against that version on the card (tests/test_torch_cuda.py).
@@ -18,6 +19,7 @@ from starway_tpu.models.llama import matmul_w as jax_matmul_w
 from starway_tpu.ops.pallas_gemv import int8_matmul as jax_int8_matmul
 from starway_tpu.ops.quantize import quantize_weight as jax_quantize_weight
 from starway_tpu_torch.models.llama import matmul_w
+from starway_tpu_torch.ops import gemv as tgemv
 from starway_tpu_torch.ops.gemv import int8_matmul, int8_matmul_reference
 from torch_port_util import to_numpy, to_torch
 
@@ -76,3 +78,104 @@ def test_matmul_w_matches_jax(quantized):
     np.testing.assert_allclose(to_numpy(matmul_w(to_torch(x), tw)),
                                np.asarray(jax_matmul_w(x, jw)), rtol=1e-5,
                                atol=1e-5)
+
+
+# llama3-8b's projections (wq/wo, wk/wv, gate/up, down) and lm_head.
+PROJ = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+LM_HEAD = (4096, 128256)
+
+
+@pytest.mark.parametrize("n_sms", [132, 114])
+@pytest.mark.parametrize("m", [8, 64, 128, 256, 512, 1024, 2048])
+def test_gemv_plan_on_the_main_paths_shapes(n_sms, m):
+    """The serving step's M = 8 runs the decode regime, every prefill
+    bucket (64-2048) the prefill regime.  The split of D leaves no chunk
+    empty, covers D, and stays within one cluster (16 blocks at decode, 8
+    at prefill).  Decode: about 2 blocks an SM (the weight stream needs
+    the bytes in flight) unless the cluster is full.  Prefill: a power of
+    two that keeps the grid within one wave (a block an SM) and doubles
+    no further; clusters of 8 only on grids of at most half the card."""
+    shapes = PROJ + [LM_HEAD] if m == 8 else PROJ
+    for d, f in shapes:
+        regime, splits = tgemv.gemv_plan(m, d, f, n_sms)
+        assert regime == ("decode" if m == 8 else "prefill")
+        chunk = tgemv.split_chunk(d, regime, splits)
+        assert chunk % tgemv.SPLIT_UNIT[regime] == 0
+        assert -(-d // chunk) == splits
+        cap = tgemv.MAX_SPLITS[regime]
+        assert 1 <= splits <= cap
+        tiles = tgemv._tiles(regime, m, f)
+        blocks = tiles * splits
+        if regime == "decode":
+            assert blocks >= 0.9 * 2 * n_sms or splits == cap, (d, f, blocks)
+            if tiles >= 2 * n_sms:
+                assert splits == 1  # a full grid is not split
+        else:
+            assert splits & (splits - 1) == 0
+            assert splits == 1 or blocks <= n_sms  # within one wave
+            if splits == 8:
+                assert 2 * blocks <= n_sms
+            eight_too_many = splits == 4 and 2 * tiles * 8 > n_sms
+            assert (splits == 8 or 2 * blocks > n_sms
+                    or eight_too_many), (d, f, splits)  # doubles no further
+    assert tgemv.gemv_plan(8, *LM_HEAD, n_sms) == ("decode", 1)
+
+
+def test_gemv_plan_at_measured_shapes():
+    """The plans the H100 measurements chose (132 SMs): decode splits at
+    M=8; prefill one wave, split 2 ways where the 128 x 256 grid is half
+    the card, 4 where it is an eighth, 8 on the smallest grids."""
+    plan = tgemv.gemv_plan
+    assert plan(8, 4096, 4096, 132) == ("decode", 9)
+    assert plan(8, 4096, 1024, 132) == ("decode", 16)
+    assert plan(8, 4096, 14336, 132) == ("decode", 3)
+    assert plan(512, 4096, 4096, 132) == ("prefill", 2)
+    assert plan(512, 4096, 1024, 132) == ("prefill", 4)
+    assert plan(512, 4096, 14336, 132) == ("prefill", 1)
+    assert plan(512, 14336, 4096, 132) == ("prefill", 2)
+    assert plan(1024, 4096, 4096, 132) == ("prefill", 1)
+    assert plan(2048, 4096, 1024, 132) == ("prefill", 2)
+    assert plan(128, 4096, 1024, 132) == ("prefill", 8)
+
+
+@pytest.mark.parametrize("m,regime", [(1, "decode"), (31, "decode"),
+                                      (32, "decode"), (33, "prefill"),
+                                      (64, "prefill"), (100, "prefill")])
+def test_gemv_plan_switches_regime_at_the_crossover(m, regime):
+    """Chunked and speculative steps send M = B * C near the crossover:
+    M up to 32 is decode, above it prefill, for any D and F; a D too
+    short to split is not split."""
+    for d, f in PROJ + [(200, 1000), (12, 4096)]:
+        got, splits = tgemv.gemv_plan(m, d, f, 132)
+        assert got == regime
+        assert 1 <= splits <= -(-d // tgemv.SPLIT_UNIT[regime])
+    assert tgemv.gemv_plan(m, 12, 4096, 132)[1] == 1
+
+
+@pytest.mark.parametrize("m,d,f", [(8, 4096, 1024), (512, 4096, 1024),
+                                   (24, 14336, 640), (40, 300, 333)])
+def test_gemv_split_partials_sum_to_the_whole(m, d, f):
+    """The algebra of a split: float32 partial products over the plan's D
+    chunks, summed in split order, equal the whole product (float32, 1e-6
+    of the largest value: one summation-order rounding), and so does the
+    port's split reference against its plain version."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((m, d), np.float32))
+    wq = torch.from_numpy(rng.integers(-127, 128, (d, f), dtype=np.int8))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, f).astype(np.float32)
+                             / (127 * d ** 0.5))
+    regime, splits = tgemv.gemv_plan(m, d, f, 132)
+    chunk = tgemv.split_chunk(d, regime, splits)
+    assert splits > 1
+    whole = x @ wq.float()
+    parts = torch.zeros_like(whole)
+    for z in range(splits):
+        rows = slice(z * chunk, min((z + 1) * chunk, d))
+        assert rows.start < rows.stop
+        parts += x[:, rows] @ wq[rows].float()
+    tol = 1e-6 * whole.abs().max().item()
+    torch.testing.assert_close(parts, whole, rtol=0, atol=tol)
+    want = int8_matmul_reference(x, wq, scale)
+    got = tgemv.int8_matmul_split_reference(x, wq, scale, chunk)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * want.abs().max().item())
