@@ -298,52 +298,15 @@ def admission_buckets(max_len: int = 2048) -> list:
     return [_bucket(len(p), default_buckets(max_len)) for p, _m, _w in reqs]
 
 
-def cold_copies(t, min_bytes: int = 256 << 20) -> list:
-    """``t`` and enough copies of it that cycling through them reads more
-    than the 50 MB L2 between two uses of one copy: a decode step finds
-    each layer's weight in HBM, not in L2."""
-    n = max(1, -(-min_bytes // (t.numel() * t.element_size())))
-    return [t] + [t.clone() for _ in range(n - 1)]
-
-
-def graph_ms(call, copies, n: int = 20) -> float:
-    """Device ms of one ``call(copy)``: n calls, each on the next of
-    ``copies``, captured in one CUDA graph and replayed (median of 10
-    replays); the host's enqueue is not in it."""
-    import torch
-
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for i in range(3):
-            call(copies[i % len(copies)])
-    stream.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        for i in range(n):
-            call(copies[i % len(copies)])
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(10):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    del graph
-    return statistics.median(times)
-
-
 def gemv_rows(dev, randn) -> dict:
     """Phase 3's int8 GEMV: every shape of the W8A16 serving path at
     decode M=8, the layer shapes at every admission bucket of phase 4's
     requests and at M=512 and 2048, the lm_head at M=1 (admission's last
     row) and M=512; each held against its plain version (max(BF16_TOL,
     GEMV_ULPS bf16 ulps of |want|) per element) and timed as device ms a
-    call (graph_ms, the weight cold) beside torch.matmul on the
+    call (ops/gemv_sweep.py graph_us: 20 calls in one CUDA graph, each on
+    its own copy of the weight, cold as in a decode step) beside
+    torch.matmul on the
     dequantized bf16 weight timed the same way, the plain version (CUDA
     events) and the bound; the host's enqueue us of a call beside
     torch.matmul's.  Logs the GEMV ms of one decode step and of the 12
@@ -353,6 +316,7 @@ def gemv_rows(dev, randn) -> dict:
 
     from starway_tpu_torch.ops.gemv import (_n_sms, gemv_plan, int8_matmul,
                                             int8_matmul_reference)
+    from starway_tpu_torch.ops.gemv_sweep import cold_copies, graph_us
     from starway_tpu_torch.ops.quantize import quantize_weight
 
     buckets = admission_buckets()
@@ -374,8 +338,8 @@ def gemv_rows(dev, randn) -> dict:
             err = (got.float() - want.float()).abs().max().item()
             excess = gemv_excess(got, want)
             worst, worst_excess = max(worst, err), max(worst_excess, excess)
-            ms = graph_ms(lambda c: int8_matmul(x, c, sc), wqs)
-            lib = graph_ms(lambda c: torch.matmul(x, c), w_deqs)
+            ms = graph_us(lambda c: int8_matmul(x, c, sc), wqs) / 1e3
+            lib = graph_us(lambda c: torch.matmul(x, c), w_deqs) / 1e3
             plain = cuda_ms(lambda: int8_matmul_reference(x, wq, sc),
                             iters=3, warmup=1)
             host_us = back_to_back(lambda: int8_matmul(x, wq, sc), 50)[1]
