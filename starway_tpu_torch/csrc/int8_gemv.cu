@@ -27,14 +27,15 @@
 //   an SM; the splits of a column tile (up to 16) are one thread block
 //   cluster whose blocks add up each other's sums over distributed shared
 //   memory, in split order.
-// * Prefill regime (bf16, M > 32): gemv_prefill_kernel, a BM x 256 x 64
-//   block tile (BM 64 or 128) on 8 warps of (BM / 2) x 64.  x and the
+// * Prefill regime (bf16, M > 32): gemv_prefill_kernel, a BM x BN x 64
+//   block tile (BM 64 or 128, BN 256, or 128 on small grids) on warps of
+//   (BM / 2) x 64.  x and the
 //   int8 weight tile enter by 16-byte cp.async into a 4-stage ring; x
 //   feeds the A operand by ldmatrix, and each warp widens its B fragments
 //   from the int8 tile in registers (the same k-ordering trick as decode),
 //   so no bf16 copy of the weight exists even in shared memory.  The wide
 //   F tile (one byte a weight) cuts the L2 bytes a multiply-add costs by a
-//   third against 128 x 128.  Where the grid is under one block an SM, D
+//   third against 128 x 128, where the grid has the blocks for it.  Where the grid is under one block an SM, D
 //   is split (up to 8 ways), and the splits add up as at decode.
 // * float32 x (the parity runs): int8_matmul_fma_kernel, the first
 //   version, on the FMA units: 8 x 32 or 64 x 64 tiles, the weight widened
@@ -284,8 +285,6 @@ __global__ void __launch_bounds__(kDecThreads) gemv_decode_kernel(
 
 // ------------------------------------------------------ prefill regime
 
-constexpr int kPreThreads = 256;  // 8 warps: 2 along M, 4 along F
-constexpr int kPreCols = 256;     // F columns a block
 constexpr int kBK = 64;           // rows of D a stage (and a split's unit)
 constexpr int kXLd = kBK + 8;     // bf16 row stride of the x tile
 constexpr int kStages = 4;
@@ -293,24 +292,25 @@ constexpr int kMaxSplits = 8;     // a portable cluster of 139 KB blocks
 
 // The pipeline's ring; a split's float32 sums (rows padded by 4), which the
 // cluster reads, take its memory over after the last stage.
-template <int BM>
+template <int BM, int BN>
 constexpr size_t prefill_smem() {
-  const size_t ring = kStages * (sizeof(bf16) * BM * kXLd + kBK * kPreCols);
-  const size_t sums = sizeof(float) * BM * (kPreCols + 4);
+  const size_t ring = kStages * (sizeof(bf16) * BM * kXLd + kBK * BN);
+  const size_t sums = sizeof(float) * BM * (BN + 4);
   return ring > sums ? ring : sums;
 }
 
-// Byte of (row, col) in a [kBK][kPreCols] int8 tile whose 16-byte chunks
-// are swizzled by row: chunk ^ 2 ((row >> 1) & 3), so a warp's 8-byte
-// reads of rows 2 t4 + {0, 1, 8, 9} fall on distinct banks.
+// Byte of (row, col) in a [kBK][BN] int8 tile whose 16-byte chunks are
+// swizzled by row: chunk ^ 2 ((row >> 1) & 3), so a warp's 8-byte reads
+// of rows 2 t4 + {0, 1, 8, 9} fall on distinct banks.
+template <int BN>
 __device__ __forceinline__ int w8_at(int row, int col) {
-  return row * kPreCols + (((col >> 4) ^ (((row >> 1) & 3) << 1)) << 4) +
+  return row * BN + (((col >> 4) ^ (((row >> 1) & 3) << 1)) << 4) +
          (col & 15);
 }
 
-// Grid (ceil(F / 256), ceil(M / BM), splits); split z sums rows
-// [z chunk, (z + 1) chunk) of D (chunk a multiple of kBK).  Each warp owns
-// (BM / 2) rows x 64 columns.  A (x) comes by ldmatrix; B (the weight) is
+// Grid (ceil(F / BN), ceil(M / BM), splits); split z sums rows
+// [z chunk, (z + 1) chunk) of D (chunk a multiple of kBK).  BN (128 or
+// 256) threads, 2 x BN / 64 warps of (BM / 2) rows x 64 columns.  A (x) comes by ldmatrix; B (the weight) is
 // widened in registers from 8-byte reads of the int8 tile: the thread's k
 // values 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9 are 4 rows of it, and n-tile j
 // of the warp takes column 8 g + j, so one read covers all 8 n-tiles.
@@ -320,14 +320,15 @@ __device__ __forceinline__ int w8_at(int row, int col) {
 // split order, over distributed shared memory.
 // VEC: F % 16 == 0, D % 8 == 0 and x, wq 16-byte aligned (16-byte
 // cp.async); else element loads.
-template <int BM, bool VEC>
-__global__ void __launch_bounds__(kPreThreads) gemv_prefill_kernel(
+template <int BM, int BN, bool VEC>
+__global__ void __launch_bounds__(BN) gemv_prefill_kernel(
     const bf16* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ scale, bf16* __restrict__ out, int m, int d,
     int f, int chunk) {
   constexpr int MT = BM / 32;  // m16 tiles a warp
+  constexpr int NTH = BN;  // 2 x BN / 64 warps
   constexpr int XT = BM * kXLd;
-  constexpr int WT = kBK * kPreCols;
+  constexpr int WT = kBK * BN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [kStages][BM][kXLd]
   int8_t* w8 = reinterpret_cast<int8_t*>(xs + kStages * XT);  // [S][WT]
@@ -337,9 +338,9 @@ __global__ void __launch_bounds__(kPreThreads) gemv_prefill_kernel(
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int wm = warp >> 2;
-  const int wn = warp & 3;
-  const int f0 = blockIdx.x * kPreCols;
+  const int wm = warp / (BN / 64);
+  const int wn = warp % (BN / 64);
+  const int f0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
   const int k_begin = blockIdx.z * chunk;
   const int k_end = min(k_begin + chunk, d);
@@ -348,7 +349,7 @@ __global__ void __launch_bounds__(kPreThreads) gemv_prefill_kernel(
   auto load = [&](int kt, int stage) {
     const int k0 = k_begin + kt * kBK;
     bf16* xd = xs + stage * XT;
-    for (int c = tid; c < BM * (kBK / 8); c += kPreThreads) {
+    for (int c = tid; c < BM * (kBK / 8); c += NTH) {
       const int r = c / (kBK / 8);
       const int col = (c - r * (kBK / 8)) * 8;
       const int gm = m0 + r;
@@ -368,20 +369,20 @@ __global__ void __launch_bounds__(kPreThreads) gemv_prefill_kernel(
       }
     }
     int8_t* wd = w8 + stage * WT;
-    for (int c = tid; c < WT / 16; c += kPreThreads) {
-      const int r = c / (kPreCols / 16);
-      const int col = (c - r * (kPreCols / 16)) * 16;
+    for (int c = tid; c < WT / 16; c += NTH) {
+      const int r = c / (BN / 16);
+      const int col = (c - r * (BN / 16)) * 16;
       const int gk = k0 + r;
       if (VEC) {
         const bool ok = gk < k_end && f0 + col < f;
-        cp_async16(smem_u32(wd + w8_at(r, col)),
+        cp_async16(smem_u32(wd + w8_at<BN>(r, col)),
                    ok ? w + static_cast<size_t>(gk) * f + f0 + col : w,
                    ok ? 16 : 0);
       } else {
 #pragma unroll
         for (int e = 0; e < 16; ++e) {
           const int gf = f0 + col + e;
-          wd[w8_at(r, col) + e] =
+          wd[w8_at<BN>(r, col) + e] =
               gk < k_end && gf < f ? w[static_cast<size_t>(gk) * f + gf] : 0;
         }
       }
@@ -425,7 +426,7 @@ __global__ void __launch_bounds__(kPreThreads) gemv_prefill_kernel(
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         r[q] = *reinterpret_cast<const uint2*>(
-            wt + w8_at(kk * 16 + 2 * t4 + (q & 1) + (q >> 1) * 8, b_col));
+            wt + w8_at<BN>(kk * 16 + 2 * t4 + (q & 1) + (q >> 1) * 8, b_col));
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const uint32_t p = j & 3;
@@ -478,7 +479,7 @@ __global__ void __launch_bounds__(kPreThreads) gemv_prefill_kernel(
     return;
   }
 
-  constexpr int SLD = kPreCols + 4;  // float row stride of the sums
+  constexpr int SLD = BN + 4;  // float row stride of the sums
   cg::cluster_group cluster = cg::this_cluster();
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: the sums take its place
@@ -503,10 +504,10 @@ __global__ void __launch_bounds__(kPreThreads) gemv_prefill_kernel(
   const int per = (BM + splits - 1) / splits;
   const int r_lo = rank * per;
   const int r_hi = min(BM, r_lo + per);
-  for (int idx = tid; idx < (r_hi - r_lo) * (kPreCols / 4);
-       idx += kPreThreads) {
-    const int lr = r_lo + idx / (kPreCols / 4);
-    const int c4 = (idx % (kPreCols / 4)) * 4;
+  for (int idx = tid; idx < (r_hi - r_lo) * (BN / 4);
+       idx += NTH) {
+    const int lr = r_lo + idx / (BN / 4);
+    const int c4 = (idx % (BN / 4)) * 4;
     float4 v[kMaxSplits];  // every split's read in flight, then the sum
 #pragma unroll
     for (int z = 0; z < kMaxSplits; ++z)
@@ -694,12 +695,18 @@ int decode(const Args& a) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int BM, bool VEC>
+template <int BM, int BN, bool VEC>
 int launch_prefill(const Args& a) {
   return launch_split(
-      gemv_prefill_kernel<BM, VEC>,
-      dim3((a.f + kPreCols - 1) / kPreCols, (a.m + BM - 1) / BM, a.splits),
-      kPreThreads, prefill_smem<BM>(), 2, a);
+      gemv_prefill_kernel<BM, BN, VEC>,
+      dim3((a.f + BN - 1) / BN, (a.m + BM - 1) / BM, a.splits), BN,
+      prefill_smem<BM, BN>(), 2, a);
+}
+
+template <int BM, int BN>
+int prefill(const Args& a, int vec) {
+  return vec ? launch_prefill<BM, BN, true>(a)
+             : launch_prefill<BM, BN, false>(a);
 }
 
 }  // namespace
@@ -707,7 +714,8 @@ int launch_prefill(const Args& a) {
 // x [M, D] (bfloat16 if is_bf16 else float32), wq int8 [D, F], scale
 // float32 [F], out [M, F] in x's dtype.  regime: 0 float32 on the FMA
 // units (vec: F % 16 == 0 and wq 16-byte aligned); 1 decode (bf16, M <=
-// 32), 2 prefill (bf16, tile_m 64 or 128 rows a block).  vec for regimes
+// 32), 2 prefill (bf16, tile_m 64 or 128 rows and tile_n 128 or 256
+// columns a block).  vec for regimes
 // 1 and 2: every 16-byte (decode: x's 8-byte) load is aligned, see the
 // kernels.  splits: chunks of D of ``chunk`` rows (splits * chunk >= D;
 // chunk a multiple of 16 in regime 1 and of 64 in regime 2), at most 16
@@ -717,7 +725,7 @@ int launch_prefill(const Args& a) {
 extern "C" int sw_int8_matmul(const void* x, const void* wq,
                               const void* scale, void* out, int m, int d,
                               int f, int is_bf16, int vec, int regime,
-                              int tile_m, int splits, int chunk,
+                              int tile_m, int tile_n, int splits, int chunk,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (regime == 0) {
@@ -728,6 +736,7 @@ extern "C" int sw_int8_matmul(const void* x, const void* wq,
   }
   const int unit = regime == 1 ? 16 : kBK;  // a k16 step, a stage
   if (!is_bf16 || splits < 1 || chunk < unit || chunk % unit ||
+      (regime == 2 && tile_m != 64 && tile_m != 128) ||
       static_cast<long long>(splits) * chunk < d ||
       splits > (regime == 1 ? kDecMaxSplits : kMaxSplits))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -737,10 +746,10 @@ extern "C" int sw_int8_matmul(const void* x, const void* wq,
   int err = static_cast<int>(cudaErrorInvalidValue);
   if (regime == 1)
     err = vec ? decode<true>(a) : decode<false>(a);
-  else if (regime == 2 && tile_m == 64)
-    err = vec ? launch_prefill<64, true>(a) : launch_prefill<64, false>(a);
-  else if (regime == 2 && tile_m == 128)
-    err = vec ? launch_prefill<128, true>(a) : launch_prefill<128, false>(a);
+  else if (regime == 2 && tile_n == 256)
+    err = tile_m == 64 ? prefill<64, 256>(a, vec) : prefill<128, 256>(a, vec);
+  else if (regime == 2 && tile_n == 128)
+    err = tile_m == 64 ? prefill<64, 128>(a, vec) : prefill<128, 128>(a, vec);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

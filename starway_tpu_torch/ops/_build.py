@@ -44,7 +44,7 @@ SIGNATURES = {
     "sw_flash_bwd_dkv_split": ([P] * 8 + [I] * 10 + [F, I, I, I, P],
                                ctypes.c_int),
     "sw_flash_bwd_dq": ([P] * 7 + [I] * 10 + [F, I, I, P], ctypes.c_int),
-    "sw_int8_matmul": ([P] * 4 + [I] * 9 + [P], ctypes.c_int),
+    "sw_int8_matmul": ([P] * 4 + [I] * 10 + [P], ctypes.c_int),
     "sw_paged_attention": ([P] * 9 + [I] * 9 + [F, P], ctypes.c_int),
 }
 

@@ -26,7 +26,6 @@ from . import _build
 
 DECODE_MAX_M = 32    # the crossover: M above it runs the prefill regime
 DECODE_COLS = 128    # F columns a decode block
-PREFILL_COLS = 256   # F columns a prefill block
 SPLIT_UNIT = {"decode": 16, "prefill": 64}  # rows of D: a k16 step, a stage
 MAX_SPLITS = {"decode": 16, "prefill": 8}  # a tile's splits: one cluster
 REGIMES = ("decode", "prefill", "fma")
@@ -47,15 +46,20 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def prefill_tile_m(m: int) -> int:
-    """Rows of x a prefill block takes: 64 up to M = 64, else 128."""
-    return 64 if m <= 64 else 128
+def prefill_tile(m: int, f: int, n_sms: int) -> tuple[int, int]:
+    """(rows of x, columns of F) a prefill block takes: 64 rows up to M =
+    64, else 128; 256 columns, or 128 where the 256-column grid is under
+    a quarter of the card (more blocks beat the wider tile there)."""
+    tile_m = 64 if m <= 64 else 128
+    narrow = _cdiv(m, tile_m) * _cdiv(f, 256) * 4 < n_sms
+    return tile_m, 128 if narrow else 256
 
 
-def _tiles(regime: str, m: int, f: int) -> int:
+def _tiles(regime: str, m: int, f: int, n_sms: int) -> int:
     if regime == "decode":
         return _cdiv(f, DECODE_COLS)
-    return _cdiv(f, PREFILL_COLS) * _cdiv(m, prefill_tile_m(m))
+    tile_m, tile_n = prefill_tile(m, f, n_sms)
+    return _cdiv(m, tile_m) * _cdiv(f, tile_n)
 
 
 def gemv_plan(m: int, d: int, f: int, n_sms: int) -> tuple[str, int]:
@@ -73,7 +77,7 @@ def gemv_plan(m: int, d: int, f: int, n_sms: int) -> tuple[str, int]:
     co-schedules ran slower than clusters of 4, and odd sizes slower than
     the powers of two beside them, on the H100)."""
     regime = "decode" if m <= DECODE_MAX_M else "prefill"
-    tiles = _tiles(regime, m, f)
+    tiles = _tiles(regime, m, f, n_sms)
     cap = MAX_SPLITS[regime]
     if regime == "decode":
         per_sm = 2 if m <= 16 else 1
@@ -122,13 +126,19 @@ def _n_sms(index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _launch_plan(m: int, d: int, f: int, bf16: bool, index: int):
-    """(regime, its code for the C entry point, prefill rows a block,
-    splits, chunk) of one call; cached, as a decode step makes ~225."""
+    """(regime, its code for the C entry point, prefill tile rows and
+    columns, splits, chunk) of one call; cached, as a decode step makes
+    ~225."""
     if not bf16:
-        return "fma", 0, 0, 1, d
-    regime, splits = gemv_plan(m, d, f, _n_sms(index))
-    code, tile_m = (1, 0) if regime == "decode" else (2, prefill_tile_m(m))
-    return regime, code, tile_m, splits, split_chunk(d, regime, splits)
+        return "fma", 0, 0, 0, 1, d
+    n_sms = _n_sms(index)
+    regime, splits = gemv_plan(m, d, f, n_sms)
+    if regime == "decode":
+        code, (tile_m, tile_n) = 1, (0, 0)
+    else:
+        code, (tile_m, tile_n) = 2, prefill_tile(m, f, n_sms)
+    return (regime, code, tile_m, tile_n, splits,
+            split_chunk(d, regime, splits))
 
 
 def int8_matmul(x, wq, scale):
@@ -153,7 +163,7 @@ def int8_matmul(x, wq, scale):
     if m == 0:
         return out
     bf16 = x.dtype == torch.bfloat16
-    regime, code, tile_m, splits, chunk = _launch_plan(
+    regime, code, tile_m, tile_n, splits, chunk = _launch_plan(
         m, d, f, bf16, x.device.index or 0)
     xp, wp = x.data_ptr(), wq.data_ptr()
     vec = f % 16 == 0 and wp % 16 == 0  # 16-byte weight loads
@@ -163,7 +173,7 @@ def int8_matmul(x, wq, scale):
         vec = vec and d % 8 == 0 and xp % 16 == 0
     err = _build.library().sw_int8_matmul(
         xp, wp, scale.data_ptr(), out.data_ptr(), m, d, f, int(bf16),
-        int(vec), code, tile_m, splits, chunk, _build.stream_ptr(x))
+        int(vec), code, tile_m, tile_n, splits, chunk, _build.stream_ptr(x))
     _build.check(err, "int8_matmul")
     int8_matmul.launches += 1
     int8_matmul.regime_launches[regime] += 1

@@ -6,7 +6,8 @@
 For every llama3-8b projection (and the lm_head at decode M) and each M,
 times :func:`~starway_tpu_torch.ops.gemv.int8_matmul` under the plan
 ``gemv_plan`` picks and under the others it could pick (decode: D split
-1-16 ways; prefill: 64- or 128-row tiles, D split 1, 2, 4 or 8 ways),
+1-16 ways; prefill: 64- or 128-row, 128- or 256-column tiles, D split 1,
+2, 4 or 8 ways),
 each held against the plain version, beside ``torch.matmul`` on the
 dequantized bf16 weight.  Times are device microseconds a call: 20 calls
 captured in one CUDA graph, each on its own copy of the weight so that
@@ -63,10 +64,12 @@ def cold_copies(t, min_bytes: int = 256 << 20) -> list:
 
 
 def plans(m: int) -> list:
-    """(regime, prefill tile rows, splits) the kernels can run."""
+    """(regime, prefill tile rows and columns, splits) the kernels can
+    run."""
     if m <= gemv.DECODE_MAX_M:
-        return [("decode", 0, s) for s in (1, 2, 3, 4, 8, 9, 12, 16)]
-    return [("prefill", t, s) for t in (64, 128) for s in (1, 2, 4, 8)]
+        return [("decode", 0, 0, s) for s in (1, 2, 3, 4, 8, 9, 12, 16)]
+    return [("prefill", tm, tn, s) for tm in (64, 128) for tn in (128, 256)
+            for s in (1, 2, 4, 8)]
 
 
 def main(argv=None) -> int:
@@ -85,9 +88,9 @@ def main(argv=None) -> int:
     def launch_plan(m, d, f, bf16, index):
         if forced[0] is None:
             return chosen(m, d, f, bf16, index)
-        regime, tile_m, splits = forced[0]
-        return (regime, 1 if regime == "decode" else 2, tile_m, splits,
-                gemv.split_chunk(d, regime, splits))
+        regime, tile_m, tile_n, splits = forced[0]
+        return (regime, 1 if regime == "decode" else 2, tile_m, tile_n,
+                splits, gemv.split_chunk(d, regime, splits))
 
     gemv._launch_plan = launch_plan
     try:

@@ -162,8 +162,9 @@ def _gemv_operands(seed, m, d, f, dtype, dev):
 
 
 # Both sides of the decode/prefill crossover (M = 32 | 33), split and
-# unsplit D, ragged M, D and F, and element-load paths: F % 16 != 0
-# (1000, 333, 520), D % 8 != 0 (300, 12) and D % 4 != 0 (201).
+# unsplit D, 128- and 256-column prefill tiles (the last case takes 256),
+# ragged M, D and F, and element-load paths: F % 16 != 0 (1000, 333, 520,
+# 4001), D % 8 != 0 (300, 12) and D % 4 != 0 (201).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,d,f", [(1, 64, 128), (8, 200, 1000),
                                    (40, 96, 333), (130, 256, 520),
@@ -171,7 +172,8 @@ def _gemv_operands(seed, m, d, f, dtype, dev):
                                    (32, 2048, 640), (33, 2048, 640),
                                    (16, 1024, 256), (17, 512, 384),
                                    (24, 201, 160), (64, 12, 4096),
-                                   (65, 1000, 2048), (300, 520, 1040)])
+                                   (65, 1000, 2048), (300, 520, 1040),
+                                   (1030, 520, 4001)])
 def test_int8_matmul_kernel_matches_plain(dev, dtype, m, d, f):
     x, wq, scale = _gemv_operands(2, m, d, f, dtype, dev)
     got = int8_matmul(x, wq, scale)

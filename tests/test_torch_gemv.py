@@ -104,7 +104,7 @@ def test_gemv_plan_on_the_main_paths_shapes(n_sms, m):
         assert -(-d // chunk) == splits
         cap = tgemv.MAX_SPLITS[regime]
         assert 1 <= splits <= cap
-        tiles = tgemv._tiles(regime, m, f)
+        tiles = tgemv._tiles(regime, m, f, n_sms)
         blocks = tiles * splits
         if regime == "decode":
             assert blocks >= 0.9 * 2 * n_sms or splits == cap, (d, f, blocks)
@@ -122,9 +122,9 @@ def test_gemv_plan_on_the_main_paths_shapes(n_sms, m):
 
 
 def test_gemv_plan_at_measured_shapes():
-    """The plans the H100 measurements chose (132 SMs): decode splits at
-    M=8; prefill one wave, split 2 ways where the 128 x 256 grid is half
-    the card, 4 where it is an eighth, 8 on the smallest grids."""
+    """The plans the H100 measurements chose (132 SMs, ops/gemv_sweep.py):
+    decode splits at M=8; prefill one wave, split 2 ways where the grid is
+    half the card, 4 where it is a quarter, 8 on the smallest grids."""
     plan = tgemv.gemv_plan
     assert plan(8, 4096, 4096, 132) == ("decode", 9)
     assert plan(8, 4096, 1024, 132) == ("decode", 16)
@@ -136,6 +136,14 @@ def test_gemv_plan_at_measured_shapes():
     assert plan(1024, 4096, 4096, 132) == ("prefill", 1)
     assert plan(2048, 4096, 1024, 132) == ("prefill", 2)
     assert plan(128, 4096, 1024, 132) == ("prefill", 8)
+    assert plan(1024, 4096, 1024, 132) == ("prefill", 2)
+    # 128-column tiles where the 256-column grid is under a quarter of
+    # the card (wk/wv at M=1024: 63.4 us against 78.7 at 256, 2 splits).
+    assert tgemv.prefill_tile(64, 4096, 132) == (64, 128)
+    assert tgemv.prefill_tile(512, 1024, 132) == (128, 128)
+    assert tgemv.prefill_tile(1024, 1024, 132) == (128, 128)
+    assert tgemv.prefill_tile(512, 4096, 132) == (128, 256)
+    assert tgemv.prefill_tile(2048, 1024, 132) == (128, 256)
 
 
 @pytest.mark.parametrize("m,regime", [(1, "decode"), (31, "decode"),
