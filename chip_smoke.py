@@ -1629,11 +1629,13 @@ def ptxas_kernel(mangled: str):
     if k:
         to = "f32" if k.group(2) == "f" else "bf16"
         return f"{k.group(1)} {to} D={k.group(3)}"
-    k = re.search(r"gemv_(decode|prefill)_kernelILi(\d+)ELb([01])E", mangled)
+    k = re.search(r"gemv_(decode|prefill)_kernelILi(\d+)E(?:Li(\d+)E)?"
+                  r"Lb([01])E", mangled)
     if k:
-        size = "NT" if k.group(1) == "decode" else "BM"
-        vec = "vec" if k.group(3) == "1" else "elementwise"
-        return f"gemv {k.group(1)} {size}={k.group(2)} {vec}"
+        size = (f"NT={k.group(2)}" if k.group(1) == "decode"
+                else f"{k.group(2)}x{k.group(3)}")
+        vec = "vec" if k.group(4) == "1" else "elementwise"
+        return f"gemv {k.group(1)} {size} {vec}"
     return None
 
 
