@@ -71,11 +71,11 @@ def gemv_plan(m: int, d: int, f: int, n_sms: int) -> tuple[str, int]:
     Decode streams the weight: enough splits for about 2 blocks an SM at
     M up to 16 (bytes in flight), 1 above (twice the x rows and registers
     a block); rounding the chunk to whole k steps may leave a little less.
-    Prefill multiplies: the largest power of two that keeps the grid
-    within one wave (a block an SM), and a cluster of 8 only while its
-    grid fills at most half the card (more clusters of 8 than the card
-    co-schedules ran slower than clusters of 4, and odd sizes slower than
-    the powers of two beside them, on the H100)."""
+    Prefill multiplies: the largest power of two up to 4 that keeps the
+    grid within one wave (a block an SM), then 8 where 128-column blocks
+    (two an SM) still fit the card (256-column clusters of 8, and odd
+    sizes, ran slower than the powers of two beside them on the H100:
+    ops/gemv_sweep.py)."""
     regime = "decode" if m <= DECODE_MAX_M else "prefill"
     tiles = _tiles(regime, m, f, n_sms)
     cap = MAX_SPLITS[regime]
@@ -84,10 +84,11 @@ def gemv_plan(m: int, d: int, f: int, n_sms: int) -> tuple[str, int]:
         want = min(_cdiv(per_sm * n_sms, tiles), cap)
     else:
         want = 1
-        while want < cap and tiles * 2 * want <= n_sms:
+        while want < 4 and tiles * 2 * want <= n_sms:
             want *= 2
-        if want == cap and 2 * tiles * want > n_sms:
-            want //= 2
+        narrow = prefill_tile(m, f, n_sms)[1] == 128
+        if want == 4 and narrow and tiles * cap <= 2 * n_sms:
+            want = cap
     if want <= 1:
         return regime, 1
     return regime, _cdiv(d, split_chunk(d, regime, want))

@@ -93,8 +93,8 @@ def test_gemv_plan_on_the_main_paths_shapes(n_sms, m):
     empty, covers D, and stays within one cluster (16 blocks at decode, 8
     at prefill).  Decode: about 2 blocks an SM (the weight stream needs
     the bytes in flight) unless the cluster is full.  Prefill: a power of
-    two that keeps the grid within one wave (a block an SM) and doubles
-    no further; clusters of 8 only on grids of at most half the card."""
+    two up to 4 that keeps the grid within one wave (a block an SM) and
+    doubles no further, or 8 where 128-column blocks (two an SM) fit."""
     shapes = PROJ + [LM_HEAD] if m == 8 else PROJ
     for d, f in shapes:
         regime, splits = tgemv.gemv_plan(m, d, f, n_sms)
@@ -111,26 +111,28 @@ def test_gemv_plan_on_the_main_paths_shapes(n_sms, m):
             if tiles >= 2 * n_sms:
                 assert splits == 1  # a full grid is not split
         else:
+            narrow = tgemv.prefill_tile(m, f, n_sms)[1] == 128
             assert splits & (splits - 1) == 0
-            assert splits == 1 or blocks <= n_sms  # within one wave
-            if splits == 8:
-                assert 2 * blocks <= n_sms
-            eight_too_many = splits == 4 and 2 * tiles * 8 > n_sms
-            assert (splits == 8 or 2 * blocks > n_sms
-                    or eight_too_many), (d, f, splits)  # doubles no further
+            if splits == 8:  # 128-column blocks, two an SM
+                assert narrow and blocks <= 2 * n_sms
+            else:  # one wave, and it doubles no further
+                assert splits == 1 or blocks <= n_sms
+                assert 2 * blocks > n_sms or (
+                    splits == 4 and not (narrow and 2 * blocks <= 2 * n_sms)
+                ), (d, f, splits)
     assert tgemv.gemv_plan(8, *LM_HEAD, n_sms) == ("decode", 1)
 
 
 def test_gemv_plan_at_measured_shapes():
     """The plans the H100 measurements chose (132 SMs, ops/gemv_sweep.py):
     decode splits at M=8; prefill one wave, split 2 ways where the grid is
-    half the card, 4 where it is a quarter, 8 on the smallest grids."""
+    half the card, 8 ways on small grids of 128-column blocks."""
     plan = tgemv.gemv_plan
     assert plan(8, 4096, 4096, 132) == ("decode", 9)
     assert plan(8, 4096, 1024, 132) == ("decode", 16)
     assert plan(8, 4096, 14336, 132) == ("decode", 3)
     assert plan(512, 4096, 4096, 132) == ("prefill", 2)
-    assert plan(512, 4096, 1024, 132) == ("prefill", 4)
+    assert plan(512, 4096, 1024, 132) == ("prefill", 8)
     assert plan(512, 4096, 14336, 132) == ("prefill", 1)
     assert plan(512, 14336, 4096, 132) == ("prefill", 2)
     assert plan(1024, 4096, 4096, 132) == ("prefill", 1)
