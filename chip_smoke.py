@@ -24,8 +24,11 @@ Phases, each of which raises on failure:
               and the ring's shard shapes; the int8 GEMV at every shape
               of the W8A16 serving path (decode M=8; the admission
               buckets and M=512, 2048), device ms a call with the weight
-              cold beside torch.matmul on the dequantized weight, and the
-              GEMV ms of one decode step and of phase 4's 12 admissions
+              cold beside torch.matmul on the dequantized weight (and
+              by CUDA events around one call), the decode step's q, k, v
+              projections as one chain, and the rows' sums over one
+              decode step and phase 4's 12 admissions (a model: the
+              decode step's is measured in phase 6)
 4. serve   -- SlotServer on llama3-8b widths (bf16, 32 layers, random
               weights): 12 requests through 8 slots; first-token logits of
               one request against a forward through the plain attention
@@ -37,8 +40,9 @@ Phases, each of which raises on failure:
               against a forward of prefix + suffix through the plain
               attention
 6. int8    -- phase 4 again with an int8 KV cache and W8A16 weights; the
-              GEMV launches in both regimes (decode and prefill).  Phases
-              4-6 log admission seconds (wall - the decode chunks)
+              GEMV launches in both regimes (decode and prefill), and its
+              device ms in the traced chunk is logged.  Phases 4-6 log
+              admission seconds (wall - the decode chunks)
 7. parity  -- float32, 2 layers at the same widths: SlotServer's greedy
               tokens equal generate()'s for every request
 8. paged-parity -- the same weights: PagedSlotServer without and with a
@@ -88,9 +92,6 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate (data sheet)
 BF16_TOL = 2e-2             # absolute, bf16 outputs: one rounding of O(1)
-# The int8 GEMV's bf16 outputs reach ~6, where one bf16 ulp is 0.031: each
-# element is held to max(BF16_TOL, GEMV_ULPS bf16 ulps of |want|).
-GEMV_ULPS = 2
 LOGIT_REL_TOL = 5e-2        # bf16 logits after 32 layers, vs max |logit|
 # Gradients, against their largest value: bf16 one ulp (2^-7 < 1e-2), the
 # kernels and the plain version round p and ds at the same points; f32
@@ -127,21 +128,6 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def bf16_ulp(v):
-    """One bf16 ulp at each element of ``v``: 2^(floor(log2 |v|) - 7)."""
-    import torch
-
-    return torch.exp2(torch.floor(torch.log2(v.abs())) - 7)
-
-
-def gemv_excess(got, want) -> float:
-    """max |got - want| / max(BF16_TOL, GEMV_ULPS ulp_bf16(|want|)) over
-    the elements, in float32: at most 1 passes."""
-    want = want.float()
-    tol = (GEMV_ULPS * bf16_ulp(want)).clamp(min=BF16_TOL)
-    return ((got.float() - want).abs() / tol).max().item()
 
 
 def bound(n_bytes: float, n_flops: float):
@@ -302,22 +288,27 @@ def gemv_rows(dev, randn) -> dict:
     """Phase 3's int8 GEMV: every shape of the W8A16 serving path at
     decode M=8, the layer shapes at every admission bucket of phase 4's
     requests and at M=512 and 2048, the lm_head at M=1 (admission's last
-    row) and M=512; each held against its plain version (max(BF16_TOL,
-    GEMV_ULPS bf16 ulps of |want|) per element) and timed as device ms a
-    call (ops/gemv_sweep.py graph_us: 20 calls in one CUDA graph, each on
-    its own copy of the weight, cold as in a decode step) beside
-    torch.matmul on the
-    dequantized bf16 weight timed the same way, the plain version (CUDA
-    events) and the bound; the host's enqueue us of a call beside
-    torch.matmul's.  Logs the GEMV ms of one decode step and of the 12
-    admissions.  Returns the kernels line's row, timed at M=8, D=4096,
-    F=14336 as in earlier runs."""
+    row) and M=512; each held against its plain version (ops/gemv.py
+    tolerance_share: max(2e-2, 2 bf16 ulps of |want|) per element) and
+    timed as device ms a call (utils/cuda_timing.py graph_us: 20 calls in
+    one CUDA graph, each on its own copy of the weight, cold as in a
+    decode step) beside torch.matmul on the dequantized bf16 weight timed
+    the same way, the plain version (CUDA events) and the bound; the
+    host's enqueue us of a call beside torch.matmul's.  Logs the sums of
+    these per-shape times over one decode step and over the 12
+    admissions (a model of the path's GEMV time, not a measurement of
+    it).  Returns the kernels line's row, timed at M=8, D=4096, F=14336
+    as in earlier runs, with every row.  Every call passes
+    static_weight=True, as the model's matmul_w does."""
     import torch
 
-    from starway_tpu_torch.ops.gemv import (_n_sms, gemv_plan, int8_matmul,
-                                            int8_matmul_reference)
-    from starway_tpu_torch.ops.gemv_sweep import cold_copies, graph_us
+    from starway_tpu_torch.ops.gemv import (BF16_ATOL, BF16_ULPS, _n_sms,
+                                            early_launch, gemv_plan,
+                                            int8_matmul,
+                                            int8_matmul_reference,
+                                            tolerance_share)
     from starway_tpu_torch.ops.quantize import quantize_weight
+    from starway_tpu_torch.utils.cuda_timing import cold_copies, graph_us
 
     buckets = admission_buckets()
     n_sms = _n_sms(dev.index or 0)
@@ -332,39 +323,51 @@ def gemv_rows(dev, randn) -> dict:
                    else sorted({8, 512, 2048, *buckets}))
         for m in ms_list:
             x = randn(m, d)
-            got = int8_matmul(x, wq, sc)
+            got = int8_matmul(x, wq, sc, static_weight=True)
             want = int8_matmul_reference(x, wq, sc)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            excess = gemv_excess(got, want)
+            excess = tolerance_share(got, want)
             worst, worst_excess = max(worst, err), max(worst_excess, excess)
-            ms = graph_us(lambda c: int8_matmul(x, c, sc), wqs) / 1e3
+            ms = graph_us(lambda c: int8_matmul(x, c, sc, static_weight=True),
+                          wqs) / 1e3
             lib = graph_us(lambda c: torch.matmul(x, c), w_deqs) / 1e3
+            # The first version's method beside it: CUDA events around
+            # one call, the weight hot in L2 where it fits.
+            ev = cuda_ms(lambda: int8_matmul(x, wq, sc, static_weight=True))
+            lib_ev = cuda_ms(lambda: torch.matmul(x, w_deq))
             plain = cuda_ms(lambda: int8_matmul_reference(x, wq, sc),
                             iters=3, warmup=1)
-            host_us = back_to_back(lambda: int8_matmul(x, wq, sc), 50)[1]
+            host_us = back_to_back(
+                lambda: int8_matmul(x, wq, sc, static_weight=True), 50)[1]
             lib_host_us = back_to_back(lambda: torch.matmul(x, w_deq), 50)[1]
             n_bytes = d * f + 4 * f + 2 * m * d + 2 * m * f
             flops = 2 * m * d * f
             b_ms, b_by = bound(n_bytes, flops)
             regime, splits = gemv_plan(m, d, f, n_sms)
+            early = early_launch(regime, m, f, splits, n_sms)
             rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if b_by == "operations"
                     else f"{n_bytes / ms / 1e6:.1f} GB/s")
-            log(f"int8_matmul {name} M={m} D={d} F={f} ({regime}, {splits} "
-                f"splits): max_abs_err {err:.3e}, {excess:.3f} of the "
-                f"tolerance (max({BF16_TOL}, {GEMV_ULPS} bf16 ulps of "
-                f"|want|)); {ms:.4f} ms ({rate}, {b_ms / ms:.3f} of the "
-                f"bound {b_ms:.4f} ms, {b_by}), torch.matmul {lib:.4f} ms "
-                f"({ms / lib:.2f}x), plain {plain:.4f} ms; host enqueue "
-                f"{host_us:.1f} us a call (torch.matmul {lib_host_us:.1f})")
+            how = f"{regime}, {splits} splits" + (", early launch" if early
+                                                  else "")
+            log(f"int8_matmul {name} M={m} D={d} F={f} ({how}): max_abs_err "
+                f"{err:.3e}, {excess:.3f} of the tolerance (max({BF16_ATOL}, "
+                f"{BF16_ULPS} bf16 ulps of |want|)); {ms:.4f} ms ({rate}, "
+                f"{b_ms / ms:.3f} of the bound {b_ms:.4f} ms, {b_by}), "
+                f"torch.matmul {lib:.4f} ms ({ms / lib:.2f}x), plain "
+                f"{plain:.4f} ms; by events around one call {ev:.4f} ms, "
+                f"torch.matmul {lib_ev:.4f}; host enqueue {host_us:.1f} us a "
+                f"call (torch.matmul {lib_host_us:.1f})")
             if not excess <= 1:
                 raise AssertionError(f"int8_matmul disagrees with its plain "
                                      f"version at M={m} D={d} F={f}")
             table[(m, d, f)] = dict(
                 shape=name, m=m, d=d, f=f, regime=regime, splits=splits,
+                early_launch=early,
                 ms=ms, library_ms=lib, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, bound_share=b_ms / ms, max_abs_err=err,
-                tol_share=excess, host_us=host_us, library_host_us=lib_host_us)
+                tol_share=excess, host_us=host_us, library_host_us=lib_host_us,
+                events_ms=ev, library_events_ms=lib_ev)
             del x, got, want
         del wq, sc, w_deq, wqs, w_deqs
         torch.cuda.empty_cache()
@@ -379,11 +382,12 @@ def gemv_rows(dev, randn) -> dict:
     admit = {key: sum(step_ms(b, key) + table[(1, *head)][key]
                       for b in buckets)
              for key in ("ms", "library_ms", "bound_ms")}
-    log(f"[gemv] one decode step (M=8: 32 x (2 wq/wo + 2 wk/wv + 2 gate/up "
-        f"+ down) + lm_head, 225 launches): {decode['ms']:.4f} ms against "
-        f"its bound {decode['bound_ms']:.4f} ms (torch.matmul "
-        f"{decode['library_ms']:.4f}); the 12 admissions (M = buckets "
-        f"{buckets}, 224 launches each + the lm_head at M=1): "
+    log(f"[gemv] sums of the per-shape times above, modelled, not "
+        f"measured on the path: one decode step (M=8: 32 x (2 wq/wo + 2 "
+        f"wk/wv + 2 gate/up + down) + lm_head, 225 launches) "
+        f"{decode['ms']:.4f} ms against its bound {decode['bound_ms']:.4f} "
+        f"ms (torch.matmul {decode['library_ms']:.4f}); the 12 admissions "
+        f"(M = buckets {buckets}, 224 launches each + the lm_head at M=1) "
         f"{admit['ms']:.4f} ms (bound {admit['bound_ms']:.4f}, torch.matmul "
         f"{admit['library_ms']:.4f})")
     for m in (512, 2048):
@@ -393,6 +397,11 @@ def gemv_rows(dev, randn) -> dict:
     worst_x = max(r["ms"] / r["library_ms"] for r in table.values()
                   if r["m"] == 8)
     log(f"[gemv] M=8: slowest row {worst_x:.2f}x torch.matmul")
+    chain = gemv_chain(randn)
+    log(f"[gemv] the decode step's q, k, v projections back to back (M=8, "
+        f"weights cold): {chain['ms']:.4f} ms, torch.matmul "
+        f"{chain['library_ms']:.4f} ms "
+        f"({chain['ms'] / chain['library_ms']:.2f}x)")
     timed = table[(8, 4096, 14336)]
     return dict(
         name="int8_matmul", route="cuda",
@@ -403,8 +412,46 @@ def gemv_rows(dev, randn) -> dict:
                                   "library_ms")},
         timed_at="M=8 D=4096 F=14336 bf16 (decode regime), device ms a "
                  "call, weight cold",
-        decode_step=decode, admissions=admit,
-        rows=[dict(r) for r in table.values()])
+        rows=[dict(r) for r in table.values()], qkv_chain=chain)
+
+
+def gemv_chain(randn) -> dict:
+    """Device ms of the decode step's q, k and v projections (M=8: wq
+    4096 x 4096, then wk and wv 4096 x 1024, one x) as one chain, 20
+    chains in a CUDA graph on cold weight copies: the int8 GEMV, whose
+    early launch lets each call start behind the one before, against
+    torch.matmul on the dequantized weights the same way."""
+    import torch
+
+    from starway_tpu_torch.ops.gemv import int8_matmul
+    from starway_tpu_torch.ops.quantize import quantize_weight
+    from starway_tpu_torch.utils.cuda_timing import graph_us
+
+    x = randn(8, 4096)
+    ws = {}
+    for name, f in (("q", 4096), ("kv", 1024)):
+        w = quantize_weight(randn(4096, f, dtype=torch.float32) * 4096 ** -0.5)
+        ws[name] = (w["q"], w["s"],
+                    (w["q"].float() * w["s"]).to(torch.bfloat16))
+    n = 8  # chains of copies: 8 x (16 + 8) MB int8 read between reuses
+    q = [ws["q"][0].clone() for _ in range(n)]
+    kv = [ws["kv"][0].clone() for _ in range(2 * n)]
+    q_deq = [ws["q"][2].clone() for _ in range(n)]
+    kv_deq = [ws["kv"][2].clone() for _ in range(2 * n)]
+    sq, skv = ws["q"][1], ws["kv"][1]
+
+    def ours(i):
+        int8_matmul(x, q[i], sq, static_weight=True)
+        int8_matmul(x, kv[2 * i], skv, static_weight=True)
+        int8_matmul(x, kv[2 * i + 1], skv, static_weight=True)
+
+    def library(i):
+        torch.matmul(x, q_deq[i])
+        torch.matmul(x, kv_deq[2 * i])
+        torch.matmul(x, kv_deq[2 * i + 1])
+
+    return dict(ms=graph_us(ours, list(range(n))) / 1e3,
+                library_ms=graph_us(library, list(range(n))) / 1e3)
 
 
 def decode_work(pos, n_q: int, hkv: int, hq: int, d: int, elem: int):
@@ -991,13 +1038,16 @@ class TimedChunks:
             t0 = time.perf_counter()
             out = super()._run_chunk()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        busy_us = sum(
-            getattr(e, "self_device_time_total", 0)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(getattr(e, "self_device_time_total", 0)
+                      for e in kernels)
+        gemv_us = sum(getattr(e, "self_device_time_total", 0)
+                      for e in kernels if "gemv_" in e.key)
         self.traced.update(
             traced_chunk_ms=wall_ms,
             device_busy_ms=busy_us / 1e3 if busy_us else None,
+            gemv_device_ms=gemv_us / 1e3 if busy_us else None,
             tracer_overhead_s=time.perf_counter() - t_call - wall_ms / 1e3)
         return out
 
@@ -1630,12 +1680,13 @@ def ptxas_kernel(mangled: str):
         to = "f32" if k.group(2) == "f" else "bf16"
         return f"{k.group(1)} {to} D={k.group(3)}"
     k = re.search(r"gemv_(decode|prefill)_kernelILi(\d+)E(?:Li(\d+)E)?"
-                  r"Lb([01])E", mangled)
+                  r"Lb([01])E(?:Lb([01])E)?", mangled)
     if k:
         size = (f"NT={k.group(2)}" if k.group(1) == "decode"
                 else f"{k.group(2)}x{k.group(3)}")
         vec = "vec" if k.group(4) == "1" else "elementwise"
-        return f"gemv {k.group(1)} {size} {vec}"
+        early = " early" if k.group(5) == "1" else ""
+        return f"gemv {k.group(1)} {size} {vec}{early}"
     return None
 
 
@@ -1747,6 +1798,10 @@ def main() -> int:
     log(f"  {st5}")
     log(f"  launches {c5}")
     log(f"  int8_matmul launches by regime {by_regime}")
+    if st5.get("gemv_device_ms") is not None:
+        log(f"  GEMV device ms of the traced chunk (8 decode steps, "
+            f"measured): {st5['gemv_device_ms']:.4f}, "
+            f"{st5['gemv_device_ms'] / 8:.4f} a decode step")
     if not all(c5[k] > 0 for k in ("decode_attention", "flash_forward",
                                     "int8_matmul")):
         raise AssertionError("the int8 serving run missed a kernel")

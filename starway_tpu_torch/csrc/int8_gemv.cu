@@ -26,7 +26,11 @@
 //   fixed order.  The split brings the path's shapes to about two blocks
 //   an SM; the splits of a column tile (up to 16) are one thread block
 //   cluster whose blocks add up each other's sums over distributed shared
-//   memory, in split order.
+//   memory, in split order.  At M <= 8, and for grids of one block an SM,
+//   the kernel is a programmatic dependent launch (EARLY): its blocks may
+//   start while the kernel ahead finishes and load their first weight
+//   round (read-only) before griddepcontrol.wait, so a GEMV's launch and
+//   first loads hide behind the one before it (k behind q, v behind k).
 // * Prefill regime (bf16, M > 32): gemv_prefill_kernel, a BM x BN x 64
 //   block tile (BM 64 or 128, BN 256, or 128 on small grids) on warps of
 //   (BM / 2) x 64.  x and the
@@ -78,6 +82,18 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Programmatic dependent launch: a grid launched with the attribute may
+// start before the kernel ahead of it in the stream has finished;
+// griddep_wait() returns once that kernel has completed and its writes are
+// visible, and griddep_launch() lets the next such grid start.  Without
+// the attribute both are no-ops.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ------------------------------------------------------- decode regime
@@ -145,8 +161,9 @@ __device__ __forceinline__ uint2 load_x4(const bf16* x, int n, int rr,
 // (chunk a multiple of 16) and the splits of a column tile are one
 // cluster.  NT n8 tiles of x rows
 // (M <= 8 NT).  VEC: F % 16 == 0, wq 16-byte aligned, D % 4 == 0 and x
-// 8-byte aligned.
-template <int NT, bool VEC>
+// 8-byte aligned.  EARLY: launched as a programmatic dependent launch
+// (see griddep_wait; ops/gemv.py early_launch says when).
+template <int NT, bool VEC, bool EARLY>
 __global__ void __launch_bounds__(kDecThreads) gemv_decode_kernel(
     const bf16* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ scale, bf16* __restrict__ out, int m, int d,
@@ -175,17 +192,35 @@ __global__ void __launch_bounds__(kDecThreads) gemv_decode_kernel(
 
   // Each k16 step: this thread's k values 2 t4, 2 t4 + 1, 2 t4 + 8,
   // 2 t4 + 9 are rows rr .. rr + 3, rr = step + 4 t4, in A and in B alike.
+  // EARLY (a programmatic dependent launch): the weight is read-only, so
+  // its first round streams in before griddep_wait(); x, the scale and
+  // the output are touched only after it.
   constexpr int U = NT == 1 ? 4 : 2;  // k16 steps a thread has in flight
-  for (int r0 = r_begin + warp * 16; r0 < r_end; r0 += U * kDecRows) {
+  const int r_first = r_begin + warp * 16;
+  for (int r0 = r_first; r0 < r_end; r0 += U * kDecRows) {
     uint4 wv[U][4];
     uint2 xv[U][NT];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int rr = r0 + u * kDecRows + 4 * t4;
       load_w4<VEC>(wv[u], w, rr, r_end, f, fc);
+      if (!EARLY) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        xv[u][nt] = load_x4<VEC>(x, nt * 8 + g, rr, r_end, m, d);
+        for (int nt = 0; nt < NT; ++nt)
+          xv[u][nt] = load_x4<VEC>(x, nt * 8 + g, rr, r_end, m, d);
+      }
+    }
+    if (EARLY) {
+      if (r0 == r_first) {
+        griddep_wait();
+        griddep_launch();
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          xv[u][nt] = load_x4<VEC>(x, nt * 8 + g,
+                                   r0 + u * kDecRows + 4 * t4, r_end, m, d);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -207,6 +242,7 @@ __global__ void __launch_bounds__(kDecThreads) gemv_decode_kernel(
       }
     }
   }
+  if (EARLY) griddep_wait();  // also a warp that had no rows, before writing
 
   constexpr int MP = 8 * NT;  // x rows padded to the n-tiles
 #pragma unroll
@@ -656,10 +692,11 @@ struct Args {
 };
 
 // Launch ``kernel`` with the grid's splits (grid axis ``axis``: 1 = y,
-// 2 = z) as one thread block cluster each.
+// 2 = z) as one thread block cluster each; ``early``: as a programmatic
+// dependent launch (see griddep_wait).
 template <typename K>
 int launch_split(K kernel, dim3 grid, int threads, size_t smem, int axis,
-                 const Args& a) {
+                 bool early, const Args& a) {
   sw_allow_smem(kernel, smem);
   if (a.splits > 8)
     cudaFuncSetAttribute(kernel,
@@ -669,30 +706,37 @@ int launch_split(K kernel, dim3 grid, int threads, size_t smem, int axis,
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = a.stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = axis == 1 ? a.splits : 1;
   attr[0].val.clusterDim.z = axis == 2 ? a.splits : 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = early ? 2 : 1;
   return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, a.x, a.w, a.scale,
                                              a.out, a.m, a.d, a.f, a.chunk));
 }
 
-template <int NT, bool VEC>
+template <int NT, bool VEC, bool EARLY>
 int launch_decode(const Args& a) {
-  return launch_split(gemv_decode_kernel<NT, VEC>,
+  return launch_split(gemv_decode_kernel<NT, VEC, EARLY>,
                       dim3((a.f + kCols - 1) / kCols, a.splits), kDecThreads,
-                      decode_smem<NT>(), 1, a);
+                      decode_smem<NT>(), 1, EARLY, a);
 }
 
-template <bool VEC>
+template <bool VEC, bool EARLY>
 int decode(const Args& a) {
-  if (a.m <= 8) return launch_decode<1, VEC>(a);
-  if (a.m <= 16) return launch_decode<2, VEC>(a);
-  if (a.m <= 32) return launch_decode<4, VEC>(a);
+  if (a.m <= 8) return launch_decode<1, VEC, EARLY>(a);
+  if (a.m <= 16) return launch_decode<2, VEC, EARLY>(a);
+  if (a.m <= 32) return launch_decode<4, VEC, EARLY>(a);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool EARLY>
+int decode(const Args& a, int vec) {
+  return vec ? decode<true, EARLY>(a) : decode<false, EARLY>(a);
 }
 
 template <int BM, int BN, bool VEC>
@@ -700,7 +744,7 @@ int launch_prefill(const Args& a) {
   return launch_split(
       gemv_prefill_kernel<BM, BN, VEC>,
       dim3((a.f + BN - 1) / BN, (a.m + BM - 1) / BM, a.splits), BN,
-      prefill_smem<BM, BN>(), 2, a);
+      prefill_smem<BM, BN>(), 2, false, a);
 }
 
 template <int BM, int BN>
@@ -714,13 +758,13 @@ int prefill(const Args& a, int vec) {
 // x [M, D] (bfloat16 if is_bf16 else float32), wq int8 [D, F], scale
 // float32 [F], out [M, F] in x's dtype.  regime: 0 float32 on the FMA
 // units (vec: F % 16 == 0 and wq 16-byte aligned); 1 decode (bf16, M <=
-// 32), 2 prefill (bf16, tile_m 64 or 128 rows and tile_n 128 or 256
-// columns a block).  vec for regimes
-// 1 and 2: every 16-byte (decode: x's 8-byte) load is aligned, see the
-// kernels.  splits: chunks of D of ``chunk`` rows (splits * chunk >= D;
-// chunk a multiple of 16 in regime 1 and of 64 in regime 2), at most 16
-// in regime 1 and 8 in regime 2: the
-// splits of an output tile are one cluster.  Returns cudaGetLastError()
+// 32), 3 the same as a programmatic dependent launch (EARLY), 2 prefill
+// (bf16, tile_m 64 or 128 rows and tile_n 128 or 256 columns a block).
+// vec for regimes 1-3: every 16-byte (decode: x's 8-byte) load is
+// aligned, see the kernels.  splits: chunks of D of ``chunk`` rows
+// (splits * chunk >= D; chunk a multiple of 16 at decode and of 64 at
+// prefill), at most 16 at decode and 8 at prefill: the splits of an
+// output tile are one cluster.  Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for arguments out of range).
 extern "C" int sw_int8_matmul(const void* x, const void* wq,
                               const void* scale, void* out, int m, int d,
@@ -734,18 +778,21 @@ extern "C" int sw_int8_matmul(const void* x, const void* wq,
       return launch_fma<8, 32, 128, 1, 2>(x, wq, scale, out, m, d, f, vec, st);
     return launch_fma<64, 64, 32, 4, 4>(x, wq, scale, out, m, d, f, vec, st);
   }
-  const int unit = regime == 1 ? 16 : kBK;  // a k16 step, a stage
+  const bool decoding = regime == 1 || regime == 3;
+  const int unit = decoding ? 16 : kBK;  // a k16 step, a stage
   if (!is_bf16 || splits < 1 || chunk < unit || chunk % unit ||
       (regime == 2 && tile_m != 64 && tile_m != 128) ||
       static_cast<long long>(splits) * chunk < d ||
-      splits > (regime == 1 ? kDecMaxSplits : kMaxSplits))
+      splits > (decoding ? kDecMaxSplits : kMaxSplits))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const bf16*>(x), static_cast<const int8_t*>(wq),
                static_cast<const float*>(scale), static_cast<bf16*>(out), m,
                d, f, splits, chunk, st};
   int err = static_cast<int>(cudaErrorInvalidValue);
   if (regime == 1)
-    err = vec ? decode<true>(a) : decode<false>(a);
+    err = decode<false>(a, vec);
+  else if (regime == 3)
+    err = decode<true>(a, vec);
   else if (regime == 2 && tile_n == 256)
     err = tile_m == 64 ? prefill<64, 256>(a, vec) : prefill<128, 256>(a, vec);
   else if (regime == 2 && tile_n == 128)

@@ -297,7 +297,7 @@ def matmul_w(x, w):
     if x.is_cuda:
         from ..ops.gemv import int8_matmul
 
-        out = int8_matmul(x2.contiguous(), wq, s)
+        out = int8_matmul(x2.contiguous(), wq, s, static_weight=True)
     else:
         out = (x2.float() @ (wq.float() * s[None, :])).to(x.dtype)
     return out.reshape(*lead, wq.shape[-1])

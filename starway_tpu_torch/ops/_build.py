@@ -142,10 +142,7 @@ def check(err: int, name: str) -> None:
 
 def stream_ptr(t) -> int:
     """PyTorch's current stream on ``t``'s device, as a pointer (the raw
-    query where this PyTorch has it: a decode step asks ~300 times)."""
+    query: a decode step asks ~300 times)."""
     import torch
 
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(t.device.index)
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

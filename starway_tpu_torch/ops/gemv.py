@@ -12,8 +12,11 @@ every SM holds about two blocks) or "prefill" (above: the multiply-adds
 bound it, and D is split only where the grid is under one block an SM).
 The splits of an output tile are one thread block cluster that sums its
 float32 partials in split order in shared memory: no workspace, no
-second kernel, and two calls give identical bits.  A float32 x takes the
-FMA kernel ("fma").
+second kernel, and two calls give identical bits.  For a static weight
+(a model's parameters), where :func:`early_launch` says so, the decode
+kernel is a programmatic dependent launch that starts streaming its
+weight while the kernel ahead finishes.  A float32 x takes the FMA
+kernel ("fma").
 """
 
 from __future__ import annotations
@@ -29,6 +32,13 @@ DECODE_COLS = 128    # F columns a decode block
 SPLIT_UNIT = {"decode": 16, "prefill": 64}  # rows of D: a k16 step, a stage
 MAX_SPLITS = {"decode": 16, "prefill": 8}  # a tile's splits: one cluster
 REGIMES = ("decode", "prefill", "fma")
+# A bf16 result is held, element by element, to max(BF16_ATOL, BF16_ULPS
+# bf16 ulps of |want|): the kernel and the plain version each round a
+# float32 sum taken in another order, and outputs above 4 have ulps above
+# 2e-2.  float32 results: FLOAT32_TOL (summation order).
+BF16_ATOL = 2e-2
+BF16_ULPS = 2
+FLOAT32_TOL = 1e-5
 
 
 def _check_args(x, wq, scale):
@@ -94,6 +104,20 @@ def gemv_plan(m: int, d: int, f: int, n_sms: int) -> tuple[str, int]:
     return regime, _cdiv(d, split_chunk(d, regime, want))
 
 
+def early_launch(regime: str, m: int, f: int, splits: int,
+                 n_sms: int) -> bool:
+    """Whether the decode kernel of a static weight goes out as a
+    programmatic dependent launch, whose launch and first weight loads
+    then overlap the kernel ahead (the GEMV of q before k's, of k before
+    v's): at M up to 8 (one n-tile of x rows, the serving step's M), and
+    for a grid of at most one block an SM at any decode M.  On the H100
+    these ran faster so launched, and larger grids at M = 16 slower
+    (ops/gemv_sweep.py times both)."""
+    if regime != "decode":
+        return False
+    return m <= 8 or _tiles(regime, m, f, n_sms) * splits <= n_sms
+
+
 def split_chunk(d: int, regime: str, splits: int) -> int:
     """Rows of D each split sums, whole k steps of the regime's kernel:
     split z takes rows [z * chunk, min((z + 1) * chunk, d))."""
@@ -120,36 +144,79 @@ def int8_matmul_split_reference(x, wq, scale, chunk: int):
     return (acc * scale).to(x.dtype)
 
 
+def bf16_ulp(v):
+    """One bf16 ulp at each element of ``v``: 2^(floor(log2 |v|) - 7)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs())) - 7)
+
+
+def tolerance_share(got, want) -> float:
+    """The worst element's ``|got - want|`` as a share of its tolerance:
+    max(BF16_ATOL, BF16_ULPS ulps of |want|) for a bf16 ``got``, else
+    FLOAT32_TOL (absolute and relative).  At most 1 passes."""
+    want = want.float()
+    if got.dtype == torch.bfloat16:
+        tol = (BF16_ULPS * bf16_ulp(want)).clamp(min=BF16_ATOL)
+    else:
+        tol = FLOAT32_TOL * (1 + want.abs())
+    return ((got.float() - want).abs() / tol).max().item()
+
+
 @functools.lru_cache(maxsize=None)
 def _n_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_plan(m: int, d: int, f: int, bf16: bool, index: int):
-    """(regime, its code for the C entry point, prefill tile rows and
-    columns, splits, chunk) of one call; cached, as a decode step makes
-    ~225."""
+def _launch_plan(m: int, d: int, f: int, bf16: bool, static: bool,
+                 index: int):
+    """:func:`make_plan` of the plan :func:`gemv_plan` picks for one call,
+    launched early where :func:`early_launch` says so and the weight is
+    static; cached, as a decode step makes ~225."""
     if not bf16:
         return "fma", 0, 0, 0, 1, d
     n_sms = _n_sms(index)
     regime, splits = gemv_plan(m, d, f, n_sms)
-    if regime == "decode":
-        code, (tile_m, tile_n) = 1, (0, 0)
-    else:
-        code, (tile_m, tile_n) = 2, prefill_tile(m, f, n_sms)
-    return (regime, code, tile_m, tile_n, splits,
-            split_chunk(d, regime, splits))
+    tile = prefill_tile(m, f, n_sms) if regime == "prefill" else (0, 0)
+    early = static and early_launch(regime, m, f, splits, n_sms)
+    return make_plan(regime, d, splits, tile, early)
 
 
-def int8_matmul(x, wq, scale):
+def make_plan(regime: str, d: int, splits: int, tile, early: bool) -> tuple:
+    """(regime, its code for the C entry point, prefill tile rows and
+    columns, splits, chunk) of a bf16 launch.  Codes: 1 decode, 3 decode
+    as an early launch (``early``), 2 prefill."""
+    code = (3 if early else 1) if regime == "decode" else 2
+    return (regime, code, *tile, splits, split_chunk(d, regime, splits))
+
+
+def int8_matmul(x, wq, scale, *, static_weight: bool = False):
     """``x [M, D] @ (wq int8 [D, F] * scale f32 [F]) -> [M, F]``.
 
     CUDA tensors launch the kernels (csrc/int8_gemv.cu) in the regime of
-    :func:`gemv_plan`, CPU tensors take :func:`int8_matmul_reference`."""
+    :func:`gemv_plan`, CPU tensors take :func:`int8_matmul_reference`.
+    ``static_weight``: nothing writes ``wq`` while calls run (a served
+    model's parameters), so the decode kernel may read it before the
+    kernel ahead in the stream has finished (:func:`early_launch`)."""
     _check_args(x, wq, scale)
     if not x.is_cuda:
         return int8_matmul_reference(x, wq, scale)
+    plan = _launch_plan(x.shape[0], x.shape[1], wq.shape[1],
+                        x.dtype == torch.bfloat16, static_weight,
+                        x.device.index or 0)
+    out = launch(x, wq, scale, plan)
+    int8_matmul.launches += 1
+    int8_matmul.regime_launches[plan[0]] += 1
+    return out
+
+
+int8_matmul.launches = 0
+int8_matmul.regime_launches = dict.fromkeys(REGIMES, 0)
+
+
+def launch(x, wq, scale, plan):
+    """Launch the kernel of ``plan`` (a :func:`make_plan` tuple) on CUDA
+    tensors, uncounted: :func:`int8_matmul`'s launch, and the sweep's
+    (ops/gemv_sweep.py) under plans gemv_plan does not pick."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
     for t in (wq, scale):
@@ -163,9 +230,7 @@ def int8_matmul(x, wq, scale):
     out = torch.empty((m, f), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    bf16 = x.dtype == torch.bfloat16
-    regime, code, tile_m, tile_n, splits, chunk = _launch_plan(
-        m, d, f, bf16, x.device.index or 0)
+    regime, code, tile_m, tile_n, splits, chunk = plan
     xp, wp = x.data_ptr(), wq.data_ptr()
     vec = f % 16 == 0 and wp % 16 == 0  # 16-byte weight loads
     if regime == "decode":  # and 8-byte loads of x
@@ -173,13 +238,8 @@ def int8_matmul(x, wq, scale):
     elif regime == "prefill":  # and 16-byte copies of x
         vec = vec and d % 8 == 0 and xp % 16 == 0
     err = _build.library().sw_int8_matmul(
-        xp, wp, scale.data_ptr(), out.data_ptr(), m, d, f, int(bf16),
-        int(vec), code, tile_m, tile_n, splits, chunk, _build.stream_ptr(x))
+        xp, wp, scale.data_ptr(), out.data_ptr(), m, d, f,
+        int(x.dtype == torch.bfloat16), int(vec), code, tile_m, tile_n,
+        splits, chunk, _build.stream_ptr(x))
     _build.check(err, "int8_matmul")
-    int8_matmul.launches += 1
-    int8_matmul.regime_launches[regime] += 1
     return out
-
-
-int8_matmul.launches = 0
-int8_matmul.regime_launches = dict.fromkeys(REGIMES, 0)

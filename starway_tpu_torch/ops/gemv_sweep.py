@@ -4,24 +4,26 @@
     python -m starway_tpu_torch.ops.gemv_sweep [--m 8 128 512 2048]
 
 For every llama3-8b projection (and the lm_head at decode M) and each M,
-times :func:`~starway_tpu_torch.ops.gemv.int8_matmul` under the plan
-``gemv_plan`` picks and under the others it could pick (decode: D split
-1-16 ways; prefill: 64- or 128-row, 128- or 256-column tiles, D split 1,
-2, 4 or 8 ways),
-each held against the plain version, beside ``torch.matmul`` on the
+launches the kernels (:func:`~starway_tpu_torch.ops.gemv.launch`) under
+every plan they can run (decode: D split 1-16 ways, launched early or
+not; prefill: 64- or 128-row, 128- or 256-column tiles, D split 1, 2, 4
+or 8 ways), prints
+the one ``gemv_plan`` picks, and times each, held against the plain
+version, beside ``torch.matmul`` on the
 dequantized bf16 weight.  Times are device microseconds a call: 20 calls
 captured in one CUDA graph, each on its own copy of the weight so that
-it comes from device memory, as in a decode step.  Needs an NVIDIA GPU.
+it comes from device memory, as in a decode step
+(utils/cuda_timing.py).  Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
-import statistics
 import sys
 
 import torch
 
+from ..utils.cuda_timing import cold_copies, graph_us
 from . import gemv
 from .quantize import quantize_weight
 
@@ -30,46 +32,14 @@ SHAPES = (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
           ("lm_head", 4096, 128256))
 
 
-def graph_us(call, copies, n: int = 20) -> float:
-    """Device us of one ``call(copy)``: n calls on ``copies`` in turn,
-    captured in one CUDA graph, median of 10 replays."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for i in range(3):
-            call(copies[i % len(copies)])
-    stream.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        for i in range(n):
-            call(copies[i % len(copies)])
-    graph.replay()
-    times = []
-    for _ in range(10):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) * 1e3 / n)
-    return statistics.median(times)
-
-
-def cold_copies(t, min_bytes: int = 256 << 20) -> list:
-    """``t`` and enough copies that cycling through them reads more than
-    the 50 MB L2 between two uses of one copy."""
-    n = max(1, -(-min_bytes // (t.numel() * t.element_size())))
-    return [t] + [t.clone() for _ in range(n - 1)]
-
-
 def plans(m: int) -> list:
-    """(regime, prefill tile rows and columns, splits) the kernels can
-    run."""
+    """(regime, prefill tile rows and columns, splits, early launch) the
+    kernels can run."""
     if m <= gemv.DECODE_MAX_M:
-        return [("decode", 0, 0, s) for s in (1, 2, 3, 4, 8, 9, 12, 16)]
-    return [("prefill", tm, tn, s) for tm in (64, 128) for tn in (128, 256)
-            for s in (1, 2, 4, 8)]
+        return [("decode", 0, 0, s, e) for s in (1, 2, 3, 4, 8, 9, 12, 16)
+                for e in (False, True)]
+    return [("prefill", tm, tn, s, False) for tm in (64, 128)
+            for tn in (128, 256) for s in (1, 2, 4, 8)]
 
 
 def main(argv=None) -> int:
@@ -82,52 +52,39 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0), flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    chosen = gemv._launch_plan
-    forced = [None]
-
-    def launch_plan(m, d, f, bf16, index):
-        if forced[0] is None:
-            return chosen(m, d, f, bf16, index)
-        regime, tile_m, tile_n, splits = forced[0]
-        return (regime, 1 if regime == "decode" else 2, tile_m, tile_n,
-                splits, gemv.split_chunk(d, regime, splits))
-
-    gemv._launch_plan = launch_plan
-    try:
-        for name, d, f in SHAPES:
-            w = quantize_weight(torch.randn(d, f, generator=gen, device=dev)
-                                * d ** -0.5)
-            wq, sc = w["q"], w["s"]
-            del w
-            wqs = cold_copies(wq)
-            w_deqs = cold_copies((wq.float() * sc).to(torch.bfloat16))
-            for m in args.m:
-                if name == "lm_head" and m > gemv.DECODE_MAX_M:
-                    continue
-                x = torch.randn(m, d, generator=gen, device=dev).to(
-                    torch.bfloat16)
-                want = gemv.int8_matmul_reference(x, wq, sc).float()
-                tol = (2 * torch.exp2(torch.floor(torch.log2(want.abs())) - 7)
-                       ).clamp(min=2e-2)
-                lib = graph_us(lambda c: torch.matmul(x, c), w_deqs)
-                print(f"{name} M={m} D={d} F={f}: torch.matmul {lib:.1f} us; "
-                      f"gemv_plan {gemv.gemv_plan(m, d, f, gemv._n_sms(dev.index or 0))}",
-                      flush=True)
-                for plan in plans(m):
-                    forced[0] = plan
-                    got = gemv.int8_matmul(x, wq, sc)
-                    excess = ((got.float() - want).abs() / tol).max().item()
-                    if not excess <= 1:
-                        raise AssertionError(f"{plan} disagrees with the plain "
-                                             f"version ({excess:.2f})")
-                    us = graph_us(lambda c: gemv.int8_matmul(x, c, sc), wqs)
-                    forced[0] = None
-                    print(f"  {plan}: {us:.1f} us ({us / lib:.2f}x)",
-                          flush=True)
-            del wq, sc, wqs, w_deqs
-            torch.cuda.empty_cache()
-    finally:
-        gemv._launch_plan = chosen
+    n_sms = gemv._n_sms(dev.index or 0)
+    for name, d, f in SHAPES:
+        w = quantize_weight(torch.randn(d, f, generator=gen, device=dev)
+                            * d ** -0.5)
+        wq, sc = w["q"], w["s"]
+        del w
+        wqs = cold_copies(wq)
+        w_deqs = cold_copies((wq.float() * sc).to(torch.bfloat16))
+        for m in args.m:
+            if name == "lm_head" and m > gemv.DECODE_MAX_M:
+                continue
+            x = torch.randn(m, d, generator=gen, device=dev).to(torch.bfloat16)
+            want = gemv.int8_matmul_reference(x, wq, sc)
+            lib = graph_us(lambda c: torch.matmul(x, c), w_deqs)
+            regime, splits = gemv.gemv_plan(m, d, f, n_sms)
+            early = gemv.early_launch(regime, m, f, splits, n_sms)
+            print(f"{name} M={m} D={d} F={f}: torch.matmul {lib:.1f} us; "
+                  f"gemv_plan {(regime, splits)}{' early' if early else ''}",
+                  flush=True)
+            for regime, tile_m, tile_n, splits, early in plans(m):
+                plan = gemv.make_plan(regime, d, splits, (tile_m, tile_n),
+                                      early)
+                share = gemv.tolerance_share(gemv.launch(x, wq, sc, plan),
+                                             want)
+                if not share <= 1:
+                    raise AssertionError(f"{plan} disagrees with the plain "
+                                         f"version ({share:.2f})")
+                us = graph_us(lambda c: gemv.launch(x, c, sc, plan), wqs)
+                print(f"  {(regime, tile_m, tile_n, splits)}"
+                      f"{' early' if early else ''}: {us:.1f} us "
+                      f"({us / lib:.2f}x)", flush=True)
+        del wq, sc, wqs, w_deqs
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -148,6 +148,31 @@ def test_gemv_plan_at_measured_shapes():
     assert tgemv.prefill_tile(2048, 1024, 132) == (128, 256)
 
 
+@pytest.mark.parametrize("n_sms", [132, 114])
+@pytest.mark.parametrize("m", [8, 16, 32, 512])
+def test_early_launch_only_for_one_wave_decode_grids(n_sms, m):
+    """The decode kernel goes out as an early (programmatic dependent)
+    launch, code 3, at M up to 8 and for grids of at most one block an
+    SM; any other bf16 grid with code 1 (decode) or 2 (prefill).  On 132
+    SMs that is every decode shape of the path at M=8, and llama3-8b's
+    wk/wv (8 column tiles x 16 splits) alone at M = 16 and 32."""
+    for d, f in PROJ + [LM_HEAD]:
+        regime, splits = tgemv.gemv_plan(m, d, f, n_sms)
+        blocks = tgemv._tiles(regime, m, f, n_sms) * splits
+        early = tgemv.early_launch(regime, m, f, splits, n_sms)
+        assert early == (regime == "decode" and (m <= 8 or blocks <= n_sms))
+        if n_sms == 132 and m <= 32:
+            assert early == (m == 8 or (d, f) == (4096, 1024)), (d, f)
+        tile = (tgemv.prefill_tile(m, f, n_sms) if regime == "prefill"
+                else (0, 0))
+        plan = tgemv.make_plan(regime, d, splits, tile, early)
+        assert plan == (regime, 3 if early else 1 if regime == "decode"
+                        else 2, *tile, splits,
+                        tgemv.split_chunk(d, regime, splits))
+        late = tgemv.make_plan(regime, d, splits, tile, False)
+        assert late[1] == (1 if regime == "decode" else 2)
+
+
 @pytest.mark.parametrize("m,regime", [(1, "decode"), (31, "decode"),
                                       (32, "decode"), (33, "prefill"),
                                       (64, "prefill"), (100, "prefill")])
