@@ -31,6 +31,10 @@ DECODE_MAX_M = 32    # the crossover: M above it runs the prefill regime
 DECODE_COLS = 128    # F columns a decode block
 SPLIT_UNIT = {"decode": 16, "prefill": 64}  # rows of D: a k16 step, a stage
 MAX_SPLITS = {"decode": 16, "prefill": 8}  # a tile's splits: one cluster
+# Share of the card's 128-column prefill slots (two an SM) a split grid
+# fills: clusters pack into the GPCs unevenly, and a grid that asks for
+# every slot ran as two waves on the H100 (ops/gemv_sweep.py).
+CLUSTER_FILL = 0.85
 REGIMES = ("decode", "prefill", "fma")
 # A bf16 result is held, element by element, to max(BF16_ATOL, BF16_ULPS
 # bf16 ulps of |want|): the kernel and the plain version each round a
@@ -82,9 +86,10 @@ def gemv_plan(m: int, d: int, f: int, n_sms: int) -> tuple[str, int]:
     M up to 16 (bytes in flight), 1 above (twice the x rows and registers
     a block); rounding the chunk to whole k steps may leave a little less.
     Prefill multiplies: the largest power of two up to 4 that keeps the
-    grid within one wave (a block an SM), then 8 where 128-column blocks
-    (two an SM) still fit the card (256-column clusters of 8, and odd
-    sizes, ran slower than the powers of two beside them on the H100:
+    grid within one wave (a block an SM); where that is 4 and the blocks
+    are 128 columns wide (two an SM), as many splits, up to 8, as fill
+    ``CLUSTER_FILL`` of those slots (256-column clusters past 4, and odd
+    sizes on multi-wave grids, ran slower on the H100:
     ops/gemv_sweep.py)."""
     regime = "decode" if m <= DECODE_MAX_M else "prefill"
     tiles = _tiles(regime, m, f, n_sms)
@@ -97,8 +102,9 @@ def gemv_plan(m: int, d: int, f: int, n_sms: int) -> tuple[str, int]:
         while want < 4 and tiles * 2 * want <= n_sms:
             want *= 2
         narrow = prefill_tile(m, f, n_sms)[1] == 128
-        if want == 4 and narrow and tiles * cap <= 2 * n_sms:
-            want = cap
+        if want == 4 and narrow:
+            fill = int(CLUSTER_FILL * 2 * n_sms)
+            want = max(want, min(cap, fill // tiles))
     if want <= 1:
         return regime, 1
     return regime, _cdiv(d, split_chunk(d, regime, want))

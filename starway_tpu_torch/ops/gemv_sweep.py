@@ -6,8 +6,8 @@
 For every llama3-8b projection (and the lm_head at decode M) and each M,
 launches the kernels (:func:`~starway_tpu_torch.ops.gemv.launch`) under
 every plan they can run (decode: D split 1-16 ways, launched early or
-not; prefill: 64- or 128-row, 128- or 256-column tiles, D split 1, 2, 4
-or 8 ways), prints
+not; prefill: 64- or 128-row, 128- or 256-column tiles, D split 1-8
+ways), prints
 the one ``gemv_plan`` picks, and times each, held against the plain
 version, beside ``torch.matmul`` on the
 dequantized bf16 weight.  Times are device microseconds a call: 20 calls
@@ -39,7 +39,7 @@ def plans(m: int) -> list:
         return [("decode", 0, 0, s, e) for s in (1, 2, 3, 4, 8, 9, 12, 16)
                 for e in (False, True)]
     return [("prefill", tm, tn, s, False) for tm in (64, 128)
-            for tn in (128, 256) for s in (1, 2, 4, 8)]
+            for tn in (128, 256) for s in range(1, 9)]
 
 
 def main(argv=None) -> int:
@@ -72,6 +72,8 @@ def main(argv=None) -> int:
                   f"gemv_plan {(regime, splits)}{' early' if early else ''}",
                   flush=True)
             for regime, tile_m, tile_n, splits, early in plans(m):
+                if -(-d // gemv.split_chunk(d, regime, splits)) != splits:
+                    continue  # whole k steps leave fewer splits: a repeat
                 plan = gemv.make_plan(regime, d, splits, (tile_m, tile_n),
                                       early)
                 share = gemv.tolerance_share(gemv.launch(x, wq, sc, plan),

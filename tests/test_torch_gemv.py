@@ -94,7 +94,8 @@ def test_gemv_plan_on_the_main_paths_shapes(n_sms, m):
     at prefill).  Decode: about 2 blocks an SM (the weight stream needs
     the bytes in flight) unless the cluster is full.  Prefill: a power of
     two up to 4 that keeps the grid within one wave (a block an SM) and
-    doubles no further, or 8 where 128-column blocks (two an SM) fit."""
+    doubles no further, or, past 4, as many splits of 128-column blocks
+    (two an SM) as fill CLUSTER_FILL of their slots."""
     shapes = PROJ + [LM_HEAD] if m == 8 else PROJ
     for d, f in shapes:
         regime, splits = tgemv.gemv_plan(m, d, f, n_sms)
@@ -112,13 +113,15 @@ def test_gemv_plan_on_the_main_paths_shapes(n_sms, m):
                 assert splits == 1  # a full grid is not split
         else:
             narrow = tgemv.prefill_tile(m, f, n_sms)[1] == 128
-            assert splits & (splits - 1) == 0
-            if splits == 8:  # 128-column blocks, two an SM
-                assert narrow and blocks <= 2 * n_sms
-            else:  # one wave, and it doubles no further
+            fill = int(tgemv.CLUSTER_FILL * 2 * n_sms)
+            if splits > 4:  # 128-column blocks, two an SM, as many as fit
+                assert narrow and blocks <= fill
+                assert splits == cap or blocks + tiles > fill, (d, f, splits)
+            else:  # a power of two within one wave, doubling no further
+                assert splits & (splits - 1) == 0
                 assert splits == 1 or blocks <= n_sms
                 assert 2 * blocks > n_sms or (
-                    splits == 4 and not (narrow and 2 * blocks <= 2 * n_sms)
+                    splits == 4 and not (narrow and 5 * tiles <= fill)
                 ), (d, f, splits)
     assert tgemv.gemv_plan(8, *LM_HEAD, n_sms) == ("decode", 1)
 
@@ -126,13 +129,16 @@ def test_gemv_plan_on_the_main_paths_shapes(n_sms, m):
 def test_gemv_plan_at_measured_shapes():
     """The plans the H100 measurements chose (132 SMs, ops/gemv_sweep.py):
     decode splits at M=8; prefill one wave, split 2 ways where the grid is
-    half the card, 8 ways on small grids of 128-column blocks."""
+    half the card, 7 or 8 ways on small grids of 128-column blocks (32
+    tiles in clusters of 8 would ask for 256 of the 264 slots)."""
     plan = tgemv.gemv_plan
     assert plan(8, 4096, 4096, 132) == ("decode", 9)
     assert plan(8, 4096, 1024, 132) == ("decode", 16)
     assert plan(8, 4096, 14336, 132) == ("decode", 3)
     assert plan(512, 4096, 4096, 132) == ("prefill", 2)
-    assert plan(512, 4096, 1024, 132) == ("prefill", 8)
+    assert plan(512, 4096, 1024, 132) == ("prefill", 7)
+    assert plan(128, 4096, 4096, 132) == ("prefill", 7)
+    assert plan(128, 14336, 4096, 132) == ("prefill", 7)
     assert plan(512, 4096, 14336, 132) == ("prefill", 1)
     assert plan(512, 14336, 4096, 132) == ("prefill", 2)
     assert plan(1024, 4096, 4096, 132) == ("prefill", 1)
