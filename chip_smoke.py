@@ -6,9 +6,9 @@
 Phases, each of which raises on failure:
 
 1. build   -- compile the CUDA kernels from starway_tpu_torch/csrc with nvcc
-              (and flash_bwd.cu and int8_gemv.cu once more with -Xptxas
-              -v: the tensor-core backward's and GEMV's registers and
-              spills, logged at the end)
+              (and flash_bwd.cu, flash_fwd.cu and int8_gemv.cu once more
+              with -Xptxas -v: the tensor-core flash kernels' and GEMV's
+              registers and spills, logged at the end)
 2. card    -- print the card's name and power limit (nvidia-smi)
 3. kernels -- each kernel against its plain PyTorch version at the serving
               and training paths' shapes (the decode kernel also at C=128,
@@ -17,6 +17,10 @@ Phases, each of which raises on failure:
               events), the plain version's time, one PyTorch library
               call's time, and the least time the card could take (bytes /
               3.35 TB/s or operations / 989 TFLOP/s, whichever is larger);
+              the flash forward at B=1 S=512 and 2048, B=2 S=2048 and
+              B=1 S=4096 beside SDPA with its achieved TFLOP/s, and at
+              each admission bucket of phase 4 (their sum over the 12
+              admissions and 32 layers, a model);
               the ring-step kernels at train-ring's shapes and offsets;
               the flash backward's achieved TFLOP/s (on its 7 products
               and the function's 5) and its ratio to SDPA's backward;
@@ -144,8 +148,6 @@ def phase_kernels(dev):
 
     from starway_tpu_torch.ops.decode import (decode_attention,
                                               decode_attention_reference)
-    from starway_tpu_torch.ops.flash import (flash_forward,
-                                             flash_forward_reference)
     from starway_tpu_torch.ops.gemv import (int8_matmul,
                                             int8_matmul_reference)
     from starway_tpu_torch.ops.quantize import quantize_kv, quantize_weight
@@ -221,41 +223,7 @@ def phase_kernels(dev):
         max_abs_err=max(worst, c128_err), **timed, c128=c128)
     rows["paged_decode_attention"] = paged_rows(dev, randn, rng)
 
-    # -- flash forward: admission prefill shapes, causal GQA 4:1, bf16.
-    worst = 0.0
-    for s in (512, 2048):
-        q, k, v = randn(1, HQ, s, D), randn(1, HKV, s, D), randn(1, HKV, s, D)
-        o, lse = flash_forward(q, k, v, causal=True)
-        o_ref, lse_ref = flash_forward_reference(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        err = (o.float() - o_ref.float()).abs().max().item()
-        lse_err = (lse - lse_ref).abs().max().item()
-        worst = max(worst, err)
-        log(f"flash_forward S={s}: max_abs_err {err:.3e} (tol {BF16_TOL}), "
-            f"lse {lse_err:.3e} (tol 1e-3)")
-        if not (err <= BF16_TOL and lse_err <= 1e-3):
-            raise AssertionError("flash_forward disagrees with its plain "
-                                 "version")
-        ms = cuda_ms(lambda: flash_forward(q, k, v, causal=True))
-        plain = cuda_ms(lambda: flash_forward_reference(q, k, v, causal=True),
-                        iters=5)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
-        pairs = s * (s + 1) // 2
-        n_flops = 4 * HQ * D * pairs
-        n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * HQ * s
-        b_ms, b_by = bound(n_bytes, n_flops)
-        log(f"  timed: {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} "
-            f"ms, bound {b_ms:.4f} ms ({b_by})")
-        timed = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib,
-                     timed_at=f"B=1 Hq={HQ} Hkv={HKV} D={D} S={s} causal "
-                              f"bf16")
-    rows["flash_forward"] = dict(
-        name="flash_attention_fwd", route="cuda",
-        source="starway_tpu_torch/csrc/flash_fwd.cu",
-        replaces="starway_tpu/ops/pallas_attention.py:124 (_fwd_kernel)",
-        max_abs_err=worst, **timed)
+    rows["flash_forward"] = flash_forward_rows(dev, randn)
 
     rows.update(flash_backward_rows(dev, randn))
     rows.update(ring_kernel_rows(dev, randn))
@@ -265,6 +233,119 @@ def phase_kernels(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return rows
+
+
+def flash_forward_rows(dev, randn) -> dict:
+    """#3, the flash forward, bf16, causal, GQA 4:1 (llama3-8b heads),
+    against its plain version (o to BF16_TOL, lse to 1e-3) and timed
+    beside SDPA on the same inputs, with its achieved TFLOP/s on the
+    function's 4 * Hq * D flops per visible pair, by CUDA events around
+    one call (the method of earlier runs: the wrapper's host enqueue
+    included) and as device ms a call (utils/cuda_timing.py graph_us: 20
+    calls in one CUDA graph), each beside SDPA timed the same way: at B=1,
+    S=512 and 2048
+    (admission prefills; drawn from phase 3's shared generator, as
+    before), B=2, S=2048 (train-bf16's batch) and B=1, S=4096 (train-ring's
+    flash run); then at B=1 and every admission bucket of phase 4's 12
+    requests, whose times summed over the requests and 32 layers model the
+    forward's share of the 12 admissions (a sum of these timings, not a
+    measurement on the path).  The kernels line's row is timed at B=1,
+    S=2048, as in earlier runs; ``by_shape`` has every shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from starway_tpu_torch.ops.flash import (_n_sms, flash_forward,
+                                             flash_forward_reference,
+                                             fwd_q_rows)
+    from starway_tpu_torch.utils.cuda_timing import graph_us
+
+    HQ, HKV, D = 32, 8, 128
+    n_sms = _n_sms(dev.index or 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def own_randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def one(b, s, draw, plain: bool):
+        q, k, v = draw(b, HQ, s, D), draw(b, HKV, s, D), draw(b, HKV, s, D)
+        o, lse = flash_forward(q, k, v, causal=True)
+        o_ref, lse_ref = flash_forward_reference(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = (o.float() - o_ref.float()).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        if not (err <= BF16_TOL and lse_err <= 1e-3):
+            raise AssertionError(f"flash_forward disagrees with its plain "
+                                 f"version at B={b} S={s}: o {err:.3e}, lse "
+                                 f"{lse_err:.3e}")
+        def ours(_=None):
+            return flash_forward(q, k, v, causal=True)
+
+        def library(_=None):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+        ms, lib = cuda_ms(ours), cuda_ms(library)
+        graph_ms = graph_us(ours, [None]) / 1e3
+        lib_graph = graph_us(library, [None]) / 1e3
+        pairs = b * visible_pairs(s, True)
+        n_flops = 4 * HQ * D * pairs
+        n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * HQ * s
+        b_ms, b_by = bound(n_bytes, n_flops)
+        row = dict(b=b, s=s, q_rows=fwd_q_rows(b, HQ, s, s, True,
+                                                n_sms=n_sms),
+                   ms=ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                   tflops=n_flops / ms / 1e9, vs_library=ms / lib,
+                   graph_ms=graph_ms, library_graph_ms=lib_graph,
+                   graph_tflops=n_flops / graph_ms / 1e9,
+                   max_abs_err=err, lse_err=lse_err)
+        if plain:
+            row["plain_ms"] = cuda_ms(
+                lambda: flash_forward_reference(q, k, v, causal=True),
+                iters=5)
+        log(f"flash_forward B={b} S={s} ({row['q_rows']}-row q tiles): "
+            f"max_abs_err {err:.3e} (tol "
+            f"{BF16_TOL}), lse {lse_err:.3e} (tol 1e-3); {ms:.4f} ms "
+            f"({row['tflops']:.1f} TFLOP/s, {b_ms / ms:.3f} of the bound "
+            f"{b_ms:.4f} ms, {b_by}), library (SDPA causal, GQA) {lib:.4f} "
+            f"ms ({ms / lib:.2f}x), plain {row.get('plain_ms')} ms; device "
+            f"ms a call in a CUDA graph {graph_ms:.4f} "
+            f"({row['graph_tflops']:.1f} TFLOP/s), SDPA {lib_graph:.4f} "
+            f"({graph_ms / lib_graph:.2f}x)")
+        del q, k, v, o, lse, o_ref, lse_ref
+        return row
+
+    by_shape = [one(1, s, randn, True) for s in (512, 2048)]
+    by_shape += [one(b, s, own_randn, True) for b, s in ((2, 2048),
+                                                         (1, 4096))]
+    torch.cuda.empty_cache()
+    buckets = admission_buckets()
+    per_bucket = {s: one(1, s, own_randn, False) for s in sorted(set(buckets))}
+    admit = {key: N_LAYERS * sum(per_bucket[s][key] for s in buckets)
+             for key in ("ms", "library_ms", "bound_ms")}
+    log(f"[flash] the forward's share of phase 4's 12 admissions, modelled "
+        f"(a sum of the per-bucket times above over the requests' buckets "
+        f"{buckets} and {N_LAYERS} layers, not measured on the path): "
+        f"{admit['ms']:.4f} ms, SDPA {admit['library_ms']:.4f} ms, bound "
+        f"{admit['bound_ms']:.4f} ms")
+    timed = by_shape[1]
+    return dict(
+        name="flash_attention_fwd", route="cuda",
+        source="starway_tpu_torch/csrc/flash_fwd.cu",
+        replaces="starway_tpu/ops/pallas_attention.py:124 (_fwd_kernel)",
+        max_abs_err=max(r["max_abs_err"] for r in by_shape
+                        + list(per_bucket.values())),
+        **{k: timed[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "graph_ms",
+                                  "library_graph_ms")},
+        timed_at=f"B=1 Hq={HQ} Hkv={HKV} D={D} S=2048 causal bf16 "
+                 f"(flash_fwd_mma_kernel), by events around one call; "
+                 f"graph_ms is device ms a call in a CUDA graph; by_shape "
+                 f"has every shape",
+        by_shape=by_shape,
+        admission_buckets={s: {k: r[k] for k in ("ms", "library_ms")}
+                           for s, r in per_bucket.items()},
+        admissions_modelled_ms=admit)
 
 
 # The W8A16 serving path's projections: (name, D, F, launches a layer);
@@ -738,17 +819,21 @@ def ring_kernel_rows(dev, randn):
     block whose first 512 rows see no key.  Rows that see nothing must be
     exactly the identity (o = 0, m = NEG_BIG, l = 0) and their gradients
     exactly 0.  The backward runs from the step's own lse and delta.
-    Timed at every offset; the kernels line carries the past block's
+    Timed at every offset (the forward by events around one call and as
+    device ms a call in a CUDA graph); the kernels line carries the past
+    block's
     numbers, the library calls are SDPA's forward and backward over the
     same block (which return o and lse, not (o, m, l))."""
     import torch
     import torch.nn.functional as F
 
     from starway_tpu_torch.ops.attention import NEG_BIG
-    from starway_tpu_torch.ops.flash import (flash_partial,
+    from starway_tpu_torch.ops.flash import (_n_sms, flash_partial,
                                              flash_partial_bwd,
                                              flash_partial_bwd_reference,
-                                             flash_partial_reference)
+                                             flash_partial_reference,
+                                             fwd_q_rows)
+    from starway_tpu_torch.utils.cuda_timing import graph_us
 
     HQ, HKV, T, D = 32, 8, 1024, 128
     q, do = randn(1, HQ, T, D), randn(1, HQ, T, D)
@@ -798,7 +883,11 @@ def ring_kernel_rows(dev, randn):
             else:
                 rel.append((a - b).abs().max().item() / scale)
         worst["bwd"] = max(worst["bwd"], max(rel))
-        fwd_ms = cuda_ms(lambda: flash_partial(q, k, v, q_off, kv_off, **kw))
+        def ours(_=None):
+            return flash_partial(q, k, v, q_off, kv_off, **kw)
+
+        fwd_ms = cuda_ms(ours)
+        fwd_graph = graph_us(ours, [None]) / 1e3
         bwd_ms = cuda_ms(lambda: flash_partial_bwd(q, do, k, v, lse, delta,
                                                    q_off, kv_off, **kw))
         qp = q_off + np.arange(T)[:, None]
@@ -820,7 +909,10 @@ def ring_kernel_rows(dev, randn):
                       + 4 * (q.numel() + 2 * k.numel()), 10 * D * pairs * HQ)
         by_case[name] = dict(
             q_offset=q_off, kv_offset=kv_off, window=window,
-            visible_pairs=pairs, ms=fwd_ms, bwd_ms=bwd_ms,
+            q_rows=fwd_q_rows(1, HQ, T, T, True, window, q_off, kv_off,
+                              _n_sms(dev.index or 0)),
+            visible_pairs=pairs, ms=fwd_ms, graph_ms=fwd_graph,
+            bwd_ms=bwd_ms,
             bound_ms=fwd_b[0], bwd_bound_ms=bwd_b[0],
             bwd_tflops_7=14 * D * pairs * HQ / bwd_ms / 1e9,
             bwd_tflops_5=10 * D * pairs * HQ / bwd_ms / 1e9,
@@ -830,7 +922,9 @@ def ring_kernel_rows(dev, randn):
             f"{window}): o/l max_abs_err {o_err:.3e}, relative to max |o/l| "
             f"{o_rel:.3e} (tol {tol}), m {m_err:.3e} (tol 1e-3), l rel "
             f"{l_rel:.3e} (tol 1e-3); identity rows exact {exact}; "
-            f"{fwd_ms:.4f} ms (bound {fwd_b[0]:.4f} ms, {fwd_b[1]}); "
+            f"{fwd_ms:.4f} ms, device {fwd_graph:.4f} ms a call in a CUDA "
+            f"graph ({by_case[name]['q_rows']}-row q tiles, bound "
+            f"{fwd_b[0]:.4f} ms, {fwd_b[1]}); "
             f"flash_partial_bwd rel err dq/dk/dv {rel[0]:.3e}/{rel[1]:.3e}/"
             f"{rel[2]:.3e} (tol {tol}), {bwd_ms:.4f} ms (bound "
             f"{bwd_b[0]:.4f} ms, {bwd_b[1]}; "
@@ -849,6 +943,9 @@ def ring_kernel_rows(dev, randn):
                     q, do, k, v, lse, delta, q_off, kv_off, **kw), iters=5),
                 fwd_lib=cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, enable_gqa=True)),
+                fwd_lib_graph=graph_us(
+                    lambda _: F.scaled_dot_product_attention(
+                        q, k, v, enable_gqa=True), [None]) / 1e3,
                 fwd_b=fwd_b, bwd_b=bwd_b)
             with torch.enable_grad():
                 leaves = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -858,15 +955,20 @@ def ring_kernel_rows(dev, randn):
                     o_lib, leaves, do, retain_graph=True))
                 del o_lib, leaves
         if name == "diagonal":
-            by_case[name]["library_ms"] = cuda_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True))
+            def diag(_=None):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+
+            by_case[name]["library_ms"] = cuda_ms(diag)
+            by_case[name]["library_graph_ms"] = graph_us(diag, [None]) / 1e3
         del o, m, l, o_r, m_r, l_r, g, g_r
     past = by_case["past"]
     past["bwd_vs_library"] = past["bwd_ms"] / timed["bwd_lib"]
-    log(f"  past block: flash_partial {past['ms']:.4f} ms, plain "
+    log(f"  past block: flash_partial {past['ms']:.4f} ms (device "
+        f"{past['graph_ms']:.4f} in a CUDA graph), plain "
         f"{timed['fwd_plain']:.4f} ms, library (SDPA, no mask) "
-        f"{timed['fwd_lib']:.4f} ms; flash_partial_bwd "
+        f"{timed['fwd_lib']:.4f} ms (device {timed['fwd_lib_graph']:.4f}); "
+        f"flash_partial_bwd "
         f"{past['bwd_ms']:.4f} ms ({past['bwd_tflops_7']:.1f} / "
         f"{past['bwd_tflops_5']:.1f} TFLOP/s on 7 / 5 products, "
         f"{past['bwd_vs_library']:.2f}x the library's time), plain "
@@ -884,7 +986,10 @@ def ring_kernel_rows(dev, randn):
             max_abs_err=worst["fwd"], ms=by_case["past"]["ms"],
             plain_ms=timed["fwd_plain"], bound_ms=timed["fwd_b"][0],
             bound_by=timed["fwd_b"][1], library_ms=timed["fwd_lib"],
-            timed_at=at, by_offset=by_case),
+            graph_ms=past["graph_ms"], library_graph_ms=timed["fwd_lib_graph"],
+            timed_at=at + "; ms by events around one call, graph_ms device "
+                          "ms a call in a CUDA graph",
+            by_offset=by_case),
         "flash_partial_bwd": dict(
             name="flash_partial_bwd", route=BWD_ROUTE,
             source=src + "flash_bwd.cu",
@@ -1654,14 +1759,14 @@ def phase_train_ring_parity(dev):
     return out
 
 
-PTXAS_SOURCES = ("flash_bwd.cu", "int8_gemv.cu")
+PTXAS_SOURCES = ("flash_bwd.cu", "flash_fwd.cu", "int8_gemv.cu")
 
 
 def start_ptxas_report(build):
-    """Compile csrc/flash_bwd.cu and csrc/int8_gemv.cu once more with
-    ``-Xptxas -v`` (into scratch objects, beside the build) for the
-    tensor-core kernels' registers and spills; :func:`finish_ptxas_report`
-    reads them."""
+    """Compile csrc/flash_bwd.cu, csrc/flash_fwd.cu and csrc/int8_gemv.cu
+    once more with ``-Xptxas -v`` (into scratch objects, beside the build)
+    for the tensor-core kernels' registers and spills;
+    :func:`finish_ptxas_report` reads them."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return [subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
@@ -1679,6 +1784,11 @@ def ptxas_kernel(mangled: str):
     if k:
         to = "f32" if k.group(2) == "f" else "bf16"
         return f"{k.group(1)} {to} D={k.group(3)}"
+    k = re.search(r"flash_(fwd|partial)_mma_kernelILi(\d+)ELi(\d+)E",
+                  mangled)
+    if k:
+        return (f"{k.group(1)} bf16 D={k.group(2)} "
+                f"rows={64 * int(k.group(3))}")
     k = re.search(r"gemv_(decode|prefill)_kernelILi(\d+)E(?:Li(\d+)E)?"
                   r"Lb([01])E(?:Lb([01])E)?", mangled)
     if k:
@@ -1692,7 +1802,7 @@ def ptxas_kernel(mangled: str):
 
 def finish_ptxas_report(procs) -> dict:
     """{source: {kernel: (registers, spill store bytes, spill load
-    bytes)}} of the tensor-core backward and GEMV kernels, from ptxas."""
+    bytes)}} of the tensor-core flash and GEMV kernels, from ptxas."""
     import re
 
     out = {}
@@ -1844,6 +1954,9 @@ def main() -> int:
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
     rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
+    for key, kind in (("flash_forward", "fwd"), ("flash_partial", "partial")):
+        rows[key]["registers"] = {k: r for k, r in regs["flash_fwd.cu"].items()
+                                  if k.startswith(kind + " ")}
     rows["int8_matmul"]["registers"] = regs["int8_gemv.cu"]
 
     # 13. kernels line: launches are the serving paths' (phases 4, 5 and

@@ -38,8 +38,8 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "sw_decode_attention": ([P] * 10 + [I] * 9 + [F, I, P], ctypes.c_int),
     "sw_decode_attention_smem": ([I, I], ctypes.c_size_t),
-    "sw_flash_fwd": ([P] * 5 + [I] * 8 + [F, I, P], ctypes.c_int),
-    "sw_flash_partial": ([P] * 6 + [I] * 10 + [F, I, P], ctypes.c_int),
+    "sw_flash_fwd": ([P] * 5 + [I] * 8 + [F, I, I, P], ctypes.c_int),
+    "sw_flash_partial": ([P] * 6 + [I] * 10 + [F, I, I, P], ctypes.c_int),
     "sw_flash_bwd_dkv": ([P] * 8 + [I] * 10 + [F, I, I, P], ctypes.c_int),
     "sw_flash_bwd_dkv_split": ([P] * 8 + [I] * 10 + [F, I, I, I, P],
                                ctypes.c_int),

@@ -3,14 +3,15 @@ the hand-written CUDA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) and
 their plain PyTorch versions.
 
 Layouts: ``q [B, Hq, S, D]``, ``k/v [B, Hkv, Skv, D]`` (grouped kv is
-taken as it is; query head h reads kv head ``h // n_rep``).  The forward
+taken as it is; query head h reads kv head ``h // n_rep``).  Every kernel
+runs bf16 on the tensor cores and float32 on the FMA units.  The forward
 returns the output and the row log-sum-exp ``lse [B, Hq, S]`` float32; the
 backward recomputes the probabilities from that lse in two passes (dK/dV
-kv-stationary, dQ q-stationary; bf16 on the tensor cores, float32 on FMA
-units), the dK/dV pass split over query heads when its grid is too small
-for the card (:func:`dkv_splits`).  :func:`flash_attention` is
-differentiable through a ``torch.autograd.Function`` whose backward is the
-two kernels, as the JAX package's ``custom_vjp`` is.
+kv-stationary, dQ q-stationary), the dK/dV pass split over query heads
+when its grid is too small for the card (:func:`dkv_splits`).
+:func:`flash_attention` is differentiable through a
+``torch.autograd.Function`` whose backward is the two kernels, as the JAX
+package's ``custom_vjp`` is.
 
 A ring step (parallel/ring_attention.py) runs :func:`flash_partial`, the
 unnormalised partial ``(o, m, l)`` of q against one kv shard at global
@@ -21,6 +22,7 @@ delta.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -64,6 +66,40 @@ def _check_kernel_args(tensors, name):
             raise ValueError(f"tensor on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors")
+
+
+N_SMS = 132   # SMs of an H100 SXM: the plans' count where no card is named
+TILE = 64     # rows of the kernels' q and kv tiles
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fwd_q_rows(b: int, hq: int, s_len: int, kv_len: int, causal: bool,
+               window: Optional[int] = None, q_offset: int = 0,
+               kv_offset: int = 0, n_sms: int = N_SMS,
+               head_dim: int = 128) -> int:
+    """The q-tile height of the bf16 forward and partial kernels: 128 rows
+    (each warp two 16-row m-tiles, so every K/V tile staged from L2 serves
+    twice the rows) when the grid at that height keeps the card's
+    ``n_sms`` SMs busy, else 64.  Blocks of equal work (every row sees
+    every key: no causal mask, or a ring step's past block) run side by
+    side, so a block for every other SM will do; under a causal diagonal
+    the heaviest blocks walk twice the average, and it takes two blocks
+    an SM for the heaviest-first order to balance them.  On an H100 SXM:
+    128 rows for prefill and training at S >= 2048, the ring's past block
+    (T = 1024) and zigzag's unmasked half shards (T = 512); 64 for
+    admission buckets up to 1024 and the ring's diagonal block.  Head
+    sizes below 32 keep 64 rows (the kernels have no taller tile there)."""
+    if head_dim < 32:
+        return TILE
+    blocks = b * hq * -(-s_len // (2 * TILE))
+    full = not causal or (window is None
+                          and q_offset >= kv_offset + kv_len - 1)
+    need = n_sms // 2 if full else 2 * n_sms
+    return 2 * TILE if blocks >= need else TILE
 
 
 def _mask(s_len, kv_len, causal, window, device, q_offset=0, kv_offset=0):
@@ -110,7 +146,8 @@ def flash_forward(q, k, v, *, causal: bool = False,
     ``causal`` masks keys after each query; ``window`` (requires
     ``causal``) keeps ``k_pos in (q_pos - window, q_pos]``.  Keys past the
     end of k (Skv) are never attended.  CUDA tensors launch the kernel
-    (csrc/flash_fwd.cu), CPU tensors take :func:`flash_forward_reference`.
+    (csrc/flash_fwd.cu; bf16 at the q-tile height :func:`fwd_q_rows`
+    plans), CPU tensors take :func:`flash_forward_reference`.
     """
     _check_args(q, k, v, causal, window)
     if not q.is_cuda:
@@ -121,13 +158,15 @@ def flash_forward(q, k, v, *, causal: bool = False,
     hkv, kv_len = k.shape[1], k.shape[2]
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
+    rows = fwd_q_rows(b, hq, s_len, kv_len, causal, window,
+                      n_sms=_n_sms(q.device.index), head_dim=d)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, s_len), dtype=torch.float32, device=q.device)
     err = _build.library().sw_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, hq, hkv, s_len, kv_len, d, int(causal),
         0 if window is None else int(window), float(sm_scale),
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+        int(q.dtype == torch.bfloat16), rows, _build.stream_ptr(q))
     _build.check(err, "flash_forward")
     flash_forward.launches += 1
     return o, lse
@@ -215,20 +254,18 @@ def _bwd_launcher(q, k, v, do, lse, delta, causal, window, sm_scale,
     return launch
 
 
-N_SMS = 132   # streaming multiprocessors of an H100 SXM
-TILE = 64     # rows of the backward kernels' q and kv tiles
-
-
-def dkv_splits(b: int, hkv: int, kv_len: int, n_rep: int) -> int:
+def dkv_splits(b: int, hkv: int, kv_len: int, n_rep: int,
+               n_sms: int = N_SMS) -> int:
     """How many ways pass A splits each kv head's walk over its ``n_rep``
     query heads: 1 when its grid (kv tiles x B * Hkv blocks) already
-    holds two blocks for each of the card's SMs, else the least divisor of
-    ``n_rep`` that brings it there (``n_rep`` at most).  A ring shard
-    (T = 1024, B = 1, 8 kv heads: 128 blocks) splits 4 ways; plain
-    training at B = 2, S = 2048 (512 blocks) does not split."""
+    holds two blocks for each of the card's ``n_sms`` SMs, else the least
+    divisor of ``n_rep`` that brings it there (``n_rep`` at most).  On an
+    H100 SXM (132 SMs) a ring shard (T = 1024, B = 1, 8 kv heads: 128
+    blocks) splits 4 ways; plain training at B = 2, S = 2048 (512 blocks)
+    does not split."""
     blocks = -(-kv_len // TILE) * b * hkv
     for n in range(1, n_rep + 1):
-        if n_rep % n == 0 and blocks * n >= 2 * N_SMS:
+        if n_rep % n == 0 and blocks * n >= 2 * n_sms:
             return n
     return n_rep
 
@@ -236,8 +273,10 @@ def dkv_splits(b: int, hkv: int, kv_len: int, n_rep: int) -> int:
 def _dkv(launch, k, n_rep, out_dtype):
     """Pass A into ``(dk, dv)`` of ``out_dtype``.  A split pass writes one
     float32 partial a split; the partials are summed here in a fixed order
-    (deterministic, no atomics) before any cast to ``out_dtype``."""
-    n = dkv_splits(k.shape[0], k.shape[1], k.shape[2], n_rep)
+    (deterministic, no atomics) before any cast to ``out_dtype``.  The
+    split is planned for the SMs of k's card."""
+    n = dkv_splits(k.shape[0], k.shape[1], k.shape[2], n_rep,
+                   _n_sms(k.device.index))
     if n == 1:
         dk = torch.empty(k.shape, dtype=out_dtype, device=k.device)
         dv = torch.empty_like(dk)
@@ -374,7 +413,7 @@ def flash_partial(q, k, v, q_offset: int, kv_offset: int, *,
     and l ``[B, Hq, T]``, all float32; a row that sees no key is the
     identity (o = 0, m = NEG_BIG, l = 0).  ``window`` (requires
     ``causal``) is the sliding band.  CUDA tensors launch the kernel
-    (csrc/flash_fwd.cu, flash_partial_kernel), CPU tensors take
+    (csrc/flash_fwd.cu, as :func:`flash_forward`), CPU tensors take
     :func:`flash_partial_reference`.  Not differentiable: ring attention's
     autograd Function pairs it with :func:`flash_partial_bwd`."""
     _check_args(q, k, v, causal, window)
@@ -386,6 +425,8 @@ def flash_partial(q, k, v, q_offset: int, kv_offset: int, *,
                                        window=window)
     _check_kernel_args((q, k, v), "flash_partial")
     b, hq, s_len, d = q.shape
+    rows = fwd_q_rows(b, hq, s_len, k.shape[2], causal, window, q_offset,
+                      kv_offset, _n_sms(q.device.index), d)
     f32 = dict(dtype=torch.float32, device=q.device)
     o = torch.empty(q.shape, **f32)
     m = torch.empty((b, hq, s_len), **f32)
@@ -394,7 +435,8 @@ def flash_partial(q, k, v, q_offset: int, kv_offset: int, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
         l.data_ptr(), b, hq, k.shape[1], s_len, k.shape[2], d, int(causal),
         0 if window is None else int(window), int(q_offset), int(kv_offset),
-        float(sm_scale), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+        float(sm_scale), int(q.dtype == torch.bfloat16), rows,
+        _build.stream_ptr(q))
     _build.check(err, "flash_partial")
     flash_partial.launches += 1
     return o, m, l

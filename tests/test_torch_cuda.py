@@ -25,6 +25,7 @@ from starway_tpu_torch.ops.decode import (decode_attention,
                                           decode_attention_reference)
 from starway_tpu_torch.ops.paged import (paged_decode_attention,
                                          paged_decode_attention_reference)
+from starway_tpu_torch.ops import flash as flash_ops
 from starway_tpu_torch.ops.attention import NEG_BIG
 from starway_tpu_torch.ops.flash import (flash_backward,
                                          flash_backward_dkv, flash_backward_dq,
@@ -134,22 +135,63 @@ def test_paged_kernel_matches_plain(dev, dtype, page, n_q):
                                rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,window,s,d", [
-    (True, None, 100, 128), (False, None, 70, 64), (True, 17, 150, 16),
-    (True, None, 256, 32)])
-def test_flash_kernel_matches_plain(dev, dtype, causal, window, s, d):
+# (b, hq, hkv, s, skv, d, causal, window): small shapes in both dtypes,
+# every compiled head size; then bf16 at the main paths' heads (Hq 32, Hkv
+# 8, D 128): S ragged over several tiles and S = 2048 at B = 2, a window
+# of 40 that leaves rows 103-127 of q tile 1 with no key in its first live
+# kv tile (their p must stay exactly 0 until a later tile), and
+# non-causal Skv longer and shorter than S.
+FLASH_CASES = [(2, 4, 2, 100, 100, 128, True, None),
+               (2, 4, 2, 70, 70, 64, False, None),
+               (2, 4, 2, 150, 150, 16, True, 17),
+               (2, 4, 2, 256, 256, 32, True, None)]
+FLASH_MAIN_PATH = [(2, 32, 8, 1000, 1000, 128, True, None),
+                   (2, 32, 8, 2048, 2048, 128, True, None),
+                   (1, 32, 8, 1000, 1000, 128, True, 40),
+                   (2, 32, 8, 300, 700, 128, False, None),
+                   (1, 8, 2, 700, 130, 64, False, None)]
+
+
+def _q_tilings(dtype, d):
+    """The q-tile heights to hold: bf16 runs 64- or 128-row tiles (the
+    latter at D >= 32) as ops/flash.py fwd_q_rows plans them from the
+    shapes, so each is held at every shape; float32 has the FMA loop's
+    one."""
+    if dtype != torch.bfloat16:
+        return (None,)
+    return (64, 128) if d >= 32 else (64,)
+
+
+def _plan_rows(monkeypatch, rows):
+    if rows is not None:
+        monkeypatch.setattr(flash_ops, "fwd_q_rows",
+                            lambda *args, **kwargs: rows)
+
+
+@pytest.mark.parametrize(
+    "dtype,b,hq,hkv,s,skv,d,causal,window",
+    [(dt, *c) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
+    + [(torch.bfloat16, *c) for c in FLASH_MAIN_PATH])
+def test_flash_kernel_matches_plain(dev, monkeypatch, dtype, b, hq, hkv, s,
+                                    skv, d, causal, window):
+    """The forward against flash_forward_reference (bf16 inputs on the
+    tensor-core kernel at both q-tile heights, float32 on the FMA loop);
+    one launch a call."""
     rng = np.random.default_rng(1)
-    q = _randn(rng, (2, 4, s, d), dtype, dev)
-    k = _randn(rng, (2, 2, s, d), dtype, dev)
-    v = _randn(rng, (2, 2, s, d), dtype, dev)
-    o, lse = flash_forward(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
+    q = _randn(rng, (b, hq, s, d), dtype, dev)
+    k = _randn(rng, (b, hkv, skv, d), dtype, dev)
+    v = _randn(rng, (b, hkv, skv, d), dtype, dev)
     o_ref, lse_ref = flash_forward_reference(q, k, v, causal=causal,
                                              window=window)
-    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL[dtype],
-                               rtol=0)
-    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    for rows in _q_tilings(dtype, d):
+        _plan_rows(monkeypatch, rows)
+        before = flash_forward.launches
+        o, lse = flash_forward(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash_forward.launches == before + 1
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL[dtype],
+                                   rtol=0)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
 
 
 def _gemv_operands(seed, m, d, f, dtype, dev):
@@ -360,6 +402,29 @@ def test_flash_backward_bf16_is_deterministic(dev, b, s, hq, hkv):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("kernel", ["forward", "partial"])
+def test_flash_forward_bf16_is_deterministic(dev, kernel):
+    """Two bf16 calls of the forward (B=2, S=2048, causal) or of the ring
+    step's partial (a past block and a diagonal one, T=1024; 128- and
+    64-row q tiles as planned) on the same inputs give identical bits:
+    each row's sums are taken in a fixed order."""
+    rng = np.random.default_rng(14)
+    b, s = (2, 2048) if kernel == "forward" else (1, 1024)
+    q = _randn(rng, (b, 32, s, 128), torch.bfloat16, dev)
+    k, v = (_randn(rng, (b, 8, s, 128), torch.bfloat16, dev)
+            for _ in range(2))
+    if kernel == "forward":
+        calls = [lambda: flash_forward(q, k, v, causal=True)]
+    else:
+        calls = [lambda off=off: flash_partial(q, k, v, 1024, off)
+                 for off in (0, 1024)]
+    for call in calls:
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        for a, b_ in zip(first, second):
+            assert torch.equal(a, b_)
+
+
 @pytest.mark.parametrize("policy", [None, "dots"])
 def test_train_step_on_cuda_matches_plain_attention(dev, policy):
     """One value_and_grad step on the card through the flash kernels
@@ -403,35 +468,41 @@ RING_STEPS = [(130, 0, None, True), (130, 130, None, True),
               (0, 130, None, False)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128)])
 @pytest.mark.parametrize("q_off,kv_off,window,causal", RING_STEPS)
-def test_flash_partial_kernel_matches_plain(dev, dtype, q_off, kv_off,
-                                            window, causal):
+def test_flash_partial_kernel_matches_plain(dev, monkeypatch, dtype, d,
+                                            q_off, kv_off, window, causal):
     """The ring step's partial against flash_partial_reference, GQA 4:1:
     o / l to the output tolerance, m and l to float32 summation order, and
     rows that see no key exactly the identity (o = 0, m = NEG_BIG, l = 0);
-    one launch."""
+    one launch a call.  bf16 at both q-tile heights and also at the main
+    paths' head size."""
     rng = np.random.default_rng(9)
-    t, d = 130, 64
+    t = 130
     q = _randn(rng, (2, 8, t, d), dtype, dev)
     k = _randn(rng, (2, 2, t, d), dtype, dev)
     v = _randn(rng, (2, 2, t, d), dtype, dev)
     kw = dict(causal=causal, window=window)
-    before = flash_partial.launches
-    o, m, l = flash_partial(q, k, v, q_off, kv_off, **kw)
-    torch.cuda.synchronize()
-    assert flash_partial.launches == before + 1
     o_r, m_r, l_r = flash_partial_reference(q, k, v, q_off, kv_off, **kw)
-    assert o.dtype == m.dtype == l.dtype == torch.float32
     dead = l_r == 0
-    assert (o[dead] == 0).all() and (l[dead] == 0).all()
-    assert (m[dead] == NEG_BIG).all()
     live = ~dead
-    torch.testing.assert_close(m[live], m_r[live], atol=1e-4, rtol=1e-5)
-    torch.testing.assert_close(l[live], l_r[live], atol=0, rtol=1e-4)
-    torch.testing.assert_close((o / l.clamp(min=1e-30)[..., None])[live],
-                               (o_r / l_r.clamp(min=1e-30)[..., None])[live],
-                               atol=TOL[dtype], rtol=0)
+    for rows in _q_tilings(dtype, d):
+        _plan_rows(monkeypatch, rows)
+        before = flash_partial.launches
+        o, m, l = flash_partial(q, k, v, q_off, kv_off, **kw)
+        torch.cuda.synchronize()
+        assert flash_partial.launches == before + 1
+        assert o.dtype == m.dtype == l.dtype == torch.float32
+        assert (o[dead] == 0).all() and (l[dead] == 0).all()
+        assert (m[dead] == NEG_BIG).all()
+        torch.testing.assert_close(m[live], m_r[live], atol=1e-4, rtol=1e-5)
+        torch.testing.assert_close(l[live], l_r[live], atol=0, rtol=1e-4)
+        torch.testing.assert_close(
+            (o / l.clamp(min=1e-30)[..., None])[live],
+            (o_r / l_r.clamp(min=1e-30)[..., None])[live], atol=TOL[dtype],
+            rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

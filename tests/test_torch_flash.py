@@ -167,6 +167,48 @@ def test_dkv_splits_on_the_main_paths_shapes():
     assert tflash.dkv_splits(1, 8, 130, 1) == 1
 
 
+def test_dkv_splits_follow_the_cards_sm_count():
+    """The split is planned for the card's SMs (the wrapper passes the
+    count of k's device): a ring shard's 128 blocks split 4 ways on an
+    H100 SXM's 132 SMs (the default), 2 ways on an H100 PCIe's 114, not at
+    all on 16; plain training's 512 blocks split only on a card of more
+    than 256 SMs."""
+    assert tflash.dkv_splits(1, 8, 1024, 4) == 4
+    assert tflash.dkv_splits(1, 8, 1024, 4, n_sms=132) == 4
+    assert tflash.dkv_splits(1, 8, 1024, 4, n_sms=114) == 2
+    assert tflash.dkv_splits(1, 8, 1024, 4, n_sms=16) == 1
+    assert tflash.dkv_splits(2, 8, 2048, 4, n_sms=256) == 1
+    assert tflash.dkv_splits(2, 8, 2048, 4, n_sms=257) == 2
+
+
+def test_fwd_q_rows_on_the_main_paths_shapes():
+    """The bf16 forward's q-tile height (ops/flash.py fwd_q_rows), llama3-8b
+    heads on an H100 SXM's 132 SMs: 128 rows for prefill and training at
+    S >= 2048 and for the ring's past block, 64 where the 128-row grid
+    would not keep the card busy (admission buckets up to 1024, the
+    ring's diagonal and partly dead blocks); blocks of equal work (a past
+    block, zigzag's unmasked half shards) need a block for every other SM,
+    a causal diagonal two blocks an SM.  Head size 16 keeps 64 rows."""
+    assert tflash.fwd_q_rows(1, 32, 2048, 2048, True) == 128
+    assert tflash.fwd_q_rows(2, 32, 2048, 2048, True) == 128
+    assert tflash.fwd_q_rows(1, 32, 4096, 4096, True) == 128
+    for s in (128, 256, 512, 1024):
+        assert tflash.fwd_q_rows(1, 32, s, s, True) == 64
+    ring = dict(b=1, hq=32, s_len=1024, kv_len=1024, causal=True)
+    assert tflash.fwd_q_rows(**ring, q_offset=1024, kv_offset=0) == 128
+    assert tflash.fwd_q_rows(**ring, q_offset=1024, kv_offset=1024) == 64
+    assert tflash.fwd_q_rows(**ring, q_offset=0, kv_offset=512) == 64
+    assert tflash.fwd_q_rows(**ring, window=700, q_offset=1024,
+                             kv_offset=0) == 64
+    assert tflash.fwd_q_rows(1, 32, 512, 512, False) == 128
+    assert tflash.fwd_q_rows(1, 32, 128, 128, False) == 64
+    assert tflash.fwd_q_rows(1, 32, 1024, 1024, False, n_sms=514) == 64
+    assert tflash.fwd_q_rows(1, 32, 2048, 2048, True, n_sms=257) == 64
+    assert tflash.fwd_q_rows(1, 32, 2048, 2048, True, n_sms=114) == 128
+    for d, rows in ((16, 64), (32, 128), (64, 128), (128, 128)):
+        assert tflash.fwd_q_rows(2, 32, 2048, 2048, True, head_dim=d) == rows
+
+
 @pytest.mark.parametrize("causal,window,n_split", [(True, None, 2),
                                                    (True, 9, 4),
                                                    (False, None, 4)])
