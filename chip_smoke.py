@@ -21,7 +21,9 @@ Phases, each of which raises on failure:
               B=1 S=4096 beside SDPA with its achieved TFLOP/s, and at
               each admission bucket of phase 4 (their sum over the 12
               admissions and 32 layers, a model);
-              the ring-step kernels at train-ring's shapes and offsets;
+              the ring-step kernels at train-ring's shapes and offsets
+              and at zigzag's half shards, beside SDPA where the block
+              is all visible or a diagonal;
               the flash backward's achieved TFLOP/s (on its 7 products
               and the function's 5) and its ratio to SDPA's backward;
               pass A's split over query heads against none at zigzag's
@@ -34,7 +36,9 @@ Phases, each of which raises on failure:
               decode step and phase 4's 12 admissions (a model: the
               decode step's is measured in phase 6)
 4. serve   -- SlotServer on llama3-8b widths (bf16, 32 layers, random
-              weights): 12 requests through 8 slots; first-token logits of
+              weights): 12 requests through 8 slots; the 12 admissions
+              again (budgets of one token) under torch.profiler, for the
+              flash forward's device ms over them; first-token logits of
               one request against a forward through the plain attention
 5. paged   -- PagedSlotServer on the same weights: 16 slots, max_len
               4096, page 64, a 529-page pool, a 1000-token system prompt
@@ -116,22 +120,11 @@ def log(*a):
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
-    import torch
+    """Median milliseconds of ``fn`` on the current stream (CUDA events:
+    utils/cuda_timing.py event_ms)."""
+    from starway_tpu_torch.utils.cuda_timing import event_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return event_ms(fn, iters, warmup)
 
 
 def bound(n_bytes: float, n_flops: float):
@@ -247,17 +240,19 @@ def flash_forward_rows(dev, randn) -> dict:
     (admission prefills; drawn from phase 3's shared generator, as
     before), B=2, S=2048 (train-bf16's batch) and B=1, S=4096 (train-ring's
     flash run); then at B=1 and every admission bucket of phase 4's 12
-    requests, whose times summed over the requests and 32 layers model the
-    forward's share of the 12 admissions (a sum of these timings, not a
-    measurement on the path).  The kernels line's row is timed at B=1,
-    S=2048, as in earlier runs; ``by_shape`` has every shape."""
+    requests, whose times summed over the requests and 32 layers are
+    logged as a model of the forward's share of the 12 admissions (a sum
+    of these timings, not a measurement on the path: phase 4 measures
+    that, :func:`traced_admissions`).  The kernels line's row is timed at
+    B=1, S=2048, as in earlier runs; ``by_shape`` has every shape and
+    ``admission_buckets`` the buckets' times."""
     import torch
     import torch.nn.functional as F
 
     from starway_tpu_torch.ops.flash import (_n_sms, flash_forward,
                                              flash_forward_reference,
                                              fwd_q_rows)
-    from starway_tpu_torch.utils.cuda_timing import graph_us
+    from starway_tpu_torch.utils.cuda_timing import graph_us, visible_pairs
 
     HQ, HKV, D = 32, 8, 128
     n_sms = _n_sms(dev.index or 0)
@@ -288,7 +283,7 @@ def flash_forward_rows(dev, randn) -> dict:
         ms, lib = cuda_ms(ours), cuda_ms(library)
         graph_ms = graph_us(ours, [None]) / 1e3
         lib_graph = graph_us(library, [None]) / 1e3
-        pairs = b * visible_pairs(s, True)
+        pairs = b * visible_pairs(s, s)
         n_flops = 4 * HQ * D * pairs
         n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * HQ * s
         b_ms, b_by = bound(n_bytes, n_flops)
@@ -344,8 +339,7 @@ def flash_forward_rows(dev, randn) -> dict:
                  f"has every shape",
         by_shape=by_shape,
         admission_buckets={s: {k: r[k] for k in ("ms", "library_ms")}
-                           for s, r in per_bucket.items()},
-        admissions_modelled_ms=admit)
+                           for s, r in per_bucket.items()})
 
 
 # The W8A16 serving path's projections: (name, D, F, launches a layer);
@@ -677,14 +671,6 @@ def paged_rows(dev, randn, rng):
                 max_abs_err=worst, **timed[1], c128=timed[128])
 
 
-def visible_pairs(s_len: int, causal: bool, window=None) -> int:
-    """(q, k) pairs that the attention computes: what this run needs."""
-    if not causal:
-        return s_len * s_len
-    reach = np.minimum(np.arange(1, s_len + 1), window or s_len)
-    return int(reach.sum())
-
-
 def flash_backward_rows(dev, randn):
     """The two backward kernels against flash_backward_reference: the
     training shapes (B=2, S=2048 and B=1, S=4096, causal, GQA 4:1, bf16)
@@ -700,6 +686,7 @@ def flash_backward_rows(dev, randn):
                                              flash_backward_dq,
                                              flash_backward_reference,
                                              flash_forward)
+    from starway_tpu_torch.utils.cuda_timing import visible_pairs
 
     HQ, HKV = 32, 8
     cases = [(2, HQ, HKV, 2048, 128, True, None, torch.bfloat16),
@@ -757,7 +744,8 @@ def flash_backward_rows(dev, randn):
         # Each pass is bound by its own outputs: dK/dV needs s, dp, dv and
         # dk (4 products), dQ needs s, dp and dq (3).  The backward as one
         # function needs 5, so the two bounds sum past the pair's own.
-        flops = 2 * d * visible_pairs(s_len, causal, window) * hq * b
+        flops = 2 * d * visible_pairs(s_len, s_len, causal=causal,
+                                      window=window) * hq * b
         es = q.element_size()
         io = es * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * b * hq * s_len
         dkv_b = bound(io + es * 2 * k.numel(), 4 * flops)
@@ -816,14 +804,17 @@ def ring_kernel_rows(dev, randn):
     against their plain versions at train-ring's shard shape (q [1, 32,
     1024, 128] bf16, k/v [1, 8, 1024, 128]) and offsets: a whole past
     block, the diagonal, a dead block, a band edge (window 700) and a
-    block whose first 512 rows see no key.  Rows that see nothing must be
-    exactly the identity (o = 0, m = NEG_BIG, l = 0) and their gradients
-    exactly 0.  The backward runs from the step's own lse and delta.
-    Timed at every offset (the forward by events around one call and as
-    device ms a call in a CUDA graph); the kernels line carries the past
-    block's
-    numbers, the library calls are SDPA's forward and backward over the
-    same block (which return o and lse, not (o, m, l))."""
+    block whose first 512 rows see no key; then at zigzag's half shards
+    (T = 512): a hi-lo pair with no mask (q at 2048, kv at 0) and a
+    diagonal half (512 / 512).  Rows that see nothing must be exactly the
+    identity (o = 0, m = NEG_BIG, l = 0) and their gradients exactly 0.
+    The backward runs from the step's own lse and delta.  Timed at every
+    offset (the forward by events around one call and as device ms a call
+    in a CUDA graph), beside SDPA's forward timed the same ways where the
+    block is all visible (no mask) or a diagonal (causal); the kernels
+    line carries the past block's numbers, the library calls are SDPA's
+    forward and backward over the same block (which return o and lse, not
+    (o, m, l))."""
     import torch
     import torch.nn.functional as F
 
@@ -833,18 +824,24 @@ def ring_kernel_rows(dev, randn):
                                              flash_partial_bwd_reference,
                                              flash_partial_reference,
                                              fwd_q_rows)
-    from starway_tpu_torch.utils.cuda_timing import graph_us
+    from starway_tpu_torch.utils.cuda_timing import graph_us, visible_pairs
 
     HQ, HKV, T, D = 32, 8, 1024, 128
-    q, do = randn(1, HQ, T, D), randn(1, HQ, T, D)
-    k, v = randn(1, HKV, T, D), randn(1, HKV, T, D)
-    cases = (("past", 1024, 0, None), ("diagonal", 1024, 1024, None),
-             ("dead", 0, 1024, None), ("band edge", 1024, 0, 700),
-             ("first rows dead", 0, 512, None))
+    full = (randn(1, HQ, T, D), randn(1, HQ, T, D), randn(1, HKV, T, D),
+            randn(1, HKV, T, D))
+    # (name, T, q_offset, kv_offset, window, causal)
+    cases = (("past", T, 1024, 0, None, True),
+             ("diagonal", T, 1024, 1024, None, True),
+             ("dead", T, 0, 1024, None, True),
+             ("band edge", T, 1024, 0, 700, True),
+             ("first rows dead", T, 0, 512, None, True),
+             ("zigzag hi-lo", 512, 2048, 0, None, False),
+             ("zigzag diagonal", 512, 512, 512, None, True))
     worst = {"fwd": 0.0, "bwd": 0.0}
     by_case = {}
-    for name, q_off, kv_off, window in cases:
-        kw = dict(causal=True, window=window)
+    for name, t, q_off, kv_off, window, causal in cases:
+        q, do, k, v = (x[:, :, :t].contiguous() for x in full)
+        kw = dict(causal=causal, window=window)
         o, m, l = flash_partial(q, k, v, q_off, kv_off, **kw)
         o_r, m_r, l_r = flash_partial_reference(q, k, v, q_off, kv_off, **kw)
         torch.cuda.synchronize()
@@ -890,12 +887,7 @@ def ring_kernel_rows(dev, randn):
         fwd_graph = graph_us(ours, [None]) / 1e3
         bwd_ms = cuda_ms(lambda: flash_partial_bwd(q, do, k, v, lse, delta,
                                                    q_off, kv_off, **kw))
-        qp = q_off + np.arange(T)[:, None]
-        kp = kv_off + np.arange(T)[None, :]
-        vis = qp >= kp
-        if window is not None:
-            vis &= kp > qp - window
-        pairs = int(vis.sum())
+        pairs = visible_pairs(t, t, q_off, kv_off, causal, window)
         # Forward: 2 products of 2 * D flops per visible pair and q head;
         # q, k, v read, o, m, l (float32) written.  Backward: the function
         # (dq, dk, dv) needs 5 products (s, dp, dv, dk, dq); q, dO, k, v,
@@ -903,13 +895,14 @@ def ring_kernel_rows(dev, randn):
         # kernel's two passes recompute s and dp (7 products): that is its
         # design, not the function's need.
         fwd_b = bound(2 * (q.numel() + 2 * k.numel()) + 4 * (q.numel()
-                                                             + 2 * HQ * T),
+                                                             + 2 * HQ * t),
                       4 * D * pairs * HQ)
-        bwd_b = bound(2 * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * HQ * T
+        bwd_b = bound(2 * (2 * q.numel() + 2 * k.numel()) + 2 * 4 * HQ * t
                       + 4 * (q.numel() + 2 * k.numel()), 10 * D * pairs * HQ)
         by_case[name] = dict(
-            q_offset=q_off, kv_offset=kv_off, window=window,
-            q_rows=fwd_q_rows(1, HQ, T, T, True, window, q_off, kv_off,
+            t=t, q_offset=q_off, kv_offset=kv_off, window=window,
+            causal=causal,
+            q_rows=fwd_q_rows(1, HQ, t, t, causal, window, q_off, kv_off,
                               _n_sms(dev.index or 0)),
             visible_pairs=pairs, ms=fwd_ms, graph_ms=fwd_graph,
             bwd_ms=bwd_ms,
@@ -918,8 +911,9 @@ def ring_kernel_rows(dev, randn):
             bwd_tflops_5=10 * D * pairs * HQ / bwd_ms / 1e9,
             identity_exact=exact)
         tol = GRAD_REL_TOL["bfloat16"]
-        log(f"flash_partial {name} (q_off {q_off}, kv_off {kv_off}, window "
-            f"{window}): o/l max_abs_err {o_err:.3e}, relative to max |o/l| "
+        log(f"flash_partial {name} (T {t}, q_off {q_off}, kv_off {kv_off}, "
+            f"window {window}, causal {causal}): o/l max_abs_err "
+            f"{o_err:.3e}, relative to max |o/l| "
             f"{o_rel:.3e} (tol {tol}), m {m_err:.3e} (tol 1e-3), l rel "
             f"{l_rel:.3e} (tol 1e-3); identity rows exact {exact}; "
             f"{fwd_ms:.4f} ms, device {fwd_graph:.4f} ms a call in a CUDA "
@@ -935,17 +929,24 @@ def ring_kernel_rows(dev, randn):
                 and exact and max(rel) <= tol):
             raise AssertionError(f"the ring-step kernels disagree with their "
                                  f"plain versions ({name})")
+        if pairs in (t * t, t * (t + 1) // 2):  # all visible, or a diagonal
+            def library(_=None, diagonal=pairs < t * t):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=diagonal, enable_gqa=True)
+
+            lib_ms, lib_graph = cuda_ms(library), graph_us(library,
+                                                           [None]) / 1e3
+            by_case[name].update(library_ms=lib_ms, library_graph_ms=lib_graph)
+            log(f"  SDPA ({'causal' if pairs < t * t else 'no mask'}, GQA) "
+                f"{lib_ms:.4f} ms ({fwd_ms / lib_ms:.2f}x), device "
+                f"{lib_graph:.4f} ms ({fwd_graph / lib_graph:.2f}x)")
         if name == "past":
             timed = dict(
                 fwd_plain=cuda_ms(lambda: flash_partial_reference(
                     q, k, v, q_off, kv_off, **kw), iters=5),
                 bwd_plain=cuda_ms(lambda: flash_partial_bwd_reference(
                     q, do, k, v, lse, delta, q_off, kv_off, **kw), iters=5),
-                fwd_lib=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, enable_gqa=True)),
-                fwd_lib_graph=graph_us(
-                    lambda _: F.scaled_dot_product_attention(
-                        q, k, v, enable_gqa=True), [None]) / 1e3,
+                fwd_lib=lib_ms, fwd_lib_graph=lib_graph,
                 fwd_b=fwd_b, bwd_b=bwd_b)
             with torch.enable_grad():
                 leaves = [x.detach().requires_grad_() for x in (q, k, v)]
@@ -954,14 +955,7 @@ def ring_kernel_rows(dev, randn):
                 timed["bwd_lib"] = cuda_ms(lambda: torch.autograd.grad(
                     o_lib, leaves, do, retain_graph=True))
                 del o_lib, leaves
-        if name == "diagonal":
-            def diag(_=None):
-                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                      enable_gqa=True)
-
-            by_case[name]["library_ms"] = cuda_ms(diag)
-            by_case[name]["library_graph_ms"] = graph_us(diag, [None]) / 1e3
-        del o, m, l, o_r, m_r, l_r, g, g_r
+        del q, do, k, v, o, m, l, o_r, m_r, l_r, g, g_r
     past = by_case["past"]
     past["bwd_vs_library"] = past["bwd_ms"] / timed["bwd_lib"]
     log(f"  past block: flash_partial {past['ms']:.4f} ms (device "
@@ -975,8 +969,10 @@ def ring_kernel_rows(dev, randn):
         f"{timed['bwd_plain']:.4f} ms, library (SDPA backward) "
         f"{timed['bwd_lib']:.4f} ms")
     torch.cuda.empty_cache()
+    del full
     at = (f"B=1 Hq={HQ} Hkv={HKV} D={D} T=Tkv={T} bf16, past block (q_off "
-          f"1024, kv_off 0); by_offset has every offset")
+          f"1024, kv_off 0); by_offset has every offset, zigzag's half "
+          f"shards too")
     src = "starway_tpu_torch/csrc/"
     return {
         "flash_partial": dict(
@@ -1203,6 +1199,37 @@ def serve(params, cfg, reqs, *, server=None, prefix=None, n_slots=8,
     return dict(zip(rids, (done[r] for r in rids))), stats, srv
 
 
+def traced_admissions(srv, reqs) -> dict:
+    """Phase 4's admissions once more, on the server that has just served
+    them: each request again with a budget of one token (admission only:
+    the prefill at its bucket and the first token, no decode chunk),
+    under torch.profiler.  Returns the flash forward's device ms summed
+    over its kernels in the trace (its share of the 12 admissions,
+    measured on the path), their count, and the device's busy ms over
+    the admissions; None where the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for tokens, _m, _w in reqs:
+            srv.submit(tokens, 1)
+        srv.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in kernels)
+    fwd = [e for e in kernels if "flash_fwd" in e.key]
+    fwd_us = sum(getattr(e, "self_device_time_total", 0) for e in fwd)
+    return dict(traced_wall_ms=wall_ms,
+                device_busy_ms=busy_us / 1e3 if busy_us else None,
+                flash_fwd_device_ms=fwd_us / 1e3 if busy_us else None,
+                flash_fwd_kernels=sum(e.count for e in fwd))
+
+
 def plain_attn(q, k, v):
     from starway_tpu_torch.ops.flash import flash_forward_reference
 
@@ -1365,11 +1392,13 @@ def model_flops(cfg, tokens: int, b: int, s_len: int) -> float:
     weights (the layers' projections and the lm_head; the embedding is a
     gather) plus the attention's two products, forward and backward
     (3 x 4 * D per visible pair and q head), without remat's recompute."""
+    from starway_tpu_torch.utils.cuda_timing import visible_pairs
+
     hd, L = cfg.head_dim, cfg.n_layers
     per_layer = (cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
                  + cfg.n_heads * hd * cfg.d_model + 3 * cfg.d_model * cfg.d_ff)
     n = L * per_layer + cfg.d_model * cfg.vocab_size
-    attn = 12 * hd * visible_pairs(s_len, True) * cfg.n_heads * b * L
+    attn = 12 * hd * visible_pairs(s_len, s_len) * cfg.n_heads * b * L
     return 6.0 * n * tokens + attn
 
 
@@ -1881,13 +1910,27 @@ def main() -> int:
         f"{len(reqs)} requests, prompts "
         f"{min(len(r[0]) for r in reqs)}-{max(len(r[0]) for r in reqs)}")
     reset_launch_counts()
-    st4 = serve(params, cfg, reqs)[1]
+    st4, srv4 = serve(params, cfg, reqs)[1:]
     c4 = launch_counts()
     log(f"  {st4}")
     log(f"  launches {c4}")
     if not (c4["decode_attention"] > 0 and c4["flash_forward"] > 0):
         raise AssertionError("the bf16 serving run launched no decode or "
                              "flash kernel")
+    admits = traced_admissions(srv4, reqs)
+    del srv4
+    log(f"  the 12 admissions again, traced: {admits}")
+    if admits["device_busy_ms"] is not None:
+        if admits["flash_fwd_kernels"] != N_LAYERS * len(reqs):
+            raise AssertionError(f"the traced admissions ran "
+                                 f"{admits['flash_fwd_kernels']} flash "
+                                 f"forward kernels, not {N_LAYERS} a layer "
+                                 f"and request")
+        log(f"[flash] the forward's device ms over the 12 admissions, "
+            f"measured in the trace: {admits['flash_fwd_device_ms']:.4f} ms "
+            f"of {admits['device_busy_ms']:.4f} ms busy")
+    rows["flash_forward"]["admissions_device_ms"] = admits[
+        "flash_fwd_device_ms"]
     check_first_logits(params, cfg, reqs[0][0], 2048)
     torch.cuda.empty_cache()
 

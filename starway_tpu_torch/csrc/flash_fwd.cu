@@ -102,10 +102,10 @@ constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 
 // The tile loop of one (batch * q head, q tile) block and its epilogue:
 // kPartial selects the ring step's (acc, m, l) over (o, lse).
-template <typename T, int D, bool kPartial>
+template <int D, bool kPartial>
 __device__ __forceinline__ void flash_tiles(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, void* __restrict__ o_out,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o_out,
     float* __restrict__ row_a, float* __restrict__ row_b, int hq, int hkv,
     int s_len, int kv_len, int causal, int window, float sm_scale,
     int q_off, int kv_off) {
@@ -129,14 +129,13 @@ __device__ __forceinline__ void flash_tiles(
   const int b = bh / hq;
   const int h = bh - b * hq;
   const int kvh = b * hkv + h / (hq / hkv);
-  const T* qb = q + static_cast<size_t>(bh) * s_len * D;
-  const T* kb = k + static_cast<size_t>(kvh) * kv_len * D;
-  const T* vb = v + static_cast<size_t>(kvh) * kv_len * D;
+  const float* qb = q + static_cast<size_t>(bh) * s_len * D;
+  const float* kb = k + static_cast<size_t>(kvh) * kv_len * D;
+  const float* vb = v + static_cast<size_t>(kvh) * kv_len * D;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D;
-    q_s[i] = q0 + r < s_len ? sw_to_float(qb[static_cast<size_t>(q0) * D + i])
-                            : 0.f;
+    q_s[i] = q0 + r < s_len ? qb[static_cast<size_t>(q0) * D + i] : 0.f;
   }
   if (tid < kBQ) {
     m_s[tid] = SW_NEG_BIG;
@@ -169,8 +168,8 @@ __device__ __forceinline__ void flash_tiles(
       float kv = 0.f, vv = 0.f;
       if (k0 + j < kv_len) {
         const size_t off = static_cast<size_t>(k0) * D + i;
-        kv = sw_to_float(kb[off]);
-        vv = sw_to_float(vb[off]);
+        kv = kb[off];
+        vv = vb[off];
       }
       k_s[j * DP + c] = kv;
       v_s[i] = vv;
@@ -229,7 +228,7 @@ __device__ __forceinline__ void flash_tiles(
       for (int c = sub; c < kBK; c += 4) {
         const float p = expf(s_s[r * SP + c] - m_use);
         sum += p;
-        s_s[r * SP + c] = sw_round_to<T>(p);
+        s_s[r * SP + c] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -265,55 +264,49 @@ __device__ __forceinline__ void flash_tiles(
     __syncthreads();
   }
 
-  if constexpr (kPartial) {
-    float* ob = static_cast<float*>(o_out) + static_cast<size_t>(bh) * s_len * D;
+  float* ob = o_out + static_cast<size_t>(bh) * s_len * D;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      if (q0 + r >= s_len) continue;
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (q0 + r >= s_len) continue;
+    const size_t row = static_cast<size_t>(bh) * s_len + q0 + r;
+    if constexpr (kPartial) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
         ob[static_cast<size_t>(q0 + r) * D + tx + 16 * j] = acc[i][j];
       if (tx == 0) {
-        row_a[static_cast<size_t>(bh) * s_len + q0 + r] = m_s[r];
-        row_b[static_cast<size_t>(bh) * s_len + q0 + r] = l_s[r];
+        row_a[row] = m_s[r];
+        row_b[row] = l_s[r];
       }
-    }
-  } else {
-    T* ob = static_cast<T*>(o_out) + static_cast<size_t>(bh) * s_len * D;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      if (q0 + r >= s_len) continue;
+    } else {
       const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        ob[static_cast<size_t>(q0 + r) * D + tx + 16 * j] =
-            sw_from_float<T>(acc[i][j] / l);
-      if (tx == 0)
-        row_a[static_cast<size_t>(bh) * s_len + q0 + r] = m_s[r] + logf(l);
+        ob[static_cast<size_t>(q0 + r) * D + tx + 16 * j] = acc[i][j] / l;
+      if (tx == 0) row_a[row] = m_s[r] + logf(l);
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int hq, int hkv, int s_len,
                      int kv_len, int causal, int window, float sm_scale) {
-  flash_tiles<T, D, false>(q, k, v, o, lse, nullptr, hq, hkv, s_len, kv_len,
-                           causal, window, sm_scale, 0, 0);
+  flash_tiles<D, false>(q, k, v, o, lse, nullptr, hq, hkv, s_len, kv_len,
+                        causal, window, sm_scale, 0, 0);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_partial_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, float* __restrict__ acc, float* __restrict__ m,
-    float* __restrict__ l, int hq, int hkv, int s_len, int kv_len,
-    int causal, int window, float sm_scale, int q_off, int kv_off) {
-  flash_tiles<T, D, true>(q, k, v, acc, m, l, hq, hkv, s_len, kv_len, causal,
-                          window, sm_scale, q_off, kv_off);
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ acc,
+    float* __restrict__ m, float* __restrict__ l, int hq, int hkv, int s_len,
+    int kv_len, int causal, int window, float sm_scale, int q_off,
+    int kv_off) {
+  flash_tiles<D, true>(q, k, v, acc, m, l, hq, hkv, s_len, kv_len, causal,
+                       window, sm_scale, q_off, kv_off);
 }
 
 // ------------------------------------------------------ bfloat16, mma.sync
@@ -641,14 +634,14 @@ void launch_fma(const FwdArgs& a) {
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
   if constexpr (kPartial) {
-    auto kernel = flash_partial_kernel<float, D>;
+    auto kernel = flash_partial_kernel<D>;
     sw_allow_smem(kernel, smem);
     kernel<<<grid, kThreads, smem, a.stream>>>(
         q, k, v, static_cast<float*>(a.o), a.row_a, a.row_b, a.hq, a.hkv,
         a.s_len, a.kv_len, a.causal, a.window, a.sm_scale, a.q_off,
         a.kv_off);
   } else {
-    auto kernel = flash_fwd_kernel<float, D>;
+    auto kernel = flash_fwd_kernel<D>;
     sw_allow_smem(kernel, smem);
     kernel<<<grid, kThreads, smem, a.stream>>>(
         q, k, v, static_cast<float*>(a.o), a.row_a, a.hq, a.hkv, a.s_len,

@@ -155,24 +155,33 @@ def flash_forward(q, k, v, *, causal: bool = False,
                                        sm_scale=sm_scale, window=window)
     _check_kernel_args((q, k, v), "flash_forward")
     b, hq, s_len, d = q.shape
-    hkv, kv_len = k.shape[1], k.shape[2]
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
-    rows = fwd_q_rows(b, hq, s_len, kv_len, causal, window,
+    rows = fwd_q_rows(b, hq, s_len, k.shape[2], causal, window,
                       n_sms=_n_sms(q.device.index), head_dim=d)
+    out = _launch_forward(q, k, v, rows, causal, sm_scale, window)
+    flash_forward.launches += 1
+    return out
+
+
+flash_forward.launches = 0
+
+
+def _launch_forward(q, k, v, rows, causal, sm_scale, window):
+    """The forward kernel on checked CUDA tensors at ``rows``-row q tiles
+    (bf16; float32 has one tiling), uncounted: :func:`flash_forward`'s
+    launch, and the tests' and the sweep's (ops/flash_sweep.py) at the
+    height :func:`fwd_q_rows` does not pick."""
+    b, hq, s_len, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, s_len), dtype=torch.float32, device=q.device)
     err = _build.library().sw_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, hq, hkv, s_len, kv_len, d, int(causal),
+        lse.data_ptr(), b, hq, k.shape[1], s_len, k.shape[2], d, int(causal),
         0 if window is None else int(window), float(sm_scale),
         int(q.dtype == torch.bfloat16), rows, _build.stream_ptr(q))
     _build.check(err, "flash_forward")
-    flash_forward.launches += 1
     return o, lse
-
-
-flash_forward.launches = 0
 
 
 # ------------------------------------------------------------------ backward
@@ -427,6 +436,20 @@ def flash_partial(q, k, v, q_offset: int, kv_offset: int, *,
     b, hq, s_len, d = q.shape
     rows = fwd_q_rows(b, hq, s_len, k.shape[2], causal, window, q_offset,
                       kv_offset, _n_sms(q.device.index), d)
+    out = _launch_partial(q, k, v, q_offset, kv_offset, rows, causal,
+                          sm_scale, window)
+    flash_partial.launches += 1
+    return out
+
+
+flash_partial.launches = 0
+
+
+def _launch_partial(q, k, v, q_offset, kv_offset, rows, causal, sm_scale,
+                    window):
+    """The partial kernel on checked CUDA tensors at ``rows``-row q tiles,
+    uncounted, as :func:`_launch_forward`."""
+    b, hq, s_len, d = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)
     o = torch.empty(q.shape, **f32)
     m = torch.empty((b, hq, s_len), **f32)
@@ -438,11 +461,7 @@ def flash_partial(q, k, v, q_offset: int, kv_offset: int, *,
         float(sm_scale), int(q.dtype == torch.bfloat16), rows,
         _build.stream_ptr(q))
     _build.check(err, "flash_partial")
-    flash_partial.launches += 1
     return o, m, l
-
-
-flash_partial.launches = 0
 
 
 def flash_partial_bwd_reference(q, do, k, v, lse, delta, q_offset: int,

@@ -1,235 +1,121 @@
-"""Time the flash forward and the ring step's partial
-(:func:`~starway_tpu_torch.ops.flash.flash_forward`,
-:func:`~starway_tpu_torch.ops.flash.flash_partial`) on the card at the
-main paths' shapes, beside SDPA on the same inputs.
+"""Time the bf16 flash forward and the ring step's partial at each q-tile
+height the kernels have, at the main paths' shapes: the data behind
+:func:`~starway_tpu_torch.ops.flash.fwd_q_rows`.
 
-    python -m starway_tpu_torch.ops.flash_sweep [--q-rows 64 128]
+    python -m starway_tpu_torch.ops.flash_sweep
 
-llama3-8b heads (Hq 32, Hkv 8, D 128), bf16.  The forward: causal at B = 1 and
-every admission bucket S = 128 ... 2048, B = 2 and S = 2048 (train-bf16's
-batch), B = 1 and S = 4096 (train-ring's flash yardstick); the partial:
-train-ring's shard (T = 1024) at its five offsets (a past block, the
-diagonal, a dead block, a band edge with window 700, a block whose first
-512 rows see no key) and zigzag's half shards (T = 512: an unmasked pair,
-a diagonal half).  Each is held against its plain version first (o
-to 2e-2, lse and m to 1e-3; a partial's rows that see no key exactly the
-identity), then timed: the median of 20 calls by CUDA events around one
-call (the wrapper's host enqueue included) and device ms a call, 20
-calls in one CUDA graph (utils/cuda_timing.py graph_us), the achieved
-TFLOP/s on the function's 4 * Hq * D flops per visible (q, k) pair in
-device time, and the times against SDPA's timed the same ways (``enable_gqa``; causal where the
-block is a diagonal, no mask where every key is visible, none timed at
-the other offsets).  With ``--q-rows``, each shape runs at each given
-q-tile height of the bf16 kernels in place of the one
-:func:`~starway_tpu_torch.ops.flash.fwd_q_rows` plans (the data behind
-that plan), the plan's pick named beside it.  Prints one line a shape and
-a JSON line of all of them.  Needs an NVIDIA GPU.
-
-The imports are absolute, so the file can time another checkout's
-kernels in the same call (the way to compare two versions on one card):
-``PYTHONPATH=<checkout> python3 starway_tpu_torch/ops/flash_sweep.py``.
+llama3-8b heads (Hq 32, Hkv 8, D 128), bf16.  The forward, causal, at
+B = 1 and every admission bucket S = 128 ... 2048, at B = 2 and S = 2048
+(train-bf16's batch) and at B = 1 and S = 4096 (train-ring's flash
+yardstick); the partial at train-ring's shard (T = 1024: a past block,
+the diagonal, a band edge with window 700, a block whose first 512 rows
+see no key) and zigzag's half shards (T = 512: an unmasked hi-lo pair, a
+diagonal half).  At each shape, 64- and 128-row q tiles are each held
+against the plain version (o, or a partial's o / l, to 2e-2; lse and m to
+1e-3) and timed as device ms a call (utils/cuda_timing.py graph_us: 20
+calls in one CUDA graph), beside the height the plan picks.  Prints one
+line a shape and a JSON line of all of them.  Needs an NVIDIA GPU.
+chip_smoke.py times the planned kernels beside SDPA.
 """
 
 from __future__ import annotations
 
-import argparse
-import contextlib
 import json
-import statistics
 import sys
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
-from starway_tpu_torch.ops import flash
-from starway_tpu_torch.ops.attention import NEG_BIG
-from starway_tpu_torch.utils.cuda_timing import graph_us
+from . import flash
+from ..utils.cuda_timing import graph_us, visible_pairs
 
 HQ, HKV, D = 32, 8, 128
+Q_ROWS = (64, 128)
 FORWARD = [(1, s) for s in (128, 256, 512, 1024, 2048)] + [(2, 2048),
                                                            (1, 4096)]
-# (name, T, q_offset, kv_offset, window, causal): train-ring's shard steps,
-# then zigzag's half shards (an unmasked hi-lo pair, a diagonal half).
+# (name, T, q_offset, kv_offset, window, causal)
 RING_STEPS = (("past", 1024, 1024, 0, None, True),
               ("diagonal", 1024, 1024, 1024, None, True),
-              ("dead", 1024, 0, 1024, None, True),
               ("band edge", 1024, 1024, 0, 700, True),
               ("first rows dead", 1024, 0, 512, None, True),
               ("zigzag hi-lo", 512, 2048, 0, None, False),
               ("zigzag diagonal", 512, 512, 512, None, True))
 
 
-def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median ms of ``fn`` on the current stream (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def _err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
 
 
-def pairs(s_len: int, kv_len: int, q_off: int, kv_off: int, causal: bool,
-          window=None) -> int:
-    """(q, k) pairs the attention computes at these global offsets."""
-    if not causal:
-        return s_len * kv_len
-    qp = q_off + np.arange(s_len)[:, None]
-    kp = kv_off + np.arange(kv_len)[None, :]
-    vis = qp >= kp
-    if window is not None:
-        vis &= kp > qp - window
-    return int(vis.sum())
-
-
-PLAN = getattr(flash, "fwd_q_rows", None)  # None in a checkout without it
-
-
-def planned_rows(*args) -> int | None:
-    """The q-tile height the checkout's plan picks (None where it has
-    none)."""
-    if PLAN is None:
-        return None
-    return PLAN(*args, n_sms=torch.cuda.get_device_properties(0)
-                .multi_processor_count)
-
-
-@contextlib.contextmanager
-def forced_rows(rows):
-    """The bf16 kernels at ``rows``-row q tiles, whatever the plan says
-    (None: as planned)."""
-    if rows is None:
-        yield
-        return
-    flash.fwd_q_rows = lambda *args, **kwargs: rows
-    try:
-        yield
-    finally:
-        flash.fwd_q_rows = PLAN
-
-
-def forward_row(randn, b: int, s: int) -> dict:
+def forward_row(randn, n_sms: int, b: int, s: int) -> dict:
     q, k, v = randn(b, HQ, s, D), randn(b, HKV, s, D), randn(b, HKV, s, D)
-    o, lse = flash.flash_forward(q, k, v, causal=True)
     o_r, lse_r = flash.flash_forward_reference(q, k, v, causal=True)
-    err = (o.float() - o_r.float()).abs().max().item()
-    lse_err = (lse - lse_r).abs().max().item()
-    if not (err <= 2e-2 and lse_err <= 1e-3):
-        raise AssertionError(f"flash_forward B={b} S={s}: o {err:.3e}, lse "
-                             f"{lse_err:.3e}")
-    def ours(_=None):
-        return flash.flash_forward(q, k, v, causal=True)
+    scale = D ** -0.5
+    ms = {}
+    for rows in Q_ROWS:
+        def call(_=None, rows=rows):
+            return flash._launch_forward(q, k, v, rows, True, scale, None)
 
-    def library(_=None):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
-
-    flops = 4 * HQ * D * b * pairs(s, s, 0, 0, True)
-    return dict(kernel="flash_forward", b=b, s=s,
-                q_rows=planned_rows(b, HQ, s, s, True),
-                **timings(ours, library, flops), max_abs_err=err,
-                lse_err=lse_err)
+        o, lse = call()
+        if not (_err(o, o_r) <= 2e-2 and _err(lse, lse_r) <= 1e-3):
+            raise AssertionError(f"flash_forward B={b} S={s} at {rows} rows "
+                                 f"disagrees with its plain version")
+        ms[rows] = graph_us(call, [None]) / 1e3
+    return dict(kernel="flash_forward", where=f"B={b} S={s}",
+                planned=flash.fwd_q_rows(b, HQ, s, s, True, n_sms=n_sms),
+                graph_ms=ms,
+                flops=4 * HQ * D * b * visible_pairs(s, s))
 
 
-def timings(ours, library, flops: int) -> dict:
-    """Events around one call and device ms a call in a CUDA graph, of
-    ``ours`` and (when given) ``library``."""
-    ms, graph = event_ms(ours), graph_us(ours, [None]) / 1e3
-    out = dict(ms=ms, graph_ms=graph, tflops=flops / graph / 1e9,
-               sdpa_ms=None, sdpa_graph_ms=None, vs_sdpa=None,
-               graph_vs_sdpa=None)
-    if library is not None:
-        lib, lib_graph = event_ms(library), graph_us(library, [None]) / 1e3
-        out.update(sdpa_ms=lib, sdpa_graph_ms=lib_graph, vs_sdpa=ms / lib,
-                   graph_vs_sdpa=graph / lib_graph)
-    return out
-
-
-def partial_row(randn, name, t, q_off, kv_off, window, causal) -> dict:
+def partial_row(randn, n_sms: int, name, t, q_off, kv_off, window,
+                causal) -> dict:
     q, k, v = randn(1, HQ, t, D), randn(1, HKV, t, D), randn(1, HKV, t, D)
-    kw = dict(causal=causal, window=window)
-    o, m, l = flash.flash_partial(q, k, v, q_off, kv_off, **kw)
-    o_r, m_r, l_r = flash.flash_partial_reference(q, k, v, q_off, kv_off,
-                                                  **kw)
-    dead = l_r == 0
-    exact = bool((o[dead] == 0).all() and (l[dead] == 0).all()
-                 and (m[dead] == NEG_BIG).all())
-    live = ~dead
-    err = 0.0
-    if live.any():
-        o_n = (o / l.clamp(min=1e-30)[..., None])[live]
-        o_rn = (o_r / l_r.clamp(min=1e-30)[..., None])[live]
-        err = max((o_n - o_rn).abs().max().item(),
-                  (m[live] - m_r[live]).abs().max().item())
-    if not (exact and err <= 2e-2):
-        raise AssertionError(f"flash_partial {name}: identity exact {exact}, "
-                             f"error {err:.3e}")
-    def ours(_=None):
-        return flash.flash_partial(q, k, v, q_off, kv_off, **kw)
+    o_r, m_r, l_r = flash.flash_partial_reference(
+        q, k, v, q_off, kv_off, causal=causal, window=window)
+    live = l_r > 0
+    scale = D ** -0.5
+    ms = {}
+    for rows in Q_ROWS:
+        def call(_=None, rows=rows):
+            return flash._launch_partial(q, k, v, q_off, kv_off, rows, causal,
+                                         scale, window)
 
-    def library(_=None):
-        return F.scaled_dot_product_attention(
-            q, k, v, is_causal=n_pairs < t * t, enable_gqa=True)
-
-    n_pairs = pairs(t, t, q_off, kv_off, causal, window)
-    full_or_diagonal = n_pairs in (t * t, t * (t + 1) // 2)
-    return dict(kernel="flash_partial", offsets=name, t=t, q_offset=q_off,
-                kv_offset=kv_off, window=window, causal=causal,
-                q_rows=planned_rows(1, HQ, t, t, causal, window, q_off,
-                                    kv_off),
-                **timings(ours, library if full_or_diagonal else None,
-                          4 * HQ * D * n_pairs),
-                max_abs_err=err, identity_exact=exact)
+        o, m, l = call()
+        o_n = o[live] / l[live][..., None]
+        o_rn = o_r[live] / l_r[live][..., None]
+        if not (_err(o_n, o_rn) <= 2e-2 and _err(m[live], m_r[live]) <= 1e-3
+                and bool((l[~live] == 0).all())):
+            raise AssertionError(f"flash_partial {name} at {rows} rows "
+                                 f"disagrees with its plain version")
+        ms[rows] = graph_us(call, [None]) / 1e3
+    return dict(kernel="flash_partial", where=f"T={t} {name}",
+                planned=flash.fwd_q_rows(1, HQ, t, t, causal, window, q_off,
+                                         kv_off, n_sms),
+                graph_ms=ms,
+                flops=4 * HQ * D * visible_pairs(t, t, q_off, kv_off, causal,
+                                                 window))
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--q-rows", type=int, nargs="+", choices=(64, 128),
-                    help="q-tile heights to force, in turn, at every shape")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("flash_sweep: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    print(f"{torch.cuda.get_device_name(0)}; kernels of {flash.__file__}",
-          flush=True)
+    n_sms = flash._n_sms(0)
+    print(f"{torch.cuda.get_device_name(0)}, {n_sms} SMs", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16)
 
-    rows = []
     with torch.no_grad():
-        for shape in FORWARD + list(RING_STEPS):
-            for forced in args.q_rows or [None]:
-                with forced_rows(forced):
-                    r = (forward_row(randn, *shape) if len(shape) == 2
-                         else partial_row(randn, *shape))
-                r["forced_q_rows"] = forced
-                rows.append(r)
+        rows = [forward_row(randn, n_sms, *shape) for shape in FORWARD]
+        rows += [partial_row(randn, n_sms, *step) for step in RING_STEPS]
     for r in rows:
-        where = (f"B={r['b']} S={r['s']}" if r["kernel"] == "flash_forward"
-                 else f"T={r['t']} {r['offsets']}")
-        lib = ("" if r["sdpa_ms"] is None else
-               f", SDPA {r['sdpa_ms']:.4f} ms ({r['vs_sdpa']:.2f}x), device "
-               f"{r['sdpa_graph_ms']:.4f} ({r['graph_vs_sdpa']:.2f}x)")
-        tiles = ("" if r["q_rows"] is None
-                 else f" ({r['q_rows']}-row q tiles planned)")
-        if r["forced_q_rows"] is not None:
-            tiles += f" at {r['forced_q_rows']} rows"
-        print(f"{r['kernel']} {where}{tiles}: {r['ms']:.4f} ms by events, "
-              f"device {r['graph_ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s)"
-              f"{lib}; max_abs_err {r['max_abs_err']:.3e}", flush=True)
+        times = ", ".join(f"{n} rows {ms:.4f} ms ({r['flops'] / ms / 1e9:.1f}"
+                          f" TFLOP/s)" for n, ms in r["graph_ms"].items())
+        best = min(r["graph_ms"], key=r["graph_ms"].get)
+        print(f"{r['kernel']} {r['where']}: device ms a call: {times}; "
+              f"fastest {best}, planned {r['planned']}", flush=True)
     print(json.dumps({"flash_sweep": rows}), flush=True)
     return 0
 

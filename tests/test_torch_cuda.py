@@ -153,42 +153,39 @@ FLASH_MAIN_PATH = [(2, 32, 8, 1000, 1000, 128, True, None),
 
 
 def _q_tilings(dtype, d):
-    """The q-tile heights to hold: bf16 runs 64- or 128-row tiles (the
-    latter at D >= 32) as ops/flash.py fwd_q_rows plans them from the
-    shapes, so each is held at every shape; float32 has the FMA loop's
-    one."""
+    """The q-tile heights to hold beside the planned one: bf16 runs 64- or
+    128-row tiles (the latter at D >= 32) as ops/flash.py fwd_q_rows plans
+    them from the shapes, so each is held at every shape (launched
+    directly at that height); float32 has the FMA loop's one, which the
+    wrapper's call holds."""
     if dtype != torch.bfloat16:
-        return (None,)
+        return ()
     return (64, 128) if d >= 32 else (64,)
-
-
-def _plan_rows(monkeypatch, rows):
-    if rows is not None:
-        monkeypatch.setattr(flash_ops, "fwd_q_rows",
-                            lambda *args, **kwargs: rows)
 
 
 @pytest.mark.parametrize(
     "dtype,b,hq,hkv,s,skv,d,causal,window",
     [(dt, *c) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
     + [(torch.bfloat16, *c) for c in FLASH_MAIN_PATH])
-def test_flash_kernel_matches_plain(dev, monkeypatch, dtype, b, hq, hkv, s,
-                                    skv, d, causal, window):
+def test_flash_kernel_matches_plain(dev, dtype, b, hq, hkv, s, skv, d,
+                                    causal, window):
     """The forward against flash_forward_reference (bf16 inputs on the
-    tensor-core kernel at both q-tile heights, float32 on the FMA loop);
-    one launch a call."""
+    tensor-core kernel as planned and at both q-tile heights, float32 on
+    the FMA loop); one launch a call of the wrapper."""
     rng = np.random.default_rng(1)
     q = _randn(rng, (b, hq, s, d), dtype, dev)
     k = _randn(rng, (b, hkv, skv, d), dtype, dev)
     v = _randn(rng, (b, hkv, skv, d), dtype, dev)
     o_ref, lse_ref = flash_forward_reference(q, k, v, causal=causal,
                                              window=window)
-    for rows in _q_tilings(dtype, d):
-        _plan_rows(monkeypatch, rows)
-        before = flash_forward.launches
-        o, lse = flash_forward(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        assert flash_forward.launches == before + 1
+    before = flash_forward.launches
+    outs = [flash_forward(q, k, v, causal=causal, window=window)]
+    torch.cuda.synchronize()
+    assert flash_forward.launches == before + 1
+    outs += [flash_ops._launch_forward(q, k, v, rows, causal, d ** -0.5,
+                                       window)
+             for rows in _q_tilings(dtype, d)]
+    for o, lse in outs:
         torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL[dtype],
                                    rtol=0)
         torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
@@ -472,13 +469,13 @@ RING_STEPS = [(130, 0, None, True), (130, 130, None, True),
                                      (torch.bfloat16, 64),
                                      (torch.bfloat16, 128)])
 @pytest.mark.parametrize("q_off,kv_off,window,causal", RING_STEPS)
-def test_flash_partial_kernel_matches_plain(dev, monkeypatch, dtype, d,
-                                            q_off, kv_off, window, causal):
+def test_flash_partial_kernel_matches_plain(dev, dtype, d, q_off, kv_off,
+                                            window, causal):
     """The ring step's partial against flash_partial_reference, GQA 4:1:
     o / l to the output tolerance, m and l to float32 summation order, and
     rows that see no key exactly the identity (o = 0, m = NEG_BIG, l = 0);
-    one launch a call.  bf16 at both q-tile heights and also at the main
-    paths' head size."""
+    one launch a call of the wrapper.  bf16 as planned and at both q-tile
+    heights, and also at the main paths' head size."""
     rng = np.random.default_rng(9)
     t = 130
     q = _randn(rng, (2, 8, t, d), dtype, dev)
@@ -488,12 +485,14 @@ def test_flash_partial_kernel_matches_plain(dev, monkeypatch, dtype, d,
     o_r, m_r, l_r = flash_partial_reference(q, k, v, q_off, kv_off, **kw)
     dead = l_r == 0
     live = ~dead
-    for rows in _q_tilings(dtype, d):
-        _plan_rows(monkeypatch, rows)
-        before = flash_partial.launches
-        o, m, l = flash_partial(q, k, v, q_off, kv_off, **kw)
-        torch.cuda.synchronize()
-        assert flash_partial.launches == before + 1
+    before = flash_partial.launches
+    outs = [flash_partial(q, k, v, q_off, kv_off, **kw)]
+    torch.cuda.synchronize()
+    assert flash_partial.launches == before + 1
+    outs += [flash_ops._launch_partial(q, k, v, q_off, kv_off, rows, causal,
+                                       d ** -0.5, window)
+             for rows in _q_tilings(dtype, d)]
+    for o, m, l in outs:
         assert o.dtype == m.dtype == l.dtype == torch.float32
         assert (o[dead] == 0).all() and (l[dead] == 0).all()
         assert (m[dead] == NEG_BIG).all()
