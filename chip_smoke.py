@@ -6,17 +6,21 @@
 Phases, each of which raises on failure:
 
 1. build   -- compile the CUDA kernels from starway_tpu_torch/csrc with nvcc
-              (and flash_bwd.cu, flash_fwd.cu and int8_gemv.cu once more
-              with -Xptxas -v: the tensor-core flash kernels' and GEMV's
-              registers and spills, logged at the end)
+              (and the tensor-core kernels' sources once more with
+              -Xptxas -v: their registers and spills, logged at the end)
 2. card    -- print the card's name and power limit (nvidia-smi)
 3. kernels -- each kernel against its plain PyTorch version at the serving
               and training paths' shapes (the decode kernel also at C=128,
-              its row tiles; the paged kernel at 16 slots and at the
+              its ingest regime; the paged kernel at 16 slots and at the
               prefix-ingest shape): max error, median time (CUDA
               events), the plain version's time, one PyTorch library
               call's time, and the least time the card could take (bytes /
               3.35 TB/s or operations / 989 TFLOP/s, whichever is larger);
+              the decode and paged kernels at the serving shapes
+              (ops/decode_bench.py: C=1, 4 and 128, bf16 and int8 KV) as
+              device ms a call in a CUDA graph and by CUDA events, SDPA
+              both ways, with the host's enqueue us a call and the share
+              of the bound;
               the flash forward at B=1 S=512 and 2048, B=2 S=2048 and
               B=1 S=4096 beside SDPA with its achieved TFLOP/s, and at
               each admission bucket of phase 4 (their sum over the 12
@@ -50,7 +54,8 @@ Phases, each of which raises on failure:
 6. int8    -- phase 4 again with an int8 KV cache and W8A16 weights; the
               GEMV launches in both regimes (decode and prefill), and its
               device ms in the traced chunk is logged.  Phases 4-6 log
-              admission seconds (wall - the decode chunks)
+              admission seconds (wall - the decode chunks) and the
+              decode-attention kernels' device ms in the traced chunk
 7. parity  -- float32, 2 layers at the same widths: SlotServer's greedy
               tokens equal generate()'s for every request
 8. paged-parity -- the same weights: PagedSlotServer without and with a
@@ -105,8 +110,9 @@ LOGIT_REL_TOL = 5e-2        # bf16 logits after 32 layers, vs max |logit|
 # kernels and the plain version round p and ds at the same points; f32
 # 1e-4, sums of up to S products in another order.
 GRAD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
-# The backward kernels' design, for the kernels line (csrc/flash_bwd.cu).
-BWD_ROUTE = "cuda (mma.sync bf16; FMA float32)"
+# The design of the kernels that dispatch by dtype, for the kernels line
+# (csrc/flash_bwd.cu, csrc/decode_attention.cu, csrc/paged_attention.cu).
+MMA_ROUTE = "cuda (mma.sync bf16; FMA float32)"
 # A float32 train step through 2 layers at full width, kernels against the
 # plain attention: the attention gradients differ in summation order, and
 # the 4096- and 14336-wide float32 matmuls carry that into every leaf.
@@ -137,13 +143,10 @@ def phase_kernels(dev):
     """Phase 3: every kernel against its plain version; returns the rows of
     the kernels line (launch counts filled in later)."""
     import torch
-    import torch.nn.functional as F
 
     from starway_tpu_torch.ops.decode import (decode_attention,
                                               decode_attention_reference)
-    from starway_tpu_torch.ops.gemv import (int8_matmul,
-                                            int8_matmul_reference)
-    from starway_tpu_torch.ops.quantize import quantize_kv, quantize_weight
+    from starway_tpu_torch.ops.quantize import quantize_kv
 
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -159,7 +162,6 @@ def phase_kernels(dev):
     k8, ks = quantize_kv(k16)
     v8, vs = quantize_kv(v16)
     worst = 0.0
-    timed = None
     for n_q in (1, 4):
         q = randn(B, HQ, n_q, D)
         pos = torch.from_numpy(
@@ -180,41 +182,25 @@ def phase_kernels(dev):
                 if not err <= BF16_TOL:
                     raise AssertionError("decode_attention disagrees with "
                                          "its plain version")
-                if n_q == 1 and window is None:
-                    ms = cuda_ms(lambda: decode_attention(q, kc, vc, pos,
-                                                          **kw))
+                if n_q == 1 and window is None and not quant:
                     plain = cuda_ms(lambda: decode_attention_reference(
                         q, kc, vc, pos, **kw), iters=5)
-                    live = int((pos.long() + n_q).clamp(max=T).sum())
-                    elem = 1 if quant else 2
-                    n_bytes = (2 * live * HKV * D * elem
-                               + (2 * live * HKV * 4 if quant else 0)
-                               + 2 * q.numel() * 2 + B * 4)
-                    n_flops = 4 * live * HQ * D
-                    b_ms, b_by = bound(n_bytes, n_flops)
-                    lib = None
-                    if not quant:
-                        mask = (torch.arange(T, device=dev)[None, :]
-                                <= pos[:, None])[:, None, None, :]
-                        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                            q, k16, v16, attn_mask=mask, enable_gqa=True))
-                    log(f"  timed: {ms:.4f} ms, plain {plain:.4f} ms, "
-                        f"library {lib} ms, bound {b_ms:.4f} ms ({b_by})")
-                    if not quant:
-                        timed = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=lib,
-                                     timed_at=f"B={B} Hq={HQ} Hkv={HKV} "
-                                              f"D={D} T={T} C=1 bf16 "
-                                              f"ragged pos")
     del k16, v16, k8, v8, ks, vs
-    c128, c128_err = row_tiled_decode(dev, randn)
+    worst = max(worst, row_tiled_decode(dev, randn))
+    paged_err, paged_plain = paged_rows(dev, randn, rng)
+    timed = decode_timings(dev)
     rows["decode_attention"] = dict(
-        name="decode_attention", route="cuda",
+        name="decode_attention", route=MMA_ROUTE,
         source="starway_tpu_torch/csrc/decode_attention.cu",
         replaces="starway_tpu/ops/pallas_decode.py:150 "
                  "(_decode_stream_kernel; also :107 _decode_kernel)",
-        max_abs_err=max(worst, c128_err), **timed, c128=c128)
-    rows["paged_decode_attention"] = paged_rows(dev, randn, rng)
+        max_abs_err=worst, plain_ms=plain, **timed["decode_attention"])
+    rows["paged_decode_attention"] = dict(
+        name="paged_decode_attention", route=MMA_ROUTE,
+        source="starway_tpu_torch/csrc/paged_attention.cu",
+        replaces="starway_tpu/ops/pallas_paged.py:46 (_paged_stream_kernel)",
+        max_abs_err=paged_err, plain_ms=paged_plain,
+        **timed["paged_decode_attention"])
 
     rows["flash_forward"] = flash_forward_rows(dev, randn)
 
@@ -529,24 +515,48 @@ def gemv_chain(randn) -> dict:
                 library_ms=graph_us(library, list(range(n))) / 1e3)
 
 
-def decode_work(pos, n_q: int, hkv: int, hq: int, d: int, elem: int):
-    """(bytes, flops) that cached decode attention needs: the live keys of
-    each row (positions < pos + C) read once from k and v, q read and the
-    output written once; two products of 2 * D per visible (query, key)
-    pair and q head."""
-    pos = np.asarray(pos, np.int64)
-    keys = int((pos + n_q).sum())
-    pairs = int((n_q * pos + n_q * (n_q + 1) // 2).sum())
-    n_bytes = 2 * keys * hkv * d * elem + 2 * len(pos) * hq * n_q * d * elem
-    return n_bytes, 4 * pairs * hq * d
+def decode_timings(dev) -> dict:
+    """#1 and #9 timed at the serving paths' shapes (ops/decode_bench.py
+    kernel_rows: dense B=8 T=2048 at C=1 with bf16 and int8 KV and at C=4,
+    ragged positions; C=128 at pos 1000; paged 16 slots at C=1 and one
+    slot at C=128, page 64): device ms a call in a CUDA graph with the
+    caches cold and by CUDA events around one call, SDPA both ways, the
+    host's enqueue us a call, and the share of the bound.  Each shape is
+    held against its plain version first.  Returns each kernel's fields
+    of the kernels line: its first shape's numbers and every shape."""
+    from starway_tpu_torch.ops.decode_bench import kernel_rows
+
+    out = {}
+    for r in kernel_rows(SEED):
+        log(f"{r['kernel']} {r['shape']}: max_abs_err {r['max_abs_err']:.3e} "
+            f"(tol {BF16_TOL}); device {r['ms']:.4f} ms ({r['bound_share']:.3f}"
+            f" of the bound {r['bound_ms']:.4f} ms, {r['bound_by']}), SDPA "
+            f"{r['library_ms']:.4f} ({r['library_ratio']:.2f}x); by events "
+            f"{r['events_ms']:.4f} ms, SDPA {r['library_events_ms']:.4f}; host "
+            f"enqueue {r['host_us']:.1f} us a call (SDPA "
+            f"{r['library_host_us']:.1f})")
+        out.setdefault(r["kernel"], []).append(r)
+    rows = {}
+    for name, shapes in out.items():
+        first = shapes[0]
+        rows[name] = dict(
+            {k: first[k] for k in ("ms", "bound_ms", "bound_by",
+                                   "bound_share", "library_ms", "events_ms",
+                                   "library_events_ms", "host_us")},
+            timed_at=f"{first['shape']}, Hq=32 Hkv=8 D=128 bf16 q; device "
+                     f"ms a call in a CUDA graph, caches cold; library_ms "
+                     f"is SDPA with the rows' mask timed the same way"
+                     + (" over the pre-gathered dense view" if
+                        name.startswith("paged") else ""),
+            shapes=shapes)
+    return rows
 
 
-def row_tiled_decode(dev, randn):
+def row_tiled_decode(dev, randn) -> float:
     """The decode kernel at C=128 (a suffix ingest: 512 query rows per kv
-    head, eight row tiles), dense and int8, against its plain version;
-    timed dense.  Returns (timing dict, worst error)."""
+    head, the ingest regime's eight row tiles), dense and int8, against
+    its plain version.  Returns the worst error."""
     import torch
-    import torch.nn.functional as F
 
     from starway_tpu_torch.ops.decode import (decode_attention,
                                               decode_attention_reference)
@@ -556,7 +566,7 @@ def row_tiled_decode(dev, randn):
     q = randn(B, HQ, C, D)
     k16, v16 = randn(B, HKV, T, D), randn(B, HKV, T, D)
     pos = torch.full((B,), POS, dtype=torch.int32, device=dev)
-    worst, timed = 0.0, None
+    worst = 0.0
     for quant in (False, True):
         kw = {}
         kc, vc = k16, v16
@@ -573,43 +583,23 @@ def row_tiled_decode(dev, randn):
         if not err <= BF16_TOL:
             raise AssertionError("the row-tiled decode kernel disagrees "
                                  "with its plain version")
-        if quant:
-            continue
-        ms = cuda_ms(lambda: decode_attention(q, kc, vc, pos))
-        plain = cuda_ms(lambda: decode_attention_reference(q, kc, vc, pos),
-                        iters=5)
-        mask = (torch.arange(T, device=dev)[None, :]
-                <= POS + torch.arange(C, device=dev)[:, None])
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k16, v16, attn_mask=mask, enable_gqa=True))
-        b_ms, b_by = bound(*decode_work([POS], C, HKV, HQ, D, 2))
-        log(f"  timed: {ms:.4f} ms, plain {plain:.4f} ms, library (SDPA, "
-            f"mask) {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        timed = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib,
-                     timed_at=f"B={B} Hq={HQ} Hkv={HKV} D={D} T={T} C={C} "
-                              f"pos={POS} bf16")
-    return timed, worst
+    return worst
 
 
 def paged_rows(dev, randn, rng):
     """The paged kernel against its plain version at the serving shape (16
     slots, page 64, ragged cursors over a scrambled table whose entries
     past each cursor point far outside the pool) at C=1, and at the
-    prefix-ingest shape (one slot at position 1000, C=128).  Timed at
-    C=1; the library call is SDPA over the dense view gathered beforehand
-    (the gather is not timed)."""
+    prefix-ingest shape (one slot at position 1000, C=128).  Returns the
+    worst error and the plain version's ms at C=1 (CUDA events)."""
     import torch
-    import torch.nn.functional as F
 
-    from starway_tpu_torch.ops.decode import decode_attention
-    from starway_tpu_torch.ops.paged import (gather_logical,
-                                             paged_decode_attention,
+    from starway_tpu_torch.ops.paged import (paged_decode_attention,
                                              paged_decode_attention_reference)
 
     HQ, HKV, D, PAGE, MAX_LEN = 32, 8, 128, 64, 4096
     max_pages = MAX_LEN // PAGE
-    worst, timed = 0.0, {}
+    worst, plain = 0.0, None
     for b, n_q in ((16, 1), (1, 128)):
         pos_np = (rng.integers(100, 2001, b) if n_q == 1
                   else np.full(b, 1000)).astype(np.int32)
@@ -628,47 +618,18 @@ def paged_rows(dev, randn, rng):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         worst = max(worst, err)
-        b_ms, b_by = bound(*decode_work(pos_np, n_q, HKV, HQ, D, 2))
-        ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, table_d, pos))
-        plain = cuda_ms(lambda: paged_decode_attention_reference(
-            q, kp, vp, table_d, pos), iters=5)
-        n_live = int(last.max()) + 1
-        live = torch.where(torch.arange(n_live, device=dev)[None, :]
-                           <= torch.from_numpy(last).to(dev)[:, None],
-                           table_d[:, :n_live], 0)
-        kd, vd = gather_logical(kp, live), gather_logical(vp, live)
-        t_len = n_live * PAGE
-        mask = (torch.arange(t_len, device=dev)[None, None, None, :]
-                <= pos[:, None, None, None]
-                + torch.arange(n_q, device=dev)[None, None, :, None])
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, kd, vd, attn_mask=mask, enable_gqa=True))
-        # The dense decode kernel over the same live keys, laid out
-        # contiguously: what the page indirection costs.
-        dense = cuda_ms(lambda: decode_attention(q, kd, vd, pos))
         log(f"paged_decode_attention B={b} C={n_q} page={PAGE} pos "
             f"{pos_np.min()}-{pos_np.max()}: max_abs_err {err:.3e} (tol "
-            f"{BF16_TOL}); {ms:.4f} ms, plain {plain:.4f} ms, library (SDPA "
-            f"over the pre-gathered dense view, gather excluded) {lib:.4f} "
-            f"ms, the dense decode kernel over that view {dense:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"{BF16_TOL})")
         if not err <= BF16_TOL:
             raise AssertionError("paged_decode_attention disagrees with its "
                                  "plain version")
-        timed[n_q] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                          library_ms=lib, dense_kernel_ms=dense,
-                          timed_at=f"B={b} Hq={HQ} Hkv={HKV} D={D} "
-                                   f"page={PAGE} C={n_q} bf16, pos "
-                                   f"{pos_np.min()}-{pos_np.max()}, "
-                                   f"scrambled table; library_ms is SDPA "
-                                   f"over the pre-gathered dense view")
-        del kp, vp, kd, vd
+        if n_q == 1:
+            plain = cuda_ms(lambda: paged_decode_attention_reference(
+                q, kp, vp, table_d, pos), iters=5)
+        del kp, vp
         torch.cuda.empty_cache()
-    return dict(name="paged_decode_attention", route="cuda",
-                source="starway_tpu_torch/csrc/paged_attention.cu",
-                replaces="starway_tpu/ops/pallas_paged.py:46 "
-                         "(_paged_stream_kernel)",
-                max_abs_err=worst, **timed[1], c128=timed[128])
+    return worst, plain
 
 
 def flash_backward_rows(dev, randn):
@@ -778,13 +739,13 @@ def flash_backward_rows(dev, randn):
     src = "starway_tpu_torch/csrc/flash_bwd.cu"
     return {
         "flash_backward_dkv": dict(
-            name="flash_attention_bwd_dkv", route=BWD_ROUTE, source=src,
+            name="flash_attention_bwd_dkv", route=MMA_ROUTE, source=src,
             replaces="starway_tpu/ops/pallas_attention.py:309 "
                      "(_bwd_dkv_kernel)",
             max_abs_err=worst["dkv"], **timed["dkv"],
             at_b1_s4096=timed["long"]),
         "flash_backward_dq": dict(
-            name="flash_attention_bwd_dq", route=BWD_ROUTE, source=src,
+            name="flash_attention_bwd_dq", route=MMA_ROUTE, source=src,
             replaces="starway_tpu/ops/pallas_attention.py:364 "
                      "(_bwd_dq_kernel)",
             max_abs_err=worst["dq"], **timed["dq"])}
@@ -987,7 +948,7 @@ def ring_kernel_rows(dev, randn):
                           "ms a call in a CUDA graph",
             by_offset=by_case),
         "flash_partial_bwd": dict(
-            name="flash_partial_bwd", route=BWD_ROUTE,
+            name="flash_partial_bwd", route=MMA_ROUTE,
             source=src + "flash_bwd.cu",
             replaces="starway_tpu/ops/pallas_attention.py:734 "
                      "(flash_partial_bwd, through _run_bwd_passes :406)",
@@ -1104,7 +1065,8 @@ def make_paged_requests(cfg):
 
 class TimedChunks:
     """Mixin for SlotServer and PagedSlotServer: host time of every decode
-    chunk, one steady chunk traced, and the peak of the paged pool's pages
+    chunk, one steady chunk traced (its kernels' device ms, the GEMV's and
+    the decode-attention kernels'), and the peak of the paged pool's pages
     in use."""
 
     def __init__(self, *args, **kwargs):
@@ -1133,6 +1095,8 @@ class TimedChunks:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
+        from starway_tpu_torch.ops.decode_bench import attention_device_ms
+
         t_call = time.perf_counter()
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=acts) as prof:
@@ -1145,10 +1109,12 @@ class TimedChunks:
                       for e in kernels)
         gemv_us = sum(getattr(e, "self_device_time_total", 0)
                       for e in kernels if "gemv_" in e.key)
+        attn_ms = attention_device_ms(prof)[0]
         self.traced.update(
             traced_chunk_ms=wall_ms,
             device_busy_ms=busy_us / 1e3 if busy_us else None,
             gemv_device_ms=gemv_us / 1e3 if busy_us else None,
+            attention_device_ms=attn_ms if busy_us else None,
             tracer_overhead_s=time.perf_counter() - t_call - wall_ms / 1e3)
         return out
 
@@ -1788,13 +1754,14 @@ def phase_train_ring_parity(dev):
     return out
 
 
-PTXAS_SOURCES = ("flash_bwd.cu", "flash_fwd.cu", "int8_gemv.cu")
+PTXAS_SOURCES = ("flash_bwd.cu", "flash_fwd.cu", "int8_gemv.cu",
+                 "decode_attention.cu", "paged_attention.cu")
 
 
 def start_ptxas_report(build):
-    """Compile csrc/flash_bwd.cu, csrc/flash_fwd.cu and csrc/int8_gemv.cu
-    once more with ``-Xptxas -v`` (into scratch objects, beside the build)
-    for the tensor-core kernels' registers and spills;
+    """Compile the sources of the tensor-core kernels (PTXAS_SOURCES) once
+    more with ``-Xptxas -v`` (into scratch objects, beside the build)
+    for their registers and spills;
     :func:`finish_ptxas_report` reads them."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return [subprocess.Popen(
@@ -1826,12 +1793,18 @@ def ptxas_kernel(mangled: str):
         vec = "vec" if k.group(4) == "1" else "elementwise"
         early = " early" if k.group(5) == "1" else ""
         return f"gemv {k.group(1)} {size} {vec}{early}"
+    k = re.search(r"(decode|paged)_mma_kernelI(13__nv_bfloat16|a)?Li(\d+)E"
+                  r"Lb([01])E", mangled)
+    if k:
+        kv = "int8" if k.group(2) == "a" else "bf16"
+        regime = "decode" if k.group(4) == "1" else "ingest"
+        return f"{k.group(1)} {kv} KV D={k.group(3)} {regime}"
     return None
 
 
 def finish_ptxas_report(procs) -> dict:
     """{source: {kernel: (registers, spill store bytes, spill load
-    bytes)}} of the tensor-core flash and GEMV kernels, from ptxas."""
+    bytes)}} of the tensor-core kernels, from ptxas."""
     import re
 
     out = {}
@@ -2001,6 +1974,22 @@ def main() -> int:
         rows[key]["registers"] = {k: r for k, r in regs["flash_fwd.cu"].items()
                                   if k.startswith(kind + " ")}
     rows["int8_matmul"]["registers"] = regs["int8_gemv.cu"]
+    rows["decode_attention"]["registers"] = regs["decode_attention.cu"]
+    rows["paged_decode_attention"]["registers"] = regs["paged_attention.cu"]
+
+    traced = {"serve-bf16": st4, "serve-paged": st_paged, "serve-int8": st5}
+    for label, st in traced.items():
+        if st.get("attention_device_ms") is not None:
+            log(f"[summary] {label}: decode-attention device ms of the traced "
+                f"chunk (8 decode steps x 32 layers, measured) "
+                f"{st['attention_device_ms']:.4f}, "
+                f"{st['attention_device_ms'] / 8:.4f} a step, of "
+                f"{st['device_busy_ms']:.4f} ms busy")
+    for key, labels in (("decode_attention", ("serve-bf16", "serve-int8")),
+                        ("paged_decode_attention", ("serve-paged",))):
+        rows[key]["traced_chunk_device_ms"] = {
+            label: traced[label].get("attention_device_ms")
+            for label in labels}
 
     # 13. kernels line: launches are the serving paths' (phases 4, 5 and
     # 6) and the training paths' (phases 9 and 11), each counted from 0

@@ -1,7 +1,8 @@
 // The tiles of the flash-attention kernels (csrc/flash_fwd.cu,
 // csrc/flash_bwd.cu): one tile size for q and kv tiles, the visibility and
 // liveness tests in global coordinates, and the tensor-core kernels'
-// staging of bf16 tiles in shared memory.  Everything sits in an anonymous
+// staging of bf16 tiles in shared memory (also the decode kernels',
+// csrc/decode_tiles.cuh).  Everything sits in an anonymous
 // namespace: each source that includes this gets its own copy.
 #pragma once
 
@@ -39,14 +40,14 @@ constexpr int kMmaThreads = 128;  // 4 warps of 16 stationary rows each
 constexpr int kPad = 8;           // bf16 of padding at the end of a row
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A [kBQ][D] tile of ``src`` (rows from ``r0``, ``n_rows`` valid) into
+// A [ROWS][D] tile of ``src`` (rows from ``r0``, ``n_rows`` valid) into
 // shared memory with row stride D + kPad, by 16-byte cp.async; rows past
 // the end are zero-filled and not read.
-template <int D>
+template <int D, int ROWS = kBQ>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
                                                 int r0, int n_rows) {
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < kBQ * kChunks; i += kMmaThreads) {
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kMmaThreads) {
     const int r = i / kChunks;
     const int c = (i - r * kChunks) * 8;
     const bool ok = r0 + r < n_rows;

@@ -57,20 +57,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 namespace cg = cooperative_groups;
 
-// Two int8 values to a bf16x2 (exact): ``sel`` moves them into bytes 0 and
-// 2 of a word (__byte_perm of a and b); the low 7 bits become 128 + lo and
-// the sign bit 128 or 256, whose difference is the int8 value.
-__device__ __forceinline__ uint32_t widen2(uint32_t a, uint32_t b,
-                                           uint32_t sel) {
-  const uint32_t p = __byte_perm(a, b, sel);
-  const uint32_t hi = (p & 0x007F007Fu) | 0x43004300u;
-  const uint32_t bias = (p & 0x00800080u) | 0x43004300u;
-  const __nv_bfloat162 r =
-      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&hi),
-              *reinterpret_cast<const __nv_bfloat162*>(&bias));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
 __device__ __forceinline__ uint32_t word(const uint4& v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }

@@ -1,6 +1,7 @@
-// Inline PTX for Hopper's tensor-core kernels (csrc/flash_bwd.cu,
-// csrc/int8_gemv.cu): asynchronous global -> shared copies, ldmatrix, the
-// bf16 mma.sync.m16n8k16 with float32 accumulators, and bf16 packing.
+// Inline PTX for Hopper's tensor-core kernels (csrc/flash_*.cu,
+// csrc/int8_gemv.cu, csrc/decode_tiles.cuh): asynchronous global -> shared
+// copies, ldmatrix, the bf16 mma.sync.m16n8k16 with float32 accumulators,
+// bf16 packing and the exact int8 -> bf16 widening.
 // Everything sits in an anonymous namespace: each source that includes
 // this gets its own copy.
 #pragma once
@@ -62,6 +63,20 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two int8 values to a bf16x2 (exact): ``sel`` moves them into bytes 0 and
+// 2 of a word (__byte_perm of a and b); the low 7 bits become 128 + lo and
+// the sign bit 128 or 256, whose difference is the int8 value.
+__device__ __forceinline__ uint32_t widen2(uint32_t a, uint32_t b,
+                                           uint32_t sel) {
+  const uint32_t p = __byte_perm(a, b, sel);
+  const uint32_t hi = (p & 0x007F007Fu) | 0x43004300u;
+  const uint32_t bias = (p & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 r =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&hi),
+              *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // Two floats rounded to bf16 (round half to even), ``lo`` in the low half.

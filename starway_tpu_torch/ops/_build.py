@@ -36,8 +36,11 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (argument types, return type); the launchers return the launch's
 # cudaError_t.
 SIGNATURES = {
-    "sw_decode_attention": ([P] * 10 + [I] * 9 + [F, I, P], ctypes.c_int),
-    "sw_decode_attention_smem": ([I, I], ctypes.c_size_t),
+    "sw_decode_attention": ([P] * 6 + [I] * 2 + [P] + [I] * 7
+                            + [F, I, I, I, P], ctypes.c_int),
+    "sw_decode_attention_fma": ([P] * 6 + [I] * 2 + [P] * 4 + [I] * 8
+                                + [F, I, P], ctypes.c_int),
+    "sw_decode_attention_smem": ([I] * 5, ctypes.c_size_t),
     "sw_flash_fwd": ([P] * 5 + [I] * 8 + [F, I, I, P], ctypes.c_int),
     "sw_flash_partial": ([P] * 6 + [I] * 10 + [F, I, I, P], ctypes.c_int),
     "sw_flash_bwd_dkv": ([P] * 8 + [I] * 10 + [F, I, I, P], ctypes.c_int),
@@ -45,7 +48,10 @@ SIGNATURES = {
                                ctypes.c_int),
     "sw_flash_bwd_dq": ([P] * 7 + [I] * 10 + [F, I, I, P], ctypes.c_int),
     "sw_int8_matmul": ([P] * 4 + [I] * 10 + [P], ctypes.c_int),
-    "sw_paged_attention": ([P] * 9 + [I] * 9 + [F, P], ctypes.c_int),
+    "sw_paged_attention": ([P] * 5 + [I] * 2 + [P] + [I] * 8
+                           + [F, I, I, P], ctypes.c_int),
+    "sw_paged_attention_fma": ([P] * 5 + [I] * 2 + [P] * 4 + [I] * 8
+                               + [F, P], ctypes.c_int),
 }
 
 _lock = threading.Lock()

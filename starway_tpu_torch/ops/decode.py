@@ -1,14 +1,18 @@
-"""Cached decode attention: the hand-written CUDA kernel
-(csrc/decode_attention.cu) and its plain PyTorch version.
+"""Cached decode attention: the hand-written CUDA kernels
+(csrc/decode_attention.cu) and their plain PyTorch version.
 
-A thread block attends up to ``ROW_TILE`` of the ``n_rep * C`` query rows
-(the grouped heads of C consecutive positions) of one (batch row, kv
-head) against a share of the narrow cache's live tiles, reading each
-once; a second kernel merges the shares (split over T).  More rows (a
-suffix ingest) run as a grid axis over row tiles.  See the kernel source
-for what bounds it.
-:func:`decode_attention` launches the kernel for CUDA tensors and takes
-:func:`decode_attention_reference` only for CPU tensors.
+A thread block attends a tile of the ``n_rep * C`` query rows (the grouped
+heads of C consecutive positions) of one (batch row, kv head) against a
+share of the narrow cache's live tiles, reading each once.  bfloat16
+queries run on the tensor cores in one launch a call: :func:`decode_plan`
+picks the regime from the rows ("decode": at most 16, one m16 tile, the
+warps dividing each tile's keys; "ingest": 64-row tiles, 16 rows a warp)
+and the split over T from the grid and the card's SM count; the splits of
+a row tile are one thread block cluster that merges their partials on
+chip.  float32 queries (the parity runs) take the FMA loop: partials in
+device memory and a combine kernel.  See the kernel sources for what
+bounds them.  :func:`decode_attention` launches the kernels for CUDA
+tensors and takes :func:`decode_attention_reference` only for CPU tensors.
 
 Layouts follow models/generate.py: ``q [B, Hq, C, D]``, caches
 ``[B, Hkv, T, D]``, int8 scales ``[B, Hkv, T]`` float32.
@@ -16,6 +20,8 @@ Layouts follow models/generate.py: ``q [B, Hq, C, D]``, caches
 
 from __future__ import annotations
 
+import functools
+import numbers
 from typing import Optional
 
 import torch
@@ -23,28 +29,95 @@ import torch
 from . import _build
 from .attention import NEG_BIG
 
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's compiled head sizes
-TILE = 32  # keys per kernel tile (kBK in csrc/decode_tiles.cuh)
-ROW_TILE = 64  # query rows per block (kRowTile there)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' compiled head sizes
+N_SMS = 132  # SMs of an H100 SXM: the plan's card where none is named
+KEYS = 64  # keys a tile of the bf16 kernels (kKeys in csrc/decode_tiles.cuh)
+DECODE_MAX_ROWS = 16  # rows of one m16 tile: the decode regime's limit
+REGIME_ROWS = {"decode": 16, "ingest": 64}  # query rows a block
+# Blocks an SM the split aims at, at D <= 128: a decode block fits three
+# an SM, and two leave room for the clusters to pack; an ingest block
+# fits two, and its clusters of 4 at two an SM ran as two waves on the
+# H100, so it aims at three for every two SMs (ops/decode_bench.py
+# --sweep).  At D = 256 both fit one an SM, and the split aims at three
+# for every four.
+SPLIT_PER_SM = {"decode": 2.0, "ingest": 1.5}
+FMA_TILE = 32  # keys per tile of the float32 loop (kFmaKeys)
+FMA_ROW_TILE = 64  # query rows per float32 block (kFmaRows)
 
 
-def split_count(b: int, hkv: int, rows: int, t: int, device) -> int:
-    """Blocks over T per (batch row, kv head, row tile): enough to give
-    every SM a few blocks, and no more than the cache has tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_rt = -(-rows // ROW_TILE)
-    return max(1, min(-(-4 * sms // (b * hkv * n_rt)), -(-t // TILE)))
+def max_splits(d: int) -> int:
+    """The largest split over T (one thread block cluster) at head size
+    ``d``: 16, a non-portable cluster, or 8 at d = 256, whose blocks (one
+    an SM) may not find 16 SMs on one GPC."""
+    return 16 if d <= 128 else 8
 
 
-def check_smem(lib, rows: int, d: int, device) -> None:
-    """Raise if one block of the kernel needs more shared memory than the
-    card allows (it holds at most ROW_TILE query rows)."""
-    smem = lib.sw_decode_attention_smem(rows, d)
-    props = torch.cuda.get_device_properties(device)
-    allowed = props.shared_memory_per_block_optin
+def decode_plan(b: int, hkv: int, rows: int, t: int, d: int = 128,
+                n_sms: int = N_SMS) -> tuple[str, int]:
+    """(regime, n_split) of a bf16 call with ``rows = n_rep * C`` query
+    rows per (batch row, kv head) over a cache of capacity ``t``: "decode"
+    up to ``DECODE_MAX_ROWS`` rows, else "ingest"; ``n_split`` blocks of a
+    cluster share each row tile's live tiles, as many as keep the grid
+    within ``SPLIT_PER_SM`` blocks an SM (0.75 at d = 256), at most
+    :func:`max_splits` and the tiles ``t`` holds.  Nothing here depends
+    on ``pos``: each block finds its share on the device."""
+    regime = "decode" if rows <= DECODE_MAX_ROWS else "ingest"
+    units = b * hkv * -(-rows // REGIME_ROWS[regime])
+    per_sm = SPLIT_PER_SM[regime] if d <= 128 else 0.75
+    n_split = min(int(per_sm * n_sms) // units, max_splits(d), -(-t // KEYS))
+    return regime, max(1, n_split)
+
+
+def split_count(b: int, hkv: int, rows: int, t: int, n_sms: int) -> int:
+    """Blocks over T per (batch row, kv head, row tile) of the float32
+    loop: enough to give every SM a few blocks, and no more than the cache
+    has tiles."""
+    n_rt = -(-rows // FMA_ROW_TILE)
+    return max(1, min(-(-4 * n_sms // (b * hkv * n_rt)), -(-t // FMA_TILE)))
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> tuple[int, int]:
+    """(SM count, shared memory a block may opt into) of CUDA card
+    ``index``, read once."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(b: int, hkv: int, rows: int, t: int, d: int, bf16: bool,
+                quant: bool, index: int) -> tuple[str, int]:
+    """The (regime, n_split) of a call on card ``index``: :func:`decode_plan`
+    for bf16 q, ("fma", :func:`split_count`) for float32; raises where a
+    block needs more shared memory than the card allows.  Cached: a decode
+    step makes 32 calls of one shape."""
+    n_sms, allowed = _card(index)
+    if bf16:
+        regime, n_split = decode_plan(b, hkv, rows, t, d, n_sms)
+    else:
+        regime, n_split = "fma", split_count(b, hkv, rows, t, n_sms)
+    smem = _build.library().sw_decode_attention_smem(
+        rows, d, int(bf16), int(quant), int(regime == "decode"))
     if smem > allowed:
         raise ValueError(f"head_dim {d} needs {smem} bytes of shared memory "
                          f"per block; the card allows {allowed}")
+    return regime, n_split
+
+
+def pos_arg(pos, b: int, device) -> tuple:
+    """``pos`` as the kernels take it, (device tensor or None, stride,
+    value): a [B] or one-element int32 tensor on ``device`` as it is
+    (stride 1 or 0, read on the device), an int as the value of every row.
+    Other tensors are converted first; none is read on the host."""
+    if isinstance(pos, numbers.Integral):
+        return None, 0, int(pos)
+    p = torch.as_tensor(pos)
+    if p.numel() not in (1, b):
+        raise ValueError(f"pos must be a scalar or [{b}], got "
+                         f"{tuple(p.shape)}")
+    if p.dtype != torch.int32 or p.device != device or not p.is_contiguous():
+        p = p.to(device=device, dtype=torch.int32).contiguous()
+    return p, int(p.numel() == b), 0
 
 
 def _check_args(q, k_cache, v_cache, k_scale, v_scale, window):
@@ -143,8 +216,12 @@ def decode_attention(q, k_cache, v_cache, pos, *,
     int8 caches (ops/quantize.py).  ``stream`` chose between two grid
     schedules of the TPU kernel; one CUDA kernel serves both values.
 
-    CUDA tensors launch the kernel (csrc/decode_attention.cu), CPU tensors
-    take :func:`decode_attention_reference`.
+    CUDA tensors launch the kernels (csrc/decode_attention.cu): bf16 q
+    (bf16 or int8 caches) the tensor-core kernel at every compiled head
+    size, one launch a call, as :func:`decode_plan` plans it; float32 q
+    the FMA loop.  ``pos`` is read on the device only (:func:`pos_arg`).
+    CPU tensors take
+    :func:`decode_attention_reference`.
     """
     if stream not in (None, True, False):
         raise ValueError(f"stream must be a bool or None, got {stream!r}")
@@ -171,27 +248,34 @@ def decode_attention(q, k_cache, v_cache, pos, *,
             raise ValueError(f"tensor on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError("decode_attention needs contiguous tensors")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("decode_attention reads the caches with 16-byte "
-                         "loads; they must be 16-byte aligned")
-    pos_arr = _pos_rows(pos, b, q.device)
+    if q.data_ptr() % 16 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention reads q and the caches with "
+                         "16-byte copies; they must be 16-byte aligned")
+    bf16 = q.dtype == torch.bfloat16
+    regime, n_split = launch_plan(b, hkv, rows, t, d, bf16, quant,
+                                  q.device.index or 0)
     lib = _build.library()
-    check_smem(lib, rows, d, q.device)
-    n_split = split_count(b, hkv, rows, t, q.device)
     out = torch.empty_like(q)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    o_part = torch.empty((b * hkv, n_split, rows, d), **f32)
-    m_part = torch.empty((b * hkv, n_split, rows), **f32)
-    l_part = torch.empty((b * hkv, n_split, rows), **f32)
-    err = lib.sw_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_scale.data_ptr() if quant else None,
-        v_scale.data_ptr() if quant else None,
-        pos_arr.data_ptr(), out.data_ptr(), o_part.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), b, hkv, n_split, rows, n_q, t,
-        d, 0 if window is None else int(window),
-        int(q.dtype == torch.bfloat16), float(sm_scale), int(quant),
-        _build.stream_ptr(q))
+    scales = ((k_scale.data_ptr(), v_scale.data_ptr()) if quant
+              else (None, None))
+    pos_t, pos_stride, pos_value = pos_arg(pos, b, q.device)
+    head = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *scales,
+            None if pos_t is None else pos_t.data_ptr(), pos_stride,
+            pos_value, out.data_ptr())
+    win = 0 if window is None else int(window)
+    if bf16:
+        err = lib.sw_decode_attention(
+            *head, b, hkv, rows, n_q, t, d, win, float(sm_scale), int(quant),
+            int(regime == "decode"), n_split, _build.stream_ptr(q))
+    else:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        o_part = torch.empty((b * hkv, n_split, rows, d), **f32)
+        m_part = torch.empty((b * hkv, n_split, rows), **f32)
+        l_part = torch.empty((b * hkv, n_split, rows), **f32)
+        err = lib.sw_decode_attention_fma(
+            *head, o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+            b, hkv, n_split, rows, n_q, t, d, win, float(sm_scale),
+            int(quant), _build.stream_ptr(q))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

@@ -8,8 +8,11 @@ slot b holds positions ``i * page .. (i + 1) * page - 1`` and is
 are never read.  The kernel runs the dense decode kernel's tile loop
 (csrc/decode_tiles.cuh) with each key row's address looked up through the
 table, so the live pages are read once, narrow, and no dense view is
-built.  :func:`paged_decode_attention` launches it for CUDA tensors and
-takes :func:`paged_decode_attention_reference` only for CPU tensors.
+built: bf16 on the tensor cores in one launch a call (the regime and the
+split of :func:`~starway_tpu_torch.ops.decode.decode_plan`), float32 on
+the FMA loop.  :func:`paged_decode_attention` launches them for CUDA
+tensors and takes :func:`paged_decode_attention_reference` only for CPU
+tensors.
 
 int8 pools are refused, as the JAX package refuses them.
 """
@@ -21,8 +24,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from .decode import (HEAD_DIMS, _pos_rows, check_smem,
-                     decode_attention_reference, split_count)
+from .decode import (HEAD_DIMS, _pos_rows, decode_attention_reference,
+                     launch_plan, pos_arg)
 
 
 def gather_logical(pool, table):
@@ -85,8 +88,10 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *,
     attend callers must have written those entries.  Returns ``[B, Hq, C,
     D]`` in q's dtype.
 
-    CUDA tensors launch the kernel (csrc/paged_attention.cu), CPU tensors
-    take :func:`paged_decode_attention_reference`.
+    CUDA tensors launch the kernels (csrc/paged_attention.cu): bf16 the
+    tensor-core kernel at every compiled head size, one launch a call;
+    float32 the FMA loop.  ``pos`` and ``table`` are read on the device
+    only.  CPU tensors take :func:`paged_decode_attention_reference`.
     """
     _check_args(q, k_pool, v_pool, table)
     if not q.is_cuda:
@@ -113,24 +118,33 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *,
         if not x.is_contiguous():
             raise ValueError("paged_decode_attention needs contiguous "
                              "tensors")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_decode_attention reads the pools with "
-                         "16-byte loads; they must be 16-byte aligned")
-    pos_arr = _pos_rows(pos, b, q.device)
+    if q.data_ptr() % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_decode_attention reads q and the pools with "
+                         "16-byte copies; they must be 16-byte aligned")
+    bf16 = q.dtype == torch.bfloat16
+    regime, n_split = launch_plan(b, hkv, rows, max_pages * page, d, bf16,
+                                  False, q.device.index or 0)
     lib = _build.library()
-    check_smem(lib, rows, d, q.device)
-    n_split = split_count(b, hkv, rows, max_pages * page, q.device)
     out = torch.empty_like(q)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    o_part = torch.empty((b * hkv, n_split, rows, d), **f32)
-    m_part = torch.empty((b * hkv, n_split, rows), **f32)
-    l_part = torch.empty((b * hkv, n_split, rows), **f32)
-    err = lib.sw_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        pos_arr.data_ptr(), out.data_ptr(), o_part.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), b, hkv, n_split, rows, n_q,
-        max_pages, page, d, int(q.dtype == torch.bfloat16), float(sm_scale),
-        _build.stream_ptr(q))
+    pos_t, pos_stride, pos_value = pos_arg(pos, b, q.device)
+    head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            table.data_ptr(), None if pos_t is None else pos_t.data_ptr(),
+            pos_stride, pos_value, out.data_ptr())
+    if bf16:
+        shift = page.bit_length() - 1 if page & (page - 1) == 0 else -1
+        err = lib.sw_paged_attention(
+            *head, b, hkv, rows, n_q, max_pages, page, shift, d,
+            float(sm_scale), int(regime == "decode"), n_split,
+            _build.stream_ptr(q))
+    else:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        o_part = torch.empty((b * hkv, n_split, rows, d), **f32)
+        m_part = torch.empty((b * hkv, n_split, rows), **f32)
+        l_part = torch.empty((b * hkv, n_split, rows), **f32)
+        err = lib.sw_paged_attention_fma(
+            *head, o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+            b, hkv, n_split, rows, n_q, max_pages, page, d, float(sm_scale),
+            _build.stream_ptr(q))
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out

@@ -59,18 +59,37 @@ def _randn(rng, shape, dtype, dev):
         device=dev, dtype=dtype)
 
 
+# (n_q, window, d, hq, hkv, t, pos): small heads at every compiled head
+# size; then the main path's heads (Hq 32, Hkv 8, D 128) at C = 1 (a decode
+# step), 4 (a chunk verify) and 128 (a suffix ingest), with and without a
+# window.  Row 0 sits at the cache's start, so its one live tile leaves
+# most of the planned splits (up to 16 over T) with no tile: those must
+# merge as identities.
+DECODE_CASES = [(1, None, 128, 8, 2, 200, (0, 77, 199)),
+                (3, None, 32, 8, 2, 200, (0, 77, 197)),
+                (1, 5, 128, 8, 2, 200, (0, 77, 199)),
+                (4, 40, 64, 8, 2, 200, (0, 77, 196)),
+                (2, None, 16, 8, 2, 200, (0, 77, 198)),
+                (1, 70, 256, 8, 2, 200, (0, 77, 199)),
+                (1, None, 128, 32, 8, 2048, (0, 1000, 2047)),
+                (4, None, 128, 32, 8, 2048, (0, 1000, 2044)),
+                (128, None, 128, 32, 8, 2048, (0, 1000, 1920)),
+                (1, 512, 128, 32, 8, 2048, (3, 1000, 2047)),
+                (4, 100, 128, 32, 8, 2048, (3, 1000, 2044)),
+                (128, 300, 128, 32, 8, 2048, (3, 1000, 1920))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("n_q,window,d", [(1, None, 128), (3, None, 32),
-                                          (1, 5, 128), (4, 40, 64),
-                                          (2, None, 16), (1, 70, 256)])
-def test_decode_kernel_matches_plain(dev, dtype, quant, n_q, window, d):
+@pytest.mark.parametrize("n_q,window,d,hq,hkv,t,pos", DECODE_CASES)
+def test_decode_kernel_matches_plain(dev, dtype, quant, n_q, window, d, hq,
+                                     hkv, t, pos):
     rng = np.random.default_rng(0)
-    b, hq, hkv, t = 3, 8, 2, 200
+    b = len(pos)
     q = _randn(rng, (b, hq, n_q, d), dtype, dev)
     k = _randn(rng, (b, hkv, t, d), dtype, dev)
     v = _randn(rng, (b, hkv, t, d), dtype, dev)
-    pos = torch.tensor([0, 77, t - n_q], dtype=torch.int32, device=dev)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
     kw = dict(window=window)
     if quant:
         k, kw["k_scale"] = quantize_kv(k)
@@ -82,6 +101,19 @@ def test_decode_kernel_matches_plain(dev, dtype, quant, n_q, window, d):
     want = decode_attention_reference(q, k, v, pos, **kw)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
+
+
+def test_decode_kernel_takes_int_and_broadcast_pos(dev):
+    """pos as an int (no device tensor) and as a one-element tensor read
+    by every row (stride 0) gives the [B] tensor's result."""
+    rng = np.random.default_rng(2)
+    q = _randn(rng, (3, 32, 1, 128), torch.bfloat16, dev)
+    k, v = (_randn(rng, (3, 8, 1024, 128), torch.bfloat16, dev)
+            for _ in range(2))
+    want = decode_attention(q, k, v, torch.full((3,), 700, dtype=torch.int32,
+                                                device=dev))
+    for pos in (700, torch.tensor([700], dtype=torch.int32, device=dev)):
+        assert torch.equal(decode_attention(q, k, v, pos), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -107,16 +139,12 @@ def test_decode_kernel_row_tiles_match_plain(dev, dtype, quant, n_q):
                                rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("page", [16, 64, 128])
-@pytest.mark.parametrize("n_q", [1, 128])
-def test_paged_kernel_matches_plain(dev, dtype, page, n_q):
-    """Scrambled tables whose entries past each cursor are far out of the
-    pool (a read of one would fault), cursors on and off page edges."""
-    rng = np.random.default_rng(7)
-    b, hq, hkv, d, max_pages = 3, 8, 2, 128, 2048 // page
+def _paged_case(rng, dtype, dev, page, n_q, hq, hkv, pos):
+    """q, pools and a scrambled table whose entries past each cursor are far
+    out of the pool (a read of one would fault), as device tensors."""
+    b, d, max_pages = len(pos), 128, 2048 // page
     n_pages = b * max_pages + 3
-    pos = np.asarray([page - 1, 1000, 2048 - n_q], np.int32)
+    pos = np.asarray(pos, np.int32)
     table = rng.permutation(n_pages)[:b * max_pages].reshape(b, max_pages)
     table = table.astype(np.int32)
     for i, p in enumerate(pos):
@@ -124,15 +152,57 @@ def test_paged_kernel_matches_plain(dev, dtype, page, n_q):
     q = _randn(rng, (b, hq, n_q, d), dtype, dev)
     kp = _randn(rng, (n_pages, hkv, page, d), dtype, dev)
     vp = _randn(rng, (n_pages, hkv, page, d), dtype, dev)
-    table_d = torch.from_numpy(table).to(dev)
-    pos_d = torch.from_numpy(pos).to(dev)
+    return (q, kp, vp, torch.from_numpy(table).to(dev),
+            torch.from_numpy(pos).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 64, 128])
+@pytest.mark.parametrize("n_q", [1, 4, 128])
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (32, 8)])
+def test_paged_kernel_matches_plain(dev, dtype, page, n_q, hq, hkv):
+    """Scrambled tables whose entries past each cursor are far out of the
+    pool, cursors on and off page edges; small heads and the main path's
+    (Hq 32, Hkv 8) at C = 1, 4 and 128.  Slot 0's cursor sits in its
+    first page, so most of its planned splits get no tile."""
+    rng = np.random.default_rng(7)
+    q, kp, vp, table, pos = _paged_case(rng, dtype, dev, page, n_q, hq, hkv,
+                                        [page - 1, 1000, 2048 - n_q])
     before = paged_decode_attention.launches
-    got = paged_decode_attention(q, kp, vp, table_d, pos_d)
+    got = paged_decode_attention(q, kp, vp, table, pos)
     torch.cuda.synchronize()
     assert paged_decode_attention.launches == before + 1
-    want = paged_decode_attention_reference(q, kp, vp, table_d, pos_d)
+    want = paged_decode_attention_reference(q, kp, vp, table, pos)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.parametrize("kernel,n_q", [("dense", 1), ("dense", 4),
+                                        ("dense", 128), ("int8", 1),
+                                        ("int8", 128), ("paged", 1),
+                                        ("paged", 128)])
+def test_decode_kernels_bf16_are_deterministic(dev, kernel, n_q):
+    """Two bf16 calls of the dense (bf16 or int8 cache) or the paged
+    kernel at the main path's heads give identical bits: the splits'
+    partials are merged in split order, the warps' in warp order."""
+    rng = np.random.default_rng(15)
+    pos = [5, 1000, 2048 - n_q]
+    if kernel == "paged":
+        args = _paged_case(rng, torch.bfloat16, dev, 64, n_q, 32, 8, pos)
+        call = lambda: paged_decode_attention(*args)  # noqa: E731
+    else:
+        q = _randn(rng, (3, 32, n_q, 128), torch.bfloat16, dev)
+        k, v = (_randn(rng, (3, 8, 2048, 128), torch.bfloat16, dev)
+                for _ in range(2))
+        kw = {}
+        if kernel == "int8":
+            k, kw["k_scale"] = quantize_kv(k)
+            v, kw["v_scale"] = quantize_kv(v)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        call = lambda: decode_attention(q, k, v, p, **kw)  # noqa: E731
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # (b, hq, hkv, s, skv, d, causal, window): small shapes in both dtypes,

@@ -7,6 +7,8 @@ kernel itself is held against that version on the card
 (tests/test_torch_cuda.py).  Tolerances: float32 atol 1e-5 (summation
 order), bfloat16 atol 2e-2 (one bfloat16 rounding of O(1) outputs)."""
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -15,8 +17,10 @@ import jax.numpy as jnp
 
 from starway_tpu.ops.pallas_decode import decode_attention as jax_decode
 from starway_tpu.ops.quantize import quantize_kv as jax_quantize_kv
-from starway_tpu_torch.ops.decode import (decode_attention,
-                                          decode_attention_reference)
+from starway_tpu_torch.ops.decode import (KEYS, N_SMS, decode_attention,
+                                          decode_attention_reference,
+                                          decode_plan, launch_plan,
+                                          max_splits, pos_arg)
 from torch_port_util import to_numpy, to_torch
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -84,3 +88,123 @@ def test_decode_validation():
         decode_attention(tq_, tk.float(), tv.float(), 0, window=0)
     with pytest.raises(ValueError, match="pos"):
         decode_attention(tq_, tk.float(), tv.float(), torch.tensor([1, 2]))
+
+
+# ------------------------------------------------------------------ plan
+@pytest.mark.parametrize("rows,regime", [(1, "decode"), (4, "decode"),
+                                         (16, "decode"), (17, "ingest"),
+                                         (32, "ingest"), (512, "ingest")])
+def test_decode_plan_regime_by_rows(rows, regime):
+    """n_rep * C rows that fit one m16 tile (C=1 and the chunk verify's
+    C=4 at n_rep=4) take the decode regime; more take 64-row tiles."""
+    assert decode_plan(8, 8, rows, 2048)[0] == regime
+
+
+@pytest.mark.parametrize("b,c,t,want", [(8, 1, 2048, 4), (16, 1, 4096, 2),
+                                        (1, 1, 2048, 16), (1, 128, 4096, 3)])
+def test_decode_plan_fills_the_card(b, c, t, want):
+    """llama3-8b heads (Hkv 8, n_rep 4) at the serving shapes: the split
+    over T is the largest that keeps the grid within two decode blocks (or
+    1.5 ingest blocks) for each of an H100 SXM's 132 SMs, unless the
+    cluster limit stops it first (one slot at C=1: 8 kv heads x 16 = 128
+    blocks), and stays a cluster that launches."""
+    regime, n_split = decode_plan(b, 8, 4 * c, t)
+    units = b * 8 * -(-4 * c // (16 if regime == "decode" else 64))
+    target = {"decode": 2.0, "ingest": 1.5}[regime] * N_SMS
+    assert n_split == want
+    assert 1 <= n_split <= max_splits(128) == 16
+    assert units * n_split <= target
+    assert units * (n_split + 1) > target or n_split == max_splits(128)
+
+
+def test_decode_plan_limits():
+    """The split never exceeds the tiles the cache holds nor the cluster
+    limit at D=256 (8); a grid that already fills the card takes none."""
+    assert decode_plan(1, 1, 4, 100)[1] == -(-100 // KEYS) == 2
+    assert decode_plan(1, 8, 4, 4096, d=256)[1] == max_splits(256) == 8
+    assert decode_plan(8, 8, 4, 4096, d=256)[1] == 1  # one block an SM
+    assert decode_plan(64, 8, 4, 2048)[1] == 1
+    assert decode_plan(1, 8, 4, 2048, d=64) == ("decode", 16)
+    assert decode_plan(8, 8, 512, 2048)[1] == 1
+    assert decode_plan(8, 8, 32, 2048) == ("ingest", 3)
+
+
+def test_decode_plan_follows_the_named_card():
+    """Without a card the plan is the H100 SXM's (132 SMs); the wrapper
+    passes the SM count of q's card."""
+    assert decode_plan(8, 8, 4, 2048) == decode_plan(8, 8, 4, 2048,
+                                                     n_sms=132)
+    assert decode_plan(8, 8, 4, 2048, n_sms=114)[1] == 3
+    assert decode_plan(8, 8, 4, 2048, n_sms=264)[1] == 8
+    assert decode_plan(8, 8, 4, 2048, n_sms=16)[1] == 1
+
+
+def test_decode_plan_takes_no_pos():
+    """Nothing the launch plans depends on the positions: the kernels find
+    each split's tiles from pos on the device, and the host never reads
+    it (a read would stall the host-bound decode step and break CUDA-graph
+    capture)."""
+    for fn in (decode_plan, launch_plan.__wrapped__):
+        assert not any("pos" in name
+                       for name in inspect.signature(fn).parameters)
+
+
+def test_pos_arg_passes_device_tensors_as_they_are():
+    """pos reaches the kernel as given: an int as a value, an int32 [B] or
+    one-element tensor by pointer (stride 1 or 0, no copy); other dtypes
+    are converted on their device; a wrong length is refused."""
+    dev = torch.device("cpu")
+    assert pos_arg(7, 3, dev) == (None, 0, 7)
+    assert pos_arg(np.int32(7), 3, dev) == (None, 0, 7)
+    p = torch.tensor([1, 2, 3], dtype=torch.int32)
+    got, stride, _ = pos_arg(p, 3, dev)
+    assert got is p and stride == 1
+    one = torch.tensor([5], dtype=torch.int32)
+    got, stride, _ = pos_arg(one, 3, dev)
+    assert got is one and stride == 0
+    got, stride, _ = pos_arg(torch.tensor([1, 2, 3]), 3, dev)
+    assert got.dtype == torch.int32 and got.tolist() == [1, 2, 3]
+    with pytest.raises(ValueError, match="pos"):
+        pos_arg(torch.tensor([1, 2], dtype=torch.int32), 3, dev)
+
+
+def _partial(q, k, v, keep, sm_scale):
+    """Unnormalised (o, m, l) of float32 rows over the kept keys; the
+    identity (0, NEG_BIG, 0) where a row keeps none."""
+    s = (q @ k.T) * sm_scale
+    s = torch.where(keep, s, torch.full_like(s, -torch.inf))
+    m = s.amax(-1).clamp(min=-0.9e30)
+    p = torch.exp(s - m[:, None])
+    return p @ v, m, p.sum(-1)
+
+
+@pytest.mark.parametrize("n_split,pos", [(4, [900, 37]), (16, [2000, 100]),
+                                         (5, [63, 64])])
+def test_split_shares_merge_to_the_whole(n_split, pos):
+    """The kernels' split over T in plain arithmetic: split z of n takes
+    live tiles [z T / n, (z + 1) T / n) of a row's T; each leaves an
+    (o, m, l) partial (the identity where its share is empty, as short
+    rows leave whole splits), and merging them in split order with weight
+    exp(m_z - M) gives the attention of the whole (float32, 1e-5)."""
+    rng = np.random.default_rng(3)
+    d, t, sm = 16, 2048, 16 ** -0.5
+    for p in pos:
+        q = torch.from_numpy(rng.standard_normal((4, d), np.float32))
+        k, v = (torch.from_numpy(rng.standard_normal((t, d), np.float32))
+                for _ in range(2))
+        kp = torch.arange(t)
+        n_tiles = -(-(p + 1) // KEYS)
+        parts, empty = [], 0
+        for z in range(n_split):
+            lo, hi = z * n_tiles // n_split, (z + 1) * n_tiles // n_split
+            empty += lo == hi
+            keep = ((kp >= lo * KEYS) & (kp < hi * KEYS)
+                    & (kp <= p))[None, :].expand(4, t)
+            parts.append(_partial(q, k, v, keep, sm))
+        m_all = torch.stack([m for _, m, _ in parts]).amax(0)
+        o = sum(o * torch.exp(m - m_all)[:, None] for o, m, _ in parts)
+        l = sum(l * torch.exp(m - m_all) for _, m, l in parts)
+        want = torch.softmax(torch.where(kp[None, :] <= p, (q @ k.T) * sm,
+                                         torch.tensor(-torch.inf)), -1) @ v
+        torch.testing.assert_close(o / l[:, None], want, atol=1e-5, rtol=0)
+        assert empty == max(0, n_split - n_tiles)

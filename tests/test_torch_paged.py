@@ -113,6 +113,24 @@ def test_paged_reference_equals_dense_over_gathered_view():
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("b,c,regime,n_split", [(16, 1, "decode", 2),
+                                                  (1, 1, "decode", 16),
+                                                  (1, 128, "ingest", 3),
+                                                  (16, 8, "ingest", 1)])
+def test_paged_plan_on_the_serving_shapes(b, c, regime, n_split):
+    """The paged kernel's launch plan (ops/decode.py decode_plan over the
+    table's capacity, max_pages * page = 4096 at the serving shape): 16
+    slots at C=1 split 2 ways (256 blocks on 132 SMs), one slot at C=1 up
+    to the cluster limit, the prefix-ingest suffix (C=128: 8 row tiles x
+    8 kv heads, 3 ways) and a chunk of 8 (128 blocks, no split) in 64-row
+    tiles; neither the cursors nor the page size enter."""
+    from starway_tpu_torch.ops.decode import decode_plan
+
+    for page in (16, 64, 128):
+        assert decode_plan(b, 8, 4 * c, (4096 // page) * page) == (regime,
+                                                                   n_split)
+
+
 def test_paged_attention_refuses_int8_and_counts_no_cpu_launch():
     q = torch.zeros((1, 2, 1, 64))
     kp = torch.zeros((2, 1, 128, 64), dtype=torch.int8)
