@@ -82,10 +82,22 @@ Phases, each of which raises on failure:
               and backward
 12. train-ring-parity -- float32, 2 layers, [1, 513], sp = 4: ring and
               zigzag through the kernels against the plain attention
-13. a JSON line of the kernels with their launches on the serving paths
+13. transport -- Server/Client asend/arecv on CUDA tensors: the 1 MiB
+              headline pingpong (starway_tpu_torch/headline.py, host <->
+              cuda:0); on each transport (inproc, tcp, sm, native,
+              native-sm) a cuda:0 <-> cuda:0 and a host <-> cuda:0
+              pingpong at 4 KiB to 64 MiB against the raw copy (and a
+              host <-> host one, the engine alone, as a yardstick), the
+              chunks staged and placed per send, stream order on both
+              sides, overwrite after send, a bf16 payload; a 256 MiB
+              one-way send in process and over tcp; a pingpong with the
+              server in a spawned child on each engine.  Every received
+              tensor must equal what was sent, in the same memory, and no
+              fallback may be logged
+14. a JSON line of the kernels with their launches on the serving paths
    (phases 4, 5 and 6) and the training paths (phases 9 and 11) and the
    numbers of phase 3
-14. the last line: {"ok": true, "device": {...}}
+15. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -1836,6 +1848,401 @@ def finish_ptxas_report(procs) -> dict:
     return out
 
 
+# ------------------------------------------------------------- transport
+#
+# The transport's main path: Server/Client asend/arecv on CUDA tensors
+# through every transport, host <-> cuda:0 and cuda:0 <-> cuda:0 (one
+# card).  name -> (STARWAY_TLS, STARWAY_NATIVE).
+TRANSPORTS = {
+    "inproc": ("inproc,sm,tcp", "0"),
+    "tcp": ("tcp", "0"),
+    "sm": ("tcp,sm", "0"),
+    "native": ("tcp", "1"),
+    "native-sm": ("tcp,sm", "1"),
+}
+# examples/pingpong.py --max-size 16M, and 64 MiB past the 8 MiB
+# rendezvous threshold (config.py rndv_threshold).
+SWEEP_SIZES = [4 << 10, 64 << 10, 1 << 20, 4 << 20, 16 << 20, 64 << 20]
+THROUGHPUT_BYTES = 256 << 20  # examples/throughput.py --size 256M
+CHUNK_BYTES = 256 << 10       # config.py chunk_bytes default
+RNDV_BYTES = 8 << 20          # config.py rndv_threshold default
+MASK = (1 << 64) - 1
+
+
+def sweep_iters(nbytes: int) -> tuple:
+    """(warmup, timed) passes of a sweep pingpong of ``nbytes``."""
+    if nbytes <= 1 << 20:
+        return 5, 30
+    return (2, 10) if nbytes <= 16 << 20 else (1, 5)
+
+
+def use_transport(name: str) -> None:
+    import os
+
+    tls, native = TRANSPORTS[name]
+    os.environ["STARWAY_TLS"] = tls
+    os.environ["STARWAY_NATIVE"] = native
+
+
+def expected_chunks(name: str, nbytes: int) -> tuple:
+    """(chunks staged by the sender, chunks placed by the receiver) of one
+    cuda:0 -> cuda:0 send of ``nbytes``.  In process the snapshot is
+    copied on the card: neither is counted.  The C++ engine stages and
+    places the whole payload once.  The Python engine stages chunk by
+    chunk up to the rendezvous threshold and places chunk by chunk from
+    two chunks up."""
+    if name == "inproc":
+        return 0, 0
+    if name.startswith("native"):
+        return 1, 1
+    chunks = -(-nbytes // CHUNK_BYTES)
+    armed = nbytes >= 2 * CHUNK_BYTES
+    return (chunks if armed and nbytes <= RNDV_BYTES else 1,
+            chunks if armed else 1)
+
+
+async def one_way(client, server, payload, sink, tag: int) -> float:
+    """One client -> server send into ``sink``; checks (tag, length) and
+    returns the seconds from send to receive completion."""
+    t0 = time.perf_counter()
+    fut = server.arecv(sink, tag, MASK)
+    await client.asend(payload, tag)
+    got = await fut
+    dt = time.perf_counter() - t0
+    want = (tag, payload.numel() * payload.element_size())
+    if tuple(got) != want:
+        raise AssertionError(f"received (tag, length) {got}, sent {want}")
+    return dt
+
+
+async def host_pingpong(server, client, ep, nbytes: int, warmup: int,
+                        iters: int) -> list:
+    """Round-trip seconds of a host buffer to a host buffer and back: the
+    engine alone, with no device plane, as the sweep's yardstick."""
+    payload = np.random.default_rng(nbytes).integers(0, 256, nbytes,
+                                                     dtype=np.uint8)
+    sink = np.zeros(nbytes, dtype=np.uint8)
+    ret = np.zeros(nbytes, dtype=np.uint8)
+    rtts = []
+    for i in range(warmup + iters):
+        t0 = time.perf_counter()
+        srv_fut = server.arecv(sink, 0x53, MASK)
+        cli_fut = client.arecv(ret, 0x54, MASK)
+        await client.asend(payload, 0x53)
+        await srv_fut
+        await server.asend(ep, sink, 0x54)
+        await cli_fut
+        if i >= warmup:
+            rtts.append(time.perf_counter() - t0)
+    if not np.array_equal(ret, payload):
+        raise AssertionError(f"{nbytes} B host pingpong: bytes differ")
+    return rtts
+
+
+async def transport_checks(name: str, dev) -> dict:
+    """Every check of one transport: the sweep (device <-> device and host
+    <-> device), the chunk counts, stream order on both sides, overwrite
+    after send, a bf16 payload; raises on a failed check."""
+    import torch
+
+    from starway_tpu_torch import DeviceBuffer, headline
+
+    use_transport(name)
+    server, client, ep = await headline.connect_pair()
+    out = {"sweep": []}
+    wire = "device" if name == "inproc" else "staged"
+    try:
+        for nbytes in SWEEP_SIZES:
+            warm, iters = sweep_iters(nbytes)
+            for host in (False, True):
+                fw, raw = await headline.pingpong(
+                    server, client, ep, nbytes, dev, dev, host, warm, iters,
+                    seed=nbytes)
+                row = headline.summary(fw, raw, nbytes)
+                row["mode"] = "host<->device" if host else "device<->device"
+                out["sweep"].append(row)
+            rtts = await host_pingpong(server, client, ep, nbytes, warm, iters)
+            out.setdefault("host_p50_us", {})[nbytes] = (
+                statistics.median(rtts) * 1e6)
+
+        # chunk counts: one cuda:0 -> cuda:0 send per size
+        counts = {}
+        for nbytes in (64 << 10, 1 << 20, 16 << 20, 64 << 20):
+            src = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                                device=dev)
+            sink = DeviceBuffer((nbytes,), torch.uint8, device=dev)
+            client._client.stage_scope.reset()
+            server._server.stage_scope.reset()
+            await one_way(client, server, src, sink, 0x61)
+            staged = client._client.stage_scope.snapshot().get(
+                "stage", {}).get("count", 0)
+            placed = server._server.stage_scope.snapshot().get(
+                "place", {}).get("count", 0)
+            if (staged, placed) != expected_chunks(name, nbytes):
+                raise AssertionError(
+                    f"{name} {nbytes} B: chunks staged/placed "
+                    f"{(staged, placed)}, expected "
+                    f"{expected_chunks(name, nbytes)}")
+            if not torch.equal(sink.array, src):
+                raise AssertionError(f"{name} {nbytes} B: bytes differ")
+            if sink.last_transport != wire:
+                raise AssertionError(f"{name}: last_transport "
+                                     f"{sink.last_transport!r}, not {wire!r}")
+            counts[nbytes] = (staged, placed)
+        out["chunks"] = counts
+
+        # stream order: the payload is written by a kernel queued behind a
+        # ~20 ms spin on the current stream, and sent with no synchronize;
+        # the sink is written by such a kernel just before the receive is
+        # posted.  Both must come out as the receive's bytes.
+        nbytes = 4 << 20
+        payload = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+        sink = DeviceBuffer((nbytes // 4,), torch.float32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40_000_000)
+        sink.array.fill_(-1.0)
+        fut = server.arecv(sink, 0x62, MASK)
+        torch.cuda._sleep(40_000_000)
+        payload.fill_(3.0)
+        await client.asend(payload, 0x62)
+        await fut
+        if not bool((sink.array == 3.0).all()):
+            raise AssertionError(f"{name}: the send or the receive ran ahead "
+                                 f"of the work queued on the caller's stream")
+
+        # overwrite after send: the send completes before any receive is
+        # posted; the sender then overwrites its tensor
+        for nbytes in (1 << 20, 16 << 20):
+            src = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                                device=dev)
+            want = src.clone()
+            await client.asend(src, 0x63)
+            src.zero_()
+            sink = DeviceBuffer((nbytes,), torch.uint8, device=dev)
+            got = await server.arecv(sink, 0x63, MASK)
+            if tuple(got) != (0x63, nbytes) or not torch.equal(sink.array,
+                                                              want):
+                raise AssertionError(f"{name} {nbytes} B: overwriting the "
+                                     f"source after send completion changed "
+                                     f"the delivered bytes")
+
+        # bf16, both ways, into bf16 sinks on the card
+        x = torch.randn(3, 1000, device=dev).to(torch.bfloat16)
+        sink = DeviceBuffer((3, 1000), torch.bfloat16, device=dev)
+        await one_way(client, server, x, sink, 0x64)
+        back = DeviceBuffer.like(x)
+        fut = client.arecv(back, 0x65, MASK)
+        await server.asend(ep, sink, 0x65)
+        await fut
+        if not (torch.equal(sink.array, x) and torch.equal(back.array, x)):
+            raise AssertionError(f"{name}: bf16 payload differs")
+        out["stages"] = {
+            "client": client._client.stage_scope.snapshot(),
+            "server": server._server.stage_scope.snapshot()}
+    finally:
+        await client.aclose()
+        await server.aclose()
+    return out
+
+
+async def throughput(name: str, dev) -> dict:
+    """One 256 MiB cuda:0 -> cuda:0 send, timed from send to receive
+    completion, against one raw copy on the card."""
+    import torch
+
+    from starway_tpu_torch import DeviceBuffer, headline
+
+    use_transport(name)
+    server, client, _ep = await headline.connect_pair()
+    try:
+        src = torch.randint(0, 256, (THROUGHPUT_BYTES,), dtype=torch.uint8,
+                            device=dev)
+        sink = DeviceBuffer((THROUGHPUT_BYTES,), torch.uint8, device=dev)
+        await one_way(client, server, src, sink, 0x70)  # warm
+        sink.array.zero_()
+        torch.cuda.synchronize()
+        dt = await one_way(client, server, src, sink, 0x71)
+        if not torch.equal(sink.array, src):
+            raise AssertionError(f"{name}: 256 MiB payload differs")
+        t0 = time.perf_counter()
+        src.to(dev, copy=True)
+        torch.cuda.synchronize()
+        raw = time.perf_counter() - t0
+    finally:
+        await client.aclose()
+        await server.aclose()
+    return {"seconds": dt, "gbps": THROUGHPUT_BYTES / dt / 1e9,
+            "raw_gbps": THROUGHPUT_BYTES / raw / 1e9}
+
+
+def echo_server_child(port: int, native: str, device: str, nbytes: int,
+                      iters: int, result) -> None:
+    """Spawned child: a Server over tcp that receives ``iters + 1``
+    payloads into one DeviceBuffer on ``device`` and sends each back from
+    it."""
+    import asyncio
+    import os
+
+    os.environ["STARWAY_TLS"] = "tcp"
+    os.environ["STARWAY_NATIVE"] = native
+
+    async def serve():
+        import torch
+
+        from starway_tpu_torch import DeviceBuffer, Server
+
+        server = Server()
+        server.listen("127.0.0.1", port)
+        sink = DeviceBuffer((nbytes,), torch.uint8, device=device)
+        ptr = sink.array.data_ptr()
+        for _ in range(4000):
+            if server.list_clients():
+                break
+            await asyncio.sleep(0.005)
+        ep = server.list_clients().pop()
+        for _ in range(iters + 1):
+            tag, length = await server.arecv(sink, 0x81, MASK)
+            await server.asend(ep, sink, 0x82)
+        await server.aflush()
+        ok = (sink.array.data_ptr() == ptr and sink.last_transport == "staged"
+              and (tag, length) == (0x81, nbytes))
+        await server.aclose()
+        return ok
+
+    result.put(asyncio.run(serve()))
+
+
+async def cross_process(native: str, dev, nbytes: int = 1 << 20,
+                        iters: int = 30) -> dict:
+    """A pingpong of ``nbytes`` with the echo server in a spawned child on
+    the same card, over tcp: CUDA tensors on both sides, staged on the
+    wire."""
+    import asyncio
+    import multiprocessing as mp
+    import socket
+
+    import torch
+
+    from starway_tpu_torch import Client, DeviceBuffer
+
+    use_transport("native" if native == "1" else "tcp")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    result = ctx.Queue()
+    child = ctx.Process(target=echo_server_child,
+                        args=(port, native, str(dev), nbytes, iters,
+                              result))
+    child.start()
+    try:
+        for _ in range(240):
+            client = Client()
+            try:
+                await client.aconnect("127.0.0.1", port)
+                break
+            except Exception:
+                await asyncio.sleep(0.25)
+        else:
+            raise AssertionError("the echo server never came up")
+        src = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device=dev)
+        ret = DeviceBuffer((nbytes,), torch.uint8, device=dev)
+        rtts = []
+        for i in range(iters + 1):
+            ret.array.zero_()
+            t0 = time.perf_counter()
+            fut = client.arecv(ret, 0x82, MASK)
+            await client.asend(src, 0x81)
+            got = await fut
+            rtts.append(time.perf_counter() - t0)
+        if tuple(got) != (0x82, nbytes) or not torch.equal(ret.array, src):
+            raise AssertionError("cross-process pingpong: bytes differ")
+        if ret.last_transport != "staged":
+            raise AssertionError("cross-process receive was not staged")
+        await client.aclose()
+        if not result.get(timeout=120):
+            raise AssertionError("the echo server's checks failed")
+        child.join(60)
+    finally:
+        if child.is_alive():
+            child.kill()
+            child.join()
+    rtts = sorted(rtts[1:])
+    return {"p50_us": statistics.median(rtts) * 1e6,
+            "gbps": 2 * nbytes / statistics.median(rtts) / 1e9}
+
+
+def phase_transport(dev, card: str) -> dict:
+    """The transport phase: the headline, the sweep and checks on every
+    transport, the 256 MiB throughput, the cross-process pingpong on both
+    engines; fails if a check fails or a fallback warning was logged."""
+    import asyncio
+    import logging
+    import os
+
+    from starway_tpu_torch import headline
+    from starway_tpu_torch.core import native
+
+    if not native.available():
+        raise AssertionError("the C++ engine did not build")
+    warnings = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                warnings.append(record.getMessage())
+
+    port_logger = logging.getLogger("starway_tpu_torch")
+    catch = Catch()
+    port_logger.addHandler(catch)
+    saved = {k: os.environ.get(k) for k in ("STARWAY_TLS", "STARWAY_NATIVE")}
+    t0 = time.perf_counter()
+    try:
+        use_transport("inproc")
+        head = asyncio.run(headline.run())
+        if head["fallback"]:
+            raise AssertionError("the headline fell back to the CPU")
+        log(f"[transport] headline {json.dumps(head)}")
+        st = {"headline": {k: head[k] for k in ("value", "vs_baseline")}}
+        for name in TRANSPORTS:
+            res = asyncio.run(transport_checks(name, dev))
+            st[name] = res
+            for row in res["sweep"]:
+                log(f"[transport] {name:9s} {row['mode']:15s} "
+                    f"{row['bytes']:>9d} B  fw p50 {row['fw_p50_us']:9.1f} us "
+                    f"p99 {row['fw_p99_us']:9.1f} us  raw p50 "
+                    f"{row['raw_p50_us']:8.1f} us  {row['fw_gbps']:7.3f} GB/s "
+                    f"(raw {row['raw_gbps']:7.3f})  vs_baseline "
+                    f"{row['vs_baseline']:.3f}")
+            log(f"[transport] {name:9s} host<->host p50 us by size (the "
+                f"engine alone): {res['host_p50_us']}")
+            log(f"[transport] {name} chunks staged/placed {res['chunks']}; "
+                f"stages {res['stages']}")
+        for name in ("inproc", "tcp"):
+            st[f"throughput-{name}"] = asyncio.run(throughput(name, dev))
+            log(f"[transport] 256 MiB one way {name}: "
+                f"{st[f'throughput-{name}']}")
+        for native_flag, label in (("0", "python"), ("1", "native")):
+            st[f"cross-process-{label}"] = asyncio.run(
+                cross_process(native_flag, dev))
+            log(f"[transport] cross-process tcp {label} engine, 1 MiB "
+                f"device<->device: {st[f'cross-process-{label}']}")
+    finally:
+        port_logger.removeHandler(catch)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    fallbacks = [w for w in warnings if "falling back" in w]
+    if fallbacks:
+        raise AssertionError(f"fallback warnings in the transport phase: "
+                             f"{fallbacks}")
+    log(f"[transport] done in {time.perf_counter() - t0:.1f} s on {card}; "
+        f"warnings {warnings}")
+    return st
+
+
 def main() -> int:
     import torch
 
@@ -1967,6 +2374,9 @@ def main() -> int:
     st_ring, c_ring = phase_train_ring(dev)
     st_rp = phase_train_ring_parity(dev)
 
+    # 13: the transport's main path on the card.
+    st_tr = phase_transport(dev, card)
+
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
     rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
@@ -1991,7 +2401,7 @@ def main() -> int:
             label: traced[label].get("attention_device_ms")
             for label in labels}
 
-    # 13. kernels line: launches are the serving paths' (phases 4, 5 and
+    # 14. kernels line: launches are the serving paths' (phases 4, 5 and
     # 6) and the training paths' (phases 9 and 11), each counted from 0
     # just before its run and read just after.
     main_counts = {k: main_counts[k] + c7[k] + c_ring[k]
@@ -2042,9 +2452,15 @@ def main() -> int:
             f"{st.get('first_loss_rel_gap')}, one layer's attention vs flash "
             f"{st.get('attention_block_rel_err')}, launches {st['launches']}")
     log(f"[summary] train-ring-parity {st_rp}")
+    log(f"[summary] transport (1 MiB pingpong vs_baseline by transport, "
+        f"device<->device / host<->device; {card}): " + ", ".join(
+            f"{name} " + " / ".join(
+                f"{row['vs_baseline']:.3f}" for row in st_tr[name]["sweep"]
+                if row["bytes"] == 1 << 20) for name in TRANSPORTS)
+        + f"; headline {st_tr['headline']}")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 14. last line
+    # 15. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

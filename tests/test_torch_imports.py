@@ -1,7 +1,8 @@
 """The port stands alone: no module of starway_tpu_torch, and not
 chip_smoke.py, imports jax, optax or the JAX package; importing the
-serving and training stacks leaves them out of sys.modules; and the entry
-points default to the GPU rather than falling back to the CPU."""
+serving, training and transport stacks leaves them out of sys.modules;
+and the entry points default to the GPU rather than falling back to the
+CPU."""
 
 import ast
 import subprocess
@@ -52,6 +53,7 @@ def test_serving_import_keeps_jax_out_of_the_process():
 
 
 def test_entry_points_default_to_cuda():
+    from starway_tpu_torch import DeviceBuffer
     from starway_tpu_torch.models import LlamaConfig, init_params
     from starway_tpu_torch.models.generate import init_cache
 
@@ -63,6 +65,23 @@ def test_entry_points_default_to_cuda():
     with pytest.raises((RuntimeError, AssertionError)):
         init_cache(cfg, 1, 8)
     assert init_params(cfg, 0, device="cpu")["embed"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceBuffer((16,), torch.uint8)
+    assert DeviceBuffer((16,), torch.uint8, device="cpu").device.type == "cpu"
+
+
+def test_transport_import_keeps_jax_out_of_the_process():
+    code = ("import sys\n"
+            "from starway_tpu_torch import Server, Client, DeviceBuffer\n"
+            "import starway_tpu_torch.api, starway_tpu_torch.device, "
+            "starway_tpu_torch.core.engine, starway_tpu_torch.core.native, "
+            "starway_tpu_torch.headline\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_paged_import_keeps_jax_out_of_the_process():
@@ -94,3 +113,12 @@ def test_scan_covers_the_parallel_layer():
     assert {"starway_tpu_torch/parallel/ring_attention.py",
             "starway_tpu_torch/parallel/sharding.py",
             "starway_tpu_torch/ops/collectives.py"} <= scanned
+
+
+def test_scan_covers_the_transport():
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {"starway_tpu_torch/api.py", "starway_tpu_torch/device.py",
+            "starway_tpu_torch/headline.py",
+            "starway_tpu_torch/native_build.py",
+            "starway_tpu_torch/core/engine.py",
+            "starway_tpu_torch/core/native.py"} <= scanned

@@ -67,3 +67,79 @@ def ring_worker(rank: int, world: int, port: int, folder: str) -> None:
         np.savez(f"{folder}/out{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------- transport children
+#
+# Spawned across a real process boundary by tests/test_torch_transport.py
+# (the flush semantics of tests/test_basic.py): they import only the port,
+# and say so.
+
+INFLIGHT_BYTES = 1 << 30  # 1 GiB: far beyond any socket buffer
+
+
+def _assert_port_only() -> None:
+    import sys
+
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "starway_tpu"))
+    assert not bad, bad
+
+
+def transport_child_server_send(port, with_flush, use_flush_ep):
+    import asyncio
+    import os
+
+    os.environ["STARWAY_TLS"] = "tcp"
+    from starway_tpu_torch import Server
+
+    _assert_port_only()
+
+    async def inner():
+        server = Server()
+        server.listen("127.0.0.1", port)
+        connected = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        server.set_accept_cb(
+            lambda ep: loop.call_soon_threadsafe(connected.set))
+        await asyncio.wait_for(connected.wait(), timeout=120)
+        ep = next(iter(server.list_clients()))
+        send_buf = np.arange(INFLIGHT_BYTES, dtype=np.uint8)
+        await server.asend(ep, send_buf, 0)
+        if with_flush:
+            if use_flush_ep:
+                await server.aflush_ep(ep)
+            else:
+                await server.aflush()
+        await server.aclose()
+
+    asyncio.run(inner())
+
+
+def transport_child_client_send(port, with_flush):
+    import asyncio
+    import os
+
+    os.environ["STARWAY_TLS"] = "tcp"
+    from starway_tpu_torch import Client
+
+    _assert_port_only()
+
+    async def inner():
+        client = None
+        for i in range(60):
+            client = Client()
+            try:
+                await client.aconnect("127.0.0.1", port)
+                break
+            except Exception:
+                if i == 59:
+                    raise
+                await asyncio.sleep(0.25)
+        send_buf = np.arange(INFLIGHT_BYTES, dtype=np.uint8)
+        await client.asend(send_buf, 0)
+        if with_flush:
+            await client.aflush()
+        await client.aclose()
+
+    asyncio.run(inner())
