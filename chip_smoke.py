@@ -90,10 +90,21 @@ Phases, each of which raises on failure:
               host <-> host one, the engine alone, as a yardstick), the
               chunks staged and placed per send, stream order on both
               sides, overwrite after send, a bf16 payload; a 256 MiB
-              one-way send in process and over tcp; a pingpong with the
-              server in a spawned child on each engine.  Every received
-              tensor must equal what was sent, in the same memory, and no
-              fallback may be logged
+              one-way send in process and over tcp (these with
+              STARWAY_DEVPULL=0: the staged device plane); across
+              processes, a cuda:0 <-> cuda:0 pingpong with the server in a
+              spawned child at 64 KiB to 64 MiB against the raw copy: the
+              CUDA IPC pull on the Python engine ("device" on both sides,
+              one IPC pull a message each), the same with the pull off,
+              and the C++ engine (staged); a sender that flushes, closes
+              and exits before the receive is posted; the sender's memory
+              back at its baseline after a truncated receive and after a
+              close with an unpulled offer; the bench CLI (python -m
+              starway_tpu_torch.bench) in loopback over every scenario and
+              as a server and a client process, with device payloads, its
+              JSON reports logged.  Every received tensor must equal what
+              was sent, in the same memory, and no fallback or failed
+              pull may be logged
 14. a JSON line of the kernels with their launches on the serving paths
    (phases 4, 5 and 6) and the training paths (phases 9 and 11) and the
    numbers of phase 3
@@ -1864,6 +1875,9 @@ TRANSPORTS = {
 # rendezvous threshold (config.py rndv_threshold).
 SWEEP_SIZES = [4 << 10, 64 << 10, 1 << 20, 4 << 20, 16 << 20, 64 << 20]
 THROUGHPUT_BYTES = 256 << 20  # examples/throughput.py --size 256M
+# The cross-process sweep: from 64 KiB (STARWAY_DEVPULL_MIN, the pull's
+# threshold) to 64 MiB.
+CROSS_SIZES = [64 << 10, 1 << 20, 4 << 20, 16 << 20, 64 << 20]
 CHUNK_BYTES = 256 << 10       # config.py chunk_bytes default
 RNDV_BYTES = 8 << 20          # config.py rndv_threshold default
 MASK = (1 << 64) - 1
@@ -2075,16 +2089,28 @@ async def throughput(name: str, dev) -> dict:
             "raw_gbps": THROUGHPUT_BYTES / raw / 1e9}
 
 
-def echo_server_child(port: int, native: str, device: str, nbytes: int,
-                      iters: int, result) -> None:
-    """Spawned child: a Server over tcp that receives ``iters + 1``
-    payloads into one DeviceBuffer on ``device`` and sends each back from
-    it."""
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def echo_server_child(port: int, native: str, devpull: str, device: str,
+                      plan: list, result) -> None:
+    """Spawned child: a Server over tcp on the engine ``native`` asks for,
+    the pull on or off (``devpull``), that receives each size of ``plan``
+    (a list of (nbytes, passes)) ``passes`` times into one DeviceBuffer on
+    ``device`` and sends each back from it; reports whether every receive
+    kept its (tag, length) and memory, how the receives landed, and its
+    pull counts."""
     import asyncio
     import os
 
     os.environ["STARWAY_TLS"] = "tcp"
     os.environ["STARWAY_NATIVE"] = native
+    os.environ["STARWAY_DEVPULL"] = devpull
 
     async def serve():
         import torch
@@ -2093,48 +2119,58 @@ def echo_server_child(port: int, native: str, device: str, nbytes: int,
 
         server = Server()
         server.listen("127.0.0.1", port)
-        sink = DeviceBuffer((nbytes,), torch.uint8, device=device)
-        ptr = sink.array.data_ptr()
         for _ in range(4000):
             if server.list_clients():
                 break
             await asyncio.sleep(0.005)
         ep = server.list_clients().pop()
-        for _ in range(iters + 1):
-            tag, length = await server.arecv(sink, 0x81, MASK)
-            await server.asend(ep, sink, 0x82)
+        ok, seen = True, set()
+        for nbytes, passes in plan:
+            sink = DeviceBuffer((nbytes,), torch.uint8, device=device)
+            ptr = sink.array.data_ptr()
+            for _ in range(passes):
+                got = await server.arecv(sink, 0x81, MASK)
+                await server.asend(ep, sink, 0x82)
+                ok = ok and tuple(got) == (0x81, nbytes)
+            ok = ok and sink.array.data_ptr() == ptr
+            seen.add(sink.last_transport)
         await server.aflush()
-        ok = (sink.array.data_ptr() == ptr and sink.last_transport == "staged"
-              and (tag, length) == (0x81, nbytes))
+        mgr = server._server.transfer_manager()
+        counts = dict(mgr.counts) if mgr is not None else {}
+        stages = server._server.stage_scope.snapshot()
         await server.aclose()
-        return ok
+        return {"ok": ok, "transports": sorted(seen), "counts": counts,
+                "stages": stages}
 
     result.put(asyncio.run(serve()))
 
 
-async def cross_process(native: str, dev, nbytes: int = 1 << 20,
-                        iters: int = 30) -> dict:
-    """A pingpong of ``nbytes`` with the echo server in a spawned child on
-    the same card, over tcp: CUDA tensors on both sides, staged on the
-    wire."""
+async def cross_process(native: str, dev, sizes, devpull: str) -> dict:
+    """Pingpongs of each of ``sizes`` with the echo server in a spawned
+    child on the same card, over tcp, interleaved pass by pass with the
+    raw copy there and back on the card.  The Python engine with the pull
+    on moves each direction by a CUDA IPC pull (checked: "device" on both
+    sides, one IPC pull a message on each); otherwise staged frames."""
     import asyncio
     import multiprocessing as mp
-    import socket
+    import os
 
     import torch
 
-    from starway_tpu_torch import Client, DeviceBuffer
+    from starway_tpu_torch import Client, DeviceBuffer, headline
 
     use_transport("native" if native == "1" else "tcp")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    os.environ["STARWAY_DEVPULL"] = devpull
+    pulled = native == "0" and devpull == "1"
+    want = "device" if pulled else "staged"
+    plan = [(n, sum(sweep_iters(n))) for n in sizes]
+    port = free_port()
     ctx = mp.get_context("spawn")
     result = ctx.Queue()
     child = ctx.Process(target=echo_server_child,
-                        args=(port, native, str(dev), nbytes, iters,
-                              result))
+                        args=(port, native, devpull, str(dev), plan, result))
     child.start()
+    rows = []
     try:
         for _ in range(240):
             client = Client()
@@ -2145,37 +2181,280 @@ async def cross_process(native: str, dev, nbytes: int = 1 << 20,
                 await asyncio.sleep(0.25)
         else:
             raise AssertionError("the echo server never came up")
-        src = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device=dev)
-        ret = DeviceBuffer((nbytes,), torch.uint8, device=dev)
-        rtts = []
-        for i in range(iters + 1):
-            ret.array.zero_()
-            t0 = time.perf_counter()
-            fut = client.arecv(ret, 0x82, MASK)
-            await client.asend(src, 0x81)
-            got = await fut
-            rtts.append(time.perf_counter() - t0)
-        if tuple(got) != (0x82, nbytes) or not torch.equal(ret.array, src):
-            raise AssertionError("cross-process pingpong: bytes differ")
-        if ret.last_transport != "staged":
-            raise AssertionError("cross-process receive was not staged")
+        for nbytes, passes in plan:
+            warm = sweep_iters(nbytes)[0]
+            src = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
+                                device=dev)
+            ret = DeviceBuffer((nbytes,), torch.uint8, device=dev)
+            fw, raw = [], []
+            for i in range(passes):
+                ret.array.zero_()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fut = client.arecv(ret, 0x82, MASK)
+                await client.asend(src, 0x81)
+                got = await fut
+                fw_dt = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                there = src.to(dev, copy=True)
+                torch.cuda.synchronize()
+                there.to(dev, copy=True)
+                torch.cuda.synchronize()
+                if i >= warm:
+                    fw.append(fw_dt)
+                    raw.append(time.perf_counter() - t0)
+            if tuple(got) != (0x82, nbytes) or not torch.equal(ret.array,
+                                                              src):
+                raise AssertionError(f"cross-process {nbytes} B: bytes "
+                                     f"differ")
+            if ret.last_transport != want:
+                raise AssertionError(f"cross-process {nbytes} B: landed "
+                                     f"{ret.last_transport!r}, not {want!r}")
+            rows.append(headline.summary(fw, raw, nbytes))
+        mgr = client._client.transfer_manager()
+        counts = dict(mgr.counts) if mgr is not None else {}
+        stages = client._client.stage_scope.snapshot()
         await client.aclose()
-        if not result.get(timeout=120):
-            raise AssertionError("the echo server's checks failed")
+        echo = result.get(timeout=120)
         child.join(60)
     finally:
         if child.is_alive():
             child.kill()
             child.join()
-    rtts = sorted(rtts[1:])
-    return {"p50_us": statistics.median(rtts) * 1e6,
-            "gbps": 2 * nbytes / statistics.median(rtts) / 1e9}
+    total = sum(p for _, p in plan)
+    if not echo["ok"] or echo["transports"] != [want]:
+        raise AssertionError(f"the echo server's checks failed: {echo}")
+    if pulled and not (counts.get("pulled_ipc") == total
+                       and echo["counts"].get("pulled_ipc") == total):
+        raise AssertionError(f"expected {total} IPC pulls each side, got "
+                             f"{counts} here and {echo['counts']} there")
+    return {"rows": rows, "counts": counts, "echo_counts": echo["counts"],
+            "stages": stages, "echo_stages": echo["stages"]}
+
+
+def devpull_peer_child(port: int, mode: str, q) -> None:
+    """Spawned peer on cuda:0 over tcp, Python engine, for the pull's
+    lifecycle checks: ``flush-close`` connects, sends 16 MiB, flushes,
+    closes and exits; ``truncate`` listens and posts a too-small receive
+    (which must fail "truncated"); ``idle`` listens and receives
+    nothing; both listeners close on a one-byte bye (tag 0xC9)."""
+    import asyncio
+    import os
+
+    os.environ["STARWAY_TLS"] = "tcp"
+    os.environ["STARWAY_NATIVE"] = "0"
+    os.environ["STARWAY_DEVPULL"] = "1"
+
+    async def run():
+        import torch
+
+        from starway_tpu_torch import Client, Server
+
+        if mode == "flush-close":
+            for _ in range(240):
+                client = Client()
+                try:
+                    await client.aconnect("127.0.0.1", port)
+                    break
+                except Exception:
+                    await asyncio.sleep(0.25)
+            src = torch.arange(16 << 20, dtype=torch.int32,
+                               device="cuda:0").to(torch.uint8)
+            await client.asend(src, 0xB1)
+            src.zero_()
+            await client.aflush()
+            await client.aclose()
+            return "ok"
+        server = Server()
+        server.listen("127.0.0.1", port)
+        q.put("listening")
+        for _ in range(4000):
+            if server.list_clients():
+                break
+            await asyncio.sleep(0.005)
+        if mode == "truncate":
+            try:
+                await server.arecv(np.zeros(1024, dtype=np.uint8), 0xC1, MASK)
+                q.put("the too-small receive succeeded")
+            except Exception as e:  # noqa: BLE001
+                q.put("ok" if "runcat" in str(e) else str(e))
+        await server.arecv(np.zeros(1, dtype=np.uint8), 0xC9, MASK)
+        await server.aclose()
+        return "closed"
+
+    q.put(asyncio.run(run()))
+
+
+async def devpull_lifecycle(dev) -> dict:
+    """The pull's lifecycle across processes on the card: a sender that
+    flushes, closes and exits before the receive is posted still
+    delivers; after a truncated receive (a drain pull) and after a close
+    with an unpulled offer (revoked), the sender's allocated memory is
+    back at its baseline once ipc_collect() has run."""
+    import asyncio
+    import multiprocessing as mp
+    import os
+
+    import torch
+
+    from starway_tpu_torch import Client, DeviceBuffer, Server
+
+    use_transport("tcp")
+    os.environ["STARWAY_DEVPULL"] = "1"
+    ctx = mp.get_context("spawn")
+    loop = asyncio.get_running_loop()
+    out = {}
+
+    def spawn(port, mode):
+        q = ctx.Queue()
+        p = ctx.Process(target=devpull_peer_child, args=(port, mode, q))
+        p.start()
+        return p, q
+
+    # flush, close and exit before the receive
+    port = free_port()
+    server = Server()
+    server.listen("127.0.0.1", port)
+    p, q = spawn(port, "flush-close")
+    try:
+        if await loop.run_in_executor(None, lambda: q.get(timeout=120)) != "ok":
+            raise AssertionError("the flush-close sender failed")
+        await loop.run_in_executor(None, p.join, 60)
+        sink = DeviceBuffer((16 << 20,), torch.uint8, device=dev)
+        got = await asyncio.wait_for(server.arecv(sink, 0xB1, MASK), 30)
+        want = torch.arange(16 << 20, dtype=torch.int32,
+                            device=dev).to(torch.uint8)
+        if (tuple(got) != (0xB1, 16 << 20) or not torch.equal(sink.array, want)
+                or sink.last_transport != "device" or p.exitcode != 0):
+            raise AssertionError(f"flush-close-exit: {got}, "
+                                 f"{sink.last_transport}, exit {p.exitcode}")
+        out["flush_close_exit"] = "delivered by the pull"
+    finally:
+        await server.aclose()
+        if p.is_alive():
+            p.kill()
+        p.join()
+
+    # the sender's memory after a drain pull and after a revoked offer
+    for mode in ("truncate", "idle"):
+        port = free_port()
+        p, q = spawn(port, mode)
+        try:
+            if await loop.run_in_executor(None, lambda: q.get(timeout=120)) \
+                    != "listening":
+                raise AssertionError(f"{mode}: the peer did not listen")
+            for _ in range(240):
+                client = Client()
+                try:
+                    await client.aconnect("127.0.0.1", port)
+                    break
+                except Exception:
+                    await asyncio.sleep(0.25)
+            src = torch.randint(0, 256, (16 << 20,), dtype=torch.uint8,
+                                device=dev)
+            gc.collect()
+            torch.cuda.ipc_collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            await client.asend(src, 0xC1)
+            held = torch.cuda.memory_allocated(dev) - base
+            if mode == "truncate":
+                await asyncio.wait_for(client.aflush(), 60)
+                verdict = await loop.run_in_executor(
+                    None, lambda: q.get(timeout=60))
+                if verdict != "ok":
+                    raise AssertionError(f"truncate: {verdict}")
+            # no flush after the bye: a barrier would pull the idle offer
+            await client.asend(np.ones(1, dtype=np.uint8), 0xC9)
+            await asyncio.sleep(0.2)
+            await client.aclose()
+            gc.collect()
+            torch.cuda.ipc_collect()
+            after = torch.cuda.memory_allocated(dev) - base
+            if after > 0:
+                raise AssertionError(f"{mode}: the sender holds {after} B "
+                                     f"past its baseline after ipc_collect")
+            out[f"memory_{mode}"] = {"held_after_send": held,
+                                     "after_ipc_collect": after}
+            await loop.run_in_executor(None, p.join, 60)
+        finally:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return out
+
+
+def bench_cli_runs() -> dict:
+    """The bench CLI on the card: every scenario in loopback with device
+    payloads over tcp (two workers of one process: the pull's local
+    route), and large-array plus streaming-duplex between a server and a
+    client process (the CUDA IPC route); returns their JSON reports."""
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    folder = root / "build" / "bench_reports"
+    folder.mkdir(parents=True, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("STARWAY_")}
+    cli = [sys.executable, "-m", "starway_tpu_torch.bench", "--tls", "tcp"]
+    sizes = ["--large-bytes", "64M", "--large-iterations", "3",
+             "--stream-iterations", "16", "--stream-warmup", "2",
+             "--striped-iterations", "4", "--reshard-bytes", "64M",
+             "--flag-iterations", "200", "--flag-warmup", "20"]
+    reports = {}
+
+    def check(proc, what):
+        text = proc.stdout + proc.stderr
+        if proc.returncode != 0 or "falling back" in text:
+            raise AssertionError(f"bench {what}: exit {proc.returncode}\n"
+                                 f"{text[-3000:]}")
+
+    path = folder / "loopback.json"
+    proc = subprocess.run(
+        cli + ["--role", "loopback", "--payload", "device", "--port",
+               str(free_port()), "--output", str(path)] + sizes,
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    check(proc, "loopback")
+    reports["loopback"] = json.loads(path.read_text())
+
+    port = str(free_port())
+    server = subprocess.Popen(
+        cli + ["--role", "server", "--addr", "127.0.0.1", "--port", port],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        path = folder / "two-process.json"
+        for _ in range(60):  # the client connects once: wait for the port
+            proc = subprocess.run(
+                cli + ["--role", "client", "--port", port, "--payload",
+                       "device", "--scenarios", "large-array",
+                       "streaming-duplex", "--output", str(path)] + sizes,
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=300)
+            if proc.returncode == 0 or "onnect" not in proc.stderr:
+                break
+            time.sleep(0.5)
+        check(proc, "client")
+        server_out = server.communicate(timeout=120)[0]
+        if server.returncode != 0 or "falling back" in server_out:
+            raise AssertionError(f"bench server: exit {server.returncode}\n"
+                                 f"{server_out[-3000:]}")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    reports["two-process"] = json.loads(path.read_text())
+    return reports
 
 
 def phase_transport(dev, card: str) -> dict:
     """The transport phase: the headline, the sweep and checks on every
-    transport, the 256 MiB throughput, the cross-process pingpong on both
-    engines; fails if a check fails or a fallback warning was logged."""
+    transport (the staged device plane), the 256 MiB throughput, the
+    cross-process pingpong on both engines, the cross-process sweep (the
+    CUDA IPC pull against staged frames and the C++ engine), the pull's
+    lifecycle and the bench CLI; fails if a check fails or a fallback
+    warning or a failed pull was logged."""
     import asyncio
     import logging
     import os
@@ -2195,7 +2474,8 @@ def phase_transport(dev, card: str) -> dict:
     port_logger = logging.getLogger("starway_tpu_torch")
     catch = Catch()
     port_logger.addHandler(catch)
-    saved = {k: os.environ.get(k) for k in ("STARWAY_TLS", "STARWAY_NATIVE")}
+    saved = {k: os.environ.get(k) for k in ("STARWAY_TLS", "STARWAY_NATIVE",
+                                             "STARWAY_DEVPULL")}
     t0 = time.perf_counter()
     try:
         use_transport("inproc")
@@ -2204,6 +2484,9 @@ def phase_transport(dev, card: str) -> dict:
             raise AssertionError("the headline fell back to the CPU")
         log(f"[transport] headline {json.dumps(head)}")
         st = {"headline": {k: head[k] for k in ("value", "vs_baseline")}}
+        # The staged device plane: two workers of one process over tcp
+        # would otherwise take the pull's local route.
+        os.environ["STARWAY_DEVPULL"] = "0"
         for name in TRANSPORTS:
             res = asyncio.run(transport_checks(name, dev))
             st[name] = res
@@ -2222,11 +2505,34 @@ def phase_transport(dev, card: str) -> dict:
             st[f"throughput-{name}"] = asyncio.run(throughput(name, dev))
             log(f"[transport] 256 MiB one way {name}: "
                 f"{st[f'throughput-{name}']}")
-        for native_flag, label in (("0", "python"), ("1", "native")):
-            st[f"cross-process-{label}"] = asyncio.run(
-                cross_process(native_flag, dev))
-            log(f"[transport] cross-process tcp {label} engine, 1 MiB "
-                f"device<->device: {st[f'cross-process-{label}']}")
+        # Across processes: the pull (CUDA IPC) on the Python engine, the
+        # same with STARWAY_DEVPULL=0 (staged) as its yardstick, and the
+        # C++ engine (staged), at the sweep's sizes from 64 KiB.
+        for label, native_flag, pull in (("ipc", "0", "1"),
+                                         ("staged", "0", "0"),
+                                         ("native", "1", "1")):
+            res = asyncio.run(cross_process(native_flag, dev,
+                                            CROSS_SIZES, pull))
+            st[f"cross-process-{label}"] = res
+            for row in res["rows"]:
+                log(f"[transport] cross-process {label:6s} device<->device "
+                    f"{row['bytes']:>9d} B  fw p50 {row['fw_p50_us']:9.1f} "
+                    f"us p99 {row['fw_p99_us']:9.1f} us  raw p50 "
+                    f"{row['raw_p50_us']:8.1f} us  {row['fw_gbps']:7.3f} "
+                    f"GB/s  vs_baseline {row['vs_baseline']:.4f}")
+            log(f"[transport] cross-process {label}: pulls here "
+                f"{res['counts']}, in the child {res['echo_counts']}; "
+                f"stages here {res['stages']}, in the child "
+                f"{res['echo_stages']}")
+        st["devpull-lifecycle"] = asyncio.run(devpull_lifecycle(dev))
+        log(f"[transport] pull lifecycle {st['devpull-lifecycle']}")
+        t_bench = time.perf_counter()
+        reports = bench_cli_runs()
+        for name, report in reports.items():
+            log(f"[bench] {name} report {json.dumps(report)}")
+        st["bench"] = {name: [r["name"] for r in report["scenarios"]]
+                       for name, report in reports.items()}
+        log(f"[bench] CLI runs took {time.perf_counter() - t_bench:.1f} s")
     finally:
         port_logger.removeHandler(catch)
         for k, v in saved.items():
@@ -2234,10 +2540,11 @@ def phase_transport(dev, card: str) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    fallbacks = [w for w in warnings if "falling back" in w]
+    fallbacks = [w for w in warnings
+                 if "falling back" in w or "pull failed" in w]
     if fallbacks:
-        raise AssertionError(f"fallback warnings in the transport phase: "
-                             f"{fallbacks}")
+        raise AssertionError(f"fallback or failed-pull warnings in the "
+                             f"transport phase: {fallbacks}")
     log(f"[transport] done in {time.perf_counter() - t0:.1f} s on {card}; "
         f"warnings {warnings}")
     return st
@@ -2458,6 +2765,12 @@ def main() -> int:
                 f"{row['vs_baseline']:.3f}" for row in st_tr[name]["sweep"]
                 if row["bytes"] == 1 << 20) for name in TRANSPORTS)
         + f"; headline {st_tr['headline']}")
+    log(f"[summary] transport across processes (cuda:0 <-> cuda:0, a "
+        f"spawned child over tcp; p50 round trip us by size, {card}): "
+        + "; ".join(f"{label} " + ", ".join(
+            f"{row['bytes'] >> 10} KiB {row['fw_p50_us']:.0f}"
+            for row in st_tr[f"cross-process-{label}"]["rows"])
+            for label in ("ipc", "staged", "native")))
     print(json.dumps({"kernels": kernels}), flush=True)
 
     # 15. last line

@@ -507,6 +507,9 @@ class TcpConn(BaseConn):
         # resolved (pull done/failed) hold back FLUSH_ACKs so the sender's
         # flush barrier covers pulled payloads too.
         self.devpull_ok = False
+        # The peer's "cudaipc" value (device.py) when the port's own pull
+        # was negotiated instead; None otherwise.
+        self.cudaipc_peer = None
         self._remote_msgs: set = set()
         self._deferred_flush_acks: list = []
         # Resilient-session state (core/session.py; negotiated via the

@@ -403,12 +403,12 @@ class Worker:
 
     def transfer_manager(self):
         """The worker's TransferManager, created on first use (None when
-        the PJRT transfer API is unavailable)."""
+        the pull is disabled)."""
         from .. import device as _device
 
         with self.lock:
             if self._xfer_mgr is None:
-                if not _device.devpull_supported():
+                if _device.cudaipc_identity() is None:
                     return None
                 self._xfer_mgr = _device.TransferManager(config.advertised_host())
             return self._xfer_mgr
@@ -1351,6 +1351,10 @@ class ClientWorker(Worker):
 
             if _device.devpull_supported():
                 extra["devpull"] = "ok"
+            if _device.cudaipc_identity() is not None:
+                # The port's own pull (device.py): a key JAX peers and the
+                # C++ engine ignore, so they never see its descriptors.
+                extra["cudaipc"] = _device.cudaipc_identity()
             sock = socket.create_connection((addr, port), timeout=connect_timeout)
             sock.settimeout(connect_timeout)
             sock.sendall(frames.pack_hello(self.worker_id, mode, self.name, extra))
@@ -1367,7 +1371,10 @@ class ClientWorker(Worker):
             return False
         conn = TcpConn(self, sock, mode, handshaken=True)
         conn.peer_name = ack.get("worker_id", "")
-        conn.devpull_ok = ack.get("devpull") == "ok"
+        peer_ipc = ack.get("cudaipc") if "cudaipc" in extra else None
+        conn.cudaipc_peer = peer_ipc if isinstance(peer_ipc, str) else None
+        conn.devpull_ok = (ack.get("devpull") == "ok"
+                           or conn.cudaipc_peer is not None)
         conn.ka_ok = ack.get("ka") == "ok"
         conn.rails_ok = rails_n > 1 and ack.get("rails") == "ok"
         if fc_w > 0 and self._sess_int(ack.get("fc", 0)) > 0:
@@ -1542,6 +1549,8 @@ class ClientWorker(Worker):
 
         if _device.devpull_supported():
             extra["devpull"] = "ok"
+        if _device.cudaipc_identity() is not None:
+            extra["cudaipc"] = _device.cudaipc_identity()
         mode = self._connect_target[0] if self._connect_target else "socket"
         sock = socket.create_connection((addr, port), timeout=timeout)
         try:
@@ -1754,6 +1763,11 @@ class ServerWorker(Worker):
         if info.get("devpull") == "ok" and _device.devpull_supported():
             conn.devpull_ok = True
             ack_extra["devpull"] = "ok"
+        if (isinstance(info.get("cudaipc"), str)
+                and _device.cudaipc_identity() is not None):
+            conn.cudaipc_peer = info["cudaipc"]
+            conn.devpull_ok = True
+            ack_extra["cudaipc"] = _device.cudaipc_identity()
         if sess_offered:
             ack_extra.update(sess="ok", sess_epoch=conn.sess.epoch,
                              sess_ack="0")
@@ -1831,7 +1845,7 @@ class ServerWorker(Worker):
                 ack_extra["ka"] = "ok"
             if existing.csum_ok:
                 ack_extra["csum"] = "ok"
-            if existing.devpull_ok:
+            if existing.devpull_ok and existing.cudaipc_peer is None:
                 ack_extra["devpull"] = "ok"
             if existing.fc_ok:
                 ack_extra["fc"] = str(config.fc_window() or

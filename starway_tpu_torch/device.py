@@ -11,15 +11,20 @@ enters through the same two duck-typed protocols as in the JAX package
   (``nbytes``, ``host_staging()``, ``staged()``, ``finalize_from_host()``,
   ``accept_host()``, ``accept_device()``).
 
-Three transfer paths, chosen per connection:
+Four transfer paths, chosen per connection and payload:
 
 * **in-process, device payload -> device sink**: the sender's tensor is
   snapshotted on the card and the receiver copies the snapshot into its
   sink's tensor (a peer copy between cards) -- no host staging.
 * **in-process, mixed host/device**: one copy at the boundary.
-* **cross-process (tcp, sm)**: the payload is staged to pinned host memory
-  chunk by chunk, streamed, and placed chunk by chunk into the sink's
-  tensor on the receiver's card (DESIGN.md §12).
+* **pulled (tcp, sm; Python engine)**: when both peers negotiated the
+  pull (the ``cudaipc`` HELLO key), a small descriptor rides the stream
+  and the receiver copies the sender's snapshot straight from its card
+  (CUDA IPC; a process-wide table when both workers share the process):
+  no host staging.  See "cross-process pull" below.
+* **staged (tcp, sm)**: otherwise the payload is staged to pinned host
+  memory chunk by chunk, streamed, and placed chunk by chunk into the
+  sink's tensor on the receiver's card (DESIGN.md §12).
 
 A ``jax.Array`` is immutable; a tensor is mutable and ordered by streams.
 So this plane differs from the JAX package's in five rules:
@@ -35,10 +40,10 @@ So this plane differs from the JAX package's in five rules:
   caller queued just before ``asend`` has written the payload before it is
   read, and one queued before ``arecv`` has read the sink before it is
   overwritten.  Tensors that cross streams get ``record_stream``.
-* **Snapshot.**  An in-process device send delivers a clone made on the
-  card at send time, and completes once the clone is resident; the
-  matcher may park the message before a receive claims it, so the caller
-  may overwrite its tensor as soon as the send completes.
+* **Snapshot.**  An in-process or pulled device send delivers a clone
+  made on the card at send time, and completes once the clone is
+  resident; the matcher may park the message before a receive claims it,
+  so the caller may overwrite its tensor as soon as the send completes.
 * **Completion means resident.**  A receive completes only after the
   event of its last copy has completed.
 * **Pinned staging.**  Staging for a card is pinned host memory and goes
@@ -52,7 +57,13 @@ with a warning logged.
 
 from __future__ import annotations
 
+import base64
+import itertools
 import logging
+import mmap
+import os
+import queue
+import socket
 import threading
 import time
 from typing import Optional
@@ -513,24 +524,370 @@ class DeviceRecvSink:
         self._complete()
 
 
+# ------------------------------------------------------ cross-process pull
+#
+# The JAX package pulls a device payload across processes through the PJRT
+# transfer server: the sender registers the array for pull, a small
+# descriptor rides the framed stream (T_DEVPULL) for tag matching, and the
+# receiver pulls the buffer device to device.  Here the sender offers a
+# snapshot of its tensor and the receiver copies it into memory it owns,
+# on one of two routes chosen per offer from the peer's identity:
+#
+# * "local" -- the peer is this process (two workers over tcp): the
+#   snapshot waits in a process-wide table until the receiver takes it.
+#   CUDA IPC cannot open a handle in the process that exported it, and the
+#   table serves CPU tensors as well.
+# * "ipc" -- the peer is another process on this host and boot, and the
+#   tensor is on a card: the snapshot is exported as a CUDA IPC handle
+#   (torch.multiprocessing's storage sharing), opened by the receiver, and
+#   copied on the receiver's side stream after the export's IPC event.
+#
+# Anything else (another host, a CPU tensor across processes) is not
+# offered: the send rides staged DATA frames.
+#
+# The capability is negotiated per connection under the port-only HELLO
+# key "cudaipc", whose value names the host, the boot and the process.
+# "devpull" stays the JAX package's and the C++ engine's key: a peer that
+# answered it would exchange descriptors that neither side can pull.
+
+_uids = itertools.count(1)  # offer ids, unique in the process
+_local_offers: dict = {}  # uid -> snapshot awaiting a "local" pull
+_local_lock = threading.Lock()
+_boot_id: Optional[str] = None
+
+
 def devpull_supported() -> bool:
-    """The cross-process device pull is not ported: this plane never
-    negotiates ``devpull``, so device payloads crossing processes always
-    ride staged DATA frames (a JAX peer's offer is never acknowledged)."""
+    """False: this plane never offers nor accepts ``devpull`` (PJRT
+    descriptors, which the JAX package and the C++ engine speak); its own
+    pull is negotiated under ``cudaipc`` (:func:`cudaipc_identity`)."""
     return False
 
 
-def send_device(worker, conn, buffer, tag, done, fail):
-    """Route a device payload: a snapshot handed over in-process, host
-    staging otherwise."""
+def cudaipc_identity() -> Optional[str]:
+    """This process's value of the ``cudaipc`` HELLO key,
+    ``host|boot_id|pid``; None when ``STARWAY_DEVPULL=0`` (nothing is
+    offered, device payloads ride staged frames)."""
+    global _boot_id
     from . import config
 
-    payload = DevicePayload(buffer.array if isinstance(buffer, DeviceBuffer)
-                            else buffer)
+    if not config.devpull_enabled():
+        return None
+    if _boot_id is None:
+        try:
+            with open("/proc/sys/kernel/random/boot_id") as f:
+                _boot_id = f.read().strip()
+        except OSError:
+            _boot_id = ""  # no boot id: no IPC route (same pid still works)
+    return f"{socket.gethostname()}|{_boot_id}|{os.getpid()}"
+
+
+def pull_route(peer: Optional[str], tensor: torch.Tensor) -> Optional[str]:
+    """The route of an offer of ``tensor`` to the peer whose ``cudaipc``
+    value is ``peer``: "local", "ipc" or None (staged frames)."""
+    me = cudaipc_identity()
+    if not peer or me is None:
+        return None
+    theirs, mine = peer.rsplit("|", 2), me.rsplit("|", 2)
+    if len(theirs) != 3 or theirs[:2] != mine[:2]:
+        return None  # another host or another boot
+    if theirs[2] == mine[2]:
+        return "local"
+    return "ipc" if mine[1] and tensor.device.type == "cuda" else None
+
+
+class _IpcCounter:
+    """The int64 reference count torch keeps for one CUDA IPC export, in its
+    shared-memory counters file (``/dev/shm/<handle>``, the values after a
+    64-byte header), mapped for as long as this object lives.  The
+    exporter sets it to 1; the consumer's release of its mapping takes it
+    to 0, after which ``torch.cuda.ipc_collect()`` frees the exported
+    memory."""
+
+    HEADER = 64
+
+    def __init__(self, handle: bytes, offset: int):
+        path = os.path.join("/dev/shm", handle.decode().lstrip("/"))
+        fd = os.open(path, os.O_RDWR)
+        try:
+            self._mm = mmap.mmap(fd, 0)
+        finally:
+            os.close(fd)
+        self._at = self.HEADER + 8 * int(offset)
+
+    def get(self) -> int:
+        return int.from_bytes(self._mm[self._at:self._at + 8], "little",
+                              signed=True)
+
+    def revoke(self) -> None:
+        """Count the consumer's reference as released: the export is freed
+        at the next ``ipc_collect()``, and a consumer that still opens it
+        finds the count below 1 after its copy and fails the pull."""
+        self._mm[self._at:self._at + 8] = (0).to_bytes(8, "little")
+
+
+def _b64(raw) -> str:
+    return base64.b64encode(raw or b"").decode()
+
+
+def _unb64(text: str) -> bytes:
+    return base64.b64decode(text.encode())
+
+
+class TransferManager:
+    """Per-worker pull service.
+
+    Owned by a worker and closed with it: unpulled "local" offers leave the
+    table and unpulled "ipc" exports are revoked, so their memory is freed
+    (the close-cancels-in-flight contract).  Pulls run on one daemon thread
+    so the engine thread never blocks on a copy.  ``counts`` tallies the
+    offers and the completed pulls of each route."""
+
+    def __init__(self, host: Optional[str] = None):
+        # ``host``: the engines pass their advertised host (the JAX
+        # package's transfer server binds it); CUDA IPC needs none.
+        self._lock = threading.Lock()
+        self._offers: dict = {}  # uid -> None ("local") or _IpcCounter
+        self._q: "queue.Queue" = queue.Queue()
+        self._thread = None
+        self._closed = False
+        self.counts = {"offered_local": 0, "offered_ipc": 0,
+                       "pulled_local": 0, "pulled_ipc": 0}
+
+    # -------------------------------------------------------------- sender
+    def offer(self, payload: "DevicePayload", conn, shape=None,
+              dtype=None) -> Optional[dict]:
+        """Offer ``payload`` to the receiver at the other end of ``conn``:
+        snapshot it on its card and return the descriptor, or None when
+        no route reaches that peer (the caller stages instead)."""
+        route = pull_route(getattr(conn, "cudaipc_peer", None), payload.array)
+        if route is None:
+            return None
+        t0 = time.perf_counter()
+        if route == "ipc":
+            # Exports the receivers have released go back to the allocator
+            # first, so the snapshot can reuse one of their blocks.
+            torch.cuda.ipc_collect()
+        snap = payload.snapshot().array
+        uid = next(_uids)
+        desc = {"u": uid, "n": payload.nbytes,
+                "s": list(shape if shape is not None else (payload.nbytes,)),
+                "d": str(dtype or torch.uint8).removeprefix("torch."),
+                "r": route}
+        if route == "local":
+            with _local_lock:
+                _local_offers[uid] = snap
+            counter = None
+        else:
+            (dev, handle, size, off, rc_handle, rc_off, ev_handle,
+             ev_sync) = snap.untyped_storage()._share_cuda_()
+            counter = _IpcCounter(rc_handle, rc_off)
+            if counter.get() != 1:
+                raise RuntimeError(
+                    f"CUDA IPC export: reference counter reads "
+                    f"{counter.get()}, not 1; this torch build's counters "
+                    f"file layout is not the one this plane reads")
+            desc.update(dev=int(dev), h=_b64(handle), sz=int(size),
+                        so=int(off), rh=_b64(rc_handle), ro=int(rc_off),
+                        eh=_b64(ev_handle), es=bool(ev_sync))
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("transfer manager closed")
+            self._prune()
+            self._offers[uid] = counter
+            self.counts["offered_" + route] += 1
+        _record_stage("offer", time.perf_counter() - t0, payload.nbytes,
+                      payload.scope)
+        return desc
+
+    def _prune(self) -> None:
+        """Forget offers already pulled (under the lock)."""
+        with _local_lock:
+            done = [uid for uid, c in self._offers.items()
+                    if (uid not in _local_offers if c is None
+                        else c.get() <= 0)]
+        for uid in done:
+            del self._offers[uid]
+
+    # ------------------------------------------------------------ receiver
+    def pull(self, desc: dict, device, on_done, on_fail, scope=None) -> None:
+        """Pull ``desc`` (onto ``device``; None = where the sender's tensor
+        lives), asynchronously: exactly one of the callbacks fires, on the
+        manager's thread.  ``scope`` is the receiving worker's
+        perf.StageScope (the "pull" stage)."""
+        self._submit(lambda: self._do_pull(desc, device, on_done, on_fail,
+                                           scope))
+
+    def _do_pull(self, desc: dict, device, on_done, on_fail, scope=None):
+        t0 = time.perf_counter()
+        try:
+            route = desc.get("r")
+            if route == "local":
+                with _local_lock:
+                    arr = _local_offers.pop(int(desc["u"]), None)
+                if arr is None:
+                    raise RuntimeError("the sender no longer offers this "
+                                       "payload (closed)")
+            elif route == "ipc":
+                arr = self._pull_ipc(desc, device)
+            else:
+                raise RuntimeError(f"unknown pull route {route!r}")
+        except Exception as exc:
+            logger.error("cross-process device pull failed: %s", exc)
+            on_fail(f"devpull failed: {exc}")
+            return
+        with self._lock:
+            self.counts["pulled_" + route] += 1
+        _record_stage("pull", time.perf_counter() - t0, int(desc["n"]), scope)
+        on_done(arr)
+
+    @staticmethod
+    def _pull_ipc(desc: dict, device) -> torch.Tensor:
+        """Open the exported snapshot, copy it into a tensor this process
+        owns on its side stream after the export's event, wait for the
+        copy, and release the mapping (the sender's count reaches 0)."""
+        from torch.multiprocessing.reductions import rebuild_cuda_tensor
+
+        n = int(desc["n"])
+        src_dev = torch.device("cuda", int(desc["dev"]))
+        dst_dev = device if device is not None else src_dev
+        counter = _IpcCounter(_unb64(desc["rh"]), int(desc["ro"]))
+        stream = _side_stream(dst_dev, "pull")
+        with torch.cuda.device(src_dev), torch.cuda.stream(stream):
+            src = rebuild_cuda_tensor(
+                torch.Tensor, (n,), (1,), 0, torch.UntypedStorage,
+                torch.uint8, int(desc["dev"]), _unb64(desc["h"]),
+                int(desc["sz"]), int(desc["so"]), False,
+                _unb64(desc["rh"]), int(desc["ro"]), _unb64(desc["eh"]),
+                bool(desc["es"]))
+            dst = torch.empty(n, dtype=torch.uint8, device=dst_dev)
+            dst.copy_(src, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        event.synchronize()
+        live = counter.get()
+        del src
+        if live < 1:
+            raise RuntimeError("the sender revoked the payload during the "
+                               "copy (closed)")
+        return dst
+
+    def _submit(self, thunk) -> None:
+        with self._lock:
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._run, name="starway-devpull", daemon=True)
+                self._thread.start()
+        self._q.put(thunk)
+
+    def _run(self):
+        while True:
+            thunk = self._q.get()
+            if thunk is None:
+                return
+            try:
+                thunk()
+            except Exception:
+                logger.exception("devpull completion callback failed")
+
+    def close(self) -> None:
+        """Unpulled offers die with the worker: "local" ones leave the
+        table, "ipc" ones are revoked and collected."""
+        with self._lock:
+            self._closed = True
+            offers, self._offers = self._offers, {}
+        with _local_lock:
+            for uid, counter in offers.items():
+                if counter is None:
+                    _local_offers.pop(uid, None)
+        ipc = [c for c in offers.values() if c is not None]
+        for counter in ipc:
+            if counter.get() > 0:
+                counter.revoke()
+        if ipc:
+            torch.cuda.ipc_collect()
+        self._q.put(None)
+
+
+class PulledPayload:
+    """Duck-typed payload for a pulled tensor (matcher contract): a flat
+    ``uint8`` tensor the receiver owns."""
+
+    __slots__ = ("array", "nbytes", "_host_view")
+
+    def __init__(self, array: torch.Tensor):
+        self.array = array
+        self.nbytes = array.numel() * array.element_size()
+        self._host_view = None
+
+    def as_host_view(self) -> memoryview:
+        if self._host_view is None:
+            self._host_view = memoryview(
+                _flat_bytes(self.array).cpu().numpy()).cast("B")
+        return self._host_view
+
+
+class RemoteMsg:
+    """Receiver-side handle for one DEVPULL descriptor.
+
+    Owned by the conn that received it (flush accounting) and referenced by
+    the matcher's InboundMsg (``msg.remote``).  ``start(msg)`` is invoked by
+    matcher fire thunks -- after the worker lock is released -- once the
+    message is claimed by a receive (or force-started by a FLUSH barrier).
+    """
+
+    __slots__ = ("desc", "conn", "manager", "started")
+
+    def __init__(self, desc: dict, conn, manager: TransferManager):
+        self.desc = desc
+        self.conn = conn
+        self.manager = manager
+        self.started = False
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.desc["n"])
+
+    def start(self, msg) -> None:
+        worker = self.conn.worker
+        # Start thunks can be queued from two paths concurrently (a
+        # post_recv claim and a FLUSH force-start): the check-and-set must
+        # be atomic or the uid gets pulled twice.
+        with worker.lock:
+            if self.started:
+                return
+            self.started = True
+            pr = msg.posted
+        device = None
+        if pr is not None and isinstance(pr.buf, DeviceRecvSink):
+            device = pr.buf.devbuf.device
+        self.manager.pull(
+            self.desc, device,
+            lambda arr, m=msg: worker._on_pull_done(m, PulledPayload(arr), None),
+            lambda err, m=msg: worker._on_pull_done(m, None, err),
+            getattr(worker, "stage_scope", None),
+        )
+
+
+def send_device(worker, conn, buffer, tag, done, fail):
+    """Route a device payload: a snapshot handed over in-process, a pull
+    when the peer negotiated one and a route reaches it, host staging
+    otherwise."""
+    from . import config
+
+    src = buffer.array if isinstance(buffer, DeviceBuffer) else buffer
+    payload = DevicePayload(src)
     payload.scope = getattr(worker, "stage_scope", None)
     if conn is not None and conn.kind == "inproc":
         worker.submit_send(conn, payload.snapshot(), tag, done, fail, payload)
         return
+    if (conn is not None and getattr(conn, "devpull_ok", False)
+            and payload.nbytes >= config.devpull_threshold()):
+        mgr = worker.transfer_manager()
+        desc = (mgr.offer(payload, conn, src.shape, src.dtype)
+                if mgr is not None else None)
+        if desc is not None:
+            worker.submit_devpull(conn, desc, tag, done, fail, payload)
+            return
     # A session conn's replay journal must OWN every eager frame's bytes
     # past local completion (core/conn.py sess_wrap snapshots flat host
     # views), but a chunked payload is re-staged lazily from the device

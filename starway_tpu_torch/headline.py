@@ -1,6 +1,6 @@
 """Headline: a 1 MiB device-buffer pingpong through asend/arecv.
 
-    python -m starway_tpu_torch.headline
+    python -m starway_tpu_torch.headline [--device cpu]
 
 The twin of the JAX package's root ``bench.py``: the pingpong bandwidth of a
 1 MiB payload moved through the framework's ``asend``/``arecv`` path,
@@ -10,9 +10,12 @@ north-star target (>= 90% of the raw link bandwidth on a 1 MiB pingpong)
 is met.  It prints one JSON line with bench.py's keys.
 
 With two cards the pingpong crosses them (``cuda:0`` <-> ``cuda:1``); with
-one it is a host <-> ``cuda:0`` round trip; with none it runs on CPU
-tensors and says ``"fallback": true``.  The raw copy is ``Tensor.to(dst)``
-followed by ``torch.cuda.synchronize()``.
+one it is a host <-> ``cuda:0`` round trip.  Without a card it refuses to
+run (exit code 2, no result) unless the caller asks for the CPU
+(``--device cpu`` or ``STARWAY_BENCH_CPU=1``, as the JAX package's root
+``bench.py`` reads it): then it runs on CPU tensors and says
+``"fallback": true``.  The raw copy is ``Tensor.to(dst)`` followed by
+``torch.cuda.synchronize()``.
 
 Framework and raw iterations are interleaved (one of each per pass):
 allocator and cache state drift between separate phases, so measuring
@@ -22,10 +25,12 @@ than the phase.
 
 from __future__ import annotations
 
+import argparse
 import asyncio
 import json
 import os
 import statistics
+import sys
 import time
 
 import numpy as np
@@ -36,6 +41,8 @@ WARMUP = 10
 ITERS = 50
 MASK = (1 << 64) - 1
 PING, PONG = 0x51, 0x52
+NO_CARD = ("headline: no CUDA device; pass --device cpu (or "
+           "STARWAY_BENCH_CPU=1) to run on CPU tensors")
 
 
 async def connect_pair():
@@ -151,20 +158,11 @@ def summary(fw: list, raw: list, nbytes: int) -> dict:
     }
 
 
-def active_levers() -> list:
-    """The native engine's opt-in hot-path levers armed for this process
-    by env, so a result row is self-describing."""
-    levers = []
-    if os.environ.get("STARWAY_IOURING") == "1":
-        levers.append("uring")
-    if os.environ.get("STARWAY_ZEROCOPY") == "1":
-        levers.append("zerocopy")
-    try:
-        if int(os.environ.get("STARWAY_BUSYPOLL_US", "0")) > 0:
-            levers.append(f"busypoll:{int(os.environ['STARWAY_BUSYPOLL_US'])}")
-    except ValueError:
-        pass
-    return levers
+def cpu_requested(device: str | None = None) -> bool:
+    """Whether the caller asked for CPU tensors: ``device == "cpu"`` (the
+    ``--device cpu`` flag of this module and of the bench CLI) or
+    ``STARWAY_BENCH_CPU=1``."""
+    return device == "cpu" or os.environ.get("STARWAY_BENCH_CPU") == "1"
 
 
 def stage_summary() -> str:
@@ -181,14 +179,18 @@ def stage_summary() -> str:
     return ",".join(parts) if parts else "none"
 
 
-async def run() -> dict:
-    """The headline pingpong on the devices at hand; returns the JSON
-    object ``main`` prints."""
+async def run(device: str = "cuda") -> dict:
+    """The headline pingpong on the cards at hand, or on CPU tensors when
+    :func:`cpu_requested`; returns the JSON object ``main`` prints."""
     from . import perf
+    from .bench import active_levers
     from .core import swtrace
 
-    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    fallback = n_cards == 0
+    fallback = cpu_requested(device)
+    n_cards = 0 if fallback else (
+        torch.cuda.device_count() if torch.cuda.is_available() else 0)
+    if not fallback and n_cards == 0:
+        raise RuntimeError(NO_CARD)
     if n_cards >= 2:
         src, dst, host = torch.device("cuda:0"), torch.device("cuda:1"), False
     else:
@@ -214,7 +216,7 @@ async def run() -> dict:
                   f"{s['fw_p50_us']:.0f}/"
                   f"{perf.percentile(fw_sorted, 90) * 1e6:.0f}us "
                   f"stages={stage_summary()}"
-                  f"{'; CPU FALLBACK: no CUDA device' if fallback else ''})",
+                  f"{'; on CPU tensors, as asked' if fallback else ''})",
         "value": round(s["fw_gbps"], 3),
         "unit": "GB/s",
         "vs_baseline": round(s["vs_baseline"], 3),
@@ -224,9 +226,21 @@ async def run() -> dict:
     }
 
 
-def main() -> None:
-    print(json.dumps(asyncio.run(run())), flush=True)
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m starway_tpu_torch.headline",
+        description="1 MiB tensor pingpong through asend/arecv against the "
+                    "raw copy; prints one JSON line.")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda (default; refused without a card) or, only "
+                        "when asked, cpu (also STARWAY_BENCH_CPU=1)")
+    args = p.parse_args(argv)
+    if not cpu_requested(args.device) and not torch.cuda.is_available():
+        print(NO_CARD, file=sys.stderr)
+        return 2
+    print(json.dumps(asyncio.run(run(args.device))), flush=True)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

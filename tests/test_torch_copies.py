@@ -2,7 +2,10 @@
 
 ``starway_tpu_torch`` keeps its own copy of every module of the JAX
 package's transport that imports no JAX (``errors``, ``config``, ``perf``,
-``api`` and all of ``core/``).  Each equals its original after the package
+``api`` and all of ``core/``), of its bench CLI and scenarios (``bench``,
+``benchmarks/``, whose device payloads become tensors), of its telemetry
+viewer and trace export (``metrics``, ``trace``) and of the reshard
+planner and executor (``reshard/`` but ``api.py``, which imports JAX).  Each equals its original after the package
 rename, except in the named edits below, so the proofs that the JAX
 package's analysis gate makes of the originals (it scans ``starway_tpu/``
 only) hold for the copies too.  The rename leaves references to the gate
@@ -82,6 +85,164 @@ EDITS = {
          '        device-plane (torch.Tensor) sends have their own transfer\n'
          '        lifecycle (device.py)."""\n'),
     ],
+    'core/engine.py': [
+        (# core/engine.py:404-412
+         '    def transfer_manager(self):\n'
+         '        """The worker\'s TransferManager, created on first use (None when\n'
+         '        the PJRT transfer API is unavailable)."""\n'
+         '        from .. import device as _device\n'
+         '\n'
+         '        with self.lock:\n'
+         '            if self._xfer_mgr is None:\n'
+         '                if not _device.devpull_supported():\n'
+         '                    return None\n',
+         '    def transfer_manager(self):\n'
+         '        """The worker\'s TransferManager, created on first use (None when\n'
+         '        the pull is disabled)."""\n'
+         '        from .. import device as _device\n'
+         '\n'
+         '        with self.lock:\n'
+         '            if self._xfer_mgr is None:\n'
+         '                if _device.cudaipc_identity() is None:\n'
+         '                    return None\n'),
+        (# core/engine.py:1352-1354
+         '            if _device.devpull_supported():\n'
+         '                extra["devpull"] = "ok"\n'
+         '            sock = socket.create_connection((addr, port), timeout=connect_timeout)\n',
+         '            if _device.devpull_supported():\n'
+         '                extra["devpull"] = "ok"\n'
+         '            if _device.cudaipc_identity() is not None:\n'
+         "                # The port's own pull (device.py): a key JAX peers and the\n"
+         '                # C++ engine ignore, so they never see its descriptors.\n'
+         '                extra["cudaipc"] = _device.cudaipc_identity()\n'
+         '            sock = socket.create_connection((addr, port), timeout=connect_timeout)\n'),
+        (# core/engine.py:1370-1370
+         '        conn.devpull_ok = ack.get("devpull") == "ok"\n',
+         '        peer_ipc = ack.get("cudaipc") if "cudaipc" in extra else None\n'
+         '        conn.cudaipc_peer = peer_ipc if isinstance(peer_ipc, str) else None\n'
+         '        conn.devpull_ok = (ack.get("devpull") == "ok"\n'
+         '                           or conn.cudaipc_peer is not None)\n'),
+        (# core/engine.py:1543-1545
+         '        if _device.devpull_supported():\n'
+         '            extra["devpull"] = "ok"\n'
+         '        mode = self._connect_target[0] if self._connect_target else "socket"\n',
+         '        if _device.devpull_supported():\n'
+         '            extra["devpull"] = "ok"\n'
+         '        if _device.cudaipc_identity() is not None:\n'
+         '            extra["cudaipc"] = _device.cudaipc_identity()\n'
+         '        mode = self._connect_target[0] if self._connect_target else "socket"\n'),
+        (# core/engine.py:1754-1756
+         '        if info.get("devpull") == "ok" and _device.devpull_supported():\n'
+         '            conn.devpull_ok = True\n'
+         '            ack_extra["devpull"] = "ok"\n',
+         '        if info.get("devpull") == "ok" and _device.devpull_supported():\n'
+         '            conn.devpull_ok = True\n'
+         '            ack_extra["devpull"] = "ok"\n'
+         '        if (isinstance(info.get("cudaipc"), str)\n'
+         '                and _device.cudaipc_identity() is not None):\n'
+         '            conn.cudaipc_peer = info["cudaipc"]\n'
+         '            conn.devpull_ok = True\n'
+         '            ack_extra["cudaipc"] = _device.cudaipc_identity()\n'),
+        (# core/engine.py:1834-1835
+         '            if existing.devpull_ok:\n'
+         '                ack_extra["devpull"] = "ok"\n',
+         '            if existing.devpull_ok and existing.cudaipc_peer is None:\n'
+         '                ack_extra["devpull"] = "ok"\n'),
+    ],
+    'core/conn.py': [
+        (# core/conn.py:509-510
+         '        self.devpull_ok = False\n'
+         '        self._remote_msgs: set = set()\n',
+         '        self.devpull_ok = False\n'
+         '        # The peer\'s "cudaipc" value (device.py) when the port\'s own pull\n'
+         '        # was negotiated instead; None otherwise.\n'
+         '        self.cudaipc_peer = None\n'
+         '        self._remote_msgs: set = set()\n'),
+    ],
+    'benchmarks/scenarios.py': [
+        (# benchmarks/scenarios.py:13-15
+         'scenario a class with ``run_client`` / ``run_server`` coroutines; payloads may\n'
+         'be host numpy arrays (default) or device jax.Arrays (``payload="device"``),\n'
+         'which is the TPU-native headline path.\n',
+         'scenario a class with ``run_client`` / ``run_server`` coroutines; payloads may\n'
+         'be host numpy arrays (default) or ``torch.uint8`` tensors on the card\n'
+         '(``payload="device"``, on :data:`PAYLOAD_DEVICE`), the device plane\'s path.\n'),
+        (# benchmarks/scenarios.py:84-98
+         'def _make_payload(size: int, fill: int, kind: str):\n'
+         '    """Host numpy buffer or a device jax.Array (the TPU-native path)."""\n'
+         '    if kind == "device":\n'
+         '        import jax.numpy as jnp\n'
+         '\n'
+         '        return jnp.full((size,), fill % 256, dtype=jnp.uint8)\n'
+         '    return np.full(size, fill % 256, dtype=np.uint8)\n'
+         '\n'
+         '\n'
+         'def _make_sink(size: int, kind: str):\n'
+         '    if kind == "device":\n'
+         '        from ..device import DeviceBuffer\n'
+         '\n'
+         '        return DeviceBuffer((size,), np.uint8)\n'
+         '    return np.empty(size, dtype=np.uint8)\n',
+         '#: Where ``payload="device"`` buffers live: ``cuda:0``, or the CPU only when\n'
+         '#: the caller asks for it (``python -m starway_tpu_torch.bench --device cpu``).\n'
+         'PAYLOAD_DEVICE = "cuda:0"\n'
+         '\n'
+         '\n'
+         'def _make_payload(size: int, fill: int, kind: str):\n'
+         '    """Host numpy buffer or a torch.uint8 tensor on PAYLOAD_DEVICE."""\n'
+         '    if kind == "device":\n'
+         '        import torch\n'
+         '\n'
+         '        return torch.full((size,), fill % 256, dtype=torch.uint8,\n'
+         '                          device=PAYLOAD_DEVICE)\n'
+         '    return np.full(size, fill % 256, dtype=np.uint8)\n'
+         '\n'
+         '\n'
+         'def _make_sink(size: int, kind: str):\n'
+         '    if kind == "device":\n'
+         '        from ..device import DeviceBuffer\n'
+         '\n'
+         '        return DeviceBuffer((size,), np.uint8, device=PAYLOAD_DEVICE)\n'
+         '    return np.empty(size, dtype=np.uint8)\n'),
+        (# benchmarks/scenarios.py:527-528
+         '    holding at full bandwidth.  Host numpy path: the schedule machinery\n'
+         '    itself is jax-free; jax arrays enter via reshard.redistribute()."""\n',
+         '    holding at full bandwidth.  Host numpy path: the schedule machinery\n'
+         '    itself imports no array library."""\n'),
+    ],
+    'bench.py': [
+        (# bench.py:71-72
+         '        help="Buffer kind for large-array/streaming-duplex: host numpy (default) or jax.Array device buffers.",\n'
+         '    )\n',
+         '        help="Buffer kind for large-array/streaming-duplex: host numpy (default) or torch.uint8 tensors on the card.",\n'
+         '    )\n'
+         '    p.add_argument(\n'
+         '        "--device", choices=("cuda", "cpu"), default="cuda",\n'
+         '        help="Where device payloads live: cuda:0 (default; refused without "\n'
+         '             "a card) or, only when asked, the CPU (also STARWAY_BENCH_CPU=1).",\n'
+         '    )\n'),
+        (# bench.py:553-559
+         '    if getattr(args, "payload", None) == "device":\n'
+         '        # devpull is only advertised in the handshake once the jax backend\n'
+         '        # is up (the handshake never initialises one); device-payload runs\n'
+         '        # should measure the pull path, so bring it up before connecting.\n'
+         '        import jax\n'
+         '\n'
+         '        jax.devices()\n',
+         '    from .benchmarks import scenarios\n'
+         '    from .headline import cpu_requested\n'
+         '\n'
+         '    if cpu_requested(args.device):\n'
+         '        scenarios.PAYLOAD_DEVICE = "cpu"\n'
+         '    elif getattr(args, "payload", None) == "device":\n'
+         '        import torch\n'
+         '\n'
+         '        if not torch.cuda.is_available():\n'
+         '            print("bench: --payload device needs a CUDA device; pass "\n'
+         '                  "--device cpu (or STARWAY_BENCH_CPU=1) to run on CPU "\n'
+         '                  "tensors", file=sys.stderr)\n'
+         '            return 2\n'),
+    ],
     'core/endpoint.py': [
         (# core/endpoint.py:45-45
          '        or ``[("lo", "tcp")]``; the device plane reports ``("tpu:N", "ici")``.\n',
@@ -90,7 +251,11 @@ EDITS = {
 }
 
 COPIES = ["errors.py", "config.py", "perf.py", "api.py"] + [
-    f"core/{name}" for name in CORE]
+    f"core/{name}" for name in CORE] + [
+    "bench.py", "metrics.py", "trace.py", "benchmarks/__init__.py",
+    "benchmarks/scenarios.py"] + [
+    f"reshard/{name}" for name in ("__init__.py", "plan.py", "tags.py",
+                                   "executor.py")]
 
 
 def _expected(rel: str) -> str:

@@ -49,6 +49,9 @@ async def _pair(port):
 
 def _force_tcp(monkeypatch, *, native: bool, chunk: int | None = None):
     monkeypatch.setenv("STARWAY_TLS", "tcp")
+    # exercise the framed stream, as tests/test_dataplane.py does: a pull
+    # (tests/test_torch_devpull.py) would carry the payload instead
+    monkeypatch.setenv("STARWAY_DEVPULL", "0")
     monkeypatch.setenv("STARWAY_NATIVE", "1" if native else "0")
     if chunk is not None:
         monkeypatch.setenv("STARWAY_CHUNK", str(chunk))

@@ -122,3 +122,29 @@ def test_scan_covers_the_transport():
             "starway_tpu_torch/native_build.py",
             "starway_tpu_torch/core/engine.py",
             "starway_tpu_torch/core/native.py"} <= scanned
+
+
+def test_bench_and_tools_import_keeps_jax_out_of_the_process():
+    code = ("import sys, starway_tpu_torch.bench, "
+            "starway_tpu_torch.benchmarks.scenarios, "
+            "starway_tpu_torch.reshard, starway_tpu_torch.metrics, "
+            "starway_tpu_torch.trace\n"
+            "starway_tpu_torch.bench.build_parser()\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_scan_covers_the_bench_and_tools():
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {"starway_tpu_torch/bench.py", "starway_tpu_torch/metrics.py",
+            "starway_tpu_torch/trace.py",
+            "starway_tpu_torch/benchmarks/__init__.py",
+            "starway_tpu_torch/benchmarks/scenarios.py",
+            "starway_tpu_torch/reshard/__init__.py",
+            "starway_tpu_torch/reshard/plan.py",
+            "starway_tpu_torch/reshard/tags.py",
+            "starway_tpu_torch/reshard/executor.py"} <= scanned

@@ -5,8 +5,9 @@ The two packages keep separate host runtimes (the port has its own copy of
 a JAX ``Client`` meets a port ``Server`` only over a real transport: tcp or
 the sm rings negotiated over it.  Held exactly: the bytes, ``(sender_tag,
 length)`` and the failure reasons, on both engines and in both directions;
-``devpull`` is never negotiated with a port peer, so a JAX device payload
-reaches it as staged frames.  Following tests/test_sm.py's engine interop,
+neither the JAX package's ``devpull`` nor the port's own ``cudaipc`` is
+negotiated between the packages, so device payloads cross as staged
+frames.  Following tests/test_sm.py's engine interop,
 one set of cases also crosses a real process boundary."""
 
 import asyncio
@@ -133,6 +134,45 @@ async def test_bytes_and_tags_cross_packages(port, monkeypatch, wire,
                 assert _sink_bytes(recv_pkg, sink) == data.tobytes()
                 assert sink.last_transport == "staged"
                 tag += 1
+    finally:
+        await client.aclose()
+        await server.aclose()
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["py", "native"])
+@pytest.mark.parametrize("server_pkg, client_pkg",
+                         [("port", "jax"), ("jax", "port")])
+async def test_no_pull_is_negotiated_across_packages(port, monkeypatch,
+                                                     server_pkg, client_pkg,
+                                                     native):
+    """The JAX peer, its backend up, offers "devpull"; the port's Python
+    engine offers its own "cudaipc".  Between the packages neither is
+    acknowledged, on either engine, so device payloads above
+    STARWAY_DEVPULL_MIN ride staged frames both ways: the same bytes and
+    (tag, length) as ever."""
+    monkeypatch.setenv("STARWAY_TLS", "tcp")
+    jnp.zeros(1).block_until_ready()
+    assert starway_tpu.device.devpull_supported()
+    assert starway_tpu_torch.device.cudaipc_identity() is not None
+    server, client, ep = await _pair(monkeypatch, port, server_pkg,
+                                     client_pkg, native, native)
+    try:
+        for conn in (client._client.primary_conn, ep._conn):
+            assert not conn.devpull_ok
+            assert getattr(conn, "cudaipc_peer", None) is None
+        rng = np.random.default_rng(11 + native)
+        for tag, nbytes in ((0x300, 1 << 20), (0x301, (4 << 20) + 5)):
+            data = rng.integers(0, 256, nbytes, dtype=np.uint8)
+            for sender, send, recv_pkg, recv in (
+                    (client_pkg, client.asend, server_pkg, server.arecv),
+                    (server_pkg, lambda b, t: server.asend(ep, b, t),
+                     client_pkg, client.arecv)):
+                sink = _sink(recv_pkg, (nbytes,), np.uint8)
+                fut = recv(sink, tag, MASK)
+                await send(_payload(sender, data), tag)
+                assert await fut == (tag, nbytes)
+                assert _sink_bytes(recv_pkg, sink) == data.tobytes()
+                assert sink.last_transport == "staged"
     finally:
         await client.aclose()
         await server.aclose()

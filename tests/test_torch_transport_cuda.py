@@ -46,6 +46,9 @@ def transport(request, monkeypatch):
     monkeypatch.setenv("STARWAY_TLS", tls)
     monkeypatch.setenv("STARWAY_NATIVE",
                        "1" if request.param == "native" else "0")
+    # the staged device plane: the pull between two workers of one process
+    # is held by tests/test_torch_devpull_cuda.py
+    monkeypatch.setenv("STARWAY_DEVPULL", "0")
     return request.param
 
 
@@ -188,6 +191,7 @@ async def test_pinned_staging_recycles_after_its_copies(port, dev,
     completes only then) the next receive of the size reuses it."""
     monkeypatch.setenv("STARWAY_TLS", "tcp")
     monkeypatch.setenv("STARWAY_NATIVE", "0")
+    monkeypatch.setenv("STARWAY_DEVPULL", "0")  # the staged path
     pool = device._StagingPool()
     monkeypatch.setattr(device, "_staging_pool", pool)
     server, client, _ep = await _pair(port)
