@@ -38,7 +38,7 @@ Phases, each of which raises on failure:
               by CUDA events around one call), the decode step's q, k, v
               projections as one chain, and the rows' sums over one
               decode step and phase 4's 12 admissions (a model: the
-              decode step's is measured in phase 6)
+              decode step's is measured in phase 7)
 4. serve   -- SlotServer on llama3-8b widths (bf16, 32 layers, random
               weights): 12 requests through 8 slots; the 12 admissions
               again (budgets of one token) under torch.profiler, for the
@@ -51,25 +51,39 @@ Phases, each of which raises on failure:
               prefixed admission; first-token logits of a prefixed request
               against a forward of prefix + suffix through the plain
               attention
-6. int8    -- phase 4 again with an int8 KV cache and W8A16 weights; the
+6. remote-serve -- phase 4's model served over the transport:
+              RemoteSlotServer over a SlotServer (n_slots 8, max_len 2048,
+              chunk 8) in this process, listening on tcp; a spawned client
+              process (RemoteGenerateSession) sends phase 4's 12 requests
+              concurrently and a 13th that it cancels after its first
+              chunk.  Every stream ends done with its budget of tokens, the
+              cancelled one aborted with its slot free again, the decode
+              and flash kernels launch, no failed send or fallback is
+              logged; tokens/s over the bridge beside phase 4's, the
+              client's time to first token, and how many streams equal
+              phase 4's (bf16 slot placement may differ) are logged
+7. int8    -- phase 4 again with an int8 KV cache and W8A16 weights; the
               GEMV launches in both regimes (decode and prefill), and its
-              device ms in the traced chunk is logged.  Phases 4-6 log
-              admission seconds (wall - the decode chunks) and the
+              device ms in the traced chunk is logged.  Phases 4, 5 and 7
+              log admission seconds (wall - the decode chunks) and the
               decode-attention kernels' device ms in the traced chunk
-7. parity  -- float32, 2 layers at the same widths: SlotServer's greedy
+8. parity  -- float32, 2 layers at the same widths: SlotServer's greedy
               tokens equal generate()'s for every request
-8. paged-parity -- the same weights: PagedSlotServer without and with a
+9. paged-parity -- the same weights: PagedSlotServer without and with a
               registered prefix, and SlotServer with it, give the greedy
               tokens of generate(prefix + suffix)
-9. train   -- Trainer + adamw on llama3-8b widths cut to 4 layers (bf16,
+10. remote-parity -- the same weights behind the bridge, an in-process
+              client over tcp: every stream as the client receives it
+              equals generate()'s tokens
+11. train  -- Trainer + adamw on llama3-8b widths cut to 4 layers (bf16,
               remat "dots"), 6 steps on one [2, 2049] batch: loss per
               step, median step ms, tokens/s, model FLOP share, one step
               traced for the device-busy share and the top kernels
-10. train-parity -- float32, 2 layers, [1, 513]: loss and every gradient of
+12. train-parity -- float32, 2 layers, [1, 513]: loss and every gradient of
               one step through the kernels against the same step through
               the plain attention; the flash forward and each backward
               pass launch once per layer
-11. train-ring -- the Trainer with sequence-parallel ring attention
+13. train-ring -- the Trainer with sequence-parallel ring attention
               (make_sharded_attn on make_mesh({"sp": 4}): four shards of
               1024 tokens in this process) at llama3-8b widths cut to 4
               layers, bf16, remat "dots", one [1, 4097] batch: 6 steps
@@ -80,9 +94,9 @@ Phases, each of which raises on failure:
               kernel's device ms in the traced step; the ring-step kernels
               launch exactly n^2 (zigzag 2 n^2 + n) times a layer, forward
               and backward
-12. train-ring-parity -- float32, 2 layers, [1, 513], sp = 4: ring and
+14. train-ring-parity -- float32, 2 layers, [1, 513], sp = 4: ring and
               zigzag through the kernels against the plain attention
-13. transport -- Server/Client asend/arecv on CUDA tensors: the 1 MiB
+15. transport -- Server/Client asend/arecv on CUDA tensors: the 1 MiB
               headline pingpong (starway_tpu_torch/headline.py, host <->
               cuda:0); on each transport (inproc, tcp, sm, native,
               native-sm) a cuda:0 <-> cuda:0 and a host <-> cuda:0
@@ -102,13 +116,29 @@ Phases, each of which raises on failure:
               close with an unpulled offer; the bench CLI (python -m
               starway_tpu_torch.bench) in loopback over every scenario and
               as a server and a client process, with device payloads, its
-              JSON reports logged.  Every received tensor must equal what
+              JSON reports logged; a 1 MiB round trip over tcp, staged and
+              pulled, under STARWAY_MONITOR=1 (no protocol violation, the
+              data arm witnessed).  Every received tensor must equal what
               was sent, in the same memory, and no fallback or failed
               pull may be logged
-14. a JSON line of the kernels with their launches on the serving paths
-   (phases 4, 5 and 6) and the training paths (phases 9 and 11) and the
+16. dp     -- two training ranks, each a spawned process on the card
+              (rank 0 a Server with a ServerPort, rank 1 a Client with a
+              ClientPort, tcp, the CUDA IPC pull for every leaf): Trainer +
+              adamw at llama3-8b widths cut to 2 layers, bf16, remat
+              "dots", one [1, 2049] batch a rank from its own seed, 3
+              step_dp steps; after every step both ranks' parameters are
+              bit-for-bit equal (a checksum of each leaf's bytes), every
+              loss is finite, every leaf lands on the card by one IPC pull
+              a side, the exchange's memory is released; then float32, 2
+              layers, [1, 513], one step, against one in-process step on
+              both ranks' averaged gradients (1e-5 of each leaf's largest
+              value).  Step ms, the dp_exchange span and its GB/s, the
+              grad and apply spans, each rank's peak memory and launches
+              are logged
+17. a JSON line of the kernels with their launches on the serving paths
+   (phases 4-7) and the training paths (phases 11, 13 and 16) and the
    numbers of phase 3
-15. the last line: {"ok": true, "device": {...}}
+18. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -116,12 +146,14 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -1330,7 +1362,7 @@ def phase_paged(params, cfg):
 
 
 def phase_paged_parity(params, cfg):
-    """Phase 8: float32, 2 layers, full widths.  PagedSlotServer without
+    """Phase 9: float32, 2 layers, full widths.  PagedSlotServer without
     and with a registered prefix, and SlotServer with it: greedy tokens
     equal generate(prefix + suffix) for every request."""
     import torch
@@ -1506,7 +1538,7 @@ def train_stats(cfg, trainer, losses, step_ms, traced, b: int, s_len: int,
 
 
 def phase_train(dev):
-    """Phase 9: Trainer + adamw, llama3-8b widths cut to 4 layers, bf16,
+    """Phase 11: Trainer + adamw, llama3-8b widths cut to 4 layers, bf16,
     remat "dots", 6 steps on one batch.  Returns (stats, launches)."""
     import torch
 
@@ -1538,7 +1570,7 @@ def phase_train(dev):
 
 
 def phase_train_parity(dev):
-    """Phase 8: one float32 step at llama3-8b widths, 2 layers, through
+    """Phase 12: one float32 step at llama3-8b widths, 2 layers, through
     the kernels against the same step through the plain attention."""
     import torch
 
@@ -1640,7 +1672,7 @@ def ring_attention_check(mesh, dev, s_len: int = 4096) -> dict:
 
 
 def phase_train_ring(dev):
-    """Phase 11: the Trainer with ring attention over make_mesh({"sp": 4})
+    """Phase 13: the Trainer with ring attention over make_mesh({"sp": 4})
     on this card, ring then zigzag, then the flash attention on the same
     batch as the yardstick; each run from the same initial weights, freed
     before the next.  Returns (stats by run, launches summed over the
@@ -1722,7 +1754,7 @@ def phase_train_ring(dev):
 
 
 def phase_train_ring_parity(dev):
-    """Phase 12: one float32 step, llama3-8b widths, 2 layers, [1, 513],
+    """Phase 14: one float32 step, llama3-8b widths, 2 layers, [1, 513],
     sp = 4: ring and zigzag through the kernels against the same step
     through the plain attention."""
     import torch
@@ -2453,8 +2485,9 @@ def phase_transport(dev, card: str) -> dict:
     transport (the staged device plane), the 256 MiB throughput, the
     cross-process pingpong on both engines, the cross-process sweep (the
     CUDA IPC pull against staged frames and the C++ engine), the pull's
-    lifecycle and the bench CLI; fails if a check fails or a fallback
-    warning or a failed pull was logged."""
+    lifecycle, a round trip under the protocol monitor and the bench CLI;
+    fails if a check fails or a fallback warning or a failed pull was
+    logged."""
     import asyncio
     import logging
     import os
@@ -2526,6 +2559,7 @@ def phase_transport(dev, card: str) -> dict:
                 f"{res['echo_stages']}")
         st["devpull-lifecycle"] = asyncio.run(devpull_lifecycle(dev))
         log(f"[transport] pull lifecycle {st['devpull-lifecycle']}")
+        st["monitor"] = monitor_check(dev)
         t_bench = time.perf_counter()
         reports = bench_cli_runs()
         for name, report in reports.items():
@@ -2548,6 +2582,699 @@ def phase_transport(dev, card: str) -> dict:
     log(f"[transport] done in {time.perf_counter() - t0:.1f} s on {card}; "
         f"warnings {warnings}")
     return st
+
+
+# ------------------------------------------------ the model over the transport
+
+
+@contextlib.contextmanager
+def port_warnings():
+    """Collects the WARNING and ERROR messages of the port's loggers (the
+    transport's and remote serving's) while inside."""
+    import logging
+
+    records = []
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                records.append(record.getMessage())
+
+    handler = Handler()
+    loggers = [logging.getLogger(name)
+               for name in ("starway_tpu_torch", "starway.serve_remote")]
+    for lg in loggers:
+        lg.addHandler(handler)
+    try:
+        yield records
+    finally:
+        for lg in loggers:
+            lg.removeHandler(handler)
+
+
+def failures(records) -> list:
+    """The failed sends and fallbacks among logged warnings."""
+    return [w for w in records if "fail" in w or "falling back" in w]
+
+
+def cancel_request(cfg):
+    """The remote-serve phase's 13th request, cancelled after its first
+    chunk: a 300-token prompt with a budget of 64."""
+    rng = np.random.default_rng(SEED + 11)
+    return rng.integers(1, cfg.vocab_size, 300).tolist(), 64
+
+
+def remote_client_child(port: int, reqs: list, doomed, q, close_ok) -> None:
+    """Spawned client of the remote-serve phase (imports only the port):
+    one RemoteGenerateSession over tcp sends every request of ``reqs``
+    ((tokens, budget) pairs) and ``doomed`` concurrently, cancels
+    ``doomed`` after its first chunk, and reports each stream's tokens and
+    time to first token, the wall time of the 12, and how the cancelled
+    stream ended; it closes its session once ``close_ok`` is set."""
+    import asyncio
+    import os
+
+    os.environ["STARWAY_TLS"] = "tcp"
+    os.environ["STARWAY_NATIVE"] = "0"
+
+    async def run():
+        from starway_tpu_torch.models.remote_serving import \
+            RemoteGenerateSession
+
+        session = None
+        for _ in range(240):  # connect-once clients: a fresh one a try
+            try:
+                session = await RemoteGenerateSession.aconnect("127.0.0.1",
+                                                               port)
+                break
+            except Exception:  # noqa: BLE001
+                await asyncio.sleep(0.25)
+        if session is None:
+            raise RuntimeError("could not reach the serving process")
+        t0 = time.perf_counter()
+        ttft = {}
+
+        async def one(i, prompt, budget):
+            sent = time.perf_counter()
+
+            def first(_chunk):
+                ttft.setdefault(i, time.perf_counter() - sent)
+
+            toks = await session.generate(prompt, budget, on_tokens=first)
+            return toks.tolist(), time.perf_counter() - t0
+
+        async def cancelled(prompt, budget):
+            handle = RemoteGenerateSession.Handle()
+            got, first = [], asyncio.Event()
+
+            def chunk(c):
+                got.extend(c)
+                first.set()
+
+            task = asyncio.create_task(session.generate(
+                prompt, budget, handle=handle, on_tokens=chunk))
+            await first.wait()
+            await session.cancel(handle)
+            try:
+                await task
+                return {"status": 1, "tokens": len(got)}
+            except ValueError as e:
+                return {"status": 2 if "cancelled" in str(e) else str(e),
+                        "tokens": len(got), "budget": budget}
+
+        try:
+            *streams, doomed_out = await asyncio.gather(
+                *(one(i, p, m) for i, (p, m) in enumerate(reqs)),
+                cancelled(*doomed))
+            q.put({"streams": [s[0] for s in streams],
+                   "wall_s": max(s[1] for s in streams),
+                   "ttft_s": [ttft.get(i) for i in range(len(reqs))],
+                   "cancelled": doomed_out})
+        finally:
+            await asyncio.get_running_loop().run_in_executor(
+                None, close_ok.wait, 300)
+            await session.aclose()
+
+    try:
+        asyncio.run(run())
+    except Exception as e:  # noqa: BLE001 - the parent reports it
+        q.put(f"client failed: {e!r}")
+
+
+async def serve_remote(params, cfg, client, *, n_slots=8, max_len=2048,
+                       chunk=8) -> tuple:
+    """A RemoteSlotServer over a SlotServer on ``params``, listening on tcp
+    127.0.0.1, until ``client(port)`` -- a coroutine function of the port
+    returning ``(result, close)`` -- returns; ``close()`` (a coroutine
+    function) runs once the bridge has served and flushed everything, so
+    the client stays connected until its final chunks are delivered.
+    Returns (result, the SlotServer, serve seconds)."""
+    import asyncio
+
+    from starway_tpu_torch.models import SlotServer
+    from starway_tpu_torch.models.remote_serving import RemoteSlotServer
+
+    port = free_port()
+    slot = SlotServer(params, cfg, n_slots=n_slots, max_len=max_len,
+                      chunk=chunk, seed=SEED)
+    bridge = RemoteSlotServer(slot)
+    bridge.server.listen("127.0.0.1", port)
+    serve_task = asyncio.get_running_loop().create_task(bridge.serve())
+    t0 = time.perf_counter()
+    close = None
+    try:
+        result, close = await client(port)
+    finally:
+        bridge.stop()
+        await serve_task
+        serve_s = time.perf_counter() - t0
+        if close is not None:
+            await close()
+        await bridge.aclose()
+    return result, slot, serve_s
+
+
+def phase_remote_serve(params, cfg, reqs, done4, st4, card) -> tuple:
+    """Phase 6: phase 4's model served over the transport.  A
+    RemoteSlotServer over a SlotServer (n_slots 8, max_len 2048, chunk 8)
+    in this process, on tcp; a spawned client process sends phase 4's 12
+    requests and a 13th, cancelled after its first chunk.  Returns
+    (stats, launches)."""
+    import asyncio
+    import multiprocessing as mp
+    import os
+
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    doomed = cancel_request(cfg)
+    wire_reqs = [(p, m) for p, m, _w in reqs]
+    log(f"[remote-serve] RemoteSlotServer over SlotServer (n_slots=8 "
+        f"max_len=2048 chunk=8) on tcp 127.0.0.1, Python engine; a spawned "
+        f"client sends phase 4's {len(reqs)} requests and a 13th "
+        f"({len(doomed[0])} tokens, budget {doomed[1]}) cancelled after its "
+        f"first chunk")
+    ctx = mp.get_context("spawn")
+    q, close_ok = ctx.Queue(), ctx.Event()
+
+    async def client(port):
+        child = ctx.Process(target=remote_client_child,
+                            args=(port, wire_reqs, doomed, q, close_ok))
+        child.start()
+
+        async def close():
+            close_ok.set()
+            await asyncio.get_running_loop().run_in_executor(
+                None, child.join, 60)
+            if child.is_alive():
+                child.terminate()
+
+        try:
+            res = await asyncio.get_running_loop().run_in_executor(
+                None, q.get, True, 900)
+        except BaseException:
+            await close()
+            raise
+        return res, close
+
+    with mock.patch.dict(os.environ, STARWAY_TLS="tcp", STARWAY_NATIVE="0"), \
+            port_warnings() as caught:
+        reset_launch_counts()
+        res, slot, serve_s = asyncio.run(serve_remote(params, cfg, client))
+        counts = launch_counts()
+    if isinstance(res, str):
+        raise AssertionError(res)
+    if slot.busy or slot._slot_rid:
+        raise AssertionError(f"slots still held after the run: "
+                             f"{slot._slot_rid}")
+    for i, ((_p, m), toks) in enumerate(zip(wire_reqs, res["streams"])):
+        if len(toks) != m:
+            raise AssertionError(f"remote stream {i}: {len(toks)} tokens, "
+                                 f"budget {m}")
+    gone = res["cancelled"]
+    if gone["status"] != 2 or gone["tokens"] >= doomed[1]:
+        raise AssertionError(f"the cancelled stream ended as {gone}")
+    if failures(caught):
+        raise AssertionError(f"failed sends or fallbacks logged: "
+                             f"{failures(caught)}")
+    n_tok = sum(m for _p, m in wire_reqs)
+    same = sum(np.array_equal(np.asarray(t), np.asarray(want))
+               for t, want in zip(res["streams"], done4))
+    ttft = sorted(t for t in res["ttft_s"] if t is not None)
+    stats = dict(tokens=n_tok, client_wall_s=res["wall_s"],
+                 tokens_per_s=n_tok / res["wall_s"],
+                 in_process_tokens_per_s=st4["tokens_per_s"],
+                 ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
+                 streams_equal_to_phase4=f"{same} of {len(wire_reqs)}",
+                 cancelled=gone, serve_s=serve_s, warnings=caught)
+    log(f"[remote-serve] {stats} ({card})")
+    return stats, counts
+
+
+def phase_remote_parity(params32, cfg32, reqs, wants) -> dict:
+    """Phase 10: the bridge at phase 8's float32 configuration, with an
+    in-process client over tcp: every request's greedy tokens, as the
+    client receives them, equal generate()'s (``wants``)."""
+    import asyncio
+    import os
+
+    from starway_tpu_torch.models.remote_serving import RemoteGenerateSession
+
+    async def client(port):
+        session = await RemoteGenerateSession.aconnect("127.0.0.1", port)
+        try:
+            outs = await asyncio.gather(*(session.generate(p, m)
+                                          for p, m, _w in reqs))
+        except BaseException:
+            await session.aclose()
+            raise
+        return outs, session.aclose
+
+    with mock.patch.dict(os.environ, STARWAY_TLS="tcp", STARWAY_NATIVE="0"), \
+            port_warnings() as caught:
+        outs, _slot, serve_s = asyncio.run(serve_remote(params32, cfg32,
+                                                        client))
+    for i, (got, want) in enumerate(zip(outs, wants)):
+        if not np.array_equal(np.asarray(got), np.asarray(want)):
+            raise AssertionError(f"remote request {i}: {got} != generate "
+                                 f"{want}")
+    if failures(caught):
+        raise AssertionError(f"failed sends logged: {failures(caught)}")
+    st = dict(requests=len(outs), serve_s=serve_s)
+    log(f"[remote-parity] {len(outs)} streams over tcp token-for-token "
+        f"equal to generate(); {st}")
+    return st
+
+
+def monitor_check(dev) -> dict:
+    """A 1 MiB cuda:0 -> cuda:0 round trip over tcp, staged and pulled,
+    under STARWAY_MONITOR=1: every worker's protocol events replay through
+    the monitor compiled from the port's sources (checked at each
+    worker's retirement and once more here) with no violation, and the
+    data arms are witnessed (DATA staged, DEVPULL pulled).  In process
+    there is no wire protocol to check."""
+    import asyncio
+    import os
+
+    import torch
+
+    from starway_tpu_torch import DeviceBuffer, headline
+    from starway_tpu_torch.core import monitor, swtrace
+
+    out = {}
+    with mock.patch.dict(os.environ, STARWAY_TLS="tcp", STARWAY_NATIVE="0",
+                         STARWAY_MONITOR="1"):
+        for label, pull, frame in (("staged", "0", "DATA"),
+                                   ("pull", "1", "DEVPULL")):
+            os.environ["STARWAY_DEVPULL"] = pull
+            swtrace.reset()
+            monitor.reset()
+
+            async def round_trip():
+                server, client, ep = await headline.connect_pair()
+                try:
+                    src = torch.randint(0, 256, (1 << 20,), dtype=torch.uint8,
+                                        device=dev)
+                    sinks = [DeviceBuffer((1 << 20,), torch.uint8, device=dev)
+                             for _ in range(2)]
+                    fut = server.arecv(sinks[0], 0x31, MASK)
+                    await client.asend(src, 0x31)
+                    await fut
+                    fut = client.arecv(sinks[1], 0x32, MASK)
+                    await server.asend(ep, sinks[0].array, 0x32)
+                    await fut
+                    await client.aflush()
+                    for sink in sinks:
+                        if not torch.equal(sink.array, src):
+                            raise AssertionError("monitored round trip "
+                                                 "changed the bytes")
+                    return [s.last_transport for s in sinks]
+                finally:
+                    await client.aclose()
+                    await server.aclose()
+
+            routes = asyncio.run(round_trip())
+            monitor.check_all()
+            seen = monitor.witnessed()
+            if monitor.violations() or ("estab", frame) not in seen:
+                raise AssertionError(
+                    f"monitor ({label}): violations "
+                    f"{[v.render() for v in monitor.violations()]}, "
+                    f"witnessed {sorted(seen)}")
+            out[label] = dict(routes=routes, violations=0,
+                              transitions_witnessed=len(seen))
+    monitor.reset()
+    swtrace.reset()
+    log(f"[monitor] STARWAY_MONITOR=1, 1 MiB cuda:0 <-> cuda:0 over tcp: "
+        f"{out}")
+    return out
+
+
+# ------------------------------------------------------------ the DP pair
+
+DP_BASE_TAG = 0x6000
+DP_PARITY_BASE_TAG = 0x6000 + 0x40000  # past the full run's tag window
+DP_PARITY_LR = 1.0  # one SGD step: moves the leaves far past the tolerance
+DP_PARITY_REL_TOL = 1e-5
+DP_HELD_ALLOWANCE = 128 << 20  # device bytes a rank may hold after a step
+
+
+def leaf_checksum(t) -> int:
+    """A 64-bit position-weighted sum of a tensor's bytes, computed where
+    the tensor lives (int64 arithmetic wraps): equal tensors give equal
+    sums, and a changed word changes it."""
+    import torch
+
+    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+              8: torch.int64}[t.element_size()]
+    w = t.detach().contiguous().view(-1).view(as_int)
+    total = torch.zeros((), dtype=torch.int64, device=w.device)
+    step = 1 << 26
+    for off in range(0, w.numel(), step):
+        x = w[off:off + step].long()
+        idx = torch.arange(off, off + x.numel(), dtype=torch.int64,
+                           device=w.device)
+        total += ((x * 0x9E3779B1 + idx) * ((idx * 2654435761) | 1)).sum()
+    return int(total) & ((1 << 64) - 1)
+
+
+def sgd(lr: float):
+    """Plain SGD in utils.optim's shape: the float32 parity run's optimizer
+    (AdamW's two float32 moments would not leave two full-width ranks
+    room on one card; the exchange, not the optimizer, is under test)."""
+    from starway_tpu_torch.utils.optim import GradientTransformation
+    from starway_tpu_torch.utils.tree import tree_map
+
+    return GradientTransformation(
+        lambda params: (),
+        lambda grads, state, params=None: (
+            tree_map(lambda g: -lr * g, grads), state))
+
+
+class RecordingPort:
+    """A dp_exchange port that records how each received leaf landed (its
+    sink's ``last_transport``), keeping no sink alive."""
+
+    def __init__(self, inner):
+        self.inner, self.transports = inner, []
+
+    def asend(self, buf, tag):
+        return self.inner.asend(buf, tag)
+
+    async def arecv(self, buf, tag, mask=MASK):
+        out = await self.inner.arecv(buf, tag, mask)
+        self.transports.append(buf.last_transport)
+        return out
+
+    def aflush(self):
+        return self.inner.aflush()
+
+
+def dp_rank_child(rank: int, port: int, spec: dict, q, released) -> None:
+    """One rank of the DP phase, in its own process on ``spec["device"]``
+    (imports only the port).  Rank 0 holds a Server with a ServerPort,
+    rank 1 a Client with a ClientPort, over tcp on the Python engine with
+    the pull on for every leaf.  Runs ``spec["full"]`` (Trainer + adamw,
+    bf16, ``steps`` step_dp steps on its own batch), then
+    ``spec["parity"]`` (float32, one step, SGD), and puts a dict per step
+    on ``q``; rank 0 then checks the parity step against one in-process
+    reference of both ranks' averaged step, once rank 1 has set
+    ``released``."""
+    import asyncio
+    import os
+
+    os.environ.update(STARWAY_TLS="tcp", STARWAY_NATIVE="0",
+                      STARWAY_DEVPULL="1", STARWAY_DEVPULL_MIN="1")
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+
+    from starway_tpu_torch import Client, Server
+    from starway_tpu_torch.models import LlamaConfig, Trainer, init_params
+    from starway_tpu_torch.models.llama import apply_updates, value_and_grad
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.parallel import ClientPort, ServerPort
+    from starway_tpu_torch.utils import adamw
+    from starway_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    def held() -> tuple:
+        """Device bytes allocated now, as read right away and once the
+        allocator has settled: exports the peer has released collected,
+        and the frees deferred behind side-stream uses (record_stream)
+        processed, which the allocator does at its next allocation."""
+        if dev.type != "cuda":
+            return 0, 0
+        torch.cuda.synchronize(dev)
+        raw = torch.cuda.memory_allocated(dev)
+        torch.cuda.ipc_collect()
+        torch.empty(1, device=dev)
+        return raw, torch.cuda.memory_allocated(dev)
+
+    async def run_mode(worker, port_obj, mode: str) -> None:
+        run = spec[mode]
+        cfg = LlamaConfig.preset(run["preset"], **run["cfg"])
+        params = init_params(cfg, run["seed"], device=dev)
+        b, s1 = run["batch"]
+        batch = train_batch(cfg, b, s1, run["batch_seed"] + rank, dev)
+        tx = sgd(DP_PARITY_LR) if mode == "parity" else adamw(LR_TRAIN)
+        rec = RecordingPort(port_obj)
+        trainer = Trainer(cfg, tx, params, dp_port=rec,
+                          dp_base_tag=run["base_tag"])
+        mgr = worker.transfer_manager()
+        n_leaves = len(tree_leaves(params))
+        leaf_bytes = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(params))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = held()[1]
+        reset_launch_counts()
+        for step in range(run["steps"]):
+            rec.transports.clear()
+            before = dict(mgr.counts) if mgr is not None else {}
+            t0 = time.perf_counter()
+            loss = await trainer.step_dp(batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            after = dict(mgr.counts) if mgr is not None else {}
+            q.put(dict(
+                kind="step", mode=mode, rank=rank, step=step, loss=loss,
+                ms=ms, n_leaves=n_leaves, leaf_bytes=leaf_bytes,
+                checksums=[leaf_checksum(t)
+                           for t in tree_leaves(trainer.state.params)],
+                transports=sorted(set(rec.transports)),
+                n_sinks=len(rec.transports),
+                pulls={k: after.get(k, 0) - before.get(k, 0)
+                       for k in ("offered_ipc", "pulled_ipc")},
+                **dict(zip(("held_raw_over_base_bytes",
+                            "held_over_base_bytes"),
+                           (h - base for h in held())))))
+        tel = trainer.telemetry()
+        q.put(dict(kind="done", mode=mode, rank=rank,
+                   launches=launch_counts(),
+                   spans_ms={k: v["p50_us"] / 1e3 for k, v in tel.items()},
+                   spans_count={k: v["count"] for k, v in tel.items()},
+                   peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                            if dev.type == "cuda" else None)))
+        if mode == "parity" and rank == 0:
+            mine = trainer.state.params
+            trainer.state.opt_state = None
+            del trainer, rec
+            await asyncio.get_running_loop().run_in_executor(
+                None, released.wait, 600)
+            q.put(dict(kind="reference", rank=0,
+                       **parity_reference(cfg, run, mine, dev)))
+        del params, batch
+
+    def parity_reference(cfg, run, mine, dev) -> dict:
+        """Both ranks' gradients at the initial parameters, averaged and
+        applied once, in this process; each leaf of ``mine`` against it."""
+        ref = init_params(cfg, run["seed"], device=dev)
+        moved = max(float((got - p0).abs().max() / p0.abs().max())
+                    for got, p0 in zip(tree_leaves(mine), tree_leaves(ref)))
+        b, s1 = run["batch"]
+        grads = []
+        for r in (0, 1):
+            batch = train_batch(cfg, b, s1, run["batch_seed"] + r, dev)
+            grads.append(value_and_grad(ref, batch, cfg)[1])
+        avg = tree_map(lambda a, c: (a + c) / 2, grads[0], grads[1])
+        del grads
+        ref, _ = apply_updates(sgd(DP_PARITY_LR), ref, (), avg)
+        worst = max(float((got - want).abs().max() / want.abs().max())
+                    for got, want in zip(tree_leaves(mine), tree_leaves(ref)))
+        return dict(max_rel_err=worst, max_rel_move=moved)
+
+    async def main():
+        if rank == 0:
+            server = Server()
+            server.listen("127.0.0.1", port)
+            q.put(dict(kind="listening", rank=0))
+            for _ in range(24000):
+                if server.list_clients():
+                    break
+                await asyncio.sleep(0.005)
+            link, port_obj = server, ServerPort(server)
+            worker = server._server
+        else:
+            link = None
+            for _ in range(480):
+                link = Client()
+                try:
+                    await link.aconnect("127.0.0.1", port)
+                    break
+                except Exception:  # noqa: BLE001
+                    await asyncio.sleep(0.25)
+            port_obj, worker = ClientPort(link), link._client
+        try:
+            for mode in ("full", "parity"):
+                await run_mode(worker, port_obj, mode)
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+        finally:
+            await link.aclose()  # every step flushed its own sends
+        if rank == 1:
+            released.set()
+
+    try:
+        asyncio.run(main())
+    except Exception as e:  # noqa: BLE001 - the parent reports it
+        import traceback
+
+        q.put(dict(kind="error", rank=rank,
+                   error=f"{e!r}\n{traceback.format_exc()}"))
+        if rank == 1:
+            released.set()
+
+
+def dp_spec(device: str, preset: str = "llama3-8b") -> dict:
+    """The DP phase's two runs: llama3-8b widths cut to 2 layers, bf16,
+    remat "dots", [1, 2049], 3 steps; then float32, 2 layers, [1, 513],
+    one step."""
+    return dict(
+        device=device,
+        full=dict(preset=preset, steps=3, batch=(1, 2049),
+                  cfg=dict(n_layers=2, remat=True, remat_policy="dots"),
+                  seed=SEED + 5, batch_seed=SEED + 20,
+                  base_tag=DP_BASE_TAG),
+        parity=dict(preset=preset, steps=1, batch=(1, 513),
+                    cfg=dict(n_layers=2, dtype="float32"),
+                    seed=SEED + 6, batch_seed=SEED + 30,
+                    base_tag=DP_PARITY_BASE_TAG))
+
+
+def phase_dp(spec: dict, card: str) -> tuple:
+    """Phase 16: two ranks, each a spawned process on the card, average
+    their gradients over the transport every step (Trainer.step_dp).
+    Checks: after every step both ranks' parameters are bit-for-bit equal
+    (a checksum of each leaf's bytes), every loss is finite, every leaf
+    landed on the card ("device") by one CUDA IPC pull a leaf and step on
+    each side, the memory of the exchange is released after each step;
+    the float32 parity step equals, to 1e-5 of each leaf's largest value,
+    one in-process step on both ranks' averaged gradients.  Returns
+    (stats, the ranks' launches summed)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q, released = ctx.Queue(), ctx.Event()
+    port = free_port()
+    on_card = spec["device"].startswith("cuda")
+    full = spec["full"]
+    log(f"[dp] two ranks on {spec['device']}, one process each, tcp, Python "
+        f"engine, CUDA IPC pull: {full['preset']} widths, "
+        f"{full['cfg']['n_layers']} layers, bf16, remat dots, AdamW, batch "
+        f"{list(full['batch'])} a rank, {full['steps']} step_dp steps; then "
+        f"float32, batch {list(spec['parity']['batch'])}, one step (SGD)")
+    ranks = [ctx.Process(target=dp_rank_child,
+                         args=(r, port, spec, q, released)) for r in (0, 1)]
+    t0 = time.perf_counter()
+    ranks[0].start()
+    msgs = []
+    try:
+        first = q.get(timeout=300)
+        if first.get("kind") != "listening":
+            raise AssertionError(f"rank 0 did not listen: {first}")
+        ranks[1].start()
+        n_want = 2 * (full["steps"] + 1) + 2 * (spec["parity"]["steps"] + 1)
+        n_want += 1  # rank 0's parity reference
+        while len(msgs) < n_want:
+            msg = q.get(timeout=900)
+            if msg.get("kind") == "error":
+                raise AssertionError(f"DP rank {msg['rank']} failed: "
+                                     f"{msg['error']}")
+            msgs.append(msg)
+    finally:
+        for p in ranks:
+            p.join(120)
+            if p.is_alive():
+                p.terminate()
+    wall_s = time.perf_counter() - t0
+    steps = {(m["mode"], m["step"], m["rank"]): m for m in msgs
+             if m["kind"] == "step"}
+    done = {(m["mode"], m["rank"]): m for m in msgs if m["kind"] == "done"}
+    ref = next(m for m in msgs if m["kind"] == "reference")
+    for key in sorted(steps):
+        m = steps[key]
+        log(f"  [dp] {key}: loss {m['loss']:.4f}, {m['ms']:.1f} ms, "
+            f"landed {m['transports']} x{m['n_sinks']}, IPC {m['pulls']}, "
+            f"held over base {m['held_raw_over_base_bytes'] / 1e6:.1f} MB "
+            f"right after, {m['held_over_base_bytes'] / 1e6:.1f} MB settled")
+    want_route = "device" if on_card else "staged"
+    for mode in ("full", "parity"):
+        for step in range(spec[mode]["steps"]):
+            a, b = steps[(mode, step, 0)], steps[(mode, step, 1)]
+            if a["checksums"] != b["checksums"]:
+                diff = [i for i, (x, y) in enumerate(zip(a["checksums"],
+                                                         b["checksums"]))
+                        if x != y]
+                raise AssertionError(f"{mode} step {step}: the ranks' "
+                                     f"parameters differ at leaves {diff}")
+            for m in (a, b):
+                if not np.isfinite(m["loss"]):
+                    raise AssertionError(f"{mode} step {step} rank "
+                                         f"{m['rank']}: loss {m['loss']}")
+                if m["transports"] != [want_route] or \
+                        m["n_sinks"] != m["n_leaves"]:
+                    raise AssertionError(f"{mode} step {step} rank "
+                                         f"{m['rank']}: leaves landed "
+                                         f"{m['transports']} "
+                                         f"({m['n_sinks']} sinks)")
+                pulls = m["n_leaves"] if on_card else 0
+                if m["pulls"] != {"offered_ipc": pulls, "pulled_ipc": pulls}:
+                    raise AssertionError(f"{mode} step {step} rank "
+                                         f"{m['rank']}: IPC {m['pulls']}, "
+                                         f"want {pulls} a leaf")
+                # Allowance: the cuBLAS workspaces a first step allocates
+                # for good (64 MiB measured); a leaf held on would be
+                # 16.8 MB to 2.1 GB (all but the norms).
+                if m["held_over_base_bytes"] > DP_HELD_ALLOWANCE:
+                    raise AssertionError(
+                        f"{mode} step {step} rank {m['rank']}: "
+                        f"{m['held_over_base_bytes'] / 1e9:.3f} GB still "
+                        f"held after the exchange")
+    if not ref["max_rel_err"] <= DP_PARITY_REL_TOL:
+        raise AssertionError(f"the DP parity step is {ref['max_rel_err']:.3g}"
+                             f" of a leaf's largest value from the "
+                             f"in-process reference")
+    if not ref["max_rel_move"] > 100 * DP_PARITY_REL_TOL:
+        raise AssertionError(f"the parity step hardly moved the parameters: "
+                             f"{ref['max_rel_move']:.3g}")
+    launches = {}
+    for m in done.values():
+        for k, v in m["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    full_steps = [steps[("full", i, r)] for i in range(full["steps"])
+                  for r in (0, 1)]
+    nbytes = full_steps[0]["leaf_bytes"]
+    span = {r: done[("full", r)]["spans_ms"] for r in (0, 1)}
+    stats = dict(
+        wall_s=wall_s,
+        losses={r: [steps[("full", i, r)]["loss"]
+                    for i in range(full["steps"])] for r in (0, 1)},
+        median_step_ms=statistics.median(m["ms"] for m in full_steps),
+        step_ms={r: [round(steps[("full", i, r)]["ms"], 1)
+                     for i in range(full["steps"])] for r in (0, 1)},
+        spans_p50_ms=span,
+        exchange_bytes_each_way=nbytes,
+        exchange_gb_per_s_each_way={
+            r: nbytes / (span[r]["dp_exchange"] / 1e3) / 1e9
+            for r in (0, 1)},
+        leaves=full_steps[0]["n_leaves"],
+        held_over_base_bytes=max(m["held_over_base_bytes"]
+                                 for m in steps.values()),
+        held_raw_over_base_bytes=max(m["held_raw_over_base_bytes"]
+                                     for m in steps.values()),
+        peak_gb={f"{mode}-{r}": done[(mode, r)]["peak_gb"]
+                 for mode in ("full", "parity") for r in (0, 1)},
+        parity=ref, launches_by_rank={
+            f"{mode}-{r}": done[(mode, r)]["launches"]
+            for mode in ("full", "parity") for r in (0, 1)})
+    log(f"[dp] {stats} ({card})")
+    return stats, launches
+
 
 
 def main() -> int:
@@ -2588,7 +3315,7 @@ def main() -> int:
     rows = phase_kernels(dev)
     log(f"[kernels] done at {time.perf_counter() - t_start:.1f} s")
 
-    # 4 + 5 + 6: the serving paths, counted.
+    # 4 + 5 + 6 + 7: the serving paths, counted.
     cfg = LlamaConfig.preset("llama3-8b")  # bf16, 32 layers, full widths
     reqs = make_requests(cfg)
     params = init_params(cfg, SEED, device=dev)
@@ -2597,7 +3324,7 @@ def main() -> int:
         f"{len(reqs)} requests, prompts "
         f"{min(len(r[0]) for r in reqs)}-{max(len(r[0]) for r in reqs)}")
     reset_launch_counts()
-    st4, srv4 = serve(params, cfg, reqs)[1:]
+    done4, st4, srv4 = serve(params, cfg, reqs)
     c4 = launch_counts()
     log(f"  {st4}")
     log(f"  launches {c4}")
@@ -2624,6 +3351,17 @@ def main() -> int:
     st_paged, c_paged = phase_paged(params, cfg)
     torch.cuda.empty_cache()
 
+    # 6. the same model served over the transport to a client process
+    st_remote, c_remote = phase_remote_serve(params, cfg, reqs,
+                                             list(done4.values()), st4, card)
+    log(f"  launches {c_remote}")
+    if not (c_remote["decode_attention"] > 0
+            and c_remote["flash_forward"] > 0):
+        raise AssertionError("the remote-serve run launched no decode or "
+                             "flash kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     cfg8 = LlamaConfig.preset("llama3-8b", kv_quant="int8")
     qparams = quantize_params(params)
     del params
@@ -2634,7 +3372,7 @@ def main() -> int:
     st5 = serve(qparams, cfg8, reqs)[1]
     c5 = launch_counts()
     by_regime = dict(int8_matmul.regime_launches)
-    main_counts = {k: c4[k] + c_paged[k] + c5[k] for k in c4}
+    main_counts = {k: c4[k] + c_paged[k] + c_remote[k] + c5[k] for k in c4}
     log(f"  {st5}")
     log(f"  launches {c5}")
     log(f"  int8_matmul launches by regime {by_regime}")
@@ -2652,14 +3390,16 @@ def main() -> int:
     del qparams
     torch.cuda.empty_cache()
 
-    # 7 + 8. parity: float32, 2 layers, same widths.
+    # 8 + 9 + 10. parity: float32, 2 layers, same widths.
     cfg32 = LlamaConfig.preset("llama3-8b", n_layers=2, dtype="float32")
     params32 = init_params(cfg32, SEED + 2, device=dev)
     log("[parity] float32, 2 layers: SlotServer vs generate(), greedy")
     done, st6 = serve(params32, cfg32, reqs)[:2]
+    wants = []
     for rid, (prompt, m, _w) in zip(done, reqs):
         want = generate(params32, cfg32, torch.tensor([prompt]), m,
                         max_len=2048)[0, len(prompt):].cpu().numpy()
+        wants.append(want)
         if not np.array_equal(done[rid], want):
             raise AssertionError(f"request {rid}: SlotServer {done[rid]} != "
                                  f"generate {want}")
@@ -2667,22 +3407,37 @@ def main() -> int:
     log("[paged-parity] float32, 2 layers: PagedSlotServer and prefix "
         "caching vs generate(prefix + suffix), greedy")
     st_pp = phase_paged_parity(params32, cfg32)
+    log("[remote-parity] float32, 2 layers: the bridge over tcp vs "
+        "generate(), greedy")
+    st_remote_parity = phase_remote_parity(params32, cfg32, reqs, wants)
     del params32
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # 9 + 10: the training path, counted, then its parity step.
+    # 11 + 12: the training path, counted, then its parity step.
     st7, c7 = phase_train(dev)
     log(f"  {st7}")
     log(f"  launches {c7}")
     st8 = phase_train_parity(dev)
 
-    # 11 + 12: the training path with ring attention, then its parity.
+    # 13 + 14: the training path with ring attention, then its parity.
     st_ring, c_ring = phase_train_ring(dev)
     st_rp = phase_train_ring_parity(dev)
 
-    # 13: the transport's main path on the card.
+    # 15: the transport's main path on the card (the monitor armed for one
+    # round trip).
     st_tr = phase_transport(dev, card)
+
+    # 16: two training ranks exchange their gradients over the transport.
+    gc.collect()
+    torch.cuda.empty_cache()
+    st_dp, c_dp = phase_dp(dp_spec("cuda:0"), card)
+    dp_runs = 2 * sum(dp_spec("cuda:0")[m]["steps"] for m in ("full",
+                                                              "parity"))
+    for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq"):
+        if c_dp[name] != 2 * dp_runs:  # 2 layers a step, each rank
+            raise AssertionError(f"{name} launched {c_dp[name]} times in the "
+                                 f"DP ranks' {dp_runs} steps of 2 layers")
 
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
@@ -2708,17 +3463,18 @@ def main() -> int:
             label: traced[label].get("attention_device_ms")
             for label in labels}
 
-    # 14. kernels line: launches are the serving paths' (phases 4, 5 and
-    # 6) and the training paths' (phases 9 and 11), each counted from 0
-    # just before its run and read just after.
-    main_counts = {k: main_counts[k] + c7[k] + c_ring[k]
+    # 17. kernels line: launches are the serving paths' (phases 4, 5, 6 and
+    # 7) and the training paths' (phases 11, 13 and 16, the last the DP
+    # ranks' own counts), each counted from 0 just before its run and read
+    # just after.
+    main_counts = {k: main_counts[k] + c7[k] + c_ring[k] + c_dp[k]
                    for k in main_counts}
     kernels = []
     for key, row in rows.items():
         row = dict(row)
         row["launches"] = main_counts[key]
         kernels.append(row)
-    # Only the W8A16 run (phase 6) launches the GEMV; the others' counts
+    # Only the W8A16 run (phase 7) launches the GEMV; the others' counts
     # of it are 0 and in main_counts.
     kernels[list(rows).index("int8_matmul")]["launches_by_regime"] = by_regime
     steps, admits = 8 * st4["chunks"], len(reqs)  # per serving run
@@ -2771,9 +3527,23 @@ def main() -> int:
             f"{row['bytes'] >> 10} KiB {row['fw_p50_us']:.0f}"
             for row in st_tr[f"cross-process-{label}"]["rows"])
             for label in ("ipc", "staged", "native")))
+    log(f"[summary] remote-serve ({card}): {st_remote['tokens_per_s']:.1f} "
+        f"tokens/s over the bridge against {st4['tokens_per_s']:.1f} in "
+        f"process (phase 4); time to first token p50 "
+        f"{st_remote['ttft_p50_s']:.3f} s (max {st_remote['ttft_max_s']:.3f}); "
+        f"streams equal to phase 4's {st_remote['streams_equal_to_phase4']}; "
+        f"cancelled {st_remote['cancelled']}; remote-parity "
+        f"{st_remote_parity}")
+    log(f"[summary] dp ({card}): median step {st_dp['median_step_ms']:.1f} ms "
+        f"(both ranks, 3 steps each: {st_dp['step_ms']}); spans p50 ms "
+        f"{st_dp['spans_p50_ms']}; {st_dp['exchange_bytes_each_way'] / 1e9:.3f}"
+        f" GB each way a step in {st_dp['leaves']} leaves, "
+        f"{st_dp['exchange_gb_per_s_each_way']} GB/s each way over the "
+        f"dp_exchange span; peak GB {st_dp['peak_gb']}; parity "
+        f"{st_dp['parity']}; monitor {st_tr['monitor']}")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 15. last line
+    # 18. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,11 +3,14 @@
 The transport: ``Server``/``Client`` with ``asend``/``arecv``/``aflush`` on
 host buffers and on ``torch.Tensor`` device buffers (``api``, the host
 runtime in ``core`` with the C++ engine through ``core/native.py``, and the
-device plane in ``device``).  ``models`` holds the Llama model, KV-cache
-generation, the continuous-batching servers and the training step; ``ops``
-the attention and quantization functions and the hand-written CUDA kernels
-(``csrc/``), each beside its plain PyTorch version; ``parallel`` the mesh
-and sequence-parallel ring attention.  Entry points run on ``cuda`` unless
+device plane in ``device``); ``mesh`` mints worker-address blobs with mesh
+coordinates and bootstraps ``torch.distributed``.  ``models`` holds the
+Llama model, KV-cache generation, the continuous-batching servers (also
+served over the transport) and the training step (with a DP gradient
+exchange over the transport); ``ops`` the attention and quantization
+functions and the hand-written CUDA kernels (``csrc/``), each beside its
+plain PyTorch version; ``parallel`` the mesh, sequence-parallel ring
+attention and the pytree exchange at a DP boundary.  Entry points run on ``cuda`` unless
 given ``device="cpu"``; kernels build with ``nvcc`` on first use.
 
 >>> import starway_tpu_torch as sw
@@ -21,6 +24,8 @@ from __future__ import annotations
 from .api import Client, Server
 from .core.endpoint import ServerEndpoint
 from .device import DeviceBuffer
+from .mesh import (MeshAddress, bootstrap_distributed, export_mesh_address,
+                   parse_mesh_address)
 
 
 def check_sys_libs() -> str:
@@ -32,4 +37,5 @@ def check_sys_libs() -> str:
 
 
 __all__ = ["Server", "Client", "ServerEndpoint", "DeviceBuffer",
-           "check_sys_libs"]
+           "MeshAddress", "bootstrap_distributed", "check_sys_libs",
+           "export_mesh_address", "parse_mesh_address"]

@@ -606,6 +606,10 @@ class Worker:
                     # the matcher/tx queues no longer track, so dropping
                     # them would hang their futures past emergency close.
                     _run_fires(fires)
+                # Drop the delivered batch before the next select blocks:
+                # its completions reach the receives' buffers, which would
+                # otherwise stay alive until the next wakeup.
+                fires = None
             self._do_close()
         except Exception:
             logger.exception("starway: engine thread crashed; emergency close")

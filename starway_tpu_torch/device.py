@@ -788,6 +788,10 @@ class TransferManager:
                 thunk()
             except Exception:
                 logger.exception("devpull completion callback failed")
+            # A finished pull's closure reaches its message and, through the
+            # posted receive, the caller's sink: drop it before waiting for
+            # the next pull, or the sink outlives its receive until then.
+            thunk = None
 
     def close(self) -> None:
         """Unpulled offers die with the worker: "local" ones leave the

@@ -477,7 +477,7 @@ def make_sharded_attn(mesh, *, seq_axis: str = "sp", dp_axis: str = "dp",
         raise NotImplementedError(
             "the model is not split over processes: make_sharded_attn "
             "takes a mesh without a process group (ROADMAP.md, Queue 1 "
-            "item 13)")
+            "item 6)")
     if layout == "zigzag":
         return make_zigzag_ring_attention(mesh, seq_axis)
     fn = make_ring_attention(mesh, seq_axis, causal=True, window=window)

@@ -8,7 +8,7 @@ exchange.  Shards that stay in the process only move in the list; a shard
 that crosses to another process goes by ``torch.distributed``
 point-to-point (``batch_isend_irecv``).  The rest of the JAX file
 (``all_to_all``, ``psum``, ``ring_reduce`` and the others) waits for the
-rest of the parallel layer (ROADMAP.md, Queue 1 item 13).
+rest of the parallel layer (ROADMAP.md, Queue 1 item 6).
 """
 
 from __future__ import annotations

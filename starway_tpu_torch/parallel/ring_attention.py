@@ -400,7 +400,7 @@ def make_zigzag_ring_attention(mesh, axis_name: str = "sp", *,
         raise NotImplementedError(
             "the zigzag permutation of a sequence split over processes is "
             "not ported; pass zigzag-layout slices to zigzag_ring_attention "
-            "(ROADMAP.md, Queue 1 item 13)")
+            "(ROADMAP.md, Queue 1 item 6)")
 
     def local(q, k, v):
         return zigzag_ring_attention(q, k, v, mesh, axis_name,

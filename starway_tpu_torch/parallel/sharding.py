@@ -26,7 +26,7 @@ import torch.distributed as dist
 _NOT_PORTED = ("only one mesh axis (the sequence axis of ring attention) "
                "may be larger than 1 in this port; data and tensor "
                "parallelism wait for the rest of the parallel layer "
-               "(ROADMAP.md, Queue 1 item 13)")
+               "(ROADMAP.md, Queue 1 item 6)")
 
 
 class Mesh:

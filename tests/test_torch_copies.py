@@ -4,13 +4,18 @@
 package's transport that imports no JAX (``errors``, ``config``, ``perf``,
 ``api`` and all of ``core/``), of its bench CLI and scenarios (``bench``,
 ``benchmarks/``, whose device payloads become tensors), of its telemetry
-viewer and trace export (``metrics``, ``trace``) and of the reshard
-planner and executor (``reshard/`` but ``api.py``, which imports JAX).  Each equals its original after the package
-rename, except in the named edits below, so the proofs that the JAX
-package's analysis gate makes of the originals (it scans ``starway_tpu/``
-only) hold for the copies too.  The rename leaves references to the gate
-itself (``starway_tpu.analysis``) pointing at the JAX package, which owns
-it."""
+viewer and trace export (``metrics``, ``trace``), of the reshard
+planner and executor (``reshard/`` but ``api.py``, which imports JAX), of
+the analysis core that the runtime protocol monitor compiles
+(``analysis/{base,py_model,protomodel,refine}.py`` and
+``refine_corpus.txt``) and of the fault proxy (``testing/``).  Each equals
+its original after the package rename, except in the named edits below,
+so the proofs that the JAX package's analysis gate makes of the originals
+(it scans ``starway_tpu/`` only) hold for the copies too.  The rename
+leaves references to the gate itself (``starway_tpu.analysis``) pointing
+at the JAX package, which owns it; it turns the source paths that the
+analysis copies read (``starway_tpu/core/...``) into the port's, which
+``test_analysis_reads_the_ports_sources`` pins site by site."""
 
 import difflib
 import re
@@ -143,6 +148,15 @@ EDITS = {
          '            conn.cudaipc_peer = info["cudaipc"]\n'
          '            conn.devpull_ok = True\n'
          '            ack_extra["cudaipc"] = _device.cudaipc_identity()\n'),
+        (# core/engine.py:608-609
+         '                    _run_fires(fires)\n'
+         '            self._do_close()\n',
+         '                    _run_fires(fires)\n'
+         '                # Drop the delivered batch before the next select blocks:\n'
+         '                # its completions reach the receives\' buffers, which would\n'
+         '                # otherwise stay alive until the next wakeup.\n'
+         '                fires = None\n'
+         '            self._do_close()\n'),
         (# core/engine.py:1834-1835
          '            if existing.devpull_ok:\n'
          '                ack_extra["devpull"] = "ok"\n',
@@ -255,7 +269,37 @@ COPIES = ["errors.py", "config.py", "perf.py", "api.py"] + [
     "bench.py", "metrics.py", "trace.py", "benchmarks/__init__.py",
     "benchmarks/scenarios.py"] + [
     f"reshard/{name}" for name in ("__init__.py", "plan.py", "tags.py",
-                                   "executor.py")]
+                                   "executor.py")] + [
+    f"analysis/{name}" for name in ("base.py", "py_model.py",
+                                    "protomodel.py", "refine.py",
+                                    "refine_corpus.txt")] + [
+    "testing/__init__.py", "testing/faults.py"]
+
+# The source paths the analysis copies read, by the original's line: each
+# names the port's file, so the monitor checks the port's own engine.
+# native/sw_engine.cpp stays as it is (refine.py:288-297): the port builds
+# that same engine (native_build.py).
+READ_SITES = {
+    "analysis/protomodel.py": {
+        287: '"starway_tpu_torch/core/conn.py"',
+        288: '"starway_tpu_torch/core/engine.py"'},
+    "analysis/py_model.py": {
+        152: 'root / "starway_tpu_torch" / "core"',
+        154: '"starway_tpu_torch/core/frames.py"',
+        155: '"starway_tpu_torch/core/shmring.py"',
+        156: '"starway_tpu_torch/core/conn.py"',
+        157: '"starway_tpu_torch/core/native.py"',
+        158: '"starway_tpu_torch/core/engine.py"',
+        159: '"starway_tpu_torch/errors.py"',
+        160: '"starway_tpu_torch/core/swtrace.py"',
+        161: '"starway_tpu_torch/core/telemetry.py"'},
+    "analysis/refine.py": {
+        288: "root = Path(__file__).resolve().parents[2]",
+        292: 'cpp_path = root / "native" / "sw_engine.cpp"',
+        311: '"starway_tpu_torch/core/frames.py"',
+        383: '"starway_tpu_torch/core/frames.py"',
+        437: '"starway_tpu_torch/core/conn.py"'},
+}
 
 
 def _expected(rel: str) -> str:
@@ -279,3 +323,13 @@ def test_copy_equals_its_original(rel):
 def test_every_core_module_is_copied():
     assert sorted(p.name for p in (PORT_PKG / "core").glob("*.py")) == CORE
     assert len(CORE) == 16
+
+
+@pytest.mark.parametrize("rel", sorted(READ_SITES))
+def test_analysis_reads_the_ports_sources(rel):
+    lines = (PORT_PKG / rel).read_text().splitlines()
+    for lineno, text in READ_SITES[rel].items():
+        assert text in lines[lineno - 1], (rel, lineno, lines[lineno - 1])
+        path = text.split('"')[1] if text.count('"') == 2 else None
+        if path and "/" in path:
+            assert (REPO / path).is_file(), path

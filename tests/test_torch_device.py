@@ -584,3 +584,103 @@ async def test_bf16_payload_crosses_bit_for_bit(port, transport):
     finally:
         await client.aclose()
         await server.aclose()
+
+
+# ------------------------------------- send_device's session, integrity and
+# stripe branches: a journaled (session), checksummed (integrity) or
+# striped send takes the flat host snapshot instead of the chunked
+# pipeline; a pull bypasses all three.
+
+BRANCH_SETTINGS = {
+    "session": {"STARWAY_SESSION": "1"},
+    "integrity": {"STARWAY_INTEGRITY": "1"},
+    "stripe": {"STARWAY_RAILS": "3", "STARWAY_STRIPE_THRESHOLD": "1048576"},
+}
+BRANCH_BYTES = 3_000_000  # past the stripe threshold, under rendezvous
+
+
+@pytest.mark.parametrize("setting", sorted(BRANCH_SETTINGS))
+@pytest.mark.parametrize("pull", [False, True], ids=["staged", "pull"])
+@pytest.mark.parametrize("engine", ["python", "native"])
+async def test_device_send_branches_exact_both_ways(port, monkeypatch,
+                                                    engine, pull, setting):
+    """A 3 MB tensor over tcp each way under STARWAY_SESSION=1,
+    STARWAY_INTEGRITY=1, or three rails striped above 1 MiB: the sink
+    holds exactly the bytes sent, although the sender overwrote its
+    tensor as soon as the send completed (the receive is posted only
+    afterwards).  The Python engine pulls when the pull is on; the C++
+    engine negotiates no pull and stays staged."""
+    if engine == "native":
+        from starway_tpu_torch.core import native
+
+        if not native.available():
+            pytest.skip("native engine unavailable (no toolchain)")
+    _force_tcp(monkeypatch, native=engine == "native")
+    monkeypatch.setenv("STARWAY_DEVPULL", "1" if pull else "0")
+    for name, value in BRANCH_SETTINGS[setting].items():
+        monkeypatch.setenv(name, value)
+    server, client, ep = await _pair(port)
+    want_route = "device" if pull and engine == "python" else "staged"
+    try:
+        if engine == "python":
+            # The branch under test is the one negotiated on the conn.
+            conns = list(client._client.conns.values())
+            armed = {"session": lambda c: c.sess is not None,
+                     "integrity": lambda c: bool(c.csum_ok),
+                     "stripe": lambda c: bool(c.rails)}[setting]
+            assert conns and any(armed(c) for c in conns)
+        for seed, (send, recv) in enumerate((
+                (lambda t, tag: client.asend(t, tag), server.arecv),
+                (lambda t, tag: server.asend(ep, t, tag), client.arecv))):
+            src = _random_bytes(BRANCH_BYTES, seed=10 + seed)
+            want = src.clone()
+            await send(src, 40 + seed)
+            src.zero_()
+            sink = DeviceBuffer((BRANCH_BYTES,), torch.uint8, device=CPU)
+            ptr = sink.array.data_ptr()
+            got = await asyncio.wait_for(recv(sink, 40 + seed, MASK), 60)
+            assert got == (40 + seed, BRANCH_BYTES)
+            assert sink.array.data_ptr() == ptr
+            assert torch.equal(sink.array, want)
+            assert sink.last_transport == want_route
+    finally:
+        await client.aclose()
+        await server.aclose()
+
+
+@pytest.mark.parametrize("engine", ["python", "native"])
+async def test_completed_receive_keeps_no_reference_to_its_sink(
+        port, monkeypatch, engine):
+    """Once a staged receive has completed and the caller drops its sink,
+    the transport keeps no reference to it: the engine thread drops each
+    delivered batch of completions before it waits for the next event,
+    so a payload-sized tensor is not held until the next wakeup."""
+    import gc
+    import weakref
+
+    if engine == "native":
+        from starway_tpu_torch.core import native
+
+        if not native.available():
+            pytest.skip("native engine unavailable (no toolchain)")
+    _force_tcp(monkeypatch, native=engine == "native")
+    server, client, _ep = await _pair(port)
+    try:
+        sink = DeviceBuffer((1 << 20,), torch.uint8, device=CPU)
+        fut = server.arecv(sink, 0x23, MASK)
+        await client.asend(torch.full((1 << 20,), 5, dtype=torch.uint8),
+                           0x23)
+        await client.aflush()
+        assert await fut == (0x23, 1 << 20)
+        assert sink.last_transport == "staged"
+        alive = [weakref.ref(sink), weakref.ref(sink.array)]
+        del sink, fut
+        for _ in range(200):
+            gc.collect()
+            if all(ref() is None for ref in alive):
+                break
+            await asyncio.sleep(0.005)
+        assert [ref() is None for ref in alive] == [True, True]
+    finally:
+        await client.aclose()
+        await server.aclose()

@@ -464,3 +464,33 @@ async def test_cross_process_cpu_tensor_is_staged(port):
             proc.terminate()
             proc.join(5)
         await server.aclose()
+
+
+async def test_pulled_receive_keeps_no_reference_to_its_sink(port):
+    """Once a pulled receive has completed and the caller drops its sink,
+    nothing of the port keeps the sink (and its tensor) alive -- not the
+    manager's thread while it waits for the next pull, whose last task
+    reached the sink through its message's posted receive.  A receiver
+    would otherwise hold a payload-sized tensor until its next pull."""
+    import weakref
+
+    server, client = await _pair(port)
+    try:
+        sink = DeviceBuffer((N,), torch.uint8, device=CPU)
+        fut = server.arecv(sink, 0x21, MASK)
+        await client.asend(torch.full((N,), 7, dtype=torch.uint8), 0x21)
+        await client.aflush()
+        assert await fut == (0x21, N)
+        assert sink.last_transport == "device"
+        assert bool((sink.array == 7).all())
+        alive = [weakref.ref(sink), weakref.ref(sink.array)]
+        del sink, fut
+        for _ in range(200):
+            gc.collect()
+            if all(ref() is None for ref in alive):
+                break
+            await asyncio.sleep(0.005)
+        assert [ref() is None for ref in alive] == [True, True]
+    finally:
+        await client.aclose()
+        await server.aclose()

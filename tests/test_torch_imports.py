@@ -148,3 +148,36 @@ def test_scan_covers_the_bench_and_tools():
             "starway_tpu_torch/reshard/plan.py",
             "starway_tpu_torch/reshard/tags.py",
             "starway_tpu_torch/reshard/executor.py"} <= scanned
+
+
+def test_transport_tail_and_model_over_it_import_keeps_jax_out():
+    """The analysis core (compiled here, as the armed monitor compiles it),
+    the fault proxy, the DP exchange, remote serving and the mesh."""
+    code = ("import sys, starway_tpu_torch.analysis.refine, "
+            "starway_tpu_torch.testing.faults, "
+            "starway_tpu_torch.parallel.dp_exchange, "
+            "starway_tpu_torch.models.remote_serving, "
+            "starway_tpu_torch.mesh\n"
+            "from starway_tpu_torch.analysis import refine\n"
+            "mon, problems = refine.compile_monitor(runtime=True)\n"
+            "assert mon is not None and not problems, problems\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_scan_covers_the_transport_tail_and_the_model_over_it():
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {"starway_tpu_torch/analysis/__init__.py",
+            "starway_tpu_torch/analysis/base.py",
+            "starway_tpu_torch/analysis/py_model.py",
+            "starway_tpu_torch/analysis/protomodel.py",
+            "starway_tpu_torch/analysis/refine.py",
+            "starway_tpu_torch/testing/__init__.py",
+            "starway_tpu_torch/testing/faults.py",
+            "starway_tpu_torch/parallel/dp_exchange.py",
+            "starway_tpu_torch/models/remote_serving.py",
+            "starway_tpu_torch/mesh.py"} <= scanned

@@ -208,12 +208,14 @@ def test_unported_paths_raise():
 
 def test_trainer_unported_options_raise():
     """The Trainer options that need unported layers refuse, naming
-    ROADMAP.md: the DP port (transport), mesh/fsdp (parallel layer), MoE."""
+    ROADMAP.md: mesh/fsdp (parallel layer), MoE.  The DP port is ported
+    (tests/test_torch_dp.py holds it)."""
     from starway_tpu_torch.models.trainer import Trainer
     from starway_tpu_torch.utils.optim import adamw
 
     _, tcfg, _, tp = _pair()
-    for kw in (dict(dp_port=object()), dict(mesh=object(), fsdp_axis="fsdp"),
+    assert Trainer(tcfg, adamw(1e-3), tp, dp_port=object()).dp_port is not None
+    for kw in (dict(mesh=object(), fsdp_axis="fsdp"),
                dict(fsdp_axis="fsdp"), dict(moe_fn=lambda *a: a),
                dict(with_moe_stats=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -59,6 +59,12 @@ async def gen_server_client(port):
     client = Client()
     server.listen(SERVER_ADDR, port)
     await client.aconnect(SERVER_ADDR, port)
+    # aconnect can return before the server's engine lists the client;
+    # the tests that take its endpoint need it listed.
+    for _ in range(400):
+        if server.list_clients():
+            break
+        await asyncio.sleep(0.005)
     try:
         yield server, client
     finally:

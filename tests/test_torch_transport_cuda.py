@@ -209,3 +209,58 @@ async def test_pinned_staging_recycles_after_its_copies(port, dev,
     finally:
         await client.aclose()
         await server.aclose()
+
+
+# ------------------------------------- send_device's session, integrity and
+# stripe branches on the card (tests/test_torch_device.py holds them on
+# CPU tensors).
+
+BRANCH_SETTINGS = {
+    "session": {"STARWAY_SESSION": "1"},
+    "integrity": {"STARWAY_INTEGRITY": "1"},
+    "stripe": {"STARWAY_RAILS": "3", "STARWAY_STRIPE_THRESHOLD": "1048576"},
+}
+BRANCH_BYTES = 3_000_000
+
+
+@pytest.mark.parametrize("setting", sorted(BRANCH_SETTINGS))
+@pytest.mark.parametrize("pull", [False, True], ids=["staged", "pull"])
+@pytest.mark.parametrize("engine", ["python", "native"])
+@pytest.mark.parametrize("sink_on", ["cuda", "cpu"])
+async def test_device_send_branches_on_the_card(port, dev, monkeypatch,
+                                                engine, pull, setting,
+                                                sink_on):
+    """A 3 MB tensor on cuda:0 over tcp each way, into a sink on the card
+    or in host memory, under STARWAY_SESSION=1, STARWAY_INTEGRITY=1 or
+    three rails striped above 1 MiB: exact bytes, the sink in place,
+    although the sender overwrote its tensor on its stream as soon as the
+    send completed."""
+    if engine == "native":
+        from starway_tpu_torch.core import native
+
+        if not native.available():
+            pytest.skip("native engine unavailable (no toolchain)")
+    monkeypatch.setenv("STARWAY_TLS", "tcp")
+    monkeypatch.setenv("STARWAY_NATIVE", "1" if engine == "native" else "0")
+    monkeypatch.setenv("STARWAY_DEVPULL", "1" if pull else "0")
+    for name, value in BRANCH_SETTINGS[setting].items():
+        monkeypatch.setenv(name, value)
+    server, client, ep = await _pair(port)
+    sink_dev = dev if sink_on == "cuda" else torch.device("cpu")
+    try:
+        for seed, (send, recv) in enumerate((
+                (lambda t, tag: client.asend(t, tag), server.arecv),
+                (lambda t, tag: server.asend(ep, t, tag), client.arecv))):
+            src = _random(BRANCH_BYTES, dev, seed=10 + seed)
+            want = src.cpu()
+            await send(src, 40 + seed)
+            src.zero_()
+            sink = DeviceBuffer((BRANCH_BYTES,), torch.uint8, device=sink_dev)
+            ptr = sink.array.data_ptr()
+            got = await asyncio.wait_for(recv(sink, 40 + seed, MASK), 60)
+            assert got == (40 + seed, BRANCH_BYTES)
+            assert sink.array.data_ptr() == ptr
+            assert torch.equal(sink.array.cpu(), want)
+    finally:
+        await client.aclose()
+        await server.aclose()

@@ -143,3 +143,75 @@ def transport_child_client_send(port, with_flush):
         await client.aclose()
 
     asyncio.run(inner())
+
+
+# ------------------------------------------------- remote serving children
+#
+# Spawned by tests/test_torch_serve_remote.py across a real process
+# boundary; they import only the port, and say so.
+
+def serve_remote_child(role, port, arg, ready, stop, out_q) -> None:
+    """``role="server"``: serve the debug model whose numpy weights are
+    ``arg/params.npz`` (keys joined by '/') through a RemoteSlotServer on
+    the CPU until ``stop``; ``role="client"``: run the requests ``arg``
+    concurrently through one RemoteGenerateSession and put the streams (or
+    the error) on ``out_q``."""
+    import asyncio
+    import os
+    import sys
+
+    os.environ["STARWAY_TLS"] = "tcp"
+    torch.set_num_threads(1)
+
+    from starway_tpu_torch.models import LlamaConfig, SlotServer
+    from starway_tpu_torch.models.remote_serving import (
+        RemoteGenerateSession, RemoteSlotServer)
+
+    async def server():
+        flat = np.load(os.path.join(arg, "params.npz"))
+        tree: dict = {}
+        for key in flat.files:
+            *path, leaf = key.split("/")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = flat[key]
+        cfg = LlamaConfig.preset("debug")
+        params = params_from_numpy(tree, device="cpu")
+        bridge = RemoteSlotServer(SlotServer(params, cfg, n_slots=2,
+                                             max_len=64, chunk=4))
+        bridge.server.listen("127.0.0.1", port)
+        ready.set()
+        task = asyncio.create_task(bridge.serve())
+        while not stop.is_set():
+            await asyncio.sleep(0.05)
+        bridge.stop()
+        await task
+        await bridge.aclose()
+
+    async def client():
+        session = None
+        for _ in range(60):  # clients are connect-once: fresh per attempt
+            try:
+                session = await RemoteGenerateSession.aconnect("127.0.0.1",
+                                                               port)
+                break
+            except Exception:
+                await asyncio.sleep(0.25)
+        assert session is not None, "could not connect to serving process"
+        outs = await asyncio.gather(*(session.generate(p, m)
+                                      for p, m in arg))
+        await session.aclose()
+        return [np.asarray(o).tolist() for o in outs]
+
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "starway_tpu"))
+    if role == "server":
+        assert not bad, bad
+        asyncio.run(server())
+        return
+    try:
+        assert not bad, bad
+        out_q.put(asyncio.run(client()))
+    except Exception as exc:  # the parent reports it
+        out_q.put(f"client failed: {exc!r}")
