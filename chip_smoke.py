@@ -110,15 +110,18 @@ Phases, each of which raises on failure:
               spawned child at 64 KiB to 64 MiB against the raw copy: the
               CUDA IPC pull on the Python engine ("device" on both sides,
               one IPC pull a message each), the same with the pull off,
-              and the C++ engine (staged); a sender that flushes, closes
-              and exits before the receive is posted; the sender's memory
-              back at its baseline after a truncated receive and after a
-              close with an unpulled offer; the bench CLI (python -m
+              the C++ engine's pull and its staged frames, and the C++
+              engine against the Python engine at 1 and 64 MiB; on each
+              engine a sender that flushes, closes and exits before the
+              receive is posted, and the sender's memory back at its
+              baseline after a truncated receive and after a close with
+              an unpulled offer; the bench CLI (python -m
               starway_tpu_torch.bench) in loopback over every scenario and
               as a server and a client process, with device payloads, its
               JSON reports logged; a 1 MiB round trip over tcp, staged and
-              pulled, under STARWAY_MONITOR=1 (no protocol violation, the
-              data arm witnessed).  Every received tensor must equal what
+              pulled on the Python engine and pulled on the C++ engine,
+              under STARWAY_MONITOR=1 (no protocol violation, the data arm
+              witnessed).  Every received tensor must equal what
               was sent, in the same memory, and no fallback or failed
               pull may be logged
 16. dp     -- two training ranks, each a spawned process on the card
@@ -134,11 +137,25 @@ Phases, each of which raises on failure:
               both ranks' averaged gradients (1e-5 of each leaf's largest
               value).  Step ms, the dp_exchange span and its GB/s, the
               grad and apply spans, each rank's peak memory and launches
-              are logged
-17. a JSON line of the kernels with their launches on the serving paths
+              are logged.  Then the bf16 run again for 2 steps with both
+              ranks on the C++ engine, with the same checks, its
+              dp_exchange span beside the Python engine's
+17. reshard -- redistribute() sized as users move weights: llama3-8b's
+              lm_head [128256, 4096] bf16 (1.05 GB) over 8 slots of
+              cuda:0, rows -> columns, via device; then two spawned ranks
+              on the card move it rows over 2 -> columns over 2 (263 MB
+              each way) via device on the Python engine, via device on
+              the C++ engine and via host, and one layer's w1 [4096,
+              14336] from replicated on rank 0 to columns over 2.  Every
+              destination shard equals its box of the source byte for
+              byte; the rounds, tx/rx bytes, IPC pulls and peak staging
+              against its bound are checked, and the device memory is
+              back at its baseline after each move; wall ms and GB/s
+              logged.  No kernel of the port runs here
+18. a JSON line of the kernels with their launches on the serving paths
    (phases 4-7) and the training paths (phases 11, 13 and 16) and the
    numbers of phase 3
-18. the last line: {"ok": true, "device": {...}}
+19. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -2177,12 +2194,15 @@ def echo_server_child(port: int, native: str, devpull: str, device: str,
     result.put(asyncio.run(serve()))
 
 
-async def cross_process(native: str, dev, sizes, devpull: str) -> dict:
+async def cross_process(native: str, dev, sizes, devpull: str,
+                        child_native: str = None) -> dict:
     """Pingpongs of each of ``sizes`` with the echo server in a spawned
     child on the same card, over tcp, interleaved pass by pass with the
-    raw copy there and back on the card.  The Python engine with the pull
-    on moves each direction by a CUDA IPC pull (checked: "device" on both
-    sides, one IPC pull a message on each); otherwise staged frames."""
+    raw copy there and back on the card; this side on the engine
+    ``native`` asks for, the child on ``child_native`` (default the
+    same).  With the pull on, either engine moves each direction by a
+    CUDA IPC pull (checked: "device" on both sides, one IPC pull a
+    message on each); otherwise staged frames."""
     import asyncio
     import multiprocessing as mp
     import os
@@ -2193,14 +2213,16 @@ async def cross_process(native: str, dev, sizes, devpull: str) -> dict:
 
     use_transport("native" if native == "1" else "tcp")
     os.environ["STARWAY_DEVPULL"] = devpull
-    pulled = native == "0" and devpull == "1"
+    child_native = native if child_native is None else child_native
+    pulled = devpull == "1"
     want = "device" if pulled else "staged"
     plan = [(n, sum(sweep_iters(n))) for n in sizes]
     port = free_port()
     ctx = mp.get_context("spawn")
     result = ctx.Queue()
     child = ctx.Process(target=echo_server_child,
-                        args=(port, native, devpull, str(dev), plan, result))
+                        args=(port, child_native, devpull, str(dev), plan,
+                              result))
     child.start()
     rows = []
     try:
@@ -2246,8 +2268,11 @@ async def cross_process(native: str, dev, sizes, devpull: str) -> dict:
         mgr = client._client.transfer_manager()
         counts = dict(mgr.counts) if mgr is not None else {}
         stages = client._client.stage_scope.snapshot()
+        # The child flushes its last echo and closes first: a flush that
+        # met this side already closed would fail in the child.
+        echo = await asyncio.get_running_loop().run_in_executor(
+            None, lambda: result.get(timeout=120))
         await client.aclose()
-        echo = result.get(timeout=120)
         child.join(60)
     finally:
         if child.is_alive():
@@ -2264,17 +2289,18 @@ async def cross_process(native: str, dev, sizes, devpull: str) -> dict:
             "stages": stages, "echo_stages": echo["stages"]}
 
 
-def devpull_peer_child(port: int, mode: str, q) -> None:
-    """Spawned peer on cuda:0 over tcp, Python engine, for the pull's
-    lifecycle checks: ``flush-close`` connects, sends 16 MiB, flushes,
-    closes and exits; ``truncate`` listens and posts a too-small receive
-    (which must fail "truncated"); ``idle`` listens and receives
-    nothing; both listeners close on a one-byte bye (tag 0xC9)."""
+def devpull_peer_child(port: int, mode: str, q, native: str = "0") -> None:
+    """Spawned peer on cuda:0 over tcp, on the engine ``native`` asks
+    for, for the pull's lifecycle checks: ``flush-close`` connects, sends
+    16 MiB, flushes, closes and exits; ``truncate`` listens and posts a
+    too-small receive (which must fail "truncated"); ``idle`` listens and
+    receives nothing; both listeners close on a one-byte bye (tag
+    0xC9)."""
     import asyncio
     import os
 
     os.environ["STARWAY_TLS"] = "tcp"
-    os.environ["STARWAY_NATIVE"] = "0"
+    os.environ["STARWAY_NATIVE"] = native
     os.environ["STARWAY_DEVPULL"] = "1"
 
     async def run():
@@ -2317,12 +2343,16 @@ def devpull_peer_child(port: int, mode: str, q) -> None:
     q.put(asyncio.run(run()))
 
 
-async def devpull_lifecycle(dev) -> dict:
-    """The pull's lifecycle across processes on the card: a sender that
-    flushes, closes and exits before the receive is posted still
-    delivers; after a truncated receive (a drain pull) and after a close
-    with an unpulled offer (revoked), the sender's allocated memory is
-    back at its baseline once ipc_collect() has run."""
+async def devpull_lifecycle(dev, native: str = "0") -> dict:
+    """The pull's lifecycle across processes on the card, this side and
+    its peer on the engine ``native`` asks for: a sender that flushes,
+    closes and exits before the receive is posted still delivers; after a
+    truncated receive (a drain pull) and after a close with an unpulled
+    offer (revoked), the sender's allocated memory is back at its
+    baseline once ipc_collect() has run.  The idle peer is always the
+    Python engine, which pulls when a receive claims the descriptor: the
+    C++ engine pulls every descriptor as it arrives, so an offer to it is
+    never left unpulled."""
     import asyncio
     import multiprocessing as mp
     import os
@@ -2331,7 +2361,7 @@ async def devpull_lifecycle(dev) -> dict:
 
     from starway_tpu_torch import Client, DeviceBuffer, Server
 
-    use_transport("tcp")
+    use_transport("native" if native == "1" else "tcp")
     os.environ["STARWAY_DEVPULL"] = "1"
     ctx = mp.get_context("spawn")
     loop = asyncio.get_running_loop()
@@ -2339,7 +2369,9 @@ async def devpull_lifecycle(dev) -> dict:
 
     def spawn(port, mode):
         q = ctx.Queue()
-        p = ctx.Process(target=devpull_peer_child, args=(port, mode, q))
+        peer = "0" if mode == "idle" else native
+        p = ctx.Process(target=devpull_peer_child,
+                        args=(port, mode, q, peer))
         p.start()
         return p, q
 
@@ -2539,16 +2571,21 @@ def phase_transport(dev, card: str) -> dict:
             log(f"[transport] 256 MiB one way {name}: "
                 f"{st[f'throughput-{name}']}")
         # Across processes: the pull (CUDA IPC) on the Python engine, the
-        # same with STARWAY_DEVPULL=0 (staged) as its yardstick, and the
-        # C++ engine (staged), at the sweep's sizes from 64 KiB.
-        for label, native_flag, pull in (("ipc", "0", "1"),
-                                         ("staged", "0", "0"),
-                                         ("native", "1", "1")):
-            res = asyncio.run(cross_process(native_flag, dev,
-                                            CROSS_SIZES, pull))
+        # same with STARWAY_DEVPULL=0 (staged) as its yardstick, the C++
+        # engine's pull and its staged frames, at the sweep's sizes from
+        # 64 KiB; and the C++ engine here against the Python engine in the
+        # child, pulled, at 1 MiB and 64 MiB.
+        for label, native_flag, pull, child, sizes in (
+                ("ipc", "0", "1", None, CROSS_SIZES),
+                ("staged", "0", "0", None, CROSS_SIZES),
+                ("native", "1", "1", None, CROSS_SIZES),
+                ("native-staged", "1", "0", None, CROSS_SIZES),
+                ("native-py", "1", "1", "0", [1 << 20, 64 << 20])):
+            res = asyncio.run(cross_process(native_flag, dev, sizes, pull,
+                                            child))
             st[f"cross-process-{label}"] = res
             for row in res["rows"]:
-                log(f"[transport] cross-process {label:6s} device<->device "
+                log(f"[transport] cross-process {label:13s} device<->device "
                     f"{row['bytes']:>9d} B  fw p50 {row['fw_p50_us']:9.1f} "
                     f"us p99 {row['fw_p99_us']:9.1f} us  raw p50 "
                     f"{row['raw_p50_us']:8.1f} us  {row['fw_gbps']:7.3f} "
@@ -2559,6 +2596,10 @@ def phase_transport(dev, card: str) -> dict:
                 f"{res['echo_stages']}")
         st["devpull-lifecycle"] = asyncio.run(devpull_lifecycle(dev))
         log(f"[transport] pull lifecycle {st['devpull-lifecycle']}")
+        st["devpull-lifecycle-native"] = asyncio.run(
+            devpull_lifecycle(dev, "1"))
+        log(f"[transport] pull lifecycle, C++ engine "
+            f"{st['devpull-lifecycle-native']}")
         st["monitor"] = monitor_check(dev)
         t_bench = time.perf_counter()
         reports = bench_cli_runs()
@@ -2846,12 +2887,13 @@ def phase_remote_parity(params32, cfg32, reqs, wants) -> dict:
 
 
 def monitor_check(dev) -> dict:
-    """A 1 MiB cuda:0 -> cuda:0 round trip over tcp, staged and pulled,
-    under STARWAY_MONITOR=1: every worker's protocol events replay through
-    the monitor compiled from the port's sources (checked at each
-    worker's retirement and once more here) with no violation, and the
-    data arms are witnessed (DATA staged, DEVPULL pulled).  In process
-    there is no wire protocol to check."""
+    """A 1 MiB cuda:0 -> cuda:0 round trip over tcp, staged and pulled on
+    the Python engine and pulled on the C++ engine, under
+    STARWAY_MONITOR=1: every worker's protocol events replay through the
+    monitor compiled from the port's sources (checked at each worker's
+    retirement and once more here) with no violation, and the data arms
+    are witnessed (DATA staged, DEVPULL pulled).  In process there is no
+    wire protocol to check."""
     import asyncio
     import os
 
@@ -2863,8 +2905,10 @@ def monitor_check(dev) -> dict:
     out = {}
     with mock.patch.dict(os.environ, STARWAY_TLS="tcp", STARWAY_NATIVE="0",
                          STARWAY_MONITOR="1"):
-        for label, pull, frame in (("staged", "0", "DATA"),
-                                   ("pull", "1", "DEVPULL")):
+        for label, native, pull, frame in (
+                ("staged", "0", "0", "DATA"), ("pull", "0", "1", "DEVPULL"),
+                ("native-pull", "1", "1", "DEVPULL")):
+            os.environ["STARWAY_NATIVE"] = native
             os.environ["STARWAY_DEVPULL"] = pull
             swtrace.reset()
             monitor.reset()
@@ -2887,7 +2931,11 @@ def monitor_check(dev) -> dict:
                         if not torch.equal(sink.array, src):
                             raise AssertionError("monitored round trip "
                                                  "changed the bytes")
-                    return [s.last_transport for s in sinks]
+                    routes = [s.last_transport for s in sinks]
+                    if routes != ["staged" if pull == "0" else "device"] * 2:
+                        raise AssertionError(f"monitored round trip "
+                                             f"({label}) landed {routes}")
+                    return routes
                 finally:
                     await client.aclose()
                     await server.aclose()
@@ -2969,20 +3017,25 @@ class RecordingPort:
         return self.inner.aflush()
 
 
-def dp_rank_child(rank: int, port: int, spec: dict, q, released) -> None:
+def dp_rank_child(rank: int, port: int, spec: dict, q, released,
+                  barrier) -> None:
     """One rank of the DP phase, in its own process on ``spec["device"]``
     (imports only the port).  Rank 0 holds a Server with a ServerPort,
-    rank 1 a Client with a ClientPort, over tcp on the Python engine with
-    the pull on for every leaf.  Runs ``spec["full"]`` (Trainer + adamw,
-    bf16, ``steps`` step_dp steps on its own batch), then
-    ``spec["parity"]`` (float32, one step, SGD), and puts a dict per step
-    on ``q``; rank 0 then checks the parity step against one in-process
-    reference of both ranks' averaged step, once rank 1 has set
-    ``released``."""
+    rank 1 a Client with a ClientPort, over tcp on the engine
+    ``spec["native"]`` asks for, with the pull on for every leaf.  Runs
+    ``spec["full"]`` (Trainer + adamw, bf16, ``steps`` step_dp steps on
+    its own batch), then ``spec["parity"]`` where there is one (float32,
+    one step, SGD), and puts a dict per step on ``q``; rank 0 then checks
+    the parity step against one in-process reference of both ranks'
+    averaged step, once rank 1 has set ``released``.  Both ranks read a
+    step's counts and memory before either starts the next (``barrier``,
+    outside the timed step): the C++ engine pulls a message as it
+    arrives, so the peer's next gradients would otherwise land, and count,
+    inside this step's reading."""
     import asyncio
     import os
 
-    os.environ.update(STARWAY_TLS="tcp", STARWAY_NATIVE="0",
+    os.environ.update(STARWAY_TLS="tcp", STARWAY_NATIVE=spec["native"],
                       STARWAY_DEVPULL="1", STARWAY_DEVPULL_MIN="1")
 
     import torch
@@ -3032,18 +3085,24 @@ def dp_rank_child(rank: int, port: int, spec: dict, q, released) -> None:
             torch.cuda.reset_peak_memory_stats(dev)
         base = held()[1]
         reset_launch_counts()
+        before = dict(mgr.counts) if mgr is not None else {}
+        tel_before = {}
         for step in range(run["steps"]):
             rec.transports.clear()
-            before = dict(mgr.counts) if mgr is not None else {}
             t0 = time.perf_counter()
             loss = await trainer.step_dp(batch)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             ms = (time.perf_counter() - t0) * 1e3
             after = dict(mgr.counts) if mgr is not None else {}
+            tel = trainer.telemetry()
+            spans_ms = {k: (v["total_s"] - tel_before.get(k, {}).get(
+                "total_s", 0.0)) * 1e3 for k, v in tel.items()}
+            tel_before = tel
             q.put(dict(
                 kind="step", mode=mode, rank=rank, step=step, loss=loss,
-                ms=ms, n_leaves=n_leaves, leaf_bytes=leaf_bytes,
+                ms=ms, spans_ms=spans_ms, n_leaves=n_leaves,
+                leaf_bytes=leaf_bytes,
                 checksums=[leaf_checksum(t)
                            for t in tree_leaves(trainer.state.params)],
                 transports=sorted(set(rec.transports)),
@@ -3053,11 +3112,11 @@ def dp_rank_child(rank: int, port: int, spec: dict, q, released) -> None:
                 **dict(zip(("held_raw_over_base_bytes",
                             "held_over_base_bytes"),
                            (h - base for h in held())))))
-        tel = trainer.telemetry()
+            before = after
+            await asyncio.get_running_loop().run_in_executor(
+                None, barrier.wait, 600)
         q.put(dict(kind="done", mode=mode, rank=rank,
                    launches=launch_counts(),
-                   spans_ms={k: v["p50_us"] / 1e3 for k, v in tel.items()},
-                   spans_count={k: v["count"] for k, v in tel.items()},
                    peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
                             if dev.type == "cuda" else None)))
         if mode == "parity" and rank == 0:
@@ -3110,7 +3169,7 @@ def dp_rank_child(rank: int, port: int, spec: dict, q, released) -> None:
                     await asyncio.sleep(0.25)
             port_obj, worker = ClientPort(link), link._client
         try:
-            for mode in ("full", "parity"):
+            for mode in dp_modes(spec):
                 await run_mode(worker, port_obj, mode)
                 if dev.type == "cuda":
                     torch.cuda.empty_cache()
@@ -3130,20 +3189,25 @@ def dp_rank_child(rank: int, port: int, spec: dict, q, released) -> None:
             released.set()
 
 
-def dp_spec(device: str, preset: str = "llama3-8b") -> dict:
-    """The DP phase's two runs: llama3-8b widths cut to 2 layers, bf16,
-    remat "dots", [1, 2049], 3 steps; then float32, 2 layers, [1, 513],
-    one step."""
-    return dict(
-        device=device,
-        full=dict(preset=preset, steps=3, batch=(1, 2049),
-                  cfg=dict(n_layers=2, remat=True, remat_policy="dots"),
-                  seed=SEED + 5, batch_seed=SEED + 20,
-                  base_tag=DP_BASE_TAG),
-        parity=dict(preset=preset, steps=1, batch=(1, 513),
-                    cfg=dict(n_layers=2, dtype="float32"),
-                    seed=SEED + 6, batch_seed=SEED + 30,
-                    base_tag=DP_PARITY_BASE_TAG))
+def dp_spec(device: str, preset: str = "llama3-8b",
+            native: bool = False) -> dict:
+    """The DP phase's two runs on the Python engine: llama3-8b widths cut
+    to 2 layers, bf16, remat "dots", [1, 2049], 3 steps; then float32, 2
+    layers, [1, 513], one step.  ``native``: the bf16 run alone, 2 steps,
+    on the C++ engine."""
+    full = dict(preset=preset, steps=2 if native else 3, batch=(1, 2049),
+                cfg=dict(n_layers=2, remat=True, remat_policy="dots"),
+                seed=SEED + 5, batch_seed=SEED + 20, base_tag=DP_BASE_TAG)
+    parity = None if native else dict(
+        preset=preset, steps=1, batch=(1, 513),
+        cfg=dict(n_layers=2, dtype="float32"), seed=SEED + 6,
+        batch_seed=SEED + 30, base_tag=DP_PARITY_BASE_TAG)
+    return dict(device=device, native="1" if native else "0", full=full,
+                parity=parity)
+
+
+def dp_modes(spec: dict) -> list:
+    return [m for m in ("full", "parity") if spec[m] is not None]
 
 
 def phase_dp(spec: dict, card: str) -> tuple:
@@ -3153,23 +3217,26 @@ def phase_dp(spec: dict, card: str) -> tuple:
     (a checksum of each leaf's bytes), every loss is finite, every leaf
     landed on the card ("device") by one CUDA IPC pull a leaf and step on
     each side, the memory of the exchange is released after each step;
-    the float32 parity step equals, to 1e-5 of each leaf's largest value,
-    one in-process step on both ranks' averaged gradients.  Returns
-    (stats, the ranks' launches summed)."""
+    the float32 parity step (where the spec has one) equals, to 1e-5 of
+    each leaf's largest value, one in-process step on both ranks'
+    averaged gradients.  Returns (stats, the ranks' launches summed)."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    q, released = ctx.Queue(), ctx.Event()
+    q, released, barrier = ctx.Queue(), ctx.Event(), ctx.Barrier(2)
     port = free_port()
     on_card = spec["device"].startswith("cuda")
-    full = spec["full"]
-    log(f"[dp] two ranks on {spec['device']}, one process each, tcp, Python "
-        f"engine, CUDA IPC pull: {full['preset']} widths, "
+    full, modes = spec["full"], dp_modes(spec)
+    engine = "C++" if spec["native"] == "1" else "Python"
+    log(f"[dp] two ranks on {spec['device']}, one process each, tcp, "
+        f"{engine} engine, CUDA IPC pull: {full['preset']} widths, "
         f"{full['cfg']['n_layers']} layers, bf16, remat dots, AdamW, batch "
-        f"{list(full['batch'])} a rank, {full['steps']} step_dp steps; then "
-        f"float32, batch {list(spec['parity']['batch'])}, one step (SGD)")
+        f"{list(full['batch'])} a rank, {full['steps']} step_dp steps"
+        + (f"; then float32, batch {list(spec['parity']['batch'])}, one "
+           f"step (SGD)" if "parity" in modes else ""))
     ranks = [ctx.Process(target=dp_rank_child,
-                         args=(r, port, spec, q, released)) for r in (0, 1)]
+                         args=(r, port, spec, q, released, barrier))
+             for r in (0, 1)]
     t0 = time.perf_counter()
     ranks[0].start()
     msgs = []
@@ -3178,8 +3245,8 @@ def phase_dp(spec: dict, card: str) -> tuple:
         if first.get("kind") != "listening":
             raise AssertionError(f"rank 0 did not listen: {first}")
         ranks[1].start()
-        n_want = 2 * (full["steps"] + 1) + 2 * (spec["parity"]["steps"] + 1)
-        n_want += 1  # rank 0's parity reference
+        n_want = sum(2 * (spec[m]["steps"] + 1) for m in modes)
+        n_want += "parity" in modes  # rank 0's parity reference
         while len(msgs) < n_want:
             msg = q.get(timeout=900)
             if msg.get("kind") == "error":
@@ -3195,7 +3262,7 @@ def phase_dp(spec: dict, card: str) -> tuple:
     steps = {(m["mode"], m["step"], m["rank"]): m for m in msgs
              if m["kind"] == "step"}
     done = {(m["mode"], m["rank"]): m for m in msgs if m["kind"] == "done"}
-    ref = next(m for m in msgs if m["kind"] == "reference")
+    ref = next((m for m in msgs if m["kind"] == "reference"), None)
     for key in sorted(steps):
         m = steps[key]
         log(f"  [dp] {key}: loss {m['loss']:.4f}, {m['ms']:.1f} ms, "
@@ -3203,7 +3270,7 @@ def phase_dp(spec: dict, card: str) -> tuple:
             f"held over base {m['held_raw_over_base_bytes'] / 1e6:.1f} MB "
             f"right after, {m['held_over_base_bytes'] / 1e6:.1f} MB settled")
     want_route = "device" if on_card else "staged"
-    for mode in ("full", "parity"):
+    for mode in modes:
         for step in range(spec[mode]["steps"]):
             a, b = steps[(mode, step, 0)], steps[(mode, step, 1)]
             if a["checksums"] != b["checksums"]:
@@ -3235,21 +3302,25 @@ def phase_dp(spec: dict, card: str) -> tuple:
                         f"{mode} step {step} rank {m['rank']}: "
                         f"{m['held_over_base_bytes'] / 1e9:.3f} GB still "
                         f"held after the exchange")
-    if not ref["max_rel_err"] <= DP_PARITY_REL_TOL:
+    if ref is not None and not ref["max_rel_err"] <= DP_PARITY_REL_TOL:
         raise AssertionError(f"the DP parity step is {ref['max_rel_err']:.3g}"
                              f" of a leaf's largest value from the "
                              f"in-process reference")
-    if not ref["max_rel_move"] > 100 * DP_PARITY_REL_TOL:
+    if ref is not None and not ref["max_rel_move"] > 100 * DP_PARITY_REL_TOL:
         raise AssertionError(f"the parity step hardly moved the parameters: "
                              f"{ref['max_rel_move']:.3g}")
     launches = {}
     for m in done.values():
         for k, v in m["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    full_steps = [steps[("full", i, r)] for i in range(full["steps"])
-                  for r in (0, 1)]
+    # Steady state: every step but the first, which pays the ranks' first
+    # kernel loads and IPC exports.
+    steady = range(1, full["steps"])
+    full_steps = [steps[("full", i, r)] for i in steady for r in (0, 1)]
     nbytes = full_steps[0]["leaf_bytes"]
-    span = {r: done[("full", r)]["spans_ms"] for r in (0, 1)}
+    span = {r: {k: statistics.median(steps[("full", i, r)]["spans_ms"][k]
+                                     for i in steady)
+                for k in ("grad", "dp_exchange", "apply")} for r in (0, 1)}
     stats = dict(
         wall_s=wall_s,
         losses={r: [steps[("full", i, r)]["loss"]
@@ -3257,7 +3328,7 @@ def phase_dp(spec: dict, card: str) -> tuple:
         median_step_ms=statistics.median(m["ms"] for m in full_steps),
         step_ms={r: [round(steps[("full", i, r)]["ms"], 1)
                      for i in range(full["steps"])] for r in (0, 1)},
-        spans_p50_ms=span,
+        spans_median_ms=span,
         exchange_bytes_each_way=nbytes,
         exchange_gb_per_s_each_way={
             r: nbytes / (span[r]["dp_exchange"] / 1e3) / 1e9
@@ -3268,13 +3339,306 @@ def phase_dp(spec: dict, card: str) -> tuple:
         held_raw_over_base_bytes=max(m["held_raw_over_base_bytes"]
                                      for m in steps.values()),
         peak_gb={f"{mode}-{r}": done[(mode, r)]["peak_gb"]
-                 for mode in ("full", "parity") for r in (0, 1)},
-        parity=ref, launches_by_rank={
+                 for mode in modes for r in (0, 1)},
+        parity=ref, engine=engine, launches_by_rank={
             f"{mode}-{r}": done[(mode, r)]["launches"]
-            for mode in ("full", "parity") for r in (0, 1)})
+            for mode in modes for r in (0, 1)})
     log(f"[dp] {stats} ({card})")
     return stats, launches
 
+
+
+# ------------------------------------------------------------ reshard
+
+LM_HEAD = (128256, 4096)  # llama3-8b's lm_head, bf16: 1.05 GB
+W1 = (4096, 14336)        # one layer's w1, bf16: 117 MB
+RESHARD_MEM_SLACK = 0     # device bytes a move may leave allocated
+RESHARD_REPS = 2          # each move twice: the first pays a process's first uses
+
+
+def reshard_source(shape, seed: int, dev):
+    """The move's source: bf16 from a seeded generator, made on ``dev``
+    (both ranks make the same tensor and keep their own boxes)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+
+def check_shards(res, sharding, full) -> None:
+    """Every destination shard equals its box of ``full``, byte for byte,
+    compared on the card."""
+    import torch
+
+    boxes = sharding.indices_map(full.shape)
+    for slot, t in res.shards.items():
+        want = full[tuple(slice(lo, hi) for lo, hi in boxes[slot])]
+        if t.device != slot.device or not torch.equal(
+                t.view(torch.int16), want.contiguous().view(torch.int16)):
+            raise AssertionError(f"reshard: slot {slot.index}'s shard "
+                                 f"differs from its box {boxes[slot]}")
+
+
+def settled_allocated(dev) -> int:
+    """Device bytes allocated once released exports are collected and the
+    frees deferred behind side-stream uses are processed."""
+    import torch
+
+    gc.collect()
+    if dev.type != "cuda":  # a rehearsal on the CPU: nothing to read
+        return 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.ipc_collect()
+    torch.empty(1, device=dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def reshard_rank_child(rank: int, ports: list, dev_name: str, shapes,
+                       q, barrier) -> None:
+    """One rank of phase 17(b), in its own process on the card (imports
+    only the port).  Rank 0 serves each move on its own port, rank 1
+    connects.  The moves: the lm_head, rows over 2 -> columns over 2,
+    via "device" on the Python engine, via "device" on the C++ engine and
+    via "host"; then one layer's w1 from replicated on rank 0 to columns
+    over 2, via "device" (``shapes``: the two tensors' shapes).  Each
+    checks its shards byte for byte, its counts and its memory, and puts
+    one dict on ``q`` (each move runs RESHARD_REPS times); the ranks
+    close a move's link only once both have finished it (``barrier``), so
+    no flush meets a closed peer."""
+    import asyncio
+    import os
+
+    import torch
+
+    os.environ.update(STARWAY_TLS="tcp", STARWAY_DEVPULL="1")
+    dev = torch.device(dev_name)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)
+    lm_head, w1 = shapes
+
+    from starway_tpu_torch import Client, Server
+    from starway_tpu_torch.parallel import ClientPort, ServerPort
+    from starway_tpu_torch.reshard import (ArrayRef, ShardedTensor, SlotMesh,
+                                           SlotSharding, executor,
+                                           redistribute)
+
+    two = SlotMesh({"x": 2}, devices=dev, ranks=[0, 1])
+    moves = [
+        ("lm_head-device-py", lm_head, "0", "device", ("x", None),
+         (None, "x"), False),
+        ("lm_head-device-native", lm_head, "1", "device", ("x", None),
+         (None, "x"), False),
+        ("lm_head-host", lm_head, "0", "host", ("x", None), (None, "x"),
+         False),
+        ("w1-replicated-device", w1, "0", "device", (), (None, "x"), True),
+    ]
+
+    async def link(port, native):
+        os.environ["STARWAY_NATIVE"] = native
+        if rank == 0:
+            server = Server()
+            server.listen("127.0.0.1", port)
+            for _ in range(24000):
+                if server.list_clients():
+                    break
+                await asyncio.sleep(0.005)
+            return server, ServerPort(server), server._server
+        for _ in range(480):
+            client = Client()
+            try:
+                await client.aconnect("127.0.0.1", port)
+                break
+            except Exception:  # noqa: BLE001
+                await asyncio.sleep(0.25)
+        return client, ClientPort(client), client._client
+
+    async def move(i, name, shape, native, via, src_spec, dst_spec,
+                   from_rank0):
+        if from_rank0:  # the source replicated on rank 0 alone
+            src_sh = SlotSharding(SlotMesh({"x": 1}, devices=dev, ranks=0),
+                                  src_spec)
+        else:
+            src_sh = SlotSharding(two, src_spec)
+        dst_sh = SlotSharding(two, dst_spec)
+        full = reshard_source(shape, SEED + 40 + i, dev)
+        if from_rank0 and rank == 1:
+            src = ArrayRef(shape, torch.bfloat16)
+        else:
+            src = ShardedTensor.from_tensor(full, src_sh, rank=rank)
+        closer, port_obj, worker = await link(ports[i], native)
+        base = settled_allocated(dev)
+        executor.reset_staging_peak()
+        mgr = worker.transfer_manager()
+        before = dict(mgr.counts)
+        wall_ms = []
+        for rep in range(RESHARD_REPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            res = await redistribute(src, dst_sh, {1 - rank: port_obj},
+                                     rank=rank,
+                                     lease_slot=8 + RESHARD_REPS * i + rep,
+                                     via=via, round_timeout=300)
+            sync(dev)
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            check_shards(res, dst_sh, full)
+            st = res.stats
+            del res  # the destination: what is left must be what was there
+        pulls = {k: mgr.counts[k] - before.get(k, 0)
+                 for k in ("offered_ipc", "pulled_ipc")}
+        peak = executor.staging_snapshot()["peak"]
+        await asyncio.get_running_loop().run_in_executor(
+            None, barrier.wait, 600)
+        await closer.aclose()
+        after = settled_allocated(dev) - base
+        del src, full
+        moved = st["tx_bytes"] + st["rx_bytes"]
+        return dict(
+            kind="move", rank=rank, name=name, shape=list(shape), via=via,
+            engine="C++" if native == "1" else "Python",
+            wall_ms=wall_ms, rounds=st["rounds"],
+            plan_rounds=st["plan_rounds"], tx_bytes=st["tx_bytes"],
+            rx_bytes=st["rx_bytes"], peak_staging=peak,
+            peak_staging_bound=st["peak_staging_bound"], pulls=pulls,
+            gb_per_s=moved / (min(wall_ms) / 1e3) / 1e9,
+            held_after_bytes=after)
+
+    async def main():
+        for i, m in enumerate(moves):
+            q.put(await move(i, *m))
+
+    try:
+        asyncio.run(main())
+    except Exception as e:  # noqa: BLE001 - the parent reports it
+        import traceback
+
+        q.put(dict(kind="error", rank=rank,
+                   error=f"{e!r}\n{traceback.format_exc()}"))
+
+
+def phase_reshard(dev, card: str, shapes=(LM_HEAD, W1)) -> dict:
+    """Phase 17: redistribute() on the card, sized as users move weights.
+    (a) In process: llama3-8b's lm_head [128256, 4096] bf16 (1.05 GB) over
+    8 slots on cuda:0, rows over 8 -> columns over 8, via "device" (every
+    piece a copy on the card).  (b) Two spawned ranks on the card
+    (reshard_rank_child): the lm_head rows over 2 -> columns over 2 (263
+    MB each way) via "device" on the Python engine, via "device" on the
+    C++ engine and via "host"; one layer's w1 [4096, 14336] from
+    replicated on rank 0 to columns over 2.  Every destination shard
+    equals its box of the source byte for byte; the rounds, tx/rx bytes,
+    the IPC pulls, the peak staging against its bound and the device
+    memory back at its baseline are checked; wall ms and GB/s logged."""
+    import asyncio
+    import multiprocessing as mp
+
+    import torch
+
+    from starway_tpu_torch.reshard import (ShardedTensor, SlotMesh,
+                                           SlotSharding, redistribute)
+
+    out = {}
+    t_phase = time.perf_counter()
+    lm_head, w1 = shapes
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)
+    # (a) in process
+    eight = SlotMesh({"x": 8}, devices=dev)
+    full = reshard_source(lm_head, SEED + 39, dev)
+    src = ShardedTensor.from_tensor(full, SlotSharding(eight, ("x", None)))
+    dst_sh = SlotSharding(eight, (None, "x"))
+    nbytes = full.numel() * full.element_size()
+    base = settled_allocated(dev)
+    times = []
+    for _ in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = asyncio.run(redistribute(src, dst_sh, via="device"))
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        check_shards(res, dst_sh, full)
+        if res.stats["rounds"] or res.stats["tx_bytes"]:
+            raise AssertionError(f"the in-process retile went over the "
+                                 f"wire: {res.stats}")
+        del res
+    held = settled_allocated(dev) - base
+    if held > RESHARD_MEM_SLACK:
+        raise AssertionError(f"the in-process retile left {held} B "
+                             f"allocated")
+    copy_ms = (cuda_ms(lambda: full.t().contiguous(), iters=5, warmup=1)
+               if dev.type == "cuda" else None)
+    out["in-process"] = dict(
+        bytes=nbytes, wall_ms=times, gb_per_s=nbytes / (min(times) / 1e3) /
+        1e9, transpose_copy_ms=copy_ms, held_after_bytes=held)
+    log(f"[reshard] (a) lm_head {list(lm_head)} bf16 {nbytes / 1e9:.3f} GB, "
+        f"8 slots on {dev}, rows -> columns, via device: wall ms {times} "
+        f"({out['in-process']['gb_per_s']:.1f} GB/s at the best); one "
+        f"transpose copy of the whole tensor {copy_ms} ms (CUDA events); "
+        f"memory over base after {held} B ({card})")
+    del src, full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) two spawned ranks
+    ctx = mp.get_context("spawn")
+    q, barrier = ctx.Queue(), ctx.Barrier(2)
+    ports = [free_port() for _ in range(4)]
+    ranks = [ctx.Process(target=reshard_rank_child,
+                         args=(r, ports, str(dev), shapes, q, barrier))
+             for r in (0, 1)]
+    for p in ranks:
+        p.start()
+    msgs = []
+    try:
+        while len(msgs) < 2 * 4:
+            msg = q.get(timeout=600)
+            if msg.get("kind") == "error":
+                raise AssertionError(f"reshard rank {msg['rank']} failed: "
+                                     f"{msg['error']}")
+            msgs.append(msg)
+    finally:
+        for p in ranks:
+            p.join(120)
+            if p.is_alive():
+                p.terminate()
+    lm_quarter = lm_head[0] * lm_head[1] * 2 // 4
+    w1_half = w1[0] * w1[1] * 2 // 2
+    for m in msgs:
+        name, r = m["name"], m["rank"]
+        if name.startswith("lm_head"):
+            want_tx = want_rx = lm_quarter
+        else:
+            want_tx, want_rx = (w1_half, 0) if r == 0 else (0, w1_half)
+        pulled = m["via"] == "device" and dev.type == "cuda"
+        want_pulls = {"offered_ipc": RESHARD_REPS if pulled and want_tx
+                      else 0,
+                      "pulled_ipc": RESHARD_REPS if pulled and want_rx
+                      else 0}
+        bad = []
+        if (m["tx_bytes"], m["rx_bytes"]) != (want_tx, want_rx):
+            bad.append(f"tx/rx {m['tx_bytes']}/{m['rx_bytes']}, want "
+                       f"{want_tx}/{want_rx}")
+        if m["rounds"] != 1 or m["plan_rounds"] != 1:
+            bad.append(f"rounds {m['rounds']} of a plan of "
+                       f"{m['plan_rounds']}, want 1")
+        if m["peak_staging"] > m["peak_staging_bound"]:
+            bad.append(f"peak staging {m['peak_staging']} over its bound "
+                       f"{m['peak_staging_bound']}")
+        if m["pulls"] != want_pulls:
+            bad.append(f"IPC {m['pulls']}, want {want_pulls}")
+        if m["held_after_bytes"] > RESHARD_MEM_SLACK:
+            bad.append(f"{m['held_after_bytes']} B held after the move")
+        if bad:
+            raise AssertionError(f"reshard {name} rank {r}: {bad}")
+        out[f"{name}-rank{r}"] = m
+        log(f"[reshard] (b) {name} rank {r} ({m['engine']} engine, via "
+            f"{m['via']}): wall ms {[round(t, 1) for t in m['wall_ms']]}, "
+            f"tx {m['tx_bytes']} B rx {m['rx_bytes']} B, "
+            f"{m['gb_per_s']:.2f} GB/s (tx + rx over the best wall), "
+            f"peak staging {m['peak_staging']} of bound "
+            f"{m['peak_staging_bound']}, IPC {m['pulls']}, held after "
+            f"{m['held_after_bytes']} B")
+    log(f"[reshard] done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
 
 
 def main() -> int:
@@ -3438,6 +3802,21 @@ def main() -> int:
         if c_dp[name] != 2 * dp_runs:  # 2 layers a step, each rank
             raise AssertionError(f"{name} launched {c_dp[name]} times in the "
                                  f"DP ranks' {dp_runs} steps of 2 layers")
+    # 16, C++ engine: the bf16 run again, 2 steps, both ranks on it.
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_native = dp_spec("cuda:0", native=True)
+    st_dpn, c_dpn = phase_dp(spec_native, card)
+    dpn_runs = 2 * spec_native["full"]["steps"]
+    for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq"):
+        if c_dpn[name] != 2 * dpn_runs:
+            raise AssertionError(f"{name} launched {c_dpn[name]} times in the "
+                                 f"C++-engine DP ranks' {dpn_runs} steps")
+
+    # 17: redistribute() on the card (no kernel of the port runs in it).
+    gc.collect()
+    torch.cuda.empty_cache()
+    st_rs = phase_reshard(dev, card)
 
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
@@ -3463,12 +3842,12 @@ def main() -> int:
             label: traced[label].get("attention_device_ms")
             for label in labels}
 
-    # 17. kernels line: launches are the serving paths' (phases 4, 5, 6 and
+    # 18. kernels line: launches are the serving paths' (phases 4, 5, 6 and
     # 7) and the training paths' (phases 11, 13 and 16, the last the DP
-    # ranks' own counts), each counted from 0 just before its run and read
-    # just after.
+    # ranks' own counts on both engines), each counted from 0 just before
+    # its run and read just after.
     main_counts = {k: main_counts[k] + c7[k] + c_ring[k] + c_dp[k]
-                   for k in main_counts}
+                   + c_dpn[k] for k in main_counts}
     kernels = []
     for key, row in rows.items():
         row = dict(row)
@@ -3526,7 +3905,8 @@ def main() -> int:
         + "; ".join(f"{label} " + ", ".join(
             f"{row['bytes'] >> 10} KiB {row['fw_p50_us']:.0f}"
             for row in st_tr[f"cross-process-{label}"]["rows"])
-            for label in ("ipc", "staged", "native")))
+            for label in ("ipc", "staged", "native", "native-staged",
+                          "native-py")))
     log(f"[summary] remote-serve ({card}): {st_remote['tokens_per_s']:.1f} "
         f"tokens/s over the bridge against {st4['tokens_per_s']:.1f} in "
         f"process (phase 4); time to first token p50 "
@@ -3535,15 +3915,26 @@ def main() -> int:
         f"cancelled {st_remote['cancelled']}; remote-parity "
         f"{st_remote_parity}")
     log(f"[summary] dp ({card}): median step {st_dp['median_step_ms']:.1f} ms "
-        f"(both ranks, 3 steps each: {st_dp['step_ms']}); spans p50 ms "
-        f"{st_dp['spans_p50_ms']}; {st_dp['exchange_bytes_each_way'] / 1e9:.3f}"
+        f"(both ranks, steps 2-3 of {st_dp['step_ms']}); spans median ms "
+        f"{st_dp['spans_median_ms']}; "
+        f"{st_dp['exchange_bytes_each_way'] / 1e9:.3f}"
         f" GB each way a step in {st_dp['leaves']} leaves, "
         f"{st_dp['exchange_gb_per_s_each_way']} GB/s each way over the "
         f"dp_exchange span; peak GB {st_dp['peak_gb']}; parity "
         f"{st_dp['parity']}; monitor {st_tr['monitor']}")
+    log(f"[summary] dp on the C++ engine ({card}): step 2 "
+        f"{st_dpn['median_step_ms']:.1f} ms ({st_dpn['step_ms']}); "
+        f"dp_exchange ms "
+        f"{ {r: v['dp_exchange'] for r, v in st_dpn['spans_median_ms'].items()} }"
+        f", {st_dpn['exchange_gb_per_s_each_way']} GB/s each way, against "
+        f"the Python engine's "
+        f"{ {r: v['dp_exchange'] for r, v in st_dp['spans_median_ms'].items()} }"
+        f" ms, {st_dp['exchange_gb_per_s_each_way']} GB/s")
+    log(f"[summary] reshard ({card}): " + "; ".join(
+        f"{k} {v['gb_per_s']:.2f} GB/s" for k, v in st_rs.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 18. last line
+    # 19. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -308,7 +308,7 @@ def extract_py_machine(root: Path) -> tuple[_Machine, list]:
 def extract_cpp_machine(root: Path) -> tuple[_Machine, list]:
     machine = _Machine()
     findings: list = []
-    relfile = "native/sw_engine.cpp"
+    relfile = "starway_tpu_torch/native/sw_engine.cpp"
     path = root / relfile
     if not path.is_file():
         return machine, [Finding(relfile, 1, "proto-state",
@@ -359,7 +359,7 @@ def run(root: Path) -> list:
             "extraction grammar? see DESIGN.md §16)"))
     if not cpp.transitions:
         out.append(Finding(
-            "native/sw_engine.cpp", 1, "proto-state",
+            "starway_tpu_torch/native/sw_engine.cpp", 1, "proto-state",
             "found no `swcheck: state(...)` annotations in the native "
             "engine -- state machine checking would be vacuous (annotate "
             "dispatch sites; see DESIGN.md §16)"))

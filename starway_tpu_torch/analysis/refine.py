@@ -289,7 +289,7 @@ def compile_monitor(root=None, runtime: bool = False):
     root = Path(root)
     py, py_f = protomodel.extract_py_machine(root)
     trans: dict = {k: set(v[0]) for k, v in py.transitions.items()}
-    cpp_path = root / "native" / "sw_engine.cpp"
+    cpp_path = root / "starway_tpu_torch" / "native" / "sw_engine.cpp"
     if cpp_path.is_file() or not runtime:
         cpp, cpp_f = protomodel.extract_cpp_machine(root)
         for k, (nexts, _f, _l) in cpp.transitions.items():
@@ -346,7 +346,7 @@ _CPP_CASE_RE = re.compile(r'case\s+(T_\w+)\s*:\s*return\s+"(\w+)"\s*;')
 
 def _cpp_frame_names(root: Path, out: list):
     """The native proto_frame_name() switch -> ({T_* name: name}, line)."""
-    rel = "native/sw_engine.cpp"
+    rel = "starway_tpu_torch/native/sw_engine.cpp"
     path = root / rel
     if not path.is_file():
         out.append(Finding(rel, 1, "refine", "native engine source missing "
@@ -381,7 +381,7 @@ def _cpp_frame_names(root: Path, out: list):
 
 def _check_vocabulary(root: Path, out: list) -> None:
     f_frames = "starway_tpu_torch/core/frames.py"
-    f_cpp = "native/sw_engine.cpp"
+    f_cpp = "starway_tpu_torch/native/sw_engine.cpp"
     py_rec = _py_frame_names(root, out)
     cpp_rec = _cpp_frame_names(root, out)
     frames_path = root / f_frames

@@ -1,4 +1,5 @@
-"""ctypes bridge to the C++ native engine (native/sw_engine.cpp).
+"""ctypes bridge to the C++ native engine (native/sw_engine.cpp, built from
+this package's copy, starway_tpu_torch/native/sw_engine.cpp).
 
 The C ABI this module mirrors is declared authoritatively in
 ``native/sw_engine.h`` — the analogue of the reference's hand-written type
@@ -16,13 +17,14 @@ protocol as the Python engine, so mixed-engine processes interoperate over
 either.  The in-process fast path stays in Python, which is why native
 selection requires inproc-free mode (``STARWAY_TLS=tcp`` or ``tcp,sm``,
 plus ``STARWAY_NATIVE=1``).  Cross-process device payloads ride the
-negotiated PJRT pull extension: ALL matching lives in the engine
-(descriptor records share its FIFO unexpected stream with staged DATA, so
-same-tag ordering matches the Python engine); the engine surfaces
-descriptors and claim events through ``sw_set_devpull``'s two callbacks
-and this wrapper runs the pulls (the engine cannot -- they need a live
-JAX runtime), releasing deferred flush barriers via
-``sw_devpull_resolved`` (see sw_engine.h "devpull" and DESIGN.md §7).
+pull, negotiated under the port's "cudaipc" HELLO key (device.py):
+ALL matching lives in the engine (descriptor records share its FIFO
+unexpected stream with staged DATA, so same-tag ordering matches the
+Python engine); the engine surfaces descriptors and claim events
+through ``sw_set_devpull``'s two callbacks and this wrapper runs the
+pulls on device.py's TransferManager (the engine cannot -- they need
+torch), releasing deferred flush barriers via ``sw_devpull_resolved``
+(see sw_engine.h "devpull" and DESIGN.md §7).
 
 Lifetime/GIL notes: callbacks cross from the engine thread through ctypes
 trampolines, which acquire the GIL.  Each pending op holds its Python buffer
@@ -125,6 +127,7 @@ def load() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.c_int, _DEVPULL_CB, _DEVPULL_CLAIM_CB,
             ctypes.c_void_p,
         ]
+        lib.sw_set_cudaipc.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
         lib.sw_devpull_resolved.argtypes = [
             ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int
         ]
@@ -371,11 +374,12 @@ class NativeConn:
         self.conn_id = conn_id
         self._transports: Optional[list[tuple[str, str]]] = None
         self._devpull: Optional[bool] = None
+        self._cudaipc_peer: Optional[str] = None
 
     def _info(self) -> dict:
         lib = load()
-        buf = ctypes.create_string_buffer(512)
-        n = lib.sw_conn_info(self.worker._h, self.conn_id, buf, 512)
+        buf = ctypes.create_string_buffer(1024)
+        n = lib.sw_conn_info(self.worker._h, self.conn_id, buf, 1024)
         if n <= 0:
             return {}
         return json.loads(buf.value.decode())
@@ -423,8 +427,16 @@ class NativeConn:
     def devpull_ok(self) -> bool:
         # Handshake-fixed, like the transport: memoize the FFI round-trip.
         if self._devpull is None:
-            self._devpull = bool(self._info().get("devpull", 0))
+            info = self._info()
+            self._cudaipc_peer = info.get("cudaipc") or None
+            self._devpull = bool(info.get("devpull", 0))
         return self._devpull
+
+    @property
+    def cudaipc_peer(self) -> Optional[str]:
+        """The peer's "cudaipc" value when the pull was negotiated
+        (device.py routes each offer by it), else None."""
+        return self._cudaipc_peer if self.devpull_ok else None
 
     @property
     def rail_count(self) -> int:
@@ -665,11 +677,12 @@ class NativeWorkerBase:
     def _install_devpull(self) -> None:
         """Register the descriptor callback + advertise capability; called
         before listen/connect (the handshake carries the negotiation).
-        Advertised only when the jax backend is already up -- same
-        semantics as the Python engine's handshake probe."""
+        Advertised under "cudaipc" with this process's identity unless
+        STARWAY_DEVPULL=0 -- the Python engine's handshake offer."""
         from .. import device as _device
 
-        if not _device.devpull_supported():
+        identity = _device.cudaipc_identity()
+        if identity is None:
             return
         wself = weakref.ref(self)
 
@@ -684,6 +697,7 @@ class NativeWorkerBase:
                 s._on_devpull_claim_native(remote_id, recv_ctx, flags)
 
         self._devpull_key = _register(dispatch, dispatch_claim)
+        self._lib.sw_set_cudaipc(self._h, identity.encode())
         self._lib.sw_set_devpull(self._h, 1, _on_devpull, _on_devpull_claim,
                                  self._devpull_key)
 
@@ -692,7 +706,7 @@ class NativeWorkerBase:
 
         with self._devpull_lock:
             if self._xfer_mgr is None:
-                if not _device.devpull_supported():
+                if _device.cudaipc_identity() is None:
                     return None
                 self._xfer_mgr = _device.TransferManager(config.advertised_host())
             return self._xfer_mgr
@@ -797,7 +811,8 @@ class NativeWorkerBase:
             device = entry.claimed[3].devbuf.device
         mgr.pull(entry.desc, device,
                  lambda arr, e=entry: self._pull_done(e, arr),
-                 lambda err, e=entry: self._pull_failed(e, err))
+                 lambda err, e=entry: self._pull_failed(e, err),
+                 self.stage_scope)
 
     def _pull_done(self, entry: _PendingPull, arr) -> None:
         try:
@@ -820,15 +835,15 @@ class NativeWorkerBase:
     def _finish_entry(self, entry: _PendingPull, arr) -> None:
         """Deliver a pulled payload into its claimed receive.  Never called
         under _devpull_lock (user callbacks re-enter the API)."""
-        import numpy as np
+        from ..device import PulledPayload
 
         try:
             user_done, _fail, mv, sink = entry.claimed
             if sink is not None:
                 sink.accept_device(arr)
             elif mv is not None:
-                host = np.asarray(arr).view(np.uint8).reshape(-1)
-                mv[: entry.nbytes] = memoryview(host)[: entry.nbytes]
+                host = PulledPayload(arr).as_host_view()
+                mv[: entry.nbytes] = host[: entry.nbytes]
             with self._devpull_lock:
                 if entry in self._devpull_claimed:
                     self._devpull_claimed.remove(entry)

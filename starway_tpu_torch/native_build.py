@@ -1,11 +1,13 @@
 """On-demand build of the native engine for this package.
 
-The C++ engine (``native/sw_engine.cpp`` at the repository root) is a plain
-shared object with a C interface, driven through ctypes by
-``core/native.py``.  This package compiles its own copy with g++ into
-``build/starway_tpu_torch/_sw_native.so`` under the repository root the
-first time the engine is asked for, and rebuilds it when the source is
-newer than the artifact.  It never loads the JAX package's build.
+The C++ engine is a plain shared object with a C interface, driven through
+ctypes by ``core/native.py``.  This package keeps its own copy of the
+engine's source (``starway_tpu_torch/native/sw_engine.{cpp,h}``, the
+JAX package's ``native/`` one with the pull negotiated under "cudaipc")
+and compiles it with g++ into ``build/starway_tpu_torch/_sw_native.so``
+under the repository root the first time the engine is asked for,
+rebuilding it when the source is newer than the artifact.  It never loads
+the JAX package's build, whose artifact and lock live elsewhere.
 
 Concurrent processes (test workers, ranks) build once: the build runs under
 an exclusive ``fcntl`` lock beside the artifact, and a process that waited
@@ -22,8 +24,8 @@ import subprocess
 from pathlib import Path
 
 _ROOT = Path(__file__).resolve().parent.parent
-_SRC = _ROOT / "native" / "sw_engine.cpp"
-_HDR = _ROOT / "native" / "sw_engine.h"
+_SRC = _ROOT / "starway_tpu_torch" / "native" / "sw_engine.cpp"
+_HDR = _ROOT / "starway_tpu_torch" / "native" / "sw_engine.h"
 _OUT = _ROOT / "build" / "starway_tpu_torch" / "_sw_native.so"
 _LOG = _OUT.with_name("_sw_native.build.log")
 _LOCK = _OUT.with_name("_sw_native.lock")
@@ -53,7 +55,7 @@ def _tail(cmd: list, out: str) -> str:
 
 
 def ensure_built(force: bool = False) -> Path:
-    """Compile native/sw_engine.cpp into the artifact unless it is fresh;
+    """Compile the engine's copy into the artifact unless it is fresh;
     returns its path."""
     for src in (_SRC, _HDR):
         if not src.exists():

@@ -8,10 +8,11 @@ compiles them into rounds of all-to-all-shaped tagged transfers whose
 per-host staging stays O(shard), an **executor** (executor.py) runs the
 schedule over the existing Client/Server fabric with flush barriers
 between rounds, and a **tag lease** (tags.py) keeps schedule tags in a
-reserved namespace that cannot collide with user tags.  The jax face --
-``redistribute()`` / ``ArrayRef`` / ``spec_from_sharding`` -- lives in
-api.py, the only module here allowed to import jax (analysis rule
-``layering-reshard``).
+reserved namespace that cannot collide with user tags.  The torch face --
+``redistribute()`` / ``ArrayRef`` / ``spec_from_sharding`` and the
+sharding descriptions they take (``SlotMesh``, ``SlotSharding``,
+``ShardedTensor``, a DTensor's mesh and placements) -- lives in api.py,
+the only module here that imports torch.
 
 Follows "Memory-efficient array redistribution through portable
 collective communication" (arxiv 2112.01075), built from starway p2p
@@ -28,10 +29,11 @@ from .executor import execute, reset_staging_peak, staging_snapshot  # noqa: F40
 
 
 def __getattr__(name):
-    # jax-importing names resolve lazily so `import starway_tpu_torch.reshard`
-    # stays cheap (and possible) in jax-free processes.
+    # torch-importing names resolve lazily so `import
+    # starway_tpu_torch.reshard` stays cheap for the planner alone.
     if name in ("redistribute", "ArrayRef", "ReshardResult",
-                "spec_from_sharding", "default_rank_of"):
+                "spec_from_sharding", "default_rank_of", "Slot",
+                "SlotMesh", "SlotSharding", "ShardedTensor"):
         from . import api
 
         return getattr(api, name)
@@ -43,5 +45,5 @@ __all__ = [
     "RESHARD_TAG_BASE", "TagLease", "is_reshard_tag", "lease",
     "execute", "staging_snapshot", "reset_staging_peak",
     "redistribute", "ArrayRef", "ReshardResult", "spec_from_sharding",
-    "default_rank_of",
+    "default_rank_of", "Slot", "SlotMesh", "SlotSharding", "ShardedTensor",
 ]

@@ -608,8 +608,8 @@ async def test_device_send_branches_exact_both_ways(port, monkeypatch,
     STARWAY_INTEGRITY=1, or three rails striped above 1 MiB: the sink
     holds exactly the bytes sent, although the sender overwrote its
     tensor as soon as the send completed (the receive is posted only
-    afterwards).  The Python engine pulls when the pull is on; the C++
-    engine negotiates no pull and stays staged."""
+    afterwards).  Both engines pull when the pull is on (the C++ engine's
+    copy negotiates "cudaipc" as the Python engine does)."""
     if engine == "native":
         from starway_tpu_torch.core import native
 
@@ -620,7 +620,7 @@ async def test_device_send_branches_exact_both_ways(port, monkeypatch,
     for name, value in BRANCH_SETTINGS[setting].items():
         monkeypatch.setenv(name, value)
     server, client, ep = await _pair(port)
-    want_route = "device" if pull and engine == "python" else "staged"
+    want_route = "device" if pull else "staged"
     try:
         if engine == "python":
             # The branch under test is the one negotiated on the conn.

@@ -1,8 +1,10 @@
 """The port's device pull on CPU tensors: the twins of tests/test_devpull.py.
 
-Two port workers over a real socket in one process negotiate the pull
-under the port's own HELLO key (``cudaipc``) and take the process-wide
-route: the sender's snapshot waits in a table until the receiver takes it.
+Two port workers over a real socket in one process, on either engine (the
+C++ one is the port's copy, which speaks ``cudaipc`` as the Python one
+does), negotiate the pull under the port's own HELLO key (``cudaipc``)
+and take the process-wide route: the sender's snapshot waits in a table
+until the receiver takes it.
 That route carries CPU tensors as well, so the whole lifecycle runs here:
 the pull, the flush barrier that waits for it (and force-starts it), the
 truncation drain, same-tag FIFO order with staged messages, a host-buffer
@@ -196,6 +198,32 @@ async def test_devpull_host_buffer_recv(port):
         await server.aclose()
 
 
+async def test_devpull_host_buffer_recv_native(port, monkeypatch):
+    """The same on the C++ engine: its wrapper copies the pulled payload
+    into the host receive (PulledPayload.as_host_view), posted before the
+    descriptor arrives or claiming it from the unexpected queue."""
+    if not _native_available():
+        pytest.skip("native engine unavailable")
+    monkeypatch.setenv("STARWAY_NATIVE", "1")
+    server, client = await _pair(port)
+    try:
+        for tag, posted_first in ((0xAC, True), (0xAD, False)):
+            src = torch.arange(N, dtype=torch.int64).to(torch.uint8) + tag
+            buf = np.zeros(N, dtype=np.uint8)
+            if posted_first:
+                recv_fut = server.arecv(buf, tag, MASK)
+            await client.asend(src, tag)
+            await client.aflush()
+            if not posted_first:
+                recv_fut = server.arecv(buf, tag, MASK)
+            assert await asyncio.wait_for(recv_fut, 10) == (tag, N)
+            np.testing.assert_array_equal(buf, src.numpy())
+        assert _pulls(server)["pulled_local"] == 2
+    finally:
+        await client.aclose()
+        await server.aclose()
+
+
 async def test_devpull_bf16_payload(port):
     """A typed payload crosses as bytes: a bf16 tensor lands bit for bit
     in a bf16 sink, and the descriptor names its shape and dtype."""
@@ -222,9 +250,9 @@ async def test_devpull_bf16_payload(port):
          "py-server/native-client"])
 async def test_devpull_engine_matrix(port, monkeypatch, server_native,
                                      client_native):
-    """Two Python engines pull; any pairing with the C++ engine stays
-    staged (the port never offers "devpull", and the C++ engine ignores
-    "cudaipc"), with the same bytes and (tag, length) either way."""
+    """Every pairing of the two engines negotiates "cudaipc" and pulls,
+    as the JAX twin's pairings pull under "devpull": the same bytes and
+    (tag, length), landed by the device path, on all four."""
     if (server_native or client_native) and not _native_available():
         pytest.skip("native engine unavailable (no toolchain)")
     monkeypatch.setenv("STARWAY_NATIVE", "1" if server_native else "0")
@@ -233,8 +261,16 @@ async def test_devpull_engine_matrix(port, monkeypatch, server_native,
     monkeypatch.setenv("STARWAY_NATIVE", "1" if client_native else "0")
     client = Client()
     await client.aconnect(ADDR, port)
-    want = "staged" if server_native or client_native else "device"
+    want = "device"
+    for _ in range(400):
+        if server.list_clients():
+            break
+        await asyncio.sleep(0.005)
     try:
+        for conn in (client._client.primary_conn,
+                     server.list_clients().pop()._conn):
+            assert conn.devpull_ok
+            assert conn.cudaipc_peer == device.cudaipc_identity()
         src = torch.arange(N, dtype=torch.int64).to(torch.uint8)
         sink = DeviceBuffer((N,), torch.uint8, device=CPU)
         recv_fut = server.arecv(sink, 0x66, MASK)
@@ -294,7 +330,7 @@ async def test_devpull_same_tag_fifo_with_staged(port, monkeypatch, native):
         tag, n2 = await asyncio.wait_for(server.arecv(sink, 0xD1, MASK), 10)
         assert (tag, n2) == (0xD1, N)
         assert bool((sink.array == 4).all())
-        assert sink.last_transport == ("staged" if native else "device")
+        assert sink.last_transport == "device"
     finally:
         await client.aclose()
         await server.aclose()
@@ -329,9 +365,8 @@ async def test_devpull_truncation(port, monkeypatch, native, recv_first):
         with pytest.raises(Exception, match="[Tt]runcat"):
             await asyncio.wait_for(recv_fut, 10)
         await asyncio.wait_for(client.aflush(), 10)
-        if not native:
-            assert _pulls(server)["pulled_local"] == 1
-            assert not device._local_offers
+        assert _pulls(server)["pulled_local"] == 1
+        assert not device._local_offers
     finally:
         await client.aclose()
         await server.aclose()
@@ -370,6 +405,46 @@ async def test_devpull_close_drops_unpulled_offers(port):
             await asyncio.sleep(0.005)
         uids = list(device._local_offers)
         assert uids and server._server.matcher.unexpected[0].remote
+        await client.aclose()
+        assert not set(uids) & set(device._local_offers)
+        for _ in range(400):
+            if not ep._conn.alive:
+                break
+            await asyncio.sleep(0.005)
+        await asyncio.sleep(0.05)
+        assert not ep._conn._remote_msgs
+        assert not server._server.matcher.unexpected
+    finally:
+        await server.aclose()
+
+
+async def test_devpull_close_drops_unpulled_offers_native(port, monkeypatch):
+    """The same on a C++-engine sender: its close drops the offers a
+    Python-engine receiver had not pulled yet (that engine pulls when a
+    receive claims the descriptor; the C++ engine pulls each descriptor
+    as it arrives, so an offer to it is never left unpulled)."""
+    if not _native_available():
+        pytest.skip("native engine unavailable")
+    server = Server()
+    server.listen(ADDR, port)
+    monkeypatch.setenv("STARWAY_NATIVE", "1")
+    client = Client()
+    await client.aconnect(ADDR, port)
+    try:
+        for _ in range(400):
+            if server.list_clients():
+                break
+            await asyncio.sleep(0.005)
+        ep = server.list_clients().pop()
+        assert client._client.primary_conn.cudaipc_peer is not None
+        await client.asend(torch.full((N,), 6, dtype=torch.uint8), 0xF3)
+        for _ in range(400):
+            if server._server.matcher.unexpected:
+                break
+            await asyncio.sleep(0.005)
+        uids = list(device._local_offers)
+        assert uids and server._server.matcher.unexpected[0].remote
+        assert _pulls(client)["offered_local"] == 1
         await client.aclose()
         assert not set(uids) & set(device._local_offers)
         for _ in range(400):
@@ -491,6 +566,46 @@ async def test_pulled_receive_keeps_no_reference_to_its_sink(port):
                 break
             await asyncio.sleep(0.005)
         assert [ref() is None for ref in alive] == [True, True]
+    finally:
+        await client.aclose()
+        await server.aclose()
+
+
+async def test_pulled_receive_keeps_no_reference_to_its_sink_native(
+        port, monkeypatch):
+    """The same on the C++ engine: once its pulled receive completed,
+    neither the wrapper's descriptor records (claimed or unclaimed) nor
+    the manager's thread nor a pull's closure keeps the dropped sink."""
+    import weakref
+
+    if not _native_available():
+        pytest.skip("native engine unavailable")
+    monkeypatch.setenv("STARWAY_NATIVE", "1")
+    server, client = await _pair(port)
+    try:
+        for sink_first in (True, False):
+            sink = DeviceBuffer((N,), torch.uint8, device=CPU)
+            if sink_first:
+                fut = server.arecv(sink, 0x22, MASK)
+            await client.asend(torch.full((N,), 7, dtype=torch.uint8), 0x22)
+            await client.aflush()
+            if not sink_first:
+                fut = server.arecv(sink, 0x22, MASK)
+            assert await fut == (0x22, N)
+            assert sink.last_transport == "device"
+            assert bool((sink.array == 7).all())
+            alive = [weakref.ref(sink), weakref.ref(sink.array)]
+            del sink, fut
+            for _ in range(200):
+                gc.collect()
+                if all(ref() is None for ref in alive):
+                    break
+                await asyncio.sleep(0.005)
+            assert [ref() is None for ref in alive] == [True, True]
+            worker = server._server
+            assert not worker._devpull_entries
+            assert not worker._devpull_claimed
+        assert _pulls(server)["pulled_local"] == 2
     finally:
         await client.aclose()
         await server.aclose()

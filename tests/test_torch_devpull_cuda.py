@@ -7,7 +7,8 @@ skips without a card.  Run them on a GPU machine with
     STARWAY_TEST_REAL_TPU=1 python -m pytest -m cuda tests/test_torch_devpull_cuda.py
 
 (the variable keeps tests/conftest.py from importing jax).  The peers are
-``spawn``ed children over tcp on the Python engine, on the same card."""
+``spawn``ed children over tcp on the Python engine, on the same card, and
+once both sides on the C++ engine."""
 
 import asyncio
 import gc
@@ -69,8 +70,9 @@ async def _wait_bye(recv) -> None:
     await recv(np.zeros(1, dtype=np.uint8), BYE, MASK)
 
 
-def _child(port: int, mode: str, q) -> None:
-    """A spawned peer on cuda:0 over tcp (Python engine).
+def _child(port: int, mode: str, q, native: str = "0") -> None:
+    """A spawned peer on cuda:0 over tcp (the Python engine unless
+    ``native`` is "1").
 
     * ``send``: connects; sends the pattern (then overwrites it at once)
       and a bf16 tensor; receives the pattern back, checks it arrived by
@@ -81,7 +83,7 @@ def _child(port: int, mode: str, q) -> None:
       must fail "truncated", which it reports at once; closes on the bye.
     * ``idle``: listens, receives nothing; closes on the bye."""
     os.environ["STARWAY_TLS"] = "tcp"
-    os.environ["STARWAY_NATIVE"] = "0"
+    os.environ["STARWAY_NATIVE"] = native
     import numpy as np
 
     dev = torch.device("cuda:0")
@@ -126,10 +128,11 @@ def _child(port: int, mode: str, q) -> None:
     q.put(asyncio.run(run()))
 
 
-def _spawn(port, mode):
+def _spawn(port, mode, native="0"):
     ctx = multiprocessing.get_context("spawn")
     q = ctx.Queue()
-    p = ctx.Process(target=_child, args=(port, mode, q), daemon=True)
+    p = ctx.Process(target=_child, args=(port, mode, q, native),
+                    daemon=True)
     p.start()
     return p, q
 
@@ -151,9 +154,21 @@ async def test_ipc_pull_both_ways_with_a_spawned_child(port, dev):
     although the child overwrote its tensor right after the send
     completed; a bf16 tensor lands bit for bit; the parent's payload
     reaches the child the same way."""
+    await _pull_both_ways(port, dev, "0")
+
+
+async def test_ipc_pull_both_ways_on_the_cpp_engine(port, dev,
+                                                    monkeypatch):
+    """The same with both sides on the C++ engine, whose copy negotiates
+    "cudaipc": every payload is pulled over CUDA IPC."""
+    monkeypatch.setenv("STARWAY_NATIVE", "1")
+    await _pull_both_ways(port, dev, "1")
+
+
+async def _pull_both_ways(port, dev, native: str):
     server = Server()
     server.listen(ADDR, port)
-    p, q = _spawn(port, "send")
+    p, q = _spawn(port, "send", native)
     try:
         sink = DeviceBuffer((N,), torch.uint8, device=dev)
         assert await asyncio.wait_for(server.arecv(sink, 0xB1, MASK),

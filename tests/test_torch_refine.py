@@ -3,11 +3,12 @@ twin of the monitor-plane tests of tests/test_refine.py.
 
 ``starway_tpu_torch/core/monitor.py`` compiles its automaton from the
 port's own copy of the analysis core (``starway_tpu_torch/analysis``),
-which extracts the protocol machine from the port's engine sources and
-from ``native/sw_engine.cpp``, the C++ engine the port builds.  Here: the
-compiled model equals the JAX package's (the port's ``cudaipc`` HELLO key
-adds no transition), real rings of both engines replay clean, device
-payloads included, a doctored divergence fails hard with a flight dump,
+which extracts the protocol machine from the port's engine sources,
+its copy of the C++ engine (``starway_tpu_torch/native/sw_engine.cpp``)
+included.  Here: the compiled model equals the JAX package's (the port's
+``cudaipc`` HELLO key adds no transition), real rings of both engines
+replay clean, device payloads (pulled on both engines) included, a
+doctored divergence fails hard with a flight dump,
 worker retirement checks automatically, and the monitor stays dark when
 off."""
 
@@ -146,6 +147,19 @@ async def test_monitor_mode_clean_run(port, monkeypatch, devpull):
     assert monitor.violations() == []
     # A pulled payload rides a DEVPULL descriptor frame instead of DATA.
     assert ("estab", "DEVPULL" if devpull else "DATA") in monitor.witnessed()
+    monitor.assert_clean()
+
+
+async def test_monitor_mode_clean_run_native_pull(port, monkeypatch):
+    """The same on the C++ engine, whose copy negotiates cudaipc: pulled
+    payloads ride DEVPULL frames, and its ring replays clean."""
+    if not _native_available():
+        pytest.skip("native engine not built")
+    _env(monkeypatch, native=True, monitor_on=True, devpull=True)
+    await _exchange(port, device=True, transport="device")
+    monitor.check_all()
+    assert monitor.violations() == []
+    assert ("estab", "DEVPULL") in monitor.witnessed()
     monitor.assert_clean()
 
 

@@ -215,3 +215,166 @@ def serve_remote_child(role, port, arg, ready, stop, out_q) -> None:
         out_q.put(asyncio.run(client()))
     except Exception as exc:  # the parent reports it
         out_q.put(f"client failed: {exc!r}")
+
+
+# ------------------------------------------------------- reshard children
+#
+# Spawned by tests/test_torch_reshard.py across a real process boundary;
+# they import only the port, and say so.
+
+RESHARD_SHAPE = (16, 4096)
+
+
+def reshard_child_rank1(port, folder, q) -> None:
+    """Rank 1 of a redistribution in its own process: a pure receiver on
+    its OWN mesh of 8 CPU slots (columns over 8), with the spec exchange
+    over the fabric as the only coordination; checks its shards against
+    the checkpoint the parent saved of the source, box by box, and its
+    staging peak against the plan's bound."""
+    import asyncio
+    import os
+    import traceback
+
+    os.environ["STARWAY_TLS"] = "tcp"
+    os.environ["STARWAY_NATIVE"] = "0"
+    try:
+        from starway_tpu_torch import Client
+        from starway_tpu_torch.reshard import (ArrayRef, SlotMesh,
+                                               SlotSharding, executor,
+                                               redistribute)
+        from starway_tpu_torch.utils.checkpoint import restore_pytree
+
+        _assert_port_only()
+        mesh = SlotMesh({"x": 8}, devices="cpu", ranks=1)
+        dst = SlotSharding(mesh, (None, "x"))
+
+        async def run():
+            client = Client()
+            for _ in range(120):
+                try:
+                    await client.aconnect("127.0.0.1", port)
+                    break
+                except Exception:
+                    client = Client()
+                    await asyncio.sleep(0.25)
+            res = await redistribute(
+                ArrayRef(RESHARD_SHAPE, torch.float32), dst, {0: client},
+                rank=1, lease_slot=3, round_timeout=60)
+            oracle = restore_pytree(
+                os.path.join(folder, "ck"),
+                {"w": torch.zeros(RESHARD_SHAPE, dtype=torch.float32)})["w"]
+            boxes = dst.indices_map(RESHARD_SHAPE)
+            for slot, t in res.array.shards.items():
+                want = oracle[tuple(slice(lo, hi) for lo, hi in boxes[slot])]
+                if not torch.equal(t, want):
+                    raise AssertionError(f"slot {slot.index}: redistributed "
+                                         f"!= checkpoint restore")
+            peak = executor.staging_snapshot()["peak"]
+            bound = res.stats["peak_staging_bound"]
+            if peak > bound:
+                raise AssertionError(f"staging {peak} > bound {bound}")
+            await client.aclose()
+            return {"ok": True, "peak": peak, "bound": bound,
+                    "rounds": res.stats["rounds"]}
+
+        q.put(asyncio.run(run()))
+    except Exception:
+        q.put({"ok": False, "error": traceback.format_exc()})
+
+
+def reshard_dtensor_worker(rank, gloo_port, sw_port, q) -> None:
+    """One of two processes of a gloo group: lowers DTensor layouts over a
+    ``DeviceMesh("cpu", [0, 1])`` and redistributes an unevenly sharded
+    DTensor over the fabric (rank 0 serves, rank 1 connects), held against
+    DTensor's own ``redistribute`` over gloo."""
+    import asyncio
+    import os
+    import traceback
+
+    import torch.distributed as dist
+
+    os.environ["STARWAY_TLS"] = "tcp"
+    os.environ["STARWAY_NATIVE"] = "0"
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard, distribute_tensor)
+
+        from starway_tpu_torch import Client, Server
+        from starway_tpu_torch.parallel.dp_exchange import (ClientPort,
+                                                            ServerPort)
+        from starway_tpu_torch.reshard import (SlotMesh, SlotSharding,
+                                               redistribute,
+                                               spec_from_sharding)
+
+        _assert_port_only()
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://127.0.0.1:{gloo_port}",
+                                world_size=2, rank=rank)
+        mesh = init_device_mesh("cpu", (2,))
+        out = {}
+        # Even layouts lower to the same spec as the slot description.
+        slots = SlotMesh({"x": 2}, devices="cpu", ranks=[0, 1])
+        for pl, spec in (([Shard(0)], ("x",)), ([Shard(1)], (None, "x")),
+                         ([Replicate()], ())):
+            got = spec_from_sharding((mesh, pl), (8, 6), 4, only_rank=rank)
+            want = spec_from_sharding(SlotSharding(slots, spec), (8, 6), 4,
+                                      only_rank=rank)
+            if got.to_dict() != want.to_dict():
+                raise AssertionError(f"{pl}: {got.to_dict()} != "
+                                     f"{want.to_dict()}")
+        out["lowering"] = "equal"
+
+        x = torch.arange(5 * 7, dtype=torch.float32).reshape(5, 7)
+        src = distribute_tensor(x, mesh, [Shard(0)])  # rows 3 + 2
+        dst = (mesh, (Shard(1),))                     # columns 4 + 3
+        partial = DTensor.from_local(torch.ones(5, 7), mesh, [Partial()],
+                                     run_check=False)
+
+        async def run():
+            try:
+                await redistribute(partial, dst, rank=rank, lease_slot=4)
+                raise AssertionError("a Partial placement was accepted")
+            except ValueError:
+                out["partial"] = "refused"
+            if rank == 0:
+                server = Server()
+                server.listen("127.0.0.1", sw_port)
+                for _ in range(24000):
+                    if server.list_clients():
+                        break
+                    await asyncio.sleep(0.005)
+                link, closer = ServerPort(server), server
+            else:
+                for _ in range(240):
+                    client = Client()
+                    try:
+                        await client.aconnect("127.0.0.1", sw_port)
+                        break
+                    except Exception:
+                        await asyncio.sleep(0.25)
+                link, closer = ClientPort(client), client
+            res = await redistribute(src, dst, {1 - rank: link}, rank=rank,
+                                     lease_slot=5, round_timeout=60)
+            await link.aflush()
+            await closer.aclose()
+            return res
+
+        res = asyncio.run(run())
+        got = res.to_dtensor()
+        want = src.redistribute(mesh, [Shard(1)])
+        if tuple(got.to_local().shape) != tuple(want.to_local().shape):
+            raise AssertionError(f"local {tuple(got.to_local().shape)} != "
+                                 f"DTensor's {tuple(want.to_local().shape)}")
+        if not torch.equal(got.to_local(), want.to_local()):
+            raise AssertionError("local shard differs from DTensor's own")
+        if not torch.equal(got.full_tensor(), x):
+            raise AssertionError("full tensor differs")
+        out["local_shape"] = tuple(got.to_local().shape)
+        out["rounds"] = res.stats["rounds"]
+        q.put({"ok": True, "rank": rank, **out})
+    except Exception:
+        q.put({"ok": False, "rank": rank, "error": traceback.format_exc()})
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
