@@ -21,6 +21,12 @@ Phases, each of which raises on failure:
               device ms a call in a CUDA graph and by CUDA events, SDPA
               both ways, with the host's enqueue us a call and the share
               of the bound;
+              the decode and flash kernels at phase 18's shapes under a
+              limit scaled to the output (ops/attention.py SCALED_TOL):
+              the decode kernel on a 4096-slot circular cache with
+              clamped positions (bf16, int8 KV), at the windowed verify's
+              C = 3, 4, 5 and at beam search's 8 rows; the flash forward
+              with the window at S = 6000;
               the flash forward at B=1 S=512 and 2048, B=2 S=2048 and
               B=1 S=4096 beside SDPA with its achieved TFLOP/s, and at
               each admission bucket of phase 4 (their sum over the 12
@@ -33,9 +39,10 @@ Phases, each of which raises on failure:
               pass A's split over query heads against none at zigzag's
               and the ring's shard shapes; the int8 GEMV at every shape
               of the W8A16 serving path (decode M=8; the admission
-              buckets and M=512, 2048), device ms a call with the weight
-              cold beside torch.matmul on the dequantized weight (and
-              by CUDA events around one call), the decode step's q, k, v
+              buckets, the rolling admission's M=64, and M=512, 2048),
+              device ms a call with the weight cold beside torch.matmul
+              on the dequantized weight (and by CUDA events around one
+              call), the decode step's q, k, v
               projections as one chain, and the rows' sums over one
               decode step and phase 4's 12 admissions (a model: the
               decode step's is measured in phase 7)
@@ -152,10 +159,38 @@ Phases, each of which raises on failure:
               against its bound are checked, and the device memory is
               back at its baseline after each move; wall ms and GB/s
               logged.  No kernel of the port runs here
-18. a JSON line of the kernels with their launches on the serving paths
-   (phases 4-7) and the training paths (phases 11, 13 and 16) and the
-   numbers of phase 3
-19. the last line: {"ok": true, "device": {...}}
+18. mistral -- Mistral-7B-v0.1 widths (its published config.json through
+              config_from_hf), 32 layers, bf16, random HF-named weights
+              made on the card from a seed and converted by
+              params_from_hf (seconds and peak memory logged; phase 3
+              holds the kernels against their plain versions at this
+              phase's shapes).  The rolling SlotServer (n_slots 8, rope
+              horizon 16384, chunk 8) with 12 requests of 128 tokens,
+              prompts 512-9000 cycled:
+              every budget met, the cache [32, 8, 8, 4096, 128], the
+              9000-token request's first logits against a one-pass
+              windowed forward (the flash kernel); aligned rolling
+              generate() at B=2, P=6000; generate_speculative with a
+              4-layer truncation draft at gamma 3, 4, 5 and
+              generate_lookup on a repetitive prompt (P=4600, tokens/s,
+              acceptance and tokens equal to generate()'s logged); beam
+              search (K=4, B=2, P=512, 32 tokens; the reorder's bytes a
+              step); then W8A16 weights with an int8 KV cache serving 4
+              requests, the GEMV in both regimes.  The decode, flash and
+              GEMV kernels must launch
+19. mistral-parity -- float32, 2 layers, window 4096: the rolling
+              SlotServer (prompts 4000, 4500 and 700; 4000 + 160 wraps the
+              cache) equals a single-request loop over prefill_rolling +
+              rolling decode_step + argmax token for token;
+              prefill_rolling's last logits within 1e-3 of max |logit| of
+              the one-pass windowed prefill; generate_speculative (gamma 3,
+              4), generate_lookup and generate_beam(beams=1) equal
+              generate() at P=4500; the four beams' scores within 1e-4
+              (relative) of their teacher-forced sums
+20. a JSON line of the kernels with their launches on the serving paths
+   (phases 4-7, 18 and 19, the last two also apart) and the training
+   paths (phases 11, 13 and 16) and the numbers of phase 3
+21. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -259,6 +294,9 @@ def phase_kernels(dev):
                         q, kc, vc, pos, **kw), iters=5)
     del k16, v16, k8, v8, ks, vs
     worst = max(worst, row_tiled_decode(dev, randn))
+    regimes = window_regime_rows(dev)
+    worst = max([worst] + [r["max_abs_err"]
+                           for r in regimes["decode_attention"]])
     paged_err, paged_plain = paged_rows(dev, randn, rng)
     timed = decode_timings(dev)
     rows["decode_attention"] = dict(
@@ -266,7 +304,9 @@ def phase_kernels(dev):
         source="starway_tpu_torch/csrc/decode_attention.cu",
         replaces="starway_tpu/ops/pallas_decode.py:150 "
                  "(_decode_stream_kernel; also :107 _decode_kernel)",
-        max_abs_err=worst, plain_ms=plain, **timed["decode_attention"])
+        max_abs_err=worst, plain_ms=plain,
+        window_regimes=regimes["decode_attention"],
+        **timed["decode_attention"])
     rows["paged_decode_attention"] = dict(
         name="paged_decode_attention", route=MMA_ROUTE,
         source="starway_tpu_torch/csrc/paged_attention.cu",
@@ -275,6 +315,10 @@ def phase_kernels(dev):
         **timed["paged_decode_attention"])
 
     rows["flash_forward"] = flash_forward_rows(dev, randn)
+    flash = rows["flash_forward"]
+    flash["window_regimes"] = regimes["flash_forward"]
+    flash["max_abs_err"] = max([flash["max_abs_err"]] + [
+        r["max_abs_err"] for r in regimes["flash_forward"]])
 
     rows.update(flash_backward_rows(dev, randn))
     rows.update(ring_kernel_rows(dev, randn))
@@ -420,7 +464,8 @@ def admission_buckets(max_len: int = 2048) -> list:
 def gemv_rows(dev, randn) -> dict:
     """Phase 3's int8 GEMV: every shape of the W8A16 serving path at
     decode M=8, the layer shapes at every admission bucket of phase 4's
-    requests and at M=512 and 2048, the lm_head at M=1 (admission's last
+    requests, at the rolling admission's 64-token chunk (phase 18) and at
+    M=512 and 2048, the lm_head at M=1 (admission's last
     row) and M=512; each held against its plain version (ops/gemv.py
     tolerance_share: max(2e-2, 2 bf16 ulps of |want|) per element) and
     timed as device ms a call (utils/cuda_timing.py graph_us: 20 calls in
@@ -453,7 +498,7 @@ def gemv_rows(dev, randn) -> dict:
         w_deq = (wq.float() * sc).to(torch.bfloat16)
         wqs, w_deqs = cold_copies(wq), cold_copies(w_deq)
         ms_list = ((1, 8, 512) if name == "lm_head"
-                   else sorted({8, 512, 2048, *buckets}))
+                   else sorted({8, 64, 512, 2048, *buckets}))
         for m in ms_list:
             x = randn(m, d)
             got = int8_matmul(x, wq, sc, static_weight=True)
@@ -656,6 +701,98 @@ def row_tiled_decode(dev, randn) -> float:
             raise AssertionError("the row-tiled decode kernel disagrees "
                                  "with its plain version")
     return worst
+
+
+def window_regime_rows(dev) -> dict:
+    """The decode and flash kernels at the shapes phase 18 gives them, each
+    against its plain version: the decode kernel on the
+    rolling server's circular cache (8 slots, W = 4096, positions past the
+    window clamped to W - 1, bf16 and int8 KV), at the speculative verify
+    of a windowed model (C = 3, 4 and 5: 12 and 16 rows in the decode
+    regime, 20 in the ingest regime) and at beam search's 8 rows; the
+    flash forward with the window at S = 6000 (its last 512 rows against
+    the plain partial).  BF16_TOL is the size of a typical output here
+    (~0.026 at T = 4096), so these are held to a limit that scales with
+    the output (ops/attention.py SCALED_TOL).  Returns each kernel's
+    readings (label, max_abs_err, tol_share)."""
+    import torch
+
+    from starway_tpu_torch.ops.attention import (SCALED_TOL,
+                                                 finalize_partial,
+                                                 partial_attention,
+                                                 repeat_kv,
+                                                 scaled_tolerance_share)
+    from starway_tpu_torch.ops.decode import (decode_attention,
+                                              decode_attention_reference,
+                                              decode_plan)
+    from starway_tpu_torch.ops.flash import flash_forward
+    from starway_tpu_torch.ops.quantize import quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 180)
+    out = {"decode_attention": [], "flash_forward": []}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def check(kernel, label, got, want):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        share = scaled_tolerance_share(got, want)
+        log(f"{kernel} {label}: max_abs_err {err:.3e} (max |want| "
+            f"{want.float().abs().max().item():.3e}), {share:.3f} of the "
+            f"limit {SCALED_TOL[0]:g} |want| + {SCALED_TOL[1]:g} rms of "
+            f"want's row (<= 1)")
+        if not share <= 1.0:
+            raise AssertionError(f"{kernel} disagrees with its plain version "
+                                 f"at {label}")
+        out[kernel].append(dict(label=label, max_abs_err=err,
+                                tol_share=share))
+
+    W = 4096
+    q, k, v = randn(8, 32, 1, 128), randn(8, 8, W, 128), randn(8, 8, W, 128)
+    pos = torch.tensor([100, 4095, 4096, 4097, 6000, 9000, 12345, 16000],
+                       dtype=torch.int32, device=dev).clamp(max=W - 1)
+    check("decode_attention", "rolling cache (T = W = 4096, pos clamped)",
+          decode_attention(q, k, v, pos),
+          decode_attention_reference(q, k, v, pos))
+    k8, ks = quantize_kv(k)
+    v8, vs = quantize_kv(v)
+    kw = dict(k_scale=ks, v_scale=vs)
+    check("decode_attention", "rolling int8 cache",
+          decode_attention(q, k8, v8, pos, **kw),
+          decode_attention_reference(q, k8, v8, pos, **kw))
+    del k, v, k8, v8, ks, vs
+    t = SPEC_PROMPT + SPEC_NEW + 6
+    k, v = randn(2, 8, t, 128), randn(2, 8, t, 128)
+    pos = torch.tensor([SPEC_PROMPT, SPEC_PROMPT + SPEC_NEW - 1],
+                       dtype=torch.int32, device=dev)
+    for c in (3, 4, 5):
+        q = randn(2, 32, c, 128)
+        regime = decode_plan(2, 8, 4 * c, t)[0]
+        check("decode_attention", f"verify C={c} ({4 * c} rows, {regime} "
+              f"regime), window {W}, T={t}",
+              decode_attention(q, k, v, pos, window=W),
+              decode_attention_reference(q, k, v, pos, window=W))
+    t = BEAM["prompt"] + BEAM["new"]
+    rows = BEAM["batch"] * BEAM["beams"]
+    q, k, v = randn(rows, 32, 1, 128), randn(rows, 8, t, 128), randn(
+        rows, 8, t, 128)
+    pos = torch.full((rows,), t - 1, dtype=torch.int32, device=dev)
+    check("decode_attention", f"beam rows ({rows}, T={t})",
+          decode_attention(q, k, v, pos, window=W),
+          decode_attention_reference(q, k, v, pos, window=W))
+    del q, k, v
+    s = 6000
+    q, k, v = randn(1, 32, s, 128), randn(1, 8, s, 128), randn(1, 8, s, 128)
+    o = flash_forward(q, k, v, causal=True, window=W)[0][:, :, -512:]
+    want = finalize_partial(*partial_attention(
+        q[:, :, -512:], repeat_kv(k, 4), repeat_kv(v, 4), q_offset=s - 512,
+        causal=True, window=W), out_dtype=q.dtype)
+    check("flash_forward", f"window {W}, S={s} (last 512 rows)", o, want)
+    del q, k, v, o, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def paged_rows(dev, randn, rng):
@@ -3641,6 +3778,387 @@ def phase_reshard(dev, card: str, shapes=(LM_HEAD, W1)) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- mistral
+
+# Mistral-7B-v0.1's published config.json (huggingface.co/mistralai/
+# Mistral-7B-v0.1), as config_from_hf reads it.
+MISTRAL_7B = dict(
+    model_type="mistral", vocab_size=32000, hidden_size=4096,
+    intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, rope_theta=10000.0, sliding_window=4096,
+    max_position_embeddings=32768, rms_norm_eps=1e-5, hidden_act="silu",
+    tie_word_embeddings=False)
+MISTRAL_PROMPTS = (512, 2048, 4000, 4096, 4097, 6000, 9000)
+MISTRAL_HORIZON = 16384   # the rolling server's rope horizon (max_len)
+MISTRAL_BUDGET = 128
+ROLLING_PROMPT = 6000     # aligned rolling generate(): P > W
+SPEC_PROMPT = 4600        # past the window: the verify's window bites
+SPEC_NEW = 48
+BEAM = dict(batch=2, beams=4, prompt=512, new=32)
+# Phase 19's requests (prompt, budget): 4000 + 160 wraps the cache, 4500
+# starts past it, 700 stays inside; their rope horizon.
+PARITY_REQS = ((4000, 160), (4500, 48), (700, 40))
+PARITY_HORIZON = 8192
+PARITY_REL_TOL = 1e-3     # prefill_rolling vs the one-pass prefill, float32
+BEAM_SCORE_REL_TOL = 1e-4
+
+
+def mistral_config(**overrides):
+    """The port's LlamaConfig of Mistral-7B-v0.1, by config_from_hf."""
+    from types import SimpleNamespace
+
+    from starway_tpu_torch.models import config_from_hf
+
+    return config_from_hf(SimpleNamespace(**MISTRAL_7B), **overrides)
+
+
+def mistral_state(cfg, dev, seed: int, dtype) -> dict:
+    """An HF-named Mistral state dict at ``cfg``'s widths and depth, made
+    on the card from a seeded generator: projections scaled by
+    fan_in^-1/2, norms near 1."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(shape, scale, base=0.0):
+        w = torch.randn(shape, generator=gen, device=dev)
+        return (w * scale + base).to(dtype)
+
+    D, F, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    q_out, kv_out = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    state = {"model.embed_tokens.weight": rand((cfg.vocab_size, D), 0.02),
+             "model.norm.weight": rand((D,), 0.05, 1.0),
+             "lm_head.weight": rand((cfg.vocab_size, D), D ** -0.5)}
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        state.update({
+            pre + "self_attn.q_proj.weight": rand((q_out, D), D ** -0.5),
+            pre + "self_attn.k_proj.weight": rand((kv_out, D), D ** -0.5),
+            pre + "self_attn.v_proj.weight": rand((kv_out, D), D ** -0.5),
+            pre + "self_attn.o_proj.weight": rand((D, q_out), q_out ** -0.5),
+            pre + "mlp.gate_proj.weight": rand((F, D), D ** -0.5),
+            pre + "mlp.up_proj.weight": rand((F, D), D ** -0.5),
+            pre + "mlp.down_proj.weight": rand((D, F), F ** -0.5),
+            pre + "input_layernorm.weight": rand((D,), 0.05, 1.0),
+            pre + "post_attention_layernorm.weight": rand((D,), 0.05, 1.0)})
+    return state
+
+
+def convert_mistral(cfg, dev, seed: int, dtype, **kw):
+    """Random HF weights on the card, converted by params_from_hf; the
+    source is freed before the tree is returned.  Returns (params, stats:
+    the conversion's seconds and the peak device memory from before the
+    source was made)."""
+    import torch
+
+    from starway_tpu_torch.models import params_from_hf
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = mistral_state(cfg, dev, seed, dtype)
+    torch.cuda.synchronize()
+    source_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    t0 = time.perf_counter()
+    params = params_from_hf(state, cfg, device=dev, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = dict(convert_s=seconds, source_gb=source_gb,
+                 peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                 tree_gb=(torch.cuda.memory_allocated() - base) / 1e9)
+    log(f"  converted {cfg.n_layers} layers ({dtype}, {kw or 'raw'}): "
+        f"{stats}")
+    return params, stats
+
+
+def mistral_requests(cfg, n: int = 12):
+    """(tokens, budget, prefixed): prompts of MISTRAL_PROMPTS cycled, each
+    of MISTRAL_BUDGET new tokens."""
+    rng = np.random.default_rng(SEED + 18)
+    return [(rng.integers(1, cfg.vocab_size,
+                          MISTRAL_PROMPTS[i % len(MISTRAL_PROMPTS)]).tolist(),
+             MISTRAL_BUDGET, False) for i in range(n)]
+
+
+def counted(counts, fn):
+    """``fn()`` with the launch counts set to 0 just before and added to
+    ``counts`` just after (the GEMV's by regime under "int8_matmul/")."""
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.ops.gemv import int8_matmul
+
+    reset_launch_counts()
+    out = fn()
+    for name, n in launch_counts().items():
+        counts[name] = counts.get(name, 0) + n
+    for regime, n in int8_matmul.regime_launches.items():
+        key = f"int8_matmul/{regime}"
+        counts[key] = counts.get(key, 0) + n
+    return out
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def spec_runs(params, cfg, counts) -> dict:
+    """Speculative decoding at full width: a truncation draft of 4 layers
+    at gamma 3, 4 and 5, and prompt lookup (ngram 2, gamma 4) on a prompt
+    that repeats a 64-token pattern; each beside generate() on its prompt
+    (bf16: the verify may round otherwise than decode, so the equal share
+    is logged, not asserted)."""
+    import torch
+
+    from starway_tpu_torch.models import (draft_from_truncation, generate,
+                                          generate_lookup,
+                                          generate_speculative)
+
+    dev = params["embed"].device
+    rng = np.random.default_rng(SEED + 181)
+    prompt = torch.tensor(rng.integers(1, cfg.vocab_size, (2, SPEC_PROMPT)),
+                          device=dev)
+    pattern = rng.integers(1, cfg.vocab_size, (2, 64))
+    rep = torch.tensor(np.tile(pattern, SPEC_PROMPT // 64 + 1)[:, :SPEC_PROMPT],
+                       device=dev)
+    out = {}
+    n_tok = 2 * SPEC_NEW
+    for label, p in (("random", prompt), ("repetitive", rep)):
+        ref, s = timed(lambda: counted(counts, lambda: generate(
+            params, cfg, p, SPEC_NEW)))
+        out[f"generate_{label}"] = dict(s=s, tokens_per_s=n_tok / s)
+        if label == "random":
+            draft, dcfg = draft_from_truncation(params, cfg, 4)
+            runs = [(f"speculative_gamma{g}", g, lambda g=g: (
+                generate_speculative(params, cfg, draft, dcfg, p, SPEC_NEW,
+                                     gamma=g, return_stats=True)))
+                    for g in (3, 4, 5)]
+        else:
+            runs = [("lookup_ngram2", 4, lambda: generate_lookup(
+                params, cfg, p, SPEC_NEW, gamma=4, ngram=2,
+                return_stats=True))]
+        for name, g, fn in runs:
+            (toks, stats), s = timed(lambda: counted(counts, fn))
+            if toks.shape != ref.shape:
+                raise AssertionError(f"{name} returned {tuple(toks.shape)}")
+            steps = int(stats["macro_steps"].sum())
+            acc = int(stats["accepted"].sum())
+            out[name] = dict(
+                s=s, ms_per_token=s * 1e3 / n_tok, tokens_per_s=n_tok / s,
+                macro_steps=steps, accepted=acc,
+                acceptance=acc / max(1, steps * (g - 1)),
+                tokens_equal_to_generate=int(
+                    (toks[:, SPEC_PROMPT:] == ref[:, SPEC_PROMPT:]).sum()),
+                of=n_tok)
+            log(f"  {name}: {out[name]}")
+    return out
+
+
+def beam_run(params, cfg, counts) -> dict:
+    """generate_beam at full width: B=2, K=4, P=512, 32 new tokens.  The
+    reorder moves the whole K-way cache each step: its bytes (each leaf
+    read once and written once) are computed from the shapes."""
+    import torch
+
+    from starway_tpu_torch.models import generate_beam
+
+    dev = params["embed"].device
+    b, k, p, n = BEAM["batch"], BEAM["beams"], BEAM["prompt"], BEAM["new"]
+    prompt = torch.tensor(np.random.default_rng(SEED + 182).integers(
+        1, cfg.vocab_size, (b, p)), device=dev)
+    (out, scores, fin), s = timed(lambda: counted(counts, lambda: (
+        generate_beam(params, cfg, prompt, n, beams=k, return_all=True))))
+    if not (out.shape == (b, k, n) and torch.isfinite(scores).all()
+            and bool((scores[:, 1:] <= scores[:, :-1] + 1e-3).all())):
+        raise AssertionError("beam search returned unsorted or non-finite "
+                             "beams")
+    entry = cfg.n_kv_heads * cfg.head_dim * cfg.compute_dtype.itemsize
+    reorder = 2 * 2 * cfg.n_layers * b * k * (p + n) * entry
+    st = dict(s=s, ms_per_token=s * 1e3 / n, reorder_bytes_per_step=reorder,
+              reorder_gb_total=reorder * (n - 1) / 1e9,
+              best_scores=scores[:, 0].tolist())
+    log(f"  beam: {st}")
+    return st
+
+
+def phase_mistral(dev, card: str) -> tuple:
+    """Phase 18: Mistral-7B-v0.1 at full width (32 layers, bf16, random
+    HF-named weights converted by config_from_hf + params_from_hf).
+    Returns (stats, launch counts of the main-path runs)."""
+    import torch
+
+    from starway_tpu_torch.models import forward, generate
+    from starway_tpu_torch.models.serving import _rolling_prefill_state
+
+    cfg = mistral_config()
+    log(f"[mistral] Mistral-7B-v0.1 widths ({card}): {cfg}")
+    st = {}
+    params, st["convert_bf16"] = convert_mistral(cfg, dev, SEED + 18,
+                                                 torch.bfloat16)
+    counts = {}
+    reqs = mistral_requests(cfg)
+    log(f"[mistral] rolling SlotServer: n_slots 8, max_len "
+        f"{MISTRAL_HORIZON}, chunk 8, {len(reqs)} requests of "
+        f"{MISTRAL_BUDGET} tokens, prompts {MISTRAL_PROMPTS} cycled")
+    _done, st["serve"], srv = counted(counts, lambda: serve(
+        params, cfg, reqs, max_len=MISTRAL_HORIZON))
+    shape = tuple(srv.cache["k"].shape)
+    del srv
+    log(f"  {st['serve']}")
+    if shape != (cfg.n_layers, 8, cfg.n_kv_heads, cfg.sliding_window,
+                 cfg.head_dim):
+        raise AssertionError(f"the rolling cache is {shape}")
+    long_prompt = max((p for p, _m, _w in reqs), key=len)
+    got = _rolling_prefill_state(params, cfg, np.asarray(long_prompt))[0]
+    want = forward(params, torch.tensor([long_prompt], device=dev), cfg,
+                   last_only=True)[:, 0]
+    st["first_logits_rel_err_longest"] = compare_logits(got, want)
+    del got, want
+    prompt = torch.tensor(np.random.default_rng(SEED + 183).integers(
+        1, cfg.vocab_size, (2, ROLLING_PROMPT)), device=dev)
+    out, s = timed(lambda: counted(counts, lambda: generate(
+        params, cfg, prompt, 64)))
+    if (out.shape != (2, ROLLING_PROMPT + 64)
+            or not bool((out < cfg.vocab_size).all())):
+        raise AssertionError("rolling generate() returned a bad batch")
+    st["generate_rolling"] = dict(s=s, tokens_per_s=128 / s)
+    log(f"  aligned rolling generate(), B=2 P={ROLLING_PROMPT}, 64 new: "
+        f"{st['generate_rolling']}")
+    st["speculative"] = spec_runs(params, cfg, counts)
+    st["beam"] = beam_run(params, cfg, counts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg8 = mistral_config(kv_quant="int8")
+    log("[mistral] W8A16 weights (params_from_hf quantize='int8') and an "
+        "int8 KV cache, 4 requests")
+    qparams, st["convert_int8"] = convert_mistral(
+        cfg8, dev, SEED + 18, torch.bfloat16, quantize="int8")
+    c8 = {}
+    st["serve_int8"] = counted(c8, lambda: serve(
+        qparams, cfg8, reqs[:4], max_len=MISTRAL_HORIZON))[1]
+    log(f"  {st['serve_int8']}")
+    if not (c8["int8_matmul/decode"] > 0 and c8["int8_matmul/prefill"] > 0):
+        raise AssertionError("the W8A16 rolling run did not launch the GEMV "
+                             "in both regimes")
+    for key, n in c8.items():
+        counts[key] = counts.get(key, 0) + n
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  launches {counts}")
+    for name in ("decode_attention", "flash_forward", "int8_matmul"):
+        if not counts.get(name):
+            raise AssertionError(f"phase 18 launched no {name} kernel")
+    return st, counts
+
+
+def phase_mistral_parity(dev) -> tuple:
+    """Phase 19: float32, Mistral widths cut to 2 layers, window 4096;
+    prompts of 4000 and 4500 tokens so that decode wraps the circular
+    cache.  Returns (stats, launch counts)."""
+    import torch
+
+    from starway_tpu_torch.models import (SlotServer, draft_from_truncation,
+                                          forward, generate, generate_beam,
+                                          generate_lookup,
+                                          generate_speculative,
+                                          prefill_rolling)
+    from starway_tpu_torch.models.generate import decode_step
+    from starway_tpu_torch.models.llama import cfg_rope_tables
+    from starway_tpu_torch.models.serving import _rolling_prefill_state
+
+    cfg = mistral_config(n_layers=2, dtype="float32")
+    params, st = convert_mistral(cfg, dev, SEED + 19, torch.float32)
+    counts = {}
+    rng = np.random.default_rng(SEED + 19)
+    reqs = [(rng.integers(1, cfg.vocab_size, n).tolist(), m)
+            for n, m in PARITY_REQS]
+    srv = SlotServer(params, cfg, n_slots=2, max_len=PARITY_HORIZON, chunk=8)
+    rids = [srv.submit(p, m) for p, m in reqs]
+    done = counted(counts, srv.run)
+    del srv
+    rope = cfg_rope_tables(cfg, PARITY_HORIZON, device=dev)
+    for rid, (prompt, m) in zip(rids, reqs):
+        logits, cache = _rolling_prefill_state(params, cfg, prompt)
+        toks = [int(logits.argmax(-1)[0])]
+        while len(toks) < m:
+            pos = torch.tensor([len(prompt) + len(toks) - 1], device=dev)
+            logits, cache = decode_step(
+                params, cache, torch.tensor([toks[-1]], device=dev), pos,
+                cfg, rope, rolling=True)
+            toks.append(int(logits.argmax(-1)[0]))
+        if not np.array_equal(done[rid], toks):
+            raise AssertionError(f"rolling SlotServer, P={len(prompt)}: "
+                                 f"{done[rid]} != its primitives' {toks}")
+    log(f"  rolling SlotServer: requests {PARITY_REQS} (prompt, budget) "
+        f"equal the single-request loop token for token")
+    long_prompt = max((p for p, _m in reqs), key=len)
+    P = len(long_prompt)
+    full = torch.tensor([long_prompt], device=dev)
+    want = forward(params, full, cfg, last_only=True)[:, 0]
+    scale = want.abs().max().item()
+    for label, got in (
+            ("admission widths (64, 8, 1)",
+             _rolling_prefill_state(params, cfg, long_prompt)[0]),
+            ("one chunk of W", prefill_rolling(params, cfg, full)[0])):
+        rel = (got - want).abs().max().item() / scale
+        log(f"  prefill_rolling ({label}) vs the one-pass windowed "
+            f"prefill, P={P}: {rel:.3e} of max |logit| (tol "
+            f"{PARITY_REL_TOL})")
+        if not rel <= PARITY_REL_TOL:
+            raise AssertionError("prefill_rolling disagrees with the "
+                                 "one-pass prefill")
+        st[f"prefill_rolling_rel_err ({label})"] = rel
+    n = 32
+    ref = counted(counts, lambda: generate(params, cfg, full, n))
+    draft, dcfg = draft_from_truncation(params, cfg, 1)
+    for label, fn in (
+            ("speculative gamma 3", lambda: generate_speculative(
+                params, cfg, draft, dcfg, full, n, gamma=3)),
+            ("speculative gamma 4", lambda: generate_speculative(
+                params, cfg, draft, dcfg, full, n, gamma=4)),
+            ("lookup", lambda: generate_lookup(params, cfg, full, n)),
+            ("beams=1", lambda: generate_beam(params, cfg, full, n,
+                                              beams=1))):
+        got = counted(counts, fn)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{label} != generate(): "
+                                 f"{got[0, P:].tolist()} vs "
+                                 f"{ref[0, P:].tolist()}")
+    log(f"  generate_speculative (gamma 3, 4), generate_lookup and "
+        f"generate_beam(beams=1) equal generate() at P={P}, {n} new")
+    out, scores, _fin = counted(counts, lambda: generate_beam(
+        params, cfg, full, n, beams=4, return_all=True))
+    seqs = torch.cat([full.expand(4, -1), out[0]], dim=1)
+    lp = torch.log_softmax(forward(params, seqs[:, :-1], cfg)[:, P - 1:],
+                           dim=-1)
+    teacher = lp.gather(-1, seqs[:, P:, None])[..., 0].sum(-1)
+    del lp
+    rel = ((scores[0] - teacher).abs() / teacher.abs()).max().item()
+    log(f"  beam scores {scores[0].tolist()} vs teacher-forced "
+        f"{teacher.tolist()}: worst {rel:.3e} of |score| (tol "
+        f"{BEAM_SCORE_REL_TOL})")
+    if not rel <= BEAM_SCORE_REL_TOL:
+        raise AssertionError("beam scores disagree with their teacher-forced "
+                             "sums")
+    st["beam_score_rel_err"] = rel
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  launches {counts}")
+    return st, counts
+
+
 def main() -> int:
     import torch
 
@@ -3818,6 +4336,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     st_rs = phase_reshard(dev, card)
 
+    # 18 + 19: Mistral-7B-v0.1 widths: rolling serving, speculative and
+    # lookup decoding, beam search and HF conversion, then their parity.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    st_mistral, c18 = phase_mistral(dev, card)
+    t19 = time.perf_counter()
+    st_mp, c19 = phase_mistral_parity(dev)
+    log(f"[mistral] phases 18-19 took {t19 - t18:.1f} + "
+        f"{time.perf_counter() - t19:.1f} s")
+
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
     rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
@@ -3842,20 +4371,24 @@ def main() -> int:
             label: traced[label].get("attention_device_ms")
             for label in labels}
 
-    # 18. kernels line: launches are the serving paths' (phases 4, 5, 6 and
-    # 7) and the training paths' (phases 11, 13 and 16, the last the DP
-    # ranks' own counts on both engines), each counted from 0 just before
-    # its run and read just after.
+    # 20. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
+    # 18 and 19) and the training paths' (phases 11, 13 and 16, the last
+    # the DP ranks' own counts on both engines), each counted from 0 just
+    # before its run and read just after.
     main_counts = {k: main_counts[k] + c7[k] + c_ring[k] + c_dp[k]
-                   + c_dpn[k] for k in main_counts}
+                   + c_dpn[k] + c18.get(k, 0) + c19.get(k, 0)
+                   for k in main_counts}
     kernels = []
     for key, row in rows.items():
         row = dict(row)
         row["launches"] = main_counts[key]
+        row["launches_phase18"] = c18.get(key, 0)
+        row["launches_phase19"] = c19.get(key, 0)
         kernels.append(row)
-    # Only the W8A16 run (phase 7) launches the GEMV; the others' counts
+    # The W8A16 runs (phases 7 and 18) launch the GEMV; the others' counts
     # of it are 0 and in main_counts.
-    kernels[list(rows).index("int8_matmul")]["launches_by_regime"] = by_regime
+    kernels[list(rows).index("int8_matmul")]["launches_by_regime"] = {
+        r: n + c18.get(f"int8_matmul/{r}", 0) for r, n in by_regime.items()}
     steps, admits = 8 * st4["chunks"], len(reqs)  # per serving run
     log(f"[summary] launches per serving step: decode_attention "
         f"{c4['decode_attention'] / steps:g} per decode step, "
@@ -3932,9 +4465,24 @@ def main() -> int:
         f" ms, {st_dp['exchange_gb_per_s_each_way']} GB/s")
     log(f"[summary] reshard ({card}): " + "; ".join(
         f"{k} {v['gb_per_s']:.2f} GB/s" for k, v in st_rs.items()))
+    sv, sv8 = st_mistral["serve"], st_mistral["serve_int8"]
+    log(f"[summary] mistral ({card}): rolling SlotServer "
+        f"{sv['tokens_per_s']:.1f} tokens/s (admission {sv['admission_s']:.2f}"
+        f" s of {sv['wall_s']:.2f}, median chunk {sv['median_chunk_ms']:.1f} "
+        f"ms, decode-attention device ms in the traced chunk "
+        f"{sv.get('attention_device_ms')}, idle share "
+        f"{sv.get('device_idle_share')}); W8A16 + int8 KV "
+        f"{sv8['tokens_per_s']:.1f} tokens/s; conversion bf16 "
+        f"{st_mistral['convert_bf16']}, int8 {st_mistral['convert_int8']}; "
+        f"longest prompt's first logits rel err "
+        f"{st_mistral['first_logits_rel_err_longest']:.3e}; rolling generate "
+        f"{st_mistral['generate_rolling']}; speculative "
+        f"{st_mistral['speculative']}; beam {st_mistral['beam']}; launches "
+        f"{c18}")
+    log(f"[summary] mistral-parity: {st_mp}; launches {c19}")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 19. last line
+    # 21. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

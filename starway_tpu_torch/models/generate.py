@@ -11,8 +11,11 @@ A write position past the end of the cache is clamped to the last slot,
 never wrapped and never an error; a dead serving slot with a frozen cursor
 writes there harmlessly (models/serving.py).
 
-Only the dense, non-rolling path is ported: rolling (sliding-window
-circular) caches raise ``NotImplementedError`` until their slice lands.
+Sliding-window models also run on a rolling cache of exactly
+``sliding_window`` slots (:func:`init_rolling_cache`): position ``p`` is
+written to slot ``p % W``, so cache memory is O(window) for any length.
+:func:`prefill_rolling` fills one chunk by chunk, and ``generate()`` takes
+it for aligned batches whenever the window is shorter than ``max_len``.
 """
 
 from __future__ import annotations
@@ -23,12 +26,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import NEG_BIG, repeat_kv
-from .llama import (LlamaConfig, apply_rope, cfg_rope_tables, embed_tokens,
-                    forward, layer_params, matmul_w, mlp_gate_act,
-                    params_device, qkv_proj, resolve_longrope, rmsnorm)
-
-_ROLLING_TODO = ("rolling (sliding-window circular) caches are not ported "
-                 "yet (ROADMAP.md, Queue 1: rolling and prefix paths)")
+from ..ops.quantize import dequantize_kv, quantize_kv
+from .llama import (LlamaConfig, apply_rope, cfg_rope_tables, decoder_layer,
+                    embed_tokens, forward, head_logits, layer_params,
+                    matmul_w, mlp_gate_act, params_device, qkv_proj,
+                    resolve_longrope, rmsnorm, unstack_layers)
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -51,6 +53,14 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
 
 
+def init_rolling_cache(cfg: LlamaConfig, batch: int, device="cuda") -> dict:
+    """O(window) cache for sliding-window models: ``sliding_window`` slots
+    per layer, written modulo the window (``decode_step(rolling=True)``)."""
+    if cfg.sliding_window is None:
+        raise ValueError("rolling caches require cfg.sliding_window")
+    return init_cache(cfg, batch, cfg.sliding_window, device=device)
+
+
 def _attend_cached(q, k_cache, v_cache, pos, n_rep, window=None,
                    k_scale=None, v_scale=None):
     """Attention of ``q [B, Hq, C, D]`` over caches ``[B, Hkv, T, D]``: row
@@ -67,8 +77,6 @@ def _attend_cached(q, k_cache, v_cache, pos, n_rep, window=None,
         return decode_attention(q, k_cache, v_cache, pos, window=window,
                                 k_scale=k_scale, v_scale=v_scale)
     if k_scale is not None:
-        from ..ops.quantize import dequantize_kv
-
         k_cache = dequantize_kv(k_cache, k_scale, q.dtype)
         v_cache = dequantize_kv(v_cache, v_scale, q.dtype)
     k = repeat_kv(k_cache, n_rep)
@@ -92,13 +100,27 @@ def decode_step(params: dict, cache: dict, token, pos, cfg: LlamaConfig,
     the absolute position of ``token``: an int (aligned batch) or a [B]
     tensor (ragged batch, each row at its own cursor).  Writes the new k/v
     into ``cache`` in place and returns ``(logits [B, V] float32,
-    cache)``."""
-    if rolling:
-        raise NotImplementedError(_ROLLING_TODO)
+    cache)``.
+
+    ``rolling``: the cache is a circular window of exactly
+    ``cfg.sliding_window`` slots (:func:`init_rolling_cache`); the entry
+    goes to slot ``pos % W`` and attention covers every warm slot with the
+    position clamped to ``W - 1`` and no window mask (the residents are
+    the window; keys carry their absolute rope, and attention does not
+    depend on the order of the keys).  Its rope tables must be passed:
+    positions run past the cache.  A ``pos`` tensor is never read on the
+    host."""
     if cfg.n_experts > 0:
         raise NotImplementedError("mixture-of-experts decode is not ported "
                                   "yet (ROADMAP.md)")
     T = cache["k"].shape[3]
+    if rolling:
+        if cfg.sliding_window is None or T != cfg.sliding_window:
+            raise ValueError(
+                f"rolling decode needs a cache of exactly sliding_window="
+                f"{cfg.sliding_window} slots, got {T}")
+        if rope is None:
+            raise ValueError("rolling decode requires explicit rope tables")
     dev = token.device
     if rope is None:
         rope = cfg_rope_tables(cfg, T, device=dev)
@@ -107,26 +129,28 @@ def decode_step(params: dict, cache: dict, token, pos, cfg: LlamaConfig,
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         pos = pos.to(device=dev, dtype=torch.int32)
         p_long = pos.long()
-        slot = p_long.clamp(0, T - 1)
+        slot = p_long % T if rolling else p_long.clamp(0, T - 1)
         ri = p_long.clamp(0, cos.shape[0] - 1)
         cos_p = cos[ri][:, None, None, :]
         sin_p = sin[ri][:, None, None, :]
         rows = torch.arange(token.shape[0], device=dev)
+        seen = pos.clamp(max=T - 1) if rolling else pos
 
         def write(c, u):  # c [B, Hkv, T(, D)], u [B, Hkv, 1(, D)]
             c[rows, :, slot] = u[:, :, 0]
     else:
         pos = int(pos)
-        s0 = min(max(pos, 0), T - 1)
+        s0 = pos % T if rolling else min(max(pos, 0), T - 1)
         r0 = min(max(pos, 0), cos.shape[0] - 1)
         cos_p, sin_p = cos[r0:r0 + 1], sin[r0:r0 + 1]
+        seen = min(pos, T - 1) if rolling else pos
 
         def write(c, u):
             c[:, :, s0:s0 + 1] = u
 
     def attend(q, lc):
-        return _attend_cached(q, lc["k"], lc["v"], pos, n_rep,
-                              window=cfg.sliding_window,
+        return _attend_cached(q, lc["k"], lc["v"], seen, n_rep,
+                              window=None if rolling else cfg.sliding_window,
                               k_scale=lc.get("k_scale"),
                               v_scale=lc.get("v_scale"))
 
@@ -155,8 +179,6 @@ def cached_layer_scan(params, cache, h, cos_p, sin_p, cfg: LlamaConfig,
         q = apply_rope(q, cos_p, sin_p)
         k = apply_rope(k, cos_p, sin_p)
         if quant:
-            from ..ops.quantize import quantize_kv
-
             k, k_s = quantize_kv(k)
             v, v_s = quantize_kv(v)
             write(lc["k_scale"], k_s)
@@ -191,8 +213,6 @@ def prefill(params: dict, cfg: LlamaConfig, prompt,
         last_only=logit_positions is None, logit_positions=logit_positions)
     cache = {"k": ks, "v": vs}
     if cfg.kv_quant == "int8":
-        from ..ops.quantize import quantize_kv
-
         cache["k"], cache["k_scale"] = quantize_kv(ks)
         cache["v"], cache["v_scale"] = quantize_kv(vs)
     pad = max_len - P
@@ -203,9 +223,121 @@ def prefill(params: dict, cfg: LlamaConfig, prompt,
     return logits[:, 0], cache
 
 
-def prefill_rolling(*args, **kwargs):
-    """Chunked O(window) prefill into a rolling cache: not ported yet."""
-    raise NotImplementedError(_ROLLING_TODO)
+def rolling_plan(P: int, W: int, chunk: Optional[int] = None,
+                 widths=None) -> list:
+    """The chunk widths :func:`prefill_rolling` cuts a ``P``-token prompt
+    into: ``chunk`` (default and at most ``W``) tokens at a time with a
+    shorter last chunk, or, with ``widths``, a greedy cover by those
+    denominations (each capped at ``W``), refused when it cannot reach
+    ``P``."""
+    plan, c0 = [], 0
+    if widths is None:
+        C = min(chunk or W, W, P)
+        while c0 < P:
+            plan.append(min(C, P - c0))
+            c0 += plan[-1]
+        return plan
+    for width in widths:
+        width = min(int(width), W)
+        while P - c0 >= width:
+            plan.append(width)
+            c0 += width
+    if c0 != P:
+        raise ValueError(
+            f"widths={tuple(widths)} cannot cover prompt length {P} "
+            f"(include 1 as the smallest denomination)")
+    return plan
+
+
+def prefill_rolling(params: dict, cfg: LlamaConfig, prompt, *,
+                    chunk: Optional[int] = None, attn_fn=None, widths=None):
+    """Prefill in O(window) memory: the prompt streams through the model in
+    chunks of at most ``sliding_window`` tokens (:func:`rolling_plan`),
+    each attending to the rolling cache (its window's past) and to itself.
+
+    Returns ``(last_logits [B, V], rolling cache)``; continue with
+    ``decode_step(..., pos=P, rolling=True)``.  Equal to the one-pass
+    windowed prefill up to the order of the softmax sums (the two partials
+    of each chunk merge as in ring attention).  ``attn_fn`` must be None:
+    the chunk owns its attention."""
+    W = cfg.sliding_window
+    if W is None:
+        raise ValueError("prefill_rolling requires cfg.sliding_window")
+    if attn_fn is not None:
+        raise ValueError("prefill_rolling owns its attention; attn_fn must "
+                         "be None")
+    if cfg.n_experts > 0:
+        raise NotImplementedError("mixture-of-experts prefill is not ported "
+                                  "yet (ROADMAP.md)")
+    dev = params_device(params)
+    prompt = torch.as_tensor(prompt, device=dev).long()
+    B, P = prompt.shape
+    cos, sin = cfg_rope_tables(cfg, P, device=dev)
+    cache = init_rolling_cache(cfg, B, device=dev)
+    layers = unstack_layers(params["layers"], cfg.n_layers)
+    h, c0 = None, 0
+    for Cc in rolling_plan(P, W, chunk, widths):
+        h = _prefill_chunk(params, layers, cache, prompt[:, c0:c0 + Cc], c0,
+                           cos[c0:c0 + Cc], sin[c0:c0 + Cc], cfg)
+        c0 += Cc
+    logits = head_logits(h[:, -1:], params["final_norm"], params["lm_head"],
+                         cfg.norm_eps)
+    return logits[:, 0], cache
+
+
+def _prefill_chunk(params, layers, cache, tokens, c0: int, cos, sin,
+                   cfg: LlamaConfig):
+    """One chunk of :func:`prefill_rolling` (tokens at ``c0 .. c0 + Cc -
+    1``) through every layer; writes its entries into ``cache`` in place
+    at slots ``(c0 + i) % W`` and returns the last hidden states.
+
+    Each layer's cache is read in position order ``c0 - W .. c0 - 1``
+    (slot ``s`` holds the latest position ``p < c0`` with ``p % W ==
+    s``), so the past is one partial at global offsets with the cold
+    slots (positions below 0) masked by ``kv_min=0``; the chunk itself is
+    the other partial, and the two merge.  An int8 cache is dequantized
+    for the past and quantized per slot on the write."""
+    from ..ops.attention import (finalize_partial, merge_partials,
+                                 partial_attention)
+
+    W = cfg.sliding_window
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    dev = tokens.device
+    Cc = tokens.shape[1]
+    slots = (c0 + torch.arange(Cc, device=dev)) % W
+    order = (c0 - W + torch.arange(W, device=dev)) % W
+    quant = "k_scale" in cache
+
+    def chunk_attn(lc):
+        def attn(q, k, v):
+            kco, vco = lc["k"][:, :, order], lc["v"][:, :, order]
+            if quant:
+                kco = dequantize_kv(kco, lc["k_scale"][:, :, order], q.dtype)
+                vco = dequantize_kv(vco, lc["v_scale"][:, :, order], q.dtype)
+            past = partial_attention(
+                q, repeat_kv(kco, n_rep), repeat_kv(vco, n_rep),
+                q_offset=c0, kv_offset=c0 - W, causal=True, window=W,
+                kv_min=0)
+            here = partial_attention(
+                q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), q_offset=c0,
+                kv_offset=c0, causal=True, window=W)
+            return finalize_partial(*merge_partials(past, here),
+                                    out_dtype=q.dtype)
+
+        return attn
+
+    h = embed_tokens(params, tokens, cfg)
+    for li, lp in enumerate(layers):
+        lc = {name: t[li] for name, t in cache.items()}
+        h, k, v = decoder_layer(lp, h, cfg, cos, sin, chunk_attn(lc))
+        if quant:
+            k, k_s = quantize_kv(k)
+            v, v_s = quantize_kv(v)
+            lc["k_scale"][:, :, slots] = k_s
+            lc["v_scale"][:, :, slots] = v_s
+        lc["k"][:, :, slots] = k
+        lc["v"][:, :, slots] = v
+    return h
 
 
 def validate_prompt_lengths(prompt_lengths, B: int, P: int) -> torch.Tensor:
@@ -288,19 +420,31 @@ def generate(params: dict, cfg: LlamaConfig, prompt, max_new_tokens: int, *,
         raise NotImplementedError("mixture-of-experts generation is not "
                                   "ported yet (ROADMAP.md)")
     ragged = prompt_lengths is not None
-    if (not ragged and cfg.sliding_window is not None
-            and cfg.sliding_window < max_len):
-        raise NotImplementedError(_ROLLING_TODO)
+    W = cfg.sliding_window
+    # Aligned batches of a windowed model decode through a rolling cache
+    # of W slots whenever that is smaller; ragged ones keep the full cache.
+    rolling = not ragged and W is not None and W < max_len
     rope = cfg_rope_tables(cfg, max_len, device=dev)
     if ragged:
         lengths = validate_prompt_lengths(prompt_lengths, B, P).to(dev)
-        logits, small = prefill(params, cfg, prompt, max_len,
+        logits, cache = prefill(params, cfg, prompt, max_len,
                                 logit_positions=lengths - 1)
         pos = lengths.int()
-    else:
-        logits, small = prefill(params, cfg, prompt, max_len)
+    elif rolling:
         pos = P
-    cache = small
+        if P <= W:
+            # Zero-padded to W slots, position p already sits at p % W.
+            logits, cache = prefill(params, cfg, prompt, W)
+        else:
+            logits, cache = prefill(params, cfg, prompt, P)
+            # The last W positions, each at its slot p % W; every leaf's T
+            # axis is at index 3.
+            src = (P - W) + (torch.arange(W, device=dev) - (P - W)) % W
+            cache = {name: a.index_select(3, src)
+                     for name, a in cache.items()}
+    else:
+        logits, cache = prefill(params, cfg, prompt, max_len)
+        pos = P
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     toks, lps = [], []
     for i in range(max_new_tokens):
@@ -317,7 +461,8 @@ def generate(params: dict, cfg: LlamaConfig, prompt, max_new_tokens: int, *,
         toks.append(tok)
         lps.append(lp)
         if i + 1 < max_new_tokens:
-            logits, cache = decode_step(params, cache, tok, pos, cfg, rope)
+            logits, cache = decode_step(params, cache, tok, pos, cfg, rope,
+                                        rolling=rolling)
             pos = pos + 1
     new = torch.stack(toks, dim=1)
     out = new if ragged else torch.cat([prompt, new], dim=1)

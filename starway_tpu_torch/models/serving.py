@@ -25,11 +25,17 @@
   the slot's own rows (write-then-attend), so a prefixed request generates
   exactly what ``generate(prefix + suffix)`` would, while admission
   compute scales with the suffix.
+* **Rolling slots.**  A sliding-window model serves through per-slot
+  rolling caches ``[L, n_slots, Hkv, W, Dh]``: O(window) memory per slot
+  however long a request runs.  Admission is the chunked
+  ``prefill_rolling`` with the denominations :data:`ROLLING_ADMIT_WIDTHS`
+  (no prompt buckets), ``max_len`` bounds only the rope horizon, and
+  prefixes are refused (each slot rebuilds its own window).
 
 The cache is updated in place.  Errors of the device (out of memory, a
 failed kernel launch) propagate out of ``step()``; a request is never
-silently re-queued.  Sliding-window (rolling) models and MoE models are
-not ported yet and raise ``NotImplementedError``.  Subclasses (the paged
+silently re-queued.  MoE models are not ported yet and raise
+``NotImplementedError``.  Subclasses (the paged
 server, models/paged.py) replace the cache through the hooks
 ``_make_cache``, ``_post_init``, ``_on_slot_freed``, ``_decode_one``,
 ``_admit_plain``, ``_admit_prefixed``, ``_admissible`` and
@@ -44,7 +50,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .generate import _sample, decode_step, init_cache, prefill
+from .generate import (_sample, decode_step, init_cache, init_rolling_cache,
+                       prefill, prefill_rolling)
 from .llama import (LlamaConfig, cfg_rope_tables, params_device,
                     resolve_longrope)
 
@@ -76,6 +83,20 @@ def _write_slot_and_sample(cache, small, logits, slot, generator,
     for name, rows in small.items():
         cache[name][:, slot:slot + 1, :, :rows.shape[3]].copy_(rows)
     return _sample(logits, generator, temperature, top_k, top_p)[0]
+
+
+# Chunk widths of rolling admission: a prompt is covered greedily by these,
+# so admission takes at most P/64 + 7 + 7 chunks of three shapes.
+ROLLING_ADMIT_WIDTHS = (64, 8, 1)
+
+
+def _rolling_prefill_state(params, cfg: LlamaConfig, prompt: np.ndarray):
+    """``(next_logits [1, V], rolling cache [L, 1, Hkv, W, ...])`` of one
+    prompt by ``prefill_rolling`` over :data:`ROLLING_ADMIT_WIDTHS`:
+    rolling admission, and the single-request oracle of its tests."""
+    tokens = torch.as_tensor(np.asarray(prompt, np.int64)[None],
+                             device=params_device(params))
+    return prefill_rolling(params, cfg, tokens, widths=ROLLING_ADMIT_WIDTHS)
 
 
 def make_chunk_scan_step(decode_one, max_len: int, temperature: float,
@@ -135,10 +156,6 @@ class SlotServer:
             raise NotImplementedError(
                 "serving mixture-of-experts models is not ported yet "
                 "(ROADMAP.md)")
-        if cfg.sliding_window is not None:
-            raise NotImplementedError(
-                "sliding-window models serve through rolling caches, which "
-                "are not ported yet (ROADMAP.md, Queue 1: rolling paths)")
         if n_slots < 1 or chunk < 1:
             raise ValueError(f"need n_slots >= 1 and chunk >= 1, got "
                              f"{n_slots}/{chunk}")
@@ -151,12 +168,18 @@ class SlotServer:
         self.chunk = chunk
         self.sampling = (float(temperature), top_k, top_p)
         self.eos_id = None if eos_id is None else int(eos_id)
-        if prompt_buckets is None:
-            prompt_buckets = default_buckets(max_len)
-        self.buckets = tuple(sorted(set(prompt_buckets)))
-        if self.buckets[-1] > max_len:
-            raise ValueError(f"bucket {self.buckets[-1]} exceeds "
-                             f"max_len={max_len}")
+        # Rolling slots keep W positions each; max_len is then the rope
+        # horizon (prompt + budget), not the cache size.
+        self.rolling = cfg.sliding_window is not None
+        if self.rolling:
+            self.buckets = ()  # rolling admission never buckets prompts
+        else:
+            if prompt_buckets is None:
+                prompt_buckets = default_buckets(max_len)
+            self.buckets = tuple(sorted(set(prompt_buckets)))
+            if self.buckets[-1] > max_len:
+                raise ValueError(f"bucket {self.buckets[-1]} exceeds "
+                                 f"max_len={max_len}")
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.rope = cfg_rope_tables(cfg, max_len, device=self.device)
@@ -179,6 +202,9 @@ class SlotServer:
 
     # ------------------------------------------------------------- hooks
     def _make_cache(self):
+        if self.rolling:
+            return init_rolling_cache(self.cfg, self.n_slots,
+                                      device=self.device)
         return init_cache(self.cfg, self.n_slots, self.max_len,
                           device=self.device)
 
@@ -192,7 +218,7 @@ class SlotServer:
     def _decode_one(self, cache, token, pos):
         """One decode step of every slot: ``(logits [n_slots, V], cache)``."""
         return decode_step(self.params, cache, token, pos, self.cfg,
-                           self.rope)
+                           self.rope, rolling=self.rolling)
 
     def _check_pages(self, prompt_len: int, prefix: Optional[int]) -> None:
         """Subclass hook of ``submit``: refuse a request that the cache
@@ -219,6 +245,10 @@ class SlotServer:
                        width, logit_positions=last)
 
     def _check_prefix_tokens(self, tokens) -> np.ndarray:
+        if self.rolling:
+            raise ValueError("prefix caching needs the dense slot cache; "
+                             "rolling (sliding-window) slots rebuild their "
+                             "window per request anyway")
         tokens = np.asarray(tokens, np.int64).reshape(-1)
         if len(tokens) < 1:
             raise ValueError("empty prefix")
@@ -279,12 +309,13 @@ class SlotServer:
                 f"({max_new_tokens}) exceeds max_len={self.max_len}")
         # Refuse now what admission could not place, not after the request
         # has left the queue.
-        sb = _bucket(len(prompt), self.buckets)
-        if prefix is not None and plen + sb > self.max_len:
-            raise ValueError(
-                f"prefix ({plen}) + suffix bucket ({sb}, rounded up from "
-                f"{len(prompt)}) exceeds max_len={self.max_len}: the suffix "
-                f"ingest writes bucket-wide")
+        if not self.rolling:
+            sb = _bucket(len(prompt), self.buckets)
+            if prefix is not None and plen + sb > self.max_len:
+                raise ValueError(
+                    f"prefix ({plen}) + suffix bucket ({sb}, rounded up from "
+                    f"{len(prompt)}) exceeds max_len={self.max_len}: the "
+                    f"suffix ingest writes bucket-wide")
         self._check_pages(len(prompt), prefix)
         rid = self._next_rid
         self._next_rid += 1
@@ -307,8 +338,12 @@ class SlotServer:
 
     def _admit_plain(self, slot: int, prompt: np.ndarray):
         """Prefill ``prompt`` into ``slot``; returns its first token."""
-        logits, small = self._prefill_bucket(
-            prompt, _bucket(len(prompt), self.buckets))
+        if self.rolling:
+            logits, small = _rolling_prefill_state(self.params, self.cfg,
+                                                   prompt)
+        else:
+            logits, small = self._prefill_bucket(
+                prompt, _bucket(len(prompt), self.buckets))
         return _write_slot_and_sample(self.cache, small, logits, slot,
                                       self.generator, *self.sampling)
 

@@ -158,3 +158,22 @@ def attention_reference(q, k, v, *, causal: bool = False,
         raise ValueError("window requires causal attention")
     p = torch.softmax(s, dim=-1)
     return _pv(p, v).to(v.dtype)
+
+
+# A bf16 attention kernel against its plain version, per element: 2^-6
+# |want| (the output's bf16 rounding in both versions, one ulp <= 2^-7
+# |want|, twice over) + 2^-5 of the rms of want's row over D (the bf16
+# rounding of p before p @ v, at other points in a kernel's online softmax
+# than in the plain version's).  Outputs over T keys of unit-variance q, k,
+# v are ~ sqrt(e / T) in size, so one absolute limit fits no range of T;
+# a kernel that drops one 64-key tile of a 4096-key window is ~20x over.
+SCALED_TOL = (2 ** -6, 2 ** -5)
+
+
+def scaled_tolerance_share(got, want) -> float:
+    """The worst element's ``|got - want|`` as a share of SCALED_TOL's
+    limit, over rows of the last axis.  At most 1 passes."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    limit = SCALED_TOL[0] * w.abs() + SCALED_TOL[1] * rms
+    return ((g - w).abs() / limit).max().item()

@@ -41,7 +41,16 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 def quantize_weight(w: torch.Tensor) -> dict:
     """Weight-only int8, symmetric per output channel: ``w [..., D, F]`` ->
     ``{"q": int8 same shape, "s": f32 [..., F]}`` with ``w ~= q * s``.
-    Leading axes (the stacked-layer dim) are batch dims of the scheme."""
+    Leading axes (the stacked-layer dim) are batch dims of the scheme,
+    quantized one slice at a time so the float32 scratch is one layer's."""
+    if w.dim() > 2:
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        s = torch.empty(w.shape[:-2] + w.shape[-1:], dtype=torch.float32,
+                        device=w.device)
+        for i, part in enumerate(w):
+            one = quantize_weight(part)
+            q[i], s[i] = one["q"], one["s"]
+        return {"q": q, "s": s}
     wf = w.float()
     scale = wf.abs().amax(dim=-2) / INT8_MAX
     div = torch.where(scale > 0.0, scale, torch.ones_like(scale))[..., None, :]

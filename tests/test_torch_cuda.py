@@ -26,7 +26,7 @@ from starway_tpu_torch.ops.decode import (decode_attention,
 from starway_tpu_torch.ops.paged import (paged_decode_attention,
                                          paged_decode_attention_reference)
 from starway_tpu_torch.ops import flash as flash_ops
-from starway_tpu_torch.ops.attention import NEG_BIG
+from starway_tpu_torch.ops.attention import NEG_BIG, scaled_tolerance_share
 from starway_tpu_torch.ops.flash import (flash_backward,
                                          flash_backward_dkv, flash_backward_dq,
                                          flash_backward_reference,
@@ -52,6 +52,16 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _assert_attention_close(got, want, dtype):
+    """float32 to TOL; bf16 to a limit scaled to the output, as the outputs
+    over thousands of keys are ~ TOL's bf16 value in size."""
+    if dtype == torch.bfloat16:
+        assert scaled_tolerance_share(got, want) <= 1.0
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=0)
 
 
 def _randn(rng, shape, dtype, dev):
@@ -137,6 +147,50 @@ def test_decode_kernel_row_tiles_match_plain(dev, dtype, quant, n_q):
     want = decode_attention_reference(q, k, v, pos, **kw)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_kernel_on_a_circular_cache(dev, dtype, quant):
+    """Rolling decode's call: a cache of W = 4096 slots at the main path's
+    heads, positions past the window clamped to W - 1 on the device, no
+    window mask; a row still filling (pos < W) masks its cold slots."""
+    rng = np.random.default_rng(9)
+    w, hq, hkv, d = 4096, 32, 8, 128
+    q = _randn(rng, (3, hq, 1, d), dtype, dev)
+    k = _randn(rng, (3, hkv, w, d), dtype, dev)
+    v = _randn(rng, (3, hkv, w, d), dtype, dev)
+    kw = {}
+    if quant:
+        k, kw["k_scale"] = quantize_kv(k)
+        v, kw["v_scale"] = quantize_kv(v)
+    pos = torch.tensor([w + 3, 5 * w + 1, 700], dtype=torch.int32,
+                       device=dev).clamp(max=w - 1)
+    got = decode_attention(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    want = decode_attention_reference(q, k, v, pos, **kw)
+    _assert_attention_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q", [4, 5])
+def test_decode_kernel_windowed_chunk_verify(dev, dtype, n_q):
+    """The speculative verify of a windowed model at the main path's heads:
+    C = 4 (16 rows, the decode regime) and C = 5 (20 rows, the ingest
+    regime), window 4096 over a 6200-slot cache."""
+    from starway_tpu_torch.ops.decode import decode_plan
+
+    assert decode_plan(3, 8, 4 * n_q, 6200)[0] == (
+        "decode" if n_q == 4 else "ingest")
+    rng = np.random.default_rng(10)
+    q = _randn(rng, (3, 32, n_q, 128), dtype, dev)
+    k = _randn(rng, (3, 8, 6200, 128), dtype, dev)
+    v = _randn(rng, (3, 8, 6200, 128), dtype, dev)
+    pos = torch.tensor([0, 4000, 6200 - n_q], dtype=torch.int32, device=dev)
+    got = decode_attention(q, k, v, pos, window=4096)
+    torch.cuda.synchronize()
+    want = decode_attention_reference(q, k, v, pos, window=4096)
+    _assert_attention_close(got, want, dtype)
 
 
 def _paged_case(rng, dtype, dev, page, n_q, hq, hkv, pos):
@@ -379,6 +433,48 @@ def test_slot_server_on_cuda_matches_generate(dev, kv_quant, w8):
         out = generate(params, cfg, torch.tensor([prompt]), max_new)
         np.testing.assert_array_equal(done[rid],
                                       out[0, len(prompt):].cpu().numpy())
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_rolling_server_and_decoders_on_cuda(dev, kv_quant):
+    """The rolling SlotServer, the speculative decoders and beam search on
+    the card (float32, debug widths, window 8): the server's tokens equal
+    a single-request loop over its primitives (prefill_rolling over the
+    admission widths, rolling decode_step, argmax), and speculative,
+    lookup and beams=1 equal generate() on the card."""
+    from starway_tpu_torch.models import (generate_beam, generate_lookup,
+                                          generate_speculative)
+    from starway_tpu_torch.models.generate import decode_step
+    from starway_tpu_torch.models.llama import rope_tables
+    from starway_tpu_torch.models.serving import _rolling_prefill_state
+
+    cfg = LlamaConfig.preset("debug", sliding_window=8, kv_quant=kv_quant)
+    params = init_params(cfg, 0, device=dev)
+    rope = rope_tables(64, cfg.head_dim, cfg.rope_theta, device=dev)
+    rng = np.random.default_rng(4)
+    reqs = [(list(rng.integers(1, cfg.vocab_size, n)), m)
+            for n, m in [(3, 6), (11, 4), (20, 9), (8, 5)]]
+    srv = SlotServer(params, cfg, n_slots=2, max_len=64, chunk=4)
+    rids = [srv.submit(t, m) for t, m in reqs]
+    done = srv.run()
+    for rid, (prompt, max_new) in zip(rids, reqs):
+        logits, cache = _rolling_prefill_state(params, cfg, prompt)
+        toks = [int(logits.argmax(-1)[0])]
+        while len(toks) < max_new:
+            pos = torch.tensor([len(prompt) + len(toks) - 1], device=dev)
+            logits, cache = decode_step(params, cache,
+                                        torch.tensor([toks[-1]], device=dev),
+                                        pos, cfg, rope, rolling=True)
+            toks.append(int(logits.argmax(-1)[0]))
+        np.testing.assert_array_equal(done[rid], toks)
+    prompt = torch.tensor(rng.integers(1, cfg.vocab_size, (2, 12)))
+    want = generate(params, cfg, prompt, 10)
+    assert want.device.type == "cuda"
+    for got in (generate_speculative(params, cfg, params, cfg, prompt, 10,
+                                     gamma=4),
+                generate_lookup(params, cfg, prompt, 10, gamma=5),
+                generate_beam(params, cfg, prompt, 10, beams=1)):
+        assert torch.equal(got, want)
 
 
 def test_paged_and_prefix_servers_on_cuda_match_generate(dev):

@@ -21,6 +21,7 @@ from starway_tpu_torch.ops.decode import (KEYS, N_SMS, decode_attention,
                                           decode_attention_reference,
                                           decode_plan, launch_plan,
                                           max_splits, pos_arg)
+from starway_tpu_torch.ops.attention import NEG_BIG, scaled_tolerance_share
 from torch_port_util import to_numpy, to_torch
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -208,3 +209,57 @@ def test_split_shares_merge_to_the_whole(n_split, pos):
                                          torch.tensor(-torch.inf)), -1) @ v
         torch.testing.assert_close(o / l[:, None], want, atol=1e-5, rtol=0)
         assert empty == max(0, n_split - n_tiles)
+
+
+def _online_softmax(q, k, v, pos, window, drop_tile=None):
+    """The bf16 decode kernel's arithmetic in plain PyTorch: keys in
+    KEYS-row tiles, a running max, p rounded to bf16 against it before
+    p @ v, a bf16 output; ``drop_tile`` leaves one tile out, as a faulty
+    kernel would."""
+    b, hq, c, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    rows = hq // hkv * c
+    qg = q.reshape(b, hkv, rows, d).float()
+    q_pos = pos[:, None, None, None].long() + (torch.arange(rows) % c)[
+        None, None, :, None]
+    m = torch.full((b, hkv, rows, 1), NEG_BIG)
+    l = torch.zeros(b, hkv, rows, 1)
+    acc = torch.zeros(b, hkv, rows, d)
+    for j0 in range(0, t, KEYS):
+        kp = torch.arange(j0, min(j0 + KEYS, t))[None, None, None, :]
+        keep = (kp <= q_pos) & (j0 // KEYS != drop_tile)
+        if window is not None:
+            keep = keep & (kp > q_pos - window)
+        s = qg @ k[:, :, j0:j0 + KEYS].float().transpose(-1, -2) * d ** -0.5
+        s = torch.where(keep, s, torch.full_like(s, NEG_BIG))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(keep, torch.exp(s - m_new), torch.zeros_like(s))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ v[
+            :, :, j0:j0 + KEYS].float()
+        m = m_new
+    return (acc / l).to(torch.bfloat16).reshape(b, hq, c, d)
+
+
+@pytest.mark.parametrize("c,t,pos,window,drop", [
+    (1, 4096, [100, 9000], None, 1),   # a circular cache, pos clamped
+    (5, 4654, [4600, 4647], 4096, 40),  # a windowed verify, C = 5
+    (1, 544, [543, 543], 4096, 5),      # beam rows
+])
+def test_scaled_tolerance_tells_a_dropped_tile(c, t, pos, window, drop):
+    """ops/attention.py's scaled limit, which chip_smoke.py holds the bf16
+    kernels to at phase 18's shapes (Hq=32, Hkv=8, D=128), against a model
+    of the kernel's arithmetic: the kernel's roundings stay under half of
+    it, and a kernel that drops one 64-key tile of the window is over
+    four times it."""
+    gen = torch.Generator().manual_seed(t)
+    q, k, v = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+               for shape in ((2, 32, c, 128), (2, 8, t, 128),
+                             (2, 8, t, 128)))
+    pos = torch.tensor(pos, dtype=torch.int32).clamp(max=t - 1)
+    want = decode_attention_reference(q, k, v, pos, window=window)
+    assert scaled_tolerance_share(
+        _online_softmax(q, k, v, pos, window), want) <= 0.5
+    assert scaled_tolerance_share(
+        _online_softmax(q, k, v, pos, window, drop_tile=drop), want) > 4

@@ -181,3 +181,29 @@ def test_scan_covers_the_transport_tail_and_the_model_over_it():
             "starway_tpu_torch/parallel/dp_exchange.py",
             "starway_tpu_torch/models/remote_serving.py",
             "starway_tpu_torch/mesh.py"} <= scanned
+
+
+def test_serving_stack_imports_keep_jax_and_transformers_out():
+    """The rolling, speculative, beam and HF-conversion entry points import
+    without jax, the JAX package or transformers (the converter reads a
+    model through its state_dict and config attributes)."""
+    code = ("import sys\n"
+            "from starway_tpu_torch.models import (init_rolling_cache, "
+            "prefill_rolling, generate_speculative, generate_lookup, "
+            "draft_from_truncation, generate_beam, config_from_hf, "
+            "params_from_hf)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('transformers',)!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_scan_covers_the_serving_stack():
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {"starway_tpu_torch/models/generate.py",
+            "starway_tpu_torch/models/speculative.py",
+            "starway_tpu_torch/models/beam.py",
+            "starway_tpu_torch/models/hf_convert.py",
+            "starway_tpu_torch/models/serving.py"} <= scanned

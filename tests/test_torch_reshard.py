@@ -246,6 +246,18 @@ def _need_native(*engines):
             pytest.skip("native engine unavailable (no toolchain)")
 
 
+async def _connect(client, server, port):
+    """``client.aconnect`` and then wait, as long again, for the server to
+    list the client: the connect can return before the server's worker
+    has registered the endpoint that ``ServerPort`` binds to."""
+    await asyncio.wait_for(client.aconnect(ADDR, port), 30)
+    for _ in range(6000):
+        if server.list_clients():
+            return
+        await asyncio.sleep(0.005)
+    raise AssertionError("the server never listed the client")
+
+
 def _two_rank_shardings():
     """Rank 0's 4 slots hold rows; rank 1's 4 slots take columns (the JAX
     test's devices 0-3 and 4-7 under its split rank_of)."""
@@ -289,7 +301,7 @@ async def test_cross_rank_redistribute_all_pairings(pairing, port,
     monkeypatch.setenv("STARWAY_NATIVE", "1" if c_eng == "native" else "0")
     client = Client()
     try:
-        await asyncio.wait_for(client.aconnect(ADDR, port), 30)
+        await _connect(client, server, port)
         executor.reset_staging_peak()
         with lease() as L:
             res0, res1 = await asyncio.gather(
@@ -330,7 +342,7 @@ async def test_cross_rank_via_device_payloads(port, monkeypatch, engine):
     server.listen(ADDR, port)
     client = Client()
     try:
-        await asyncio.wait_for(client.aconnect(ADDR, port), 30)
+        await _connect(client, server, port)
         with lease() as L:
             _, res1 = await asyncio.gather(
                 redistribute(st, None, {1: client}, rank=0, lease=L,
@@ -458,7 +470,7 @@ async def test_schedule_survives_conn_kill_with_session(port, monkeypatch):
     proxy = FaultProxy(ADDR, port).start()
     client = Client()
     try:
-        await asyncio.wait_for(client.aconnect(ADDR, proxy.port), 30)
+        await _connect(client, server, proxy.port)
         proxy.reset_mid_message(proxy.forwarded_bytes + (2 << 20))
         with lease() as L:
             _, res1 = await asyncio.wait_for(asyncio.gather(
@@ -495,7 +507,7 @@ async def test_counters_and_gauges_surface(port, monkeypatch):
     server.listen(ADDR, port)
     client = Client()
     try:
-        await asyncio.wait_for(client.aconnect(ADDR, port), 30)
+        await _connect(client, server, port)
         with lease() as L:
             await asyncio.gather(
                 redistribute(st, None, {1: client}, rank=0, lease=L),

@@ -144,8 +144,11 @@ def test_serving_validation_and_unported(params):
         SlotServer(params, cfg, n_slots=0)
     with pytest.raises(ValueError, match="smallest suffix bucket"):
         srv.register_prefix(list(range(1, 32)))  # leaves no suffix room
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlotServer(params, LlamaConfig.preset("debug", sliding_window=8))
+    # Sliding-window models serve through rolling slots now
+    # (tests/test_torch_rolling.py): W slots a row, no prompt buckets.
+    rolling = SlotServer(params, LlamaConfig.preset("debug", sliding_window=8),
+                         n_slots=1, max_len=32)
+    assert rolling.cache["k"].shape[3] == 8 and rolling.buckets == ()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlotServer(params, LlamaConfig.preset("debug", n_experts=4))
 
