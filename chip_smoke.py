@@ -187,10 +187,40 @@ Phases, each of which raises on failure:
               4), generate_lookup and generate_beam(beams=1) equal
               generate() at P=4500; the four beams' scores within 1e-4
               (relative) of their teacher-forced sums
-20. a JSON line of the kernels with their launches on the serving paths
-   (phases 4-7, 18 and 19, the last two also apart) and the training
+20. mixtral -- Mixtral-8x7B-v0.1 widths (its published config.json
+              through config_from_hf: 8 experts, top-2, SwiGLU, dropless
+              at capacity factor 8), cut to 16 of 32 layers (all 32
+              would hold 93.4 GB of bf16 weights), random weights from
+              init_params on the card.  First 4 layers of random HF-named
+              weights converted by params_from_hf (seconds, peak memory,
+              the tree against its source), freed; then phase 4's
+              SlotServer traffic (n_slots 8, max_len 2048, chunk 8, 12
+              requests): every budget met, the decode and flash kernels
+              launch, one traced chunk's idle share and the MoE FFN's
+              device ms (expert bmm apart from routing, dispatch and
+              combine); one request's first logits against the plain
+              attention with the routing pinned to the kernel path's
+              (the free run's error and routing flips logged); the router's drop fraction (0) and expert load
+              on one admission; ragged generate() (B=2, P=1024, 32 new);
+              generate_speculative (4-layer truncation draft, gamma 4)
+              and generate_lookup at P=1024, 32 new; beam search (K=4,
+              B=2, P=512, 16 new); make_sharded_moe over
+              make_mesh({"ep": 4}) on cuda:0 against switch_moe on one
+              layer at x [1, 2048, 4096] within 2e-2 of max |y|, both
+              timed
+21. mixtral-parity -- float32, 2 layers at the same widths: SlotServer's
+              greedy tokens equal generate()'s for 8 requests; the
+              PagedSlotServer with and without a registered prefix and
+              the prefixed SlotServer equal generate(prefix + suffix)
+              (the paged kernel launches); ragged generate() rows equal
+              their solo runs; generate_speculative (gamma 3, 4),
+              generate_lookup and generate_beam(beams=1) equal
+              generate(); a droppy config (capacity factor 1.25) is
+              refused with "dropless"
+22. a JSON line of the kernels with their launches on the serving paths
+   (phases 4-7 and 18-21, the last four also apart) and the training
    paths (phases 11, 13 and 16) and the numbers of phase 3
-21. the last line: {"ok": true, "device": {...}}
+23. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -1300,20 +1330,35 @@ class TimedChunks:
         """One chunk under torch.profiler: its summed kernel time is the
         device's busy time for a chunk.  The tracer's own start-up and
         event processing are timed too, and left out of the run's wall
-        time."""
+        time.  An MoE model's FFN runs inside a ``MOE_RANGE`` range for
+        the traced chunk only, so the kernels it launches (the expert
+        ``bmm``s and the dispatch and combine around them) are summed
+        apart."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
+        from starway_tpu_torch.models import moe
         from starway_tpu_torch.ops.decode_bench import attention_device_ms
+
+        plain_moe = moe.switch_moe
+
+        def ranged_moe(*args, **kw):
+            with torch.profiler.record_function(MOE_RANGE):
+                return plain_moe(*args, **kw)
 
         t_call = time.perf_counter()
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof:
+        with profile(activities=acts) as prof, mock.patch.object(
+                moe, "switch_moe", ranged_moe):
             t0 = time.perf_counter()
             out = super()._run_chunk()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        avgs = prof.key_averages()
+        # The range's own device-side span (if the profiler records one)
+        # is not a kernel.
+        kernels = [e for e in avgs
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key != MOE_RANGE]
         busy_us = sum(getattr(e, "self_device_time_total", 0)
                       for e in kernels)
         gemv_us = sum(getattr(e, "self_device_time_total", 0)
@@ -1325,7 +1370,30 @@ class TimedChunks:
             gemv_device_ms=gemv_us / 1e3 if busy_us else None,
             attention_device_ms=attn_ms if busy_us else None,
             tracer_overhead_s=time.perf_counter() - t_call - wall_ms / 1e3)
+        if busy_us and self.cfg.n_experts:
+            self.traced.update(moe_device_ms(avgs))
         return out
+
+
+MOE_RANGE = "moe_ffn"  # the profiler range around switch_moe in a trace
+
+
+def moe_device_ms(avgs) -> dict:
+    """The MoE FFN's device ms in a trace: every kernel launched inside
+    the ``MOE_RANGE`` ranges, of which the expert ``bmm``s (the FFN's only
+    batched products) and the rest (routing, dispatch, combine)."""
+    import torch
+
+    def device_ms(key):
+        for e in avgs:
+            if e.key == key and e.device_type == torch.autograd.DeviceType.CPU:
+                return getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0)) / 1e3
+        return 0.0
+
+    total, bmm = device_ms(MOE_RANGE), device_ms("aten::bmm")
+    return dict(moe_device_ms=total, moe_expert_bmm_device_ms=bmm,
+                moe_dispatch_combine_device_ms=total - bmm)
 
 
 def serve(params, cfg, reqs, *, server=None, prefix=None, n_slots=8,
@@ -1411,20 +1479,27 @@ def plain_attn(q, k, v):
     return flash_forward_reference(q, k, v, causal=True)[0]
 
 
-def check_first_logits(params, cfg, prompt, max_len):
-    """First-token logits of one request as admission computes them (the
-    flash kernel) against a forward through the plain attention."""
+def first_logits_inputs(params, prompt, max_len):
+    """The prompt right-padded to its admission bucket, the bucket, and
+    the position of its last token."""
     import torch
 
-    from starway_tpu_torch.models.generate import prefill
-    from starway_tpu_torch.models.llama import forward
     from starway_tpu_torch.models.serving import _bucket, default_buckets
 
     dev = params["embed"].device
     pb = _bucket(len(prompt), default_buckets(max_len))
     padded = torch.zeros((1, pb), dtype=torch.long, device=dev)
     padded[0, :len(prompt)] = torch.tensor(prompt, device=dev)
-    last = torch.tensor([len(prompt) - 1], device=dev)
+    return padded, pb, torch.tensor([len(prompt) - 1], device=dev)
+
+
+def check_first_logits(params, cfg, prompt, max_len):
+    """First-token logits of one request as admission computes them (the
+    flash kernel) against a forward through the plain attention."""
+    from starway_tpu_torch.models.generate import prefill
+    from starway_tpu_torch.models.llama import forward
+
+    padded, pb, last = first_logits_inputs(params, prompt, max_len)
     got, _ = prefill(params, cfg, padded, pb, logit_positions=last)
     want = forward(params, padded, cfg, plain_attn, logit_positions=last)[:, 0]
     return compare_logits(got, want)
@@ -3812,10 +3887,10 @@ def mistral_config(**overrides):
     return config_from_hf(SimpleNamespace(**MISTRAL_7B), **overrides)
 
 
-def mistral_state(cfg, dev, seed: int, dtype) -> dict:
+def mistral_state(cfg, dev, seed: int, dtype, dense_mlp: bool = True) -> dict:
     """An HF-named Mistral state dict at ``cfg``'s widths and depth, made
     on the card from a seeded generator: projections scaled by
-    fan_in^-1/2, norms near 1."""
+    fan_in^-1/2, norms near 1; ``dense_mlp=False`` leaves out the MLP."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3835,10 +3910,13 @@ def mistral_state(cfg, dev, seed: int, dtype) -> dict:
             pre + "self_attn.q_proj.weight": rand((q_out, D), D ** -0.5),
             pre + "self_attn.k_proj.weight": rand((kv_out, D), D ** -0.5),
             pre + "self_attn.v_proj.weight": rand((kv_out, D), D ** -0.5),
-            pre + "self_attn.o_proj.weight": rand((D, q_out), q_out ** -0.5),
-            pre + "mlp.gate_proj.weight": rand((F, D), D ** -0.5),
-            pre + "mlp.up_proj.weight": rand((F, D), D ** -0.5),
-            pre + "mlp.down_proj.weight": rand((D, F), F ** -0.5),
+            pre + "self_attn.o_proj.weight": rand((D, q_out), q_out ** -0.5)})
+        if dense_mlp:
+            state.update({
+                pre + "mlp.gate_proj.weight": rand((F, D), D ** -0.5),
+                pre + "mlp.up_proj.weight": rand((F, D), D ** -0.5),
+                pre + "mlp.down_proj.weight": rand((D, F), F ** -0.5)})
+        state.update({
             pre + "input_layernorm.weight": rand((D,), 0.05, 1.0),
             pre + "post_attention_layernorm.weight": rand((D,), 0.05, 1.0)})
     return state
@@ -3910,12 +3988,14 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def spec_runs(params, cfg, counts) -> dict:
+def spec_runs(params, cfg, counts, prompt_len: int = SPEC_PROMPT,
+              new: int = SPEC_NEW, gammas=(3, 4, 5)) -> dict:
     """Speculative decoding at full width: a truncation draft of 4 layers
-    at gamma 3, 4 and 5, and prompt lookup (ngram 2, gamma 4) on a prompt
-    that repeats a 64-token pattern; each beside generate() on its prompt
-    (bf16: the verify may round otherwise than decode, so the equal share
-    is logged, not asserted)."""
+    at each of ``gammas``, and prompt lookup (ngram 2, gamma 4) on a
+    prompt that repeats a 64-token pattern; B=2 prompts of ``prompt_len``
+    and ``new`` tokens, each beside generate() on its prompt (bf16: the
+    verify may round otherwise than decode, so the equal share is logged,
+    not asserted)."""
     import torch
 
     from starway_tpu_torch.models import (draft_from_truncation, generate,
@@ -3924,26 +4004,26 @@ def spec_runs(params, cfg, counts) -> dict:
 
     dev = params["embed"].device
     rng = np.random.default_rng(SEED + 181)
-    prompt = torch.tensor(rng.integers(1, cfg.vocab_size, (2, SPEC_PROMPT)),
+    prompt = torch.tensor(rng.integers(1, cfg.vocab_size, (2, prompt_len)),
                           device=dev)
     pattern = rng.integers(1, cfg.vocab_size, (2, 64))
-    rep = torch.tensor(np.tile(pattern, SPEC_PROMPT // 64 + 1)[:, :SPEC_PROMPT],
+    rep = torch.tensor(np.tile(pattern, prompt_len // 64 + 1)[:, :prompt_len],
                        device=dev)
     out = {}
-    n_tok = 2 * SPEC_NEW
+    n_tok = 2 * new
     for label, p in (("random", prompt), ("repetitive", rep)):
         ref, s = timed(lambda: counted(counts, lambda: generate(
-            params, cfg, p, SPEC_NEW)))
+            params, cfg, p, new)))
         out[f"generate_{label}"] = dict(s=s, tokens_per_s=n_tok / s)
         if label == "random":
             draft, dcfg = draft_from_truncation(params, cfg, 4)
             runs = [(f"speculative_gamma{g}", g, lambda g=g: (
-                generate_speculative(params, cfg, draft, dcfg, p, SPEC_NEW,
+                generate_speculative(params, cfg, draft, dcfg, p, new,
                                      gamma=g, return_stats=True)))
-                    for g in (3, 4, 5)]
+                    for g in gammas]
         else:
             runs = [("lookup_ngram2", 4, lambda: generate_lookup(
-                params, cfg, p, SPEC_NEW, gamma=4, ngram=2,
+                params, cfg, p, new, gamma=4, ngram=2,
                 return_stats=True))]
         for name, g, fn in runs:
             (toks, stats), s = timed(lambda: counted(counts, fn))
@@ -3956,22 +4036,23 @@ def spec_runs(params, cfg, counts) -> dict:
                 macro_steps=steps, accepted=acc,
                 acceptance=acc / max(1, steps * (g - 1)),
                 tokens_equal_to_generate=int(
-                    (toks[:, SPEC_PROMPT:] == ref[:, SPEC_PROMPT:]).sum()),
+                    (toks[:, prompt_len:] == ref[:, prompt_len:]).sum()),
                 of=n_tok)
             log(f"  {name}: {out[name]}")
     return out
 
 
-def beam_run(params, cfg, counts) -> dict:
-    """generate_beam at full width: B=2, K=4, P=512, 32 new tokens.  The
-    reorder moves the whole K-way cache each step: its bytes (each leaf
-    read once and written once) are computed from the shapes."""
+def beam_run(params, cfg, counts, spec=BEAM) -> dict:
+    """generate_beam at full width: B=2, K=4, P=512, 32 new tokens (or
+    ``spec``'s).  The reorder moves the whole K-way cache each step: its
+    bytes (each leaf read once and written once) are computed from the
+    shapes."""
     import torch
 
     from starway_tpu_torch.models import generate_beam
 
     dev = params["embed"].device
-    b, k, p, n = BEAM["batch"], BEAM["beams"], BEAM["prompt"], BEAM["new"]
+    b, k, p, n = spec["batch"], spec["beams"], spec["prompt"], spec["new"]
     prompt = torch.tensor(np.random.default_rng(SEED + 182).integers(
         1, cfg.vocab_size, (b, p)), device=dev)
     (out, scores, fin), s = timed(lambda: counted(counts, lambda: (
@@ -4153,6 +4234,363 @@ def phase_mistral_parity(dev) -> tuple:
                              "sums")
     st["beam_score_rel_err"] = rel
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  launches {counts}")
+    return st, counts
+
+
+# ---------------------------------------------------------------- mixtral
+
+# Mixtral-8x7B-v0.1's published config.json (huggingface.co/mistralai/
+# Mixtral-8x7B-v0.1), as config_from_hf reads it; the conversion makes it
+# dropless (capacity factor = its 8 experts).
+MIXTRAL_8X7B = dict(
+    model_type="mixtral", vocab_size=32000, hidden_size=4096,
+    intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, num_local_experts=8, num_experts_per_tok=2,
+    rope_theta=1e6, sliding_window=None, max_position_embeddings=32768,
+    rms_norm_eps=1e-5, hidden_act="silu", tie_word_embeddings=False,
+    router_aux_loss_coef=0.02)
+MIXTRAL_LAYERS = 16       # of 32: 46.97 GB of bf16 weights (93.4 GB in all)
+MIXTRAL_CONVERT_LAYERS = 4
+MIXTRAL_GENERATE = dict(prompt=1024, new=32, lengths=(1024, 777))
+MIXTRAL_SPEC = dict(prompt_len=1024, new=32, gammas=(4,))
+MIXTRAL_BEAM = dict(batch=2, beams=4, prompt=512, new=16)
+EP_X = (1, 2048)          # one layer's tokens for ep against the global view
+EP_REL_TOL = 2e-2         # bf16, vs max |y|: one rounding of expert outputs
+MIXTRAL_PARITY_REQS = 8
+
+
+def mixtral_config(**overrides):
+    """The port's LlamaConfig of Mixtral-8x7B-v0.1, by config_from_hf."""
+    from types import SimpleNamespace
+
+    from starway_tpu_torch.models import config_from_hf
+
+    return config_from_hf(SimpleNamespace(**MIXTRAL_8X7B), **overrides)
+
+
+def mixtral_state(cfg, dev, seed: int, dtype) -> dict:
+    """An HF-named Mixtral state dict at ``cfg``'s widths and depth, made
+    on the card from a seeded generator: the attention, norms and head of
+    :func:`mistral_state`, and the router and each expert's w1/w3/w2 in
+    place of the dense MLP."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def rand(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    state = mistral_state(cfg, dev, seed, dtype, dense_mlp=False)
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}.block_sparse_moe."
+        state[pre + "gate.weight"] = rand((E, D), D ** -0.5)
+        for e in range(E):
+            state.update({
+                f"{pre}experts.{e}.w1.weight": rand((F, D), D ** -0.5),
+                f"{pre}experts.{e}.w3.weight": rand((F, D), D ** -0.5),
+                f"{pre}experts.{e}.w2.weight": rand((D, F), F ** -0.5)})
+    return state
+
+
+def convert_mixtral(dev) -> dict:
+    """Random HF-named weights of MIXTRAL_CONVERT_LAYERS layers on the card
+    through params_from_hf: seconds and peak memory, the tree checked
+    against its source; everything freed before the return."""
+    import torch
+
+    from starway_tpu_torch.models import params_from_hf
+    from starway_tpu_torch.utils.tree import tree_leaves
+
+    cfg = mixtral_config(n_layers=MIXTRAL_CONVERT_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = mixtral_state(cfg, dev, SEED + 20, torch.bfloat16)
+    torch.cuda.synchronize()
+    source_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    t0 = time.perf_counter()
+    params = params_from_hf(state, cfg, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    moe = params["layers"]["moe"]
+    pre = f"model.layers.{MIXTRAL_CONVERT_LAYERS - 1}.block_sparse_moe."
+    checks = (
+        (moe["w_gate"][-1, 7], state[pre + "experts.7.w1.weight"].t()),
+        (moe["w_in"][-1, 7], state[pre + "experts.7.w3.weight"].t()),
+        (moe["w_out"][-1, 7], state[pre + "experts.7.w2.weight"].t()),
+        (moe["router"][-1], state[pre + "gate.weight"].t()))
+    if not all(torch.equal(got, want) for got, want in checks):
+        raise AssertionError("the converted Mixtral tree differs from its "
+                             "HF source")
+    stats = dict(layers=cfg.n_layers, convert_s=seconds, source_gb=source_gb,
+                 peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                 tree_gb=sum(t.numel() * t.element_size() for t in
+                             tree_leaves(params)) / 1e9)
+    del state, params, moe, checks
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  converted {cfg.n_layers} Mixtral layers (bf16): {stats}")
+    return stats
+
+
+def check_first_logits_moe(params, cfg, prompt, max_len) -> dict:
+    """:func:`check_first_logits` for an MoE model.  In bf16 the flash
+    kernel and the plain attention round differently, so a token whose
+    router probabilities nearly tie may take another expert on one path:
+    a discrete change that the logit tolerance was not set for.  So the
+    plain forward runs twice: routed freely (its error and the routing
+    decisions that differ from the kernel path's are logged), then with
+    every token sent to the experts the kernel path chose, its gates from
+    its own router probabilities; that run is held to LOGIT_REL_TOL."""
+    import torch
+
+    from starway_tpu_torch.models import moe
+    from starway_tpu_torch.models.generate import prefill
+    from starway_tpu_torch.models.llama import forward
+
+    padded, pb, last = first_logits_inputs(params, prompt, max_len)
+    real_route = moe._route
+    chosen, flips = [], [0, 0]
+
+    def recording(xt, router_w, k):
+        out = real_route(xt, router_w, k)
+        chosen.append(out[0])
+        return out
+
+    with mock.patch.object(moe, "_route", recording):
+        got, _ = prefill(params, cfg, padded, pb, logit_positions=last)
+    free = forward(params, padded, cfg, plain_attn,
+                   logit_positions=last)[:, 0]
+    kernel_choices = iter(chosen)
+
+    def pinned(xt, router_w, k):
+        experts, _gates, aux = real_route(xt, router_w, k)
+        mine = next(kernel_choices)
+        flips[0] += int((experts != mine).sum())
+        flips[1] += experts.numel()
+        probs = torch.softmax((xt @ router_w).float(), dim=-1)
+        top_p = probs.gather(1, mine.reshape(k, -1).t())
+        if k > 1:
+            top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+        return mine, top_p.t().reshape(-1), aux
+
+    with mock.patch.object(moe, "_route", pinned):
+        want = forward(params, padded, cfg, plain_attn,
+                       logit_positions=last)[:, 0]
+    out = dict(free_rel_err=((got - free).abs().max()
+                             / free.abs().max()).item(),
+               free_same_argmax=bool((got.argmax(-1)
+                                      == free.argmax(-1)).all()),
+               routing_flips=flips[0], routed_pairs=flips[1])
+    log(f"  MoE first-token logits, the plain path routed freely: "
+        f"{out}; routed as the kernel path:")
+    out["pinned_rel_err"] = compare_logits(got, want)
+    return out
+
+
+def router_health(params, cfg, prompt) -> dict:
+    """switch_moe(with_stats=True) over one admission's prompt: every
+    layer's drop fraction (0: dropless) and expert load."""
+    import torch
+
+    from starway_tpu_torch.models import forward
+    from starway_tpu_torch.models.moe import switch_moe
+
+    def stats_fn(x, router_w, w_in, w_out, w_gate=None):
+        return switch_moe(x, router_w, w_in, w_out, w_gate=w_gate,
+                          capacity_factor=cfg.moe_capacity_factor,
+                          k=cfg.moe_top_k, with_stats=True)
+
+    dev = params["embed"].device
+    _logits, st = forward(params, torch.tensor([prompt], device=dev), cfg,
+                          moe_fn=stats_fn, return_moe_stats=True,
+                          last_only=True)
+    load = st["expert_load"]
+    out = dict(tokens=len(prompt),
+               drop_fraction_max=st["drop_fraction"].max().item(),
+               expert_load_min=load.min().item(),
+               expert_load_max=load.max().item(),
+               expert_load_layer0=[round(v, 4) for v in load[0].tolist()])
+    if out["drop_fraction_max"] != 0.0:
+        raise AssertionError(f"the dropless config dropped tokens: {out}")
+    return out
+
+
+def ep_against_global(params, cfg) -> dict:
+    """make_sharded_moe on make_mesh({"ep": 4}) on cuda:0 against
+    switch_moe on one layer's weights at x EP_X + [d_model] (bf16): at the
+    dropless capacity both compute the same function; y within EP_REL_TOL
+    of max |y|; each timed by CUDA events."""
+    import torch
+
+    from starway_tpu_torch.models.moe import make_sharded_moe, switch_moe
+    from starway_tpu_torch.parallel import make_mesh
+
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 200)
+    x = torch.randn(*EP_X, cfg.d_model, generator=gen, device=dev).to(
+        cfg.compute_dtype)
+    moe = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    args = (x, moe["router"], moe["w_in"], moe["w_out"])
+    kw = dict(capacity_factor=cfg.moe_capacity_factor, k=cfg.moe_top_k)
+    ep_fn = make_sharded_moe(make_mesh({"ep": 4}, device=dev), swiglu=True,
+                             **kw)
+    want, aux = switch_moe(*args, w_gate=moe["w_gate"], **kw)
+    got, ep_aux = ep_fn(*args, w_gate=moe["w_gate"])
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    st = dict(tokens=EP_X[0] * EP_X[1], max_abs_err=err, max_abs_y=scale,
+              rel_err=err / scale, tol=EP_REL_TOL, aux=aux.item(),
+              ep_aux=ep_aux.item(),
+              global_ms=cuda_ms(lambda: switch_moe(
+                  *args, w_gate=moe["w_gate"], **kw), iters=5),
+              ep_ms=cuda_ms(lambda: ep_fn(*args, w_gate=moe["w_gate"]),
+                            iters=5))
+    st["ep_over_global"] = st["ep_ms"] / st["global_ms"]
+    log(f"  ep=4 vs global, x [{EP_X[0]}, {EP_X[1]}, {cfg.d_model}]: {st}")
+    if not (np.isfinite(err) and err <= EP_REL_TOL * scale):
+        raise AssertionError("the expert-parallel MoE disagrees with the "
+                             "global view")
+    return st
+
+
+def phase_mixtral(dev, card: str) -> tuple:
+    """Phase 20: Mixtral-8x7B-v0.1 at full width (config_from_hf of its
+    config.json), cut to MIXTRAL_LAYERS layers, bf16, random weights from
+    init_params on the card.  Returns (stats, launch counts of the
+    main-path runs)."""
+    import torch
+
+    from starway_tpu_torch.models import generate, init_params
+    from starway_tpu_torch.utils.tree import tree_leaves
+
+    cfg = mixtral_config(n_layers=MIXTRAL_LAYERS)
+    log(f"[mixtral] Mixtral-8x7B-v0.1 widths ({card}), cut to {cfg.n_layers} "
+        f"of {MIXTRAL_8X7B['num_hidden_layers']} layers: 32 would hold "
+        f"93.4 GB of bf16 weights, more than the card; {cfg}")
+    st = {"convert": convert_mixtral(dev)}
+    params = init_params(cfg, SEED + 20, device=dev)
+    torch.cuda.synchronize()
+    st["weights_gb"] = sum(t.numel() * t.element_size()
+                           for t in tree_leaves(params)) / 1e9
+    log(f"  weights {st['weights_gb']:.2f} GB on the card")
+    counts = {}
+    reqs = make_requests(cfg)
+    log(f"[mixtral] SlotServer: n_slots 8, max_len 2048, chunk 8, "
+        f"{len(reqs)} requests (phase 4's traffic)")
+    _done, st["serve"], srv = counted(counts, lambda: serve(params, cfg, reqs))
+    del srv
+    log(f"  {st['serve']}")
+    for name in ("decode_attention", "flash_forward"):
+        if not counts.get(name):
+            raise AssertionError(f"MoE serving launched no {name} kernel")
+    st["first_logits"] = check_first_logits_moe(params, cfg, reqs[0][0],
+                                                2048)
+    st["router"] = router_health(params, cfg, reqs[3][0])
+    log(f"  router on one admission: {st['router']}")
+
+    g = MIXTRAL_GENERATE
+    rng = np.random.default_rng(SEED + 201)
+    prompt = torch.tensor(rng.integers(1, cfg.vocab_size, (2, g["prompt"])),
+                          device=dev)
+    out, s = timed(lambda: counted(counts, lambda: generate(
+        params, cfg, prompt, g["new"], prompt_lengths=list(g["lengths"]))))
+    if (out.shape != (2, g["new"])
+            or not bool(((out >= 0) & (out < cfg.vocab_size)).all())):
+        raise AssertionError("ragged MoE generate() returned a bad batch")
+    st["generate_ragged"] = dict(s=s, tokens_per_s=2 * g["new"] / s,
+                                 ms_per_token=s * 1e3 / (2 * g["new"]))
+    log(f"  ragged generate(), B=2 P={g['prompt']} lengths {g['lengths']}, "
+        f"{g['new']} new: {st['generate_ragged']}")
+    st["speculative"] = spec_runs(params, cfg, counts, **MIXTRAL_SPEC)
+    st["beam"] = beam_run(params, cfg, counts, MIXTRAL_BEAM)
+    st["ep"] = ep_against_global(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  launches {counts}")
+    return st, counts
+
+
+def phase_mixtral_parity(dev) -> tuple:
+    """Phase 21: float32, Mixtral widths cut to 2 layers (12.7 GB): every
+    serving path's greedy tokens equal generate()'s, and a droppy config
+    is refused.  Returns (stats, launch counts)."""
+    import torch
+
+    from starway_tpu_torch.models import (SlotServer, draft_from_truncation,
+                                          generate, generate_beam,
+                                          generate_lookup,
+                                          generate_speculative, init_params)
+
+    cfg = mixtral_config(n_layers=2, dtype="float32")
+    params = init_params(cfg, SEED + 21, device=dev)
+    counts = {}
+    reqs = make_requests(cfg, MIXTRAL_PARITY_REQS)
+    done = counted(counts, lambda: serve(params, cfg, reqs)[0])
+    for rid, (prompt, m, _w) in zip(done, reqs):
+        want = generate(params, cfg, torch.tensor([prompt], device=dev), m,
+                        max_len=2048)[0, len(prompt):].cpu().numpy()
+        if not np.array_equal(done[rid], want):
+            raise AssertionError(f"MoE SlotServer, request {rid}: "
+                                 f"{done[rid]} != generate {want}")
+    log(f"  SlotServer: {len(reqs)} requests token-for-token equal to "
+        f"generate()")
+    st = {"paged_parity_chunk_ms": counted(
+        counts, lambda: phase_paged_parity(params, cfg))}
+    if not counts.get("paged_decode_attention"):
+        raise AssertionError("the MoE paged servers launched no paged kernel")
+
+    rng = np.random.default_rng(SEED + 210)
+    rows = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (700, 300)]
+    padded = torch.zeros((2, 700), dtype=torch.long, device=dev)
+    for b, r in enumerate(rows):
+        padded[b, :len(r)] = torch.tensor(r, device=dev)
+    n = 16
+    ragged = counted(counts, lambda: generate(
+        params, cfg, padded, n, prompt_lengths=[len(r) for r in rows]))
+    for b, r in enumerate(rows):
+        solo = generate(params, cfg, torch.tensor([r], device=dev), n)
+        if not torch.equal(ragged[b], solo[0, len(r):]):
+            raise AssertionError(f"ragged MoE row {b} != its solo run")
+    log(f"  ragged generate(): rows of {[len(r) for r in rows]} equal their "
+        f"solo runs")
+
+    full = padded[:1]
+    ref = generate(params, cfg, full, 24)
+    draft, dcfg = draft_from_truncation(params, cfg, 1)
+    for label, fn in (
+            ("speculative gamma 3", lambda: generate_speculative(
+                params, cfg, draft, dcfg, full, 24, gamma=3)),
+            ("speculative gamma 4", lambda: generate_speculative(
+                params, cfg, draft, dcfg, full, 24, gamma=4)),
+            ("lookup", lambda: generate_lookup(params, cfg, full, 24)),
+            ("beams=1", lambda: generate_beam(params, cfg, full, 24,
+                                              beams=1))):
+        got = counted(counts, fn)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"MoE {label} != generate()")
+    log("  generate_speculative (gamma 3, 4), generate_lookup and "
+        "generate_beam(beams=1) equal generate() at P=700, 24 new")
+    droppy = mixtral_config(n_layers=2, dtype="float32",
+                            moe_capacity_factor=1.25)
+    try:
+        SlotServer(params, droppy, n_slots=2, max_len=64)
+    except ValueError as exc:
+        if "dropless" not in str(exc):
+            raise
+        st["droppy_refused"] = str(exc)
+    else:
+        raise AssertionError("SlotServer admitted a droppy MoE config")
+    log(f"  a droppy config (capacity factor 1.25) is refused: "
+        f"{st['droppy_refused'][:60]}...")
+    del params, draft
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  launches {counts}")
@@ -4347,6 +4785,17 @@ def main() -> int:
     log(f"[mistral] phases 18-19 took {t19 - t18:.1f} + "
         f"{time.perf_counter() - t19:.1f} s")
 
+    # 20 + 21: Mixtral-8x7B-v0.1 widths: the MoE FFN on every serving
+    # path, the expert all-to-all, then their parity.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    st_mix, c20 = phase_mixtral(dev, card)
+    t21 = time.perf_counter()
+    st_mixp, c21 = phase_mixtral_parity(dev)
+    log(f"[mixtral] phases 20-21 took {t21 - t20:.1f} + "
+        f"{time.perf_counter() - t21:.1f} s")
+
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
     rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
@@ -4371,19 +4820,20 @@ def main() -> int:
             label: traced[label].get("attention_device_ms")
             for label in labels}
 
-    # 20. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
-    # 18 and 19) and the training paths' (phases 11, 13 and 16, the last
-    # the DP ranks' own counts on both engines), each counted from 0 just
-    # before its run and read just after.
+    # 22. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
+    # 18, 19, 20 and 21) and the training paths' (phases 11, 13 and 16, the
+    # last the DP ranks' own counts on both engines), each counted from 0
+    # just before its run and read just after.
     main_counts = {k: main_counts[k] + c7[k] + c_ring[k] + c_dp[k]
                    + c_dpn[k] + c18.get(k, 0) + c19.get(k, 0)
+                   + c20.get(k, 0) + c21.get(k, 0)
                    for k in main_counts}
     kernels = []
     for key, row in rows.items():
         row = dict(row)
         row["launches"] = main_counts[key]
-        row["launches_phase18"] = c18.get(key, 0)
-        row["launches_phase19"] = c19.get(key, 0)
+        for phase, c in ((18, c18), (19, c19), (20, c20), (21, c21)):
+            row[f"launches_phase{phase}"] = c.get(key, 0)
         kernels.append(row)
     # The W8A16 runs (phases 7 and 18) launch the GEMV; the others' counts
     # of it are 0 and in main_counts.
@@ -4480,9 +4930,23 @@ def main() -> int:
         f"{st_mistral['speculative']}; beam {st_mistral['beam']}; launches "
         f"{c18}")
     log(f"[summary] mistral-parity: {st_mp}; launches {c19}")
+    sv = st_mix["serve"]
+    log(f"[summary] mixtral ({card}): SlotServer {sv['tokens_per_s']:.1f} "
+        f"tokens/s (admission {sv['admission_s']:.2f} s of "
+        f"{sv['wall_s']:.2f}, median chunk {sv['median_chunk_ms']:.1f} ms, "
+        f"idle share {sv.get('device_idle_share')}, MoE FFN device ms in "
+        f"the traced chunk {sv.get('moe_device_ms')} of busy "
+        f"{sv.get('device_busy_ms')}: expert bmm "
+        f"{sv.get('moe_expert_bmm_device_ms')}, dispatch and combine "
+        f"{sv.get('moe_dispatch_combine_device_ms')}); router "
+        f"{st_mix['router']}; ragged generate {st_mix['generate_ragged']}; "
+        f"speculative {st_mix['speculative']}; beam {st_mix['beam']}; ep "
+        f"{st_mix['ep']}; conversion {st_mix['convert']}; first logits "
+        f"{st_mix['first_logits']}; launches {c20}")
+    log(f"[summary] mixtral-parity: {st_mixp}; launches {c21}")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 21. last line
+    # 23. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

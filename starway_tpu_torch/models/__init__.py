@@ -1,5 +1,6 @@
 """The Llama model and its paths: config, forward and the train step
-(llama), KV-cache decode and generation with rolling sliding-window caches
+(llama), the mixture-of-experts FFN in its global and expert-parallel
+views (moe), KV-cache decode and generation with rolling sliding-window caches
 (generate), speculative and prompt-lookup decoding (speculative), beam
 search (beam), continuous batching over a dense or rolling cache (serving)
 or a page pool (paged), serving over the transport (remote_serving), the

@@ -18,15 +18,7 @@ import torch
 from ..ops.attention import NEG_BIG
 from .generate import decode_step, prefill
 from .llama import (LlamaConfig, cfg_rope_tables, params_device,
-                    resolve_longrope)
-
-
-def top_k_stable(x, k: int):
-    """``(values, indices)`` of the ``k`` largest entries along the last
-    axis, descending, the lower index first among equal values (the order
-    of ``jax.lax.top_k``; ``torch.topk`` fixes none)."""
-    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], indices[..., :k]
+                    resolve_longrope, top_k_stable)
 
 
 def generate_beam(params: dict, cfg: LlamaConfig, prompt,
@@ -63,10 +55,6 @@ def generate_beam(params: dict, cfg: LlamaConfig, prompt,
         raise ValueError(
             f"max_len={max_len} is smaller than prompt + max_new_tokens="
             f"{total}")
-    if cfg.n_experts > 0:
-        raise NotImplementedError("beam search over mixture-of-experts "
-                                  "models is not ported yet (ROADMAP.md, "
-                                  "Queue 1 item 6)")
     cfg = resolve_longrope(cfg, max_len)  # one rope regime for the run
     rope = cfg_rope_tables(cfg, max_len, device=dev)
     logits, cache = prefill(params, cfg, prompt, max_len)

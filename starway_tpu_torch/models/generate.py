@@ -29,8 +29,9 @@ from ..ops.attention import NEG_BIG, repeat_kv
 from ..ops.quantize import dequantize_kv, quantize_kv
 from .llama import (LlamaConfig, apply_rope, cfg_rope_tables, decoder_layer,
                     embed_tokens, forward, head_logits, layer_params,
-                    matmul_w, mlp_gate_act, params_device, qkv_proj,
+                    matmul_w, mlp_gate_act, moe_ffn, params_device, qkv_proj,
                     resolve_longrope, rmsnorm, unstack_layers)
+from .moe import require_dropless
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -110,9 +111,6 @@ def decode_step(params: dict, cache: dict, token, pos, cfg: LlamaConfig,
     depend on the order of the keys).  Its rope tables must be passed:
     positions run past the cache.  A ``pos`` tensor is never read on the
     host."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError("mixture-of-experts decode is not ported "
-                                  "yet (ROADMAP.md)")
     T = cache["k"].shape[3]
     if rolling:
         if cfg.sliding_window is None or T != cfg.sliding_window:
@@ -167,8 +165,10 @@ def cached_layer_scan(params, cache, h, cos_p, sin_p, cfg: LlamaConfig,
     """The per-layer body of every cached decode path: qkv projection,
     RoPE, quantize-on-write for an int8 cache, ``write(c, u)`` of each new
     entry at the caller's cursor(s) into the layer's cache (in place),
-    ``attend(q, layer_cache)``, then the FFN.  ``h [B, C, D]``; returns
-    ``(h, cache)``."""
+    ``attend(q, layer_cache)``, then the FFN (dense, or the MoE's
+    :func:`~starway_tpu_torch.models.moe.switch_moe` at the config's
+    capacity over the ``B * C`` tokens of the step).  ``h [B, C, D]``;
+    returns ``(h, cache)``."""
     B, C = h.shape[0], h.shape[1]
     quant = "k_scale" in cache
     for li in range(cfg.n_layers):
@@ -189,8 +189,11 @@ def cached_layer_scan(params, cache, h, cos_p, sin_p, cfg: LlamaConfig,
         o = o.transpose(1, 2).reshape(B, C, cfg.n_heads * cfg.head_dim)
         h = h + matmul_w(o, lp["wo"])
         x = rmsnorm(h, lp["mlp_norm"], cfg.norm_eps)
-        gate = mlp_gate_act(matmul_w(x, lp["w_gate"]), cfg).to(x.dtype)
-        h = h + matmul_w(gate * matmul_w(x, lp["w_up"]), lp["w_down"])
+        if cfg.n_experts > 0:
+            h = h + moe_ffn(x, lp["moe"], cfg)[0]
+        else:
+            gate = mlp_gate_act(matmul_w(x, lp["w_gate"]), cfg).to(x.dtype)
+            h = h + matmul_w(gate * matmul_w(x, lp["w_up"]), lp["w_down"])
     return h, cache
 
 
@@ -266,9 +269,6 @@ def prefill_rolling(params: dict, cfg: LlamaConfig, prompt, *,
     if attn_fn is not None:
         raise ValueError("prefill_rolling owns its attention; attn_fn must "
                          "be None")
-    if cfg.n_experts > 0:
-        raise NotImplementedError("mixture-of-experts prefill is not ported "
-                                  "yet (ROADMAP.md)")
     dev = params_device(params)
     prompt = torch.as_tensor(prompt, device=dev).long()
     B, P = prompt.shape
@@ -329,7 +329,8 @@ def _prefill_chunk(params, layers, cache, tokens, c0: int, cos, sin,
     h = embed_tokens(params, tokens, cfg)
     for li, lp in enumerate(layers):
         lc = {name: t[li] for name, t in cache.items()}
-        h, k, v = decoder_layer(lp, h, cfg, cos, sin, chunk_attn(lc))
+        h, _aux, k, v, _stats = decoder_layer(lp, h, cfg, cos, sin,
+                                              chunk_attn(lc))
         if quant:
             k, k_s = quantize_kv(k)
             v, v_s = quantize_kv(v)
@@ -416,10 +417,12 @@ def generate(params: dict, cfg: LlamaConfig, prompt, max_new_tokens: int, *,
         raise ValueError(
             f"max_len={max_len} is smaller than prompt + max_new_tokens={total}")
     cfg = resolve_longrope(cfg, max_len)
-    if cfg.n_experts > 0:
-        raise NotImplementedError("mixture-of-experts generation is not "
-                                  "ported yet (ROADMAP.md)")
     ragged = prompt_lengths is not None
+    if ragged:
+        # Pad tokens share the batch-wide expert capacity (computed from
+        # the padded B * P); only provable droplessness keeps real rows
+        # untouched.
+        require_dropless(cfg, "ragged generation")
     W = cfg.sliding_window
     # Aligned batches of a windowed model decode through a rolling cache
     # of W slots whenever that is smaller; ragged ones keep the full cache.

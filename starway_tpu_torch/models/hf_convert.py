@@ -5,8 +5,8 @@ and trains: ``LlamaForCausalLM``; ``MistralForCausalLM`` (its
 ``sliding_window``); ``Qwen2ForCausalLM`` (q/k/v projection biases ->
 ``cfg.attn_bias`` and the ``bq``/``bk``/``bv`` leaves);
 ``MixtralForCausalLM`` (SwiGLU top-k experts -> ``cfg.moe_swiglu`` and a
-``moe`` subtree, with a dropless capacity; the port's forward does not run
-MoE yet, ROADMAP.md Queue 1 item 6); ``GemmaForCausalLM`` (GeGLU, the
+``moe`` subtree, with a dropless capacity, served by models/moe.py);
+``GemmaForCausalLM`` (GeGLU, the
 ``x * (1 + w)`` RMSNorm folded into the weights, sqrt(d_model)-scaled
 embeddings); and ``Phi3ForCausalLM`` (fused ``qkv_proj`` /
 ``gate_up_proj`` sliced into separate projections).  ``config_from_hf``

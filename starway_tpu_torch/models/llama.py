@@ -17,6 +17,13 @@ on the CPU the same functions run in plain PyTorch.
 Sequence parallelism: :func:`make_sharded_attn` gives ring attention
 (parallel/ring_attention.py) as the ``attn_fn``.
 
+Mixture-of-experts models (``cfg.n_experts > 0``) carry a ``moe`` subtree
+in place of the dense FFN's leaves and run :func:`~starway_tpu_torch.
+models.moe.switch_moe` at the FFN site, or the ``moe_fn`` given to
+:func:`forward` (models/moe.py :func:`make_sharded_moe` for the expert
+all-to-all over a mesh's ``"ep"`` axis).  They serve; they do not train
+yet (:func:`loss_fn` refuses them).
+
 Training: :func:`loss_fn` (mean next-token cross-entropy), a functional
 :func:`value_and_grad`, :func:`apply_updates` and :func:`make_train_step`
 (with gradient accumulation).  ``cfg.remat`` checkpoints each layer with
@@ -41,8 +48,10 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import blockwise_attention
 from ..utils.tree import tree_leaves, tree_unflatten
 
-_MOE_TODO = ("mixture-of-experts models are not ported yet (ROADMAP.md, "
-             "Queue 1: MoE with the parallel layer)")
+_MOE_TODO = ("training mixture-of-experts models is not ported yet: the "
+             "aux term of loss_fn, value_and_grad and the Trainer's moe_fn "
+             "and with_moe_stats come with the next MoE slice (ROADMAP.md, "
+             "Queue 1 item 6); MoE models serve")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +69,7 @@ class LlamaConfig:
     # Sliding-window attention: each position attends to the last
     # `sliding_window` tokens only.  None = full causal.
     sliding_window: Optional[int] = None
-    # Mixture-of-experts FFN (0 = dense SwiGLU); not served by this port yet.
+    # Mixture-of-experts FFN (0 = dense SwiGLU), models/moe.py.
     n_experts: int = 0
     moe_capacity_factor: float = 1.25
     moe_aux_coef: float = 0.01
@@ -178,9 +187,9 @@ class LlamaConfig:
 
 def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> dict:
     """Stacked-layer parameter tree with scaled-normal weights drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
+    ``torch.Generator`` seeded with ``seed`` on ``device``.  An MoE config
+    gets the ``moe`` subtree (models/moe.py :func:`init_moe_params`) in
+    place of ``w_gate``/``w_up``/``w_down``."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -204,10 +213,16 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> dict:
         "wo": norm((L, Hq * hd, D), (Hq * hd) ** -0.5),
         "attn_norm": ones((L, D)),
         "mlp_norm": ones((L, D)),
-        "w_gate": norm((L, D, Ff), D ** -0.5),
-        "w_up": norm((L, D, Ff), D ** -0.5),
-        "w_down": norm((L, Ff, D), Ff ** -0.5),
     }
+    if cfg.n_experts > 0:
+        from .moe import init_moe_params
+
+        layers["moe"] = init_moe_params(gen, L, cfg.n_experts, D, Ff, dt,
+                                        swiglu=cfg.moe_swiglu)
+    else:
+        layers.update(w_gate=norm((L, D, Ff), D ** -0.5),
+                      w_up=norm((L, D, Ff), D ** -0.5),
+                      w_down=norm((L, Ff, D), Ff ** -0.5))
     if cfg.attn_bias:
         layers.update(bq=torch.zeros((L, Hq * hd), dtype=dt, device=dev),
                       bk=torch.zeros((L, Hkv * hd), dtype=dt, device=dev),
@@ -413,6 +428,14 @@ def token_ce(logits, targets):
     return (lse - tl).mean()
 
 
+def top_k_stable(x, k: int):
+    """``(values, indices)`` of the ``k`` largest entries along the last
+    axis, descending, the lower index first among equal values (the order
+    of ``jax.lax.top_k``; ``torch.topk`` fixes none)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
 def default_attn(q, k, v, window: Optional[int] = None):
     """Causal attention: the flash kernel on CUDA, the blockwise loop on the
     CPU (same algebra, same GQA handling)."""
@@ -541,18 +564,38 @@ def _direct(fn, *args):
     return fn(*args)
 
 
-def decoder_layer(lp, h, cfg: LlamaConfig, cos, sin, attn_fn: Callable):
+def moe_ffn(x, moe: dict, cfg: LlamaConfig,
+            moe_fn: Optional[Callable] = None):
+    """The MoE FFN of one layer on ``x [B, S, D]`` (the normed hidden
+    states): ``moe_fn`` when given (``w_gate`` is passed only when the
+    tree has it, so 4-argument Switch-style functions keep working), else
+    :func:`~starway_tpu_torch.models.moe.switch_moe` at the config's
+    capacity and k.  Returns ``(y, aux, stats or None)``."""
+    kw = {"w_gate": moe["w_gate"]} if "w_gate" in moe else {}
+    if moe_fn is not None:
+        out = moe_fn(x, moe["router"], moe["w_in"], moe["w_out"], **kw)
+        return out[0], out[1], out[2] if len(out) > 2 else None
+    from .moe import switch_moe
+
+    y, aux = switch_moe(x, moe["router"], moe["w_in"], moe["w_out"],
+                        capacity_factor=cfg.moe_capacity_factor,
+                        k=cfg.moe_top_k, **kw)
+    return y, aux, None
+
+
+def decoder_layer(lp, h, cfg: LlamaConfig, cos, sin, attn_fn: Callable,
+                  moe_fn: Optional[Callable] = None):
     """One pre-norm decoder block on ``h [B, S, D]`` with one layer's
-    params.  Returns ``(h, k, v)``: k/v are the post-RoPE grouped heads
-    (the KV-cache prefix).  Dense models only.
+    params.  Returns ``(h, aux, k, v, stats)``: aux is the MoE balance
+    term (a float32 zero for dense layers), k/v the post-RoPE grouped heads
+    (the KV-cache prefix), stats the router health when ``moe_fn`` returns
+    it, else None.  An MoE layer runs :func:`moe_ffn` at the FFN site.
 
     Under ``remat_policy="dots"`` (with autograd on) the norms, rope and
     the gate activation run in checkpointed regions: the backward replays
     them from the saved matmul outputs, the JAX package's chunked "dots"
     structure.  The attention call and the matmuls stay outside every
     region, so the flash forward never runs again in the backward."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
     B, S, _ = h.shape
     chunked = (cfg.remat and cfg.remat_policy == "dots"
                and torch.is_grad_enabled())
@@ -565,10 +608,13 @@ def decoder_layer(lp, h, cfg: LlamaConfig, cos, sin, attn_fn: Callable):
     o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
     h = h + matmul_w(o, lp["wo"])
     x = run(rmsnorm, h, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.n_experts > 0:
+        y, aux, stats = moe_ffn(x, lp["moe"], cfg, moe_fn)
+        return h + y, aux, k, v, stats
     gate = run(_gated, matmul_w(x, lp["w_gate"]), matmul_w(x, lp["w_up"]),
                cfg)
     h = h + matmul_w(gate, lp["w_down"])
-    return h, k, v
+    return h, torch.zeros((), dtype=torch.float32, device=h.device), k, v, None
 
 
 def _remat_wrap(layer: Callable, cfg: LlamaConfig) -> Callable:
@@ -589,29 +635,49 @@ def _remat_wrap(layer: Callable, cfg: LlamaConfig) -> Callable:
 
 def forward(params: dict, tokens, cfg: LlamaConfig,
             attn_fn: Optional[Callable] = None, *, return_aux: bool = False,
-            return_kv: bool = False, last_only: bool = False,
-            logit_positions=None):
+            moe_fn: Optional[Callable] = None, return_kv: bool = False,
+            last_only: bool = False, logit_positions=None,
+            return_moe_stats: bool = False):
     """Next-token logits ``[B, S, V]`` (float32) for token ids ``[B, S]``.
 
     The return value is ``logits``, extended to a tuple ``(logits[, aux][,
-    (k, v)])`` by ``return_aux`` (the MoE balance term: a float32 zero for
-    the dense models the port runs) and ``return_kv`` (the post-RoPE
-    grouped k/v of every layer, stacked ``[n_layers, B, Hkv, S, Dh]``: the
-    KV-cache prefix).  ``last_only`` computes logits for the last position
-    only (``[B, 1, V]``); ``logit_positions`` ([B] ints) for one chosen
-    position per row.  ``attn_fn(q, k, v)`` takes grouped kv and defaults
-    to :func:`default_attn`.
+    moe_stats][, (k, v)])`` by ``return_aux`` (the MoE balance term summed
+    over the layers, float32; zero for a dense model), ``return_moe_stats``
+    (the router health of every layer, each leaf stacked on a leading
+    ``n_layers`` dim; needs a ``moe_fn`` built ``with_stats=True``) and
+    ``return_kv`` (the post-RoPE grouped k/v of every layer, stacked
+    ``[n_layers, B, Hkv, S, Dh]``: the KV-cache prefix).  ``last_only``
+    computes logits for the last position only (``[B, 1, V]``);
+    ``logit_positions`` ([B] ints) for one chosen position per row.
+    ``attn_fn(q, k, v)`` takes grouped kv and defaults to
+    :func:`default_attn`; ``moe_fn(x, router_w, w_in, w_out[, w_gate]) ->
+    (y, aux[, stats])`` replaces the MoE FFN (:func:`moe_ffn`).
     """
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
     attn_fn = resolve_attn_fn(cfg, attn_fn)
+    if return_moe_stats and cfg.n_experts == 0:
+        raise ValueError(
+            "return_moe_stats=True but cfg.n_experts == 0: a dense model "
+            "has no router to report on")
+    if return_moe_stats and moe_fn is None:
+        raise ValueError(
+            "return_moe_stats needs a stats-producing moe_fn (build one "
+            "with make_sharded_moe(..., with_stats=True) or wrap "
+            "switch_moe(..., with_stats=True))")
     B, S = tokens.shape
     cos, sin = cfg_rope_tables(cfg, S, device=tokens.device)
     h = embed_tokens(params, tokens, cfg)
     layer = _remat_wrap(decoder_layer, cfg)
-    ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    ks, vs, stats = [], [], []
     for lp in unstack_layers(params["layers"], cfg.n_layers):
-        h, k, v = layer(lp, h, cfg, cos, sin, attn_fn)
+        h, layer_aux, k, v, st = layer(lp, h, cfg, cos, sin, attn_fn,
+                                       moe_fn)
+        aux = aux + layer_aux
+        if return_moe_stats:
+            if st is None:
+                raise ValueError("return_moe_stats=True but moe_fn returned "
+                                 "no stats (build it with with_stats=True)")
+            stats.append(st)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -623,7 +689,10 @@ def forward(params: dict, tokens, cfg: LlamaConfig,
     out = (head_logits(h, params["final_norm"], params["lm_head"],
                        cfg.norm_eps),)
     if return_aux:
-        out += (torch.zeros((), dtype=torch.float32, device=h.device),)
+        out += (aux,)
+    if return_moe_stats:
+        out += ({name: torch.stack([st[name] for st in stats])
+                 for name in stats[0]},)
     if return_kv:
         out += ((torch.stack(ks), torch.stack(vs)),)
     return out if len(out) > 1 else out[0]
@@ -635,7 +704,8 @@ def forward(params: dict, tokens, cfg: LlamaConfig,
 def loss_fn(params: dict, batch, cfg: LlamaConfig,
             attn_fn: Optional[Callable] = None):
     """Causal LM loss: batch ``[B, S+1]`` token ids -> mean next-token
-    cross-entropy (float32 scalar)."""
+    cross-entropy (float32 scalar).  Dense models only: MoE training (the
+    aux term) is not ported yet."""
     if cfg.n_experts > 0:
         raise NotImplementedError(_MOE_TODO)
     tokens, targets = batch[:, :-1], batch[:, 1:]

@@ -34,8 +34,10 @@
 
 The cache is updated in place.  Errors of the device (out of memory, a
 failed kernel launch) propagate out of ``step()``; a request is never
-silently re-queued.  MoE models are not ported yet and raise
-``NotImplementedError``.  Subclasses (the paged
+silently re-queued.  MoE models serve when their capacity is provably
+dropless (``moe_capacity_factor >= n_experts``, models/moe.py
+``require_dropless``): slots that share a decode step share its expert
+capacity.  Subclasses (the paged
 server, models/paged.py) replace the cache through the hooks
 ``_make_cache``, ``_post_init``, ``_on_slot_freed``, ``_decode_one``,
 ``_admit_plain``, ``_admit_prefixed``, ``_admissible`` and
@@ -54,6 +56,7 @@ from .generate import (_sample, decode_step, init_cache, init_rolling_cache,
                        prefill, prefill_rolling)
 from .llama import (LlamaConfig, cfg_rope_tables, params_device,
                     resolve_longrope)
+from .moe import require_dropless
 
 
 def default_buckets(max_len: int) -> tuple:
@@ -152,10 +155,9 @@ class SlotServer:
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None, eos_id: Optional[int] = None,
                  prompt_buckets=None, seed: int = 0, on_tokens=None):
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "serving mixture-of-experts models is not ported yet "
-                "(ROADMAP.md)")
+        # Cohabiting slots share the batch-wide expert capacity; only
+        # provable droplessness keeps them independent.
+        require_dropless(cfg, "continuous batching")
         if n_slots < 1 or chunk < 1:
             raise ValueError(f"need n_slots >= 1 and chunk >= 1, got "
                              f"{n_slots}/{chunk}")

@@ -31,11 +31,7 @@ from .generate import (_attend_cached, _filter_logits, _sample,
                        validate_prompt_lengths)
 from .llama import (LlamaConfig, cfg_rope_tables, embed_tokens, matmul_w,
                     params_device, resolve_longrope, rmsnorm)
-
-_MOE_TODO = ("speculative decoding of mixture-of-experts models is not "
-             "ported yet (ROADMAP.md, Queue 1 item 6: MoE with the parallel "
-             "layer)")
-
+from .moe import require_dropless
 
 def chunk_decode_step(params, cache, tokens, pos, cfg: LlamaConfig, rope):
     """``C`` tokens in, ``C`` next-token logits out: the multi-token form
@@ -63,9 +59,6 @@ def chunk_decode_step(params, cache, tokens, pos, cfg: LlamaConfig, rope):
             f"{T}-slot cache == cfg.sliding_window, which is a rolling "
             f"cache's layout; allocate a full cache (max_len != "
             f"sliding_window) for multi-token ingestion")
-    if cfg.n_experts > 0:
-        raise NotImplementedError("mixture-of-experts decode is not ported "
-                                  "yet (ROADMAP.md)")
     dev = tokens.device
     n_rep = cfg.n_heads // cfg.n_kv_heads
     cos, sin = rope
@@ -250,7 +243,8 @@ def generate_speculative(params: dict, cfg: LlamaConfig, draft_params: dict,
     dev = params_device(params)
     prompt = torch.as_tensor(prompt, device=dev).long()
     B, P = prompt.shape
-    _validate_spec_args(max_new_tokens, gamma, cfg, draft_cfg)
+    _validate_spec_args(max_new_tokens, gamma, (cfg, "target"),
+                        (draft_cfg, "draft"))
     if cfg.vocab_size != draft_cfg.vocab_size:
         raise ValueError(
             f"target and draft must share a vocab: {cfg.vocab_size} != "
@@ -319,7 +313,7 @@ def generate_lookup(params: dict, cfg: LlamaConfig, prompt,
     dev = params_device(params)
     prompt = torch.as_tensor(prompt, device=dev).long()
     B, P = prompt.shape
-    _validate_spec_args(max_new_tokens, gamma, cfg)
+    _validate_spec_args(max_new_tokens, gamma, (cfg, "target"))
     if ngram < 1:
         raise ValueError(f"ngram must be >= 1, got {ngram}")
     lengths = _validate_lengths(prompt_lengths, B, P, dev)
@@ -371,15 +365,21 @@ def _cache_len(P: int, max_new: int, gamma: int, cfg: LlamaConfig) -> int:
 
 
 def _validate_spec_args(max_new_tokens: int, gamma: int, *cfgs):
-    """The restrictions both speculative entry points share."""
+    """The restrictions both speculative entry points share; ``cfgs`` are
+    ``(config, "target" or "draft")`` pairs."""
     if max_new_tokens < 1:
         raise ValueError(
             f"max_new_tokens must be >= 1, got {max_new_tokens}")
     if gamma < 2:
         raise ValueError(f"gamma must be >= 2 (got {gamma}); gamma=1 is "
                          f"plain decode: use generate()")
-    if any(c.n_experts > 0 for c in cfgs):
-        raise NotImplementedError(_MOE_TODO)
+    for c, who in cfgs:
+        if who == "target":
+            # Only the target's routing must not depend on the shape (the
+            # chunk verify against stepwise decode); a droppy draft only
+            # proposes worse, and the rejection rule keeps the target's
+            # output.
+            require_dropless(c, f"speculative decoding ({who})")
 
 
 def _validate_lengths(prompt_lengths, B: int, P: int, dev):

@@ -5,9 +5,9 @@ peer rank over the transport (parallel/dp_exchange.py).
 
 The port of the JAX package's ``models/trainer.py``.  The options that
 need layers the port does not have yet raise ``NotImplementedError``:
-``mesh``/``fsdp_axis`` (ZeRO sharding in the parallel layer) and
-mixture-of-experts models (``moe_fn``, ``with_moe_stats``, expert
-configs); ROADMAP.md lists them.
+``mesh``/``fsdp_axis`` (ZeRO sharding in the parallel layer) and the
+training of mixture-of-experts models (``moe_fn``, ``with_moe_stats``,
+expert configs: the next MoE slice); ROADMAP.md lists them.
 """
 
 from __future__ import annotations

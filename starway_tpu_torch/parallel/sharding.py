@@ -3,8 +3,9 @@ the process group that holds them.
 
 Port of the JAX package's ``parallel/sharding.py::make_mesh``.  A JAX mesh
 places one shard on each device; the port's mesh places the shards of its
-one sharded axis (the sequence axis of ring attention) on processes, ``n /
-world`` consecutive shards in each process of the group: process ``r``
+one sharded axis (the sequence axis ``"sp"`` of ring attention, or the
+expert axis ``"ep"`` of MoE) on processes, ``n / world`` consecutive
+shards in each process of the group: process ``r``
 holds shards ``r * n / world .. (r + 1) * n / world - 1``.  Without a group
 one process holds all ``n``.  This is the counterpart of the virtual mesh
 on which the JAX package's tests hold 8 CPU devices in one process, and
@@ -12,8 +13,8 @@ what lets ring attention run at real ring offsets on one card: shards that
 share a process rotate as a list, and only a shard that crosses to another
 process goes through ``torch.distributed`` (ops/collectives.py).
 
-Data and tensor parallel axes are not ported yet: an axis other than the
-sharded one must have size 1.
+Data and tensor parallel axes are not ported yet: ``dp`` and ``tp`` must
+have size 1, and so must every axis other than the sharded one.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-_NOT_PORTED = ("only one mesh axis (the sequence axis of ring attention) "
-               "may be larger than 1 in this port; data and tensor "
+_NOT_PORTED = ("only one mesh axis (the sequence axis of ring attention "
+               "or the expert axis of MoE) may be larger than 1 in this "
+               "port; data and tensor "
                "parallelism wait for the rest of the parallel layer "
                "(ROADMAP.md, Queue 1 item 6)")
 
@@ -66,7 +68,8 @@ class Mesh:
 
 
 def make_mesh(axes: dict, device=None, group=None) -> Mesh:
-    """A mesh of ``{"dp": 1, "tp": 1, "sp": n}``-style axis sizes.
+    """A mesh of ``{"dp": 1, "tp": 1, "sp": n}``-style axis sizes (or
+    ``{"ep": n}``: one axis above size 1, never dp or tp).
 
     ``device``: where the shards live (``cuda`` unless given);
     ``group``: a ``torch.distributed`` process group whose processes hold

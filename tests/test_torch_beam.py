@@ -199,6 +199,3 @@ def test_beam_validation(model, prompt):
         generate_beam(tp, tcfg, tprompt, 0)
     with pytest.raises(ValueError, match="max_len"):
         generate_beam(tp, tcfg, tprompt, 8, max_len=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate_beam(tp, LlamaConfig.preset("debug", n_experts=4), tprompt,
-                      4)

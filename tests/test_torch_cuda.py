@@ -763,3 +763,94 @@ def test_ring_attention_on_cuda_matches_cpu(dev, layout, window):
     for g, w in zip(res["cuda"], res["cpu"]):
         torch.testing.assert_close(g, w, rtol=0,
                                    atol=1e-4 * w.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,swiglu", [(1, False), (2, True)])
+def test_switch_moe_on_cuda_matches_cpu(dev, dtype, k, swiglu):
+    """The MoE FFN on the card against the same call on the CPU: equal
+    routing (experts and slots), y within 1e-5 (float32) or 2e-2 of max
+    |y| (bfloat16: one rounding of the expert outputs)."""
+    from starway_tpu_torch.models import moe
+
+    g = torch.Generator().manual_seed(5)
+    e, d, f = 8, 128, 256
+    x = torch.randn(2, 64, d, generator=g).to(dtype)
+    w = moe.init_moe_params(g, 1, e, d, f, dtype, swiglu=swiglu)
+    w = {n: t[0] for n, t in w.items()}
+    res = {}
+    for where in (dev, torch.device("cpu")):
+        args = {n: t.to(where) for n, t in w.items()}
+        y, aux, st = moe.switch_moe(
+            x.to(where), args["router"], args["w_in"], args["w_out"],
+            capacity_factor=float(e), k=k, with_stats=True,
+            w_gate=args.get("w_gate"))
+        route = moe._route(x.to(where).reshape(-1, d), args["router"], k)[0]
+        res[where.type] = (y.cpu().float(), aux.cpu(), st, route.cpu())
+    (yg, ag, sg, rg), (yc, ac, sc, rc) = res["cuda"], res["cpu"]
+    assert torch.equal(rg, rc)
+    assert float(sg["drop_fraction"]) == 0.0
+    torch.testing.assert_close(sg["expert_load"].cpu(), sc["expert_load"])
+    tol = TOL[dtype] * (yc.abs().max().item() if dtype == torch.bfloat16
+                        else 1.0)
+    torch.testing.assert_close(yg, yc, rtol=0, atol=tol)
+    torch.testing.assert_close(ag, ac, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_decode_step_on_cuda_matches_cpu(dev, dtype):
+    """One MoE decode step (after a prefill) on the card against the CPU
+    run on the same weights: logits within 1e-4 (float32: the kernels sum
+    in another order) or 5e-2 of max |logit| (bfloat16, as chip_smoke.py's
+    LOGIT_REL_TOL); the decode kernel launches once a layer."""
+    from starway_tpu_torch.models import decode_step, prefill
+    from starway_tpu_torch.models.llama import cfg_rope_tables
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.utils.tree import tree_map
+
+    cfg = LlamaConfig.preset("debug", n_experts=4, moe_top_k=2,
+                             moe_swiglu=True, moe_capacity_factor=4.0,
+                             dtype=dtype)
+    cpu = init_params(cfg, 3, device="cpu")
+    prompt = torch.tensor(np.random.default_rng(6).integers(1, 512, (2, 9)))
+    res = {}
+    for where in (dev, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(where), cpu)
+        logits, cache = prefill(params, cfg, prompt.to(where), 16)
+        tok = logits.argmax(-1)
+        reset_launch_counts()
+        out, _ = decode_step(params, cache, tok, 9, cfg,
+                             cfg_rope_tables(cfg, 16, device=where))
+        res[where.type] = (out.cpu(), launch_counts()["decode_attention"])
+    (got, n_cuda), (want, n_cpu) = res["cuda"], res["cpu"]
+    assert (n_cuda, n_cpu) == (cfg.n_layers, 0)
+    scale = 1.0 if dtype == "float32" else 5e-2 * want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 if dtype == "float32" else scale)
+
+
+def test_moe_servers_on_cuda_match_generate(dev):
+    """A dropless MoE model on the card (float32, debug widths): the dense
+    and paged servers' greedy tokens equal generate()'s, and the decode,
+    paged and flash kernels ran."""
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = LlamaConfig.preset("debug", n_experts=4, moe_top_k=2,
+                             moe_swiglu=True, moe_capacity_factor=4.0)
+    params = init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(7)
+    reqs = [(list(rng.integers(1, cfg.vocab_size, n)), m)
+            for n, m in [(3, 6), (12, 4), (7, 9)]]
+    reset_launch_counts()
+    for srv in (SlotServer(params, cfg, n_slots=2, max_len=64, chunk=4),
+                PagedSlotServer(params, cfg, n_slots=2, max_len=64, page=16,
+                                chunk=4)):
+        rids = [srv.submit(p, m) for p, m in reqs]
+        done = srv.run()
+        for rid, (prompt, max_new) in zip(rids, reqs):
+            out = generate(params, cfg, torch.tensor([prompt]), max_new)
+            np.testing.assert_array_equal(
+                done[rid], out[0, len(prompt):].cpu().numpy())
+    counts = launch_counts()
+    assert all(counts[name] > 0 for name in (
+        "decode_attention", "paged_decode_attention", "flash_forward"))

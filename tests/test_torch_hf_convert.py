@@ -12,8 +12,10 @@ random HF models built here (no download).
 * the converted models' logits match transformers' (atol 2e-4-3e-4, rtol
   2e-3, as the JAX package's tests hold its own) and greedy generation is
   token for token transformers', the Mistral model through the port's
-  rolling cache.  Mixtral converts; the port's forward refuses MoE
-  (ROADMAP.md, Queue 1 item 6)."""
+  rolling cache.  Mixtral (the JAX package's test config) matches
+  transformers' logits at atol 3e-4, rtol 2e-3, and its greedy and ragged
+  generation token for token; its training stays refused (ROADMAP.md,
+  Queue 1 item 6)."""
 
 import copy
 import dataclasses
@@ -26,7 +28,7 @@ transformers = pytest.importorskip("transformers")
 
 from starway_tpu.models import hf_convert as jhf  # noqa: E402
 from starway_tpu_torch.models import (config_from_hf, forward,  # noqa: E402
-                                      generate, params_from_hf)
+                                      generate, loss_fn, params_from_hf)
 from torch_port_util import to_numpy  # noqa: E402
 
 SMALL = dict(vocab_size=256, hidden_size=64, intermediate_size=112,
@@ -212,13 +214,56 @@ def test_logits_and_generation_match_transformers(family):
 
 
 def test_mixtral_converts_and_forward_refuses():
+    """Mixtral converts dropless; its forward serves, and what stays
+    refused is training: the loss of an MoE tree (the aux term is the next
+    MoE slice)."""
     model = hf_model("mixtral")
     cfg = config_from_hf(model.config, dtype="float32")
     assert (cfg.n_experts, cfg.moe_top_k, cfg.moe_swiglu,
             cfg.moe_capacity_factor) == (4, 2, True, 4.0)
     params = params_from_hf(model, cfg, device="cpu")
+    assert forward(params, torch.tensor([[1, 2, 3]]), cfg).shape == (
+        1, 3, cfg.vocab_size)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(params, torch.tensor([[1, 2, 3]]), cfg)
+        loss_fn(params, torch.tensor([[1, 2, 3, 4]]), cfg)
+
+
+def test_mixtral_logits_and_generation_match_transformers():
+    """The twin of tests/test_hf_convert.py::test_mixtral_logits_and_
+    generation_match_transformers, on its config and seed: logits against
+    MixtralForCausalLM, greedy generation token for token through the
+    prefill and the cached MoE decode, and ragged rows equal to their solo
+    runs."""
+    hf_cfg = transformers.MixtralConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=112,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        num_local_experts=4, num_experts_per_tok=2,
+        max_position_embeddings=128, rope_theta=10000.0,
+        tie_word_embeddings=False, attn_implementation="eager")
+    torch.manual_seed(11)
+    hf = transformers.MixtralForCausalLM(hf_cfg).eval()
+    cfg = config_from_hf(hf.config, dtype="float32")
+    params = params_from_hf(hf, cfg, device="cpu")
+    assert params["layers"]["moe"]["w_gate"].shape == (2, 4, 64, 112)
+
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 256, (2, 16)))
+    with torch.no_grad():
+        ref = hf(tokens).logits
+    torch.testing.assert_close(forward(params, tokens, cfg), ref, atol=3e-4,
+                               rtol=2e-3)
+    prompt = torch.tensor([[6, 2, 9]])
+    with torch.no_grad():
+        ref = hf.generate(prompt, max_new_tokens=10, do_sample=False,
+                          pad_token_id=0)
+    assert torch.equal(generate(params, cfg, prompt, 10)[:, :ref.shape[1]],
+                       ref)
+    rows = [[6, 2, 9, 4, 1], [7, 3]]
+    padded = torch.tensor([r + [0] * (5 - len(r)) for r in rows])
+    ragged = generate(params, cfg, padded, 6, prompt_lengths=[5, 2])
+    for b, r in enumerate(rows):
+        solo = generate(params, cfg, torch.tensor([r]), 6)[0, len(r):]
+        assert torch.equal(ragged[b], solo), b
 
 
 def _refusal_cases():

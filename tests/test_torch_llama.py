@@ -195,20 +195,24 @@ def test_decode_step_clamps_out_of_range_writes():
 
 
 def test_unported_paths_raise():
-    """MoE still refuses, naming ROADMAP.md.  The rolling paths are ported
+    """MoE training still refuses, naming ROADMAP.md; MoE serving is
+    ported (tests/test_torch_moe.py).  The rolling paths are ported
     (tests/test_torch_rolling.py): on a config without a window they
     refuse as the JAX package does, with a ValueError."""
     cfg = tl.LlamaConfig.preset("debug", n_experts=4)
+    mp = tl.init_params(cfg, 0, device="cpu")
+    assert "moe" in mp["layers"] and "w_up" not in mp["layers"]
+    batch = torch.ones((1, 5), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.init_params(cfg, 0, device="cpu")
+        tl.loss_fn(mp, batch, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tl.value_and_grad(mp, batch, cfg)
     _, tcfg, _, tp = _pair()
     cache = tgen.init_cache(tcfg, 1, 8, device="cpu")
     with pytest.raises(ValueError, match="sliding_window"):
         tgen.decode_step(tp, cache, torch.tensor([1]), 0, tcfg, rolling=True)
     with pytest.raises(ValueError, match="sliding_window"):
         tgen.prefill_rolling(tp, tcfg, torch.tensor([[1, 2]]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.decode_step(tp, cache, torch.tensor([1]), 0, cfg)
 
 
 def test_trainer_unported_options_raise():

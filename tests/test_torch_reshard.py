@@ -395,28 +395,36 @@ async def test_redistribute_across_two_processes(port, tmp_path,
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
+    release = ctx.Event()
     proc = ctx.Process(target=reshard_child_rank1,
-                       args=(port, str(tmp_path), q), daemon=True)
+                       args=(port, str(tmp_path), q, release), daemon=True)
     server = Server()
     server.listen(ADDR, port)
     proc.start()
+    loop = asyncio.get_running_loop()
     try:
-        for _ in range(600):
-            if server.list_clients():
-                break
-            await asyncio.sleep(0.1)
-        assert server.list_clients(), "child never connected"
+        # Readiness is the child's word that it connected; the server then
+        # lists it a moment later (aconnect returns before the listing).
+        said = await loop.run_in_executor(None, lambda: q.get(timeout=120))
+        assert said == "connected", said
+        async def listed():
+            while not server.list_clients():
+                await asyncio.sleep(0.01)
+
+        await asyncio.wait_for(listed(), 60)
         executor.reset_staging_peak()
         res0 = await redistribute(st, None, {1: ServerPort(server)}, rank=0,
                                   lease_slot=3, round_timeout=60)
         assert res0.stats["tx_bytes"] == x.numel() * 4
         peak = executor.staging_snapshot()["peak"]
         assert peak <= res0.stats["peak_staging_bound"], res0.stats
-        verdict = await asyncio.get_running_loop().run_in_executor(
-            None, lambda: q.get(timeout=120))
+        verdict = await loop.run_in_executor(None,
+                                             lambda: q.get(timeout=120))
         assert verdict.get("ok"), verdict.get("error")
         assert verdict["rounds"] > 1
     finally:
+        release.set()
+        proc.join(15)
         proc.terminate()
         proc.join(10)
         await asyncio.wait_for(server.aclose(), 15)

@@ -10,9 +10,9 @@ every token in the target's top-k support, and the second token's
 marginal over 4096 rows within total variation 0.12 of the exactly
 computed target marginal and 0.05 nearer it than the draft's.
 
-Left out, with the JAX package's tensor-parallel and MoE cases: the port
-refuses MoE (ROADMAP.md, Queue 1 item 6) and has no tensor-parallel
-mesh.  Debug preset, float32, on the CPU."""
+Left out, with the JAX package's tensor-parallel cases: the port has no
+tensor-parallel mesh (ROADMAP.md, Queue 1 item 6).  The MoE case is in
+tests/test_torch_moe.py.  Debug preset, float32, on the CPU."""
 
 import importlib
 
@@ -147,10 +147,10 @@ def test_speculative_validation(target, draft):
         generate_lookup(tp, tcfg, prompt, 4, gamma=1)
     with pytest.raises(ValueError, match="prompt_lengths"):
         generate_lookup(tp, tcfg, prompt, 4, prompt_lengths=[5])
-    moe = LlamaConfig.preset("debug", n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    moe = LlamaConfig.preset("debug", n_experts=4)  # droppy: 1.25 < 4
+    with pytest.raises(ValueError, match="dropless"):
         generate_speculative(tp, moe, dp, dcfg, prompt, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="dropless"):
         generate_lookup(tp, moe, prompt, 4)
 
 

@@ -69,6 +69,68 @@ def ring_worker(rank: int, world: int, port: int, folder: str) -> None:
         dist.destroy_process_group()
 
 
+def ep_worker(rank: int, world: int, port: int, folder: str) -> None:
+    """One process of a ``torch.distributed`` (gloo) expert-parallel run:
+    reads ``in.npz`` from ``folder`` (the global tensors and the MoE
+    layer), takes its ``n / world`` shards of a mesh ``{"ep": n}`` split
+    over ``world`` processes, runs every collective and the sharded MoE
+    dispatch over them, and writes its shards of each result to
+    ``out<rank>.npz`` (see tests/test_torch_moe.py ``ep_runs``)."""
+    import torch.distributed as dist
+
+    from starway_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        data = {k: torch.from_numpy(v) for k, v in
+                np.load(f"{folder}/in.npz").items()}
+        n = int(data.pop("n"))
+        mesh = make_mesh({"ep": n}, device="cpu", group=dist.group.WORLD)
+        mine = mesh.local_range("ep")
+        out = {}
+        for name, shards in ep_runs(data, n, mesh, mine).items():
+            for i, t in zip(mine, shards):
+                out[f"{name}_{i}"] = t.numpy()
+        np.savez(f"{folder}/out{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def ep_runs(data: dict, n: int, mesh, mine) -> dict:
+    """The collectives and the sharded MoE over the shards ``mine`` of
+    ``mesh``'s ``"ep"`` axis: ``{name: this process's output shards}``.
+    ``data`` holds ``x`` (cut on dim 0), ``u`` (cut on dim 0, its dim 1 of
+    size n for the untiled all_to_all), and the MoE layer ``moe_x``
+    (cut on the sequence), ``router``, ``w_in``, ``w_out``, ``w_gate``
+    (cut on the experts)."""
+    from starway_tpu_torch.models.moe import sharded_switch_moe
+    from starway_tpu_torch.ops import collectives as col
+
+    def cut(t, dim=0):
+        return [t.chunk(n, dim=dim)[i].contiguous() for i in mine]
+
+    x, u = cut(data["x"]), cut(data["u"])
+    runs = {
+        "all_to_all_tiled": col.all_to_all(x, mesh, "ep", 1, 0),
+        "all_to_all_untiled": col.all_to_all(u, mesh, "ep", 1, 0,
+                                             tiled=False),
+        "all_gather": col.all_gather(x, mesh, "ep", 1),
+        "psum": col.psum(x, mesh, "ep"),
+        "pmean": col.pmean(x, mesh, "ep"),
+        "reduce_scatter": col.reduce_scatter(x, mesh, "ep", 1),
+        "ring_reduce": col.ring_reduce(x, mesh, "ep"),
+    }
+    ys, aux, stats = sharded_switch_moe(
+        cut(data["moe_x"], 1), data["router"], cut(data["w_in"]),
+        cut(data["w_out"]), mesh, "ep", capacity_factor=4.0, k=2,
+        with_stats=True, w_gates=cut(data["w_gate"]))
+    runs["moe_y"] = ys
+    runs["moe_packed"] = [torch.cat([aux[None], stats["drop_fraction"][None],
+                                     stats["expert_load"]])] * len(mine)
+    return runs
+
+
 # ------------------------------------------------- transport children
 #
 # Spawned across a real process boundary by tests/test_torch_transport.py
@@ -225,12 +287,21 @@ def serve_remote_child(role, port, arg, ready, stop, out_q) -> None:
 RESHARD_SHAPE = (16, 4096)
 
 
-def reshard_child_rank1(port, folder, q) -> None:
+def reshard_child_rank1(port, folder, q, release) -> None:
     """Rank 1 of a redistribution in its own process: a pure receiver on
     its OWN mesh of 8 CPU slots (columns over 8), with the spec exchange
     over the fabric as the only coordination; checks its shards against
     the checkpoint the parent saved of the source, box by box, and its
-    staging peak against the plan's bound."""
+    staging peak against the plan's bound.
+
+    The parent listens before it starts this process, so one connect
+    attempt suffices; the child says ``"connected"`` on ``q`` once it is
+    in.  It keeps its connection open until the parent sets ``release``:
+    a receiver has nothing to flush, and closing as soon as its last
+    round has arrived resets the link under the sender's flush of that
+    round (``peer reset during flush``) whenever the sender's flush
+    comes later than the receiver's checks, as it does on a loaded
+    host."""
     import asyncio
     import os
     import traceback
@@ -250,13 +321,8 @@ def reshard_child_rank1(port, folder, q) -> None:
 
         async def run():
             client = Client()
-            for _ in range(120):
-                try:
-                    await client.aconnect("127.0.0.1", port)
-                    break
-                except Exception:
-                    client = Client()
-                    await asyncio.sleep(0.25)
+            await client.aconnect("127.0.0.1", port)
+            q.put("connected")
             res = await redistribute(
                 ArrayRef(RESHARD_SHAPE, torch.float32), dst, {0: client},
                 rank=1, lease_slot=3, round_timeout=60)
@@ -273,11 +339,13 @@ def reshard_child_rank1(port, folder, q) -> None:
             bound = res.stats["peak_staging_bound"]
             if peak > bound:
                 raise AssertionError(f"staging {peak} > bound {bound}")
+            q.put({"ok": True, "peak": peak, "bound": bound,
+                   "rounds": res.stats["rounds"]})
+            await asyncio.get_running_loop().run_in_executor(
+                None, release.wait, 120)
             await client.aclose()
-            return {"ok": True, "peak": peak, "bound": bound,
-                    "rounds": res.stats["rounds"]}
 
-        q.put(asyncio.run(run()))
+        asyncio.run(run())
     except Exception:
         q.put({"ok": False, "error": traceback.format_exc()})
 
