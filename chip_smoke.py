@@ -355,9 +355,142 @@ def phase_kernels(dev):
     rows["flash_partial_bwd"]["split_effect"] = split_effect(dev)
 
     rows["int8_matmul"] = gemv_rows(dev, randn)
+    shard = shard_shape_rows(dev, randn)
+    for key, share in shard.pop("shares").items():
+        rows[key]["shard_shapes_tol_share"] = share
+    for key, err in shard.items():
+        rows[key]["shard_shapes_max_err"] = err
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return rows
+
+
+def shard_shape_rows(dev, randn) -> dict:
+    """Phase 3 at the shapes phases 22-24 give the kernels: llama3-8b's
+    heads over tp = 2 (16 q, 4 kv heads) with dp's halved batch, Ulysses'
+    8 q and 2 kv heads a slot over the whole S = 4096, the ring step at
+    tp's heads, the decode kernel at tp's heads (bf16 and int8 caches, C =
+    1 and 4) and the GEMV at tp's widths (gate/up 4096 x 7168, down 7168 x
+    4096, wo 2048 x 4096, lm_head 4096 x 64128).  Each against its plain
+    version: the attention outputs of #3 and #1 to the limit that scales
+    with the output (ops/attention.py SCALED_TOL, as
+    :func:`window_regime_rows`: BF16_TOL is the size of a typical output
+    at these lengths), #3's lse to 1e-3 as in :func:`flash_forward_rows`,
+    the gradients and the GEMV to the tolerances their own rows use;
+    returns the worst error of each kernel."""
+    import torch
+
+    from starway_tpu_torch.ops.attention import (SCALED_TOL,
+                                                 scaled_tolerance_share)
+    from starway_tpu_torch.ops.decode import (decode_attention,
+                                              decode_attention_reference)
+    from starway_tpu_torch.ops.flash import (flash_backward,
+                                             flash_backward_reference,
+                                             flash_forward,
+                                             flash_forward_reference,
+                                             flash_partial,
+                                             flash_partial_bwd,
+                                             flash_partial_bwd_reference,
+                                             flash_partial_reference)
+    from starway_tpu_torch.ops.gemv import (int8_matmul,
+                                            int8_matmul_reference,
+                                            tolerance_share)
+    from starway_tpu_torch.ops.quantize import quantize_kv, quantize_weight
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    limit = (f"{SCALED_TOL[0]:g} |want| + {SCALED_TOL[1]:g} rms of want's "
+             f"row")
+    out = {"shares": {}}
+    worst_f = worst_b = worst_fs = 0.0
+    for b, hq, hkv, s_len in ((1, 16, 4, 2048), (1, 8, 2, 4096)):
+        q, k, v = (randn(b, h, s_len, 128) for h in (hq, hkv, hkv))
+        o, lse = flash_forward(q, k, v, causal=True)
+        o_r, lse_r = flash_forward_reference(q, k, v, causal=True)
+        err = (o.float() - o_r.float()).abs().max().item()
+        share = scaled_tolerance_share(o, o_r)
+        lse_err = (lse - lse_r).abs().max().item()
+        do = randn(b, hq, s_len, 128)
+        got = flash_backward(q, k, v, o, lse, do, causal=True)
+        want = flash_backward_reference(q, k, v, o, lse, do, causal=True)
+        gerr = max(rel(g, w) for g, w in zip(got, want))
+        log(f"[shard shapes] flash fwd/bwd q [{b}, {hq}, {s_len}, 128], kv "
+            f"{hkv} heads: o max_abs_err {err:.3e}, {share:.3f} of the limit "
+            f"{limit} (<= 1), lse {lse_err:.3e} (tol 1e-3); grads rel "
+            f"{gerr:.3e} (tol {GRAD_REL_TOL['bfloat16']})")
+        if not (share <= 1.0 and lse_err <= 1e-3
+                and gerr <= GRAD_REL_TOL["bfloat16"]):
+            raise AssertionError("the flash kernels disagree at a shard shape")
+        worst_f, worst_b = max(worst_f, err), max(worst_b, gerr)
+        worst_fs = max(worst_fs, share)
+    out["flash_forward"] = worst_f
+    out["flash_backward_dkv"] = out["flash_backward_dq"] = worst_b
+    out["shares"]["flash_forward"] = worst_fs
+
+    q, k, v = randn(1, 16, 1024, 128), randn(1, 4, 1024, 128), randn(
+        1, 4, 1024, 128)
+    worst_p = worst_pb = 0.0
+    for q_off, kv_off in ((1024, 0), (1024, 1024)):
+        o, m, l = flash_partial(q, k, v, q_off, kv_off, causal=True)
+        o_r, m_r, l_r = flash_partial_reference(q, k, v, q_off, kv_off,
+                                                causal=True)
+        err = max(rel(o / l[..., None].clamp(min=1e-30),
+                      o_r / l_r[..., None].clamp(min=1e-30)),
+                  (m - m_r).abs().max().item())
+        lse = (m + torch.log(l.clamp(min=1e-30))).float()
+        do = randn(1, 16, 1024, 128)
+        delta = torch.randn(1, 16, 1024, device=dev)
+        got = flash_partial_bwd(q, do, k, v, lse, delta, q_off, kv_off)
+        want = flash_partial_bwd_reference(q, do, k, v, lse, delta, q_off,
+                                           kv_off)
+        gerr = max(rel(g, w) for g, w in zip(got, want))
+        worst_p, worst_pb = max(worst_p, err), max(worst_pb, gerr)
+    log(f"[shard shapes] ring step at tp's heads: partial {worst_p:.3e}, "
+        f"its backward rel {worst_pb:.3e} (tol {GRAD_REL_TOL['bfloat16']})")
+    if not (worst_p <= GRAD_REL_TOL["bfloat16"]
+            and worst_pb <= GRAD_REL_TOL["bfloat16"]):
+        raise AssertionError("the ring-step kernels disagree at tp's heads")
+    out["flash_partial"], out["flash_partial_bwd"] = worst_p, worst_pb
+
+    B, T = 8, 2048
+    k16, v16 = randn(B, 4, T, 128), randn(B, 4, T, 128)
+    k8, ks = quantize_kv(k16)
+    v8, vs = quantize_kv(v16)
+    pos = torch.full((B,), 1500, dtype=torch.int32, device=dev)
+    worst_d = worst_ds = 0.0
+    for n_q in (1, 4):
+        q = randn(B, 16, n_q, 128)
+        for kc, vc, kw in ((k16, v16, {}),
+                           (k8, v8, dict(k_scale=ks, v_scale=vs))):
+            got = decode_attention(q, kc, vc, pos, **kw)
+            want = decode_attention_reference(q, kc, vc, pos, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            worst_d = max(worst_d, err)
+            worst_ds = max(worst_ds, scaled_tolerance_share(got, want))
+    log(f"[shard shapes] decode attention at 16 q / 4 kv heads, pos 1500: "
+        f"max_abs_err {worst_d:.3e}, {worst_ds:.3f} of the limit {limit} "
+        f"(<= 1)")
+    if not worst_ds <= 1.0:
+        raise AssertionError("decode_attention disagrees at tp's heads")
+    out["decode_attention"] = worst_d
+    out["shares"]["decode_attention"] = worst_ds
+
+    worst_g = 0.0
+    for d, f in ((4096, 7168), (7168, 4096), (2048, 4096), (4096, 64128)):
+        w = quantize_weight(randn(d, f) * 0.02)
+        for m in (8, 64):
+            x = randn(m, d)
+            share = tolerance_share(int8_matmul(x, w["q"], w["s"]),
+                                    int8_matmul_reference(x, w["q"], w["s"]))
+            worst_g = max(worst_g, share)
+    log(f"[shard shapes] int8 GEMV at tp's widths, M = 8 and 64: worst "
+        f"share of tolerance {worst_g:.3f} (1 passes)")
+    if not worst_g <= 1:
+        raise AssertionError("the int8 GEMV disagrees at tp's widths")
+    out["int8_matmul"] = worst_g
+    return out
 
 
 def flash_forward_rows(dev, randn) -> dict:
@@ -1807,7 +1940,6 @@ def phase_train_parity(dev):
     from starway_tpu_torch.models.llama import value_and_grad
     from starway_tpu_torch.ops import launch_counts, reset_launch_counts
     from starway_tpu_torch.ops.attention import blockwise_attention
-    from starway_tpu_torch.utils.tree import tree_leaves
 
     cfg = LlamaConfig.preset("llama3-8b", n_layers=2, dtype="float32",
                              remat=True, remat_policy="dots")
@@ -1829,9 +1961,7 @@ def phase_train_parity(dev):
 
     want_loss, want = value_and_grad(params, batch, cfg, plain_attn)
     loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
-    worst = 0.0
-    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
-        worst = max(worst, ((g - w).abs().max() / w.abs().max()).item())
+    worst = worst_grad_rel_err(grads, want)
     log(f"  loss {loss.item():.6f} vs plain {want_loss.item():.6f} (rel "
         f"{loss_err:.2e}, tol 1e-5); worst gradient leaf error relative to "
         f"its max {worst:.3e} (tol {TRAIN_GRAD_REL_TOL}); launches "
@@ -1994,7 +2124,6 @@ def phase_train_ring_parity(dev):
     from starway_tpu_torch.ops import launch_counts, reset_launch_counts
     from starway_tpu_torch.ops.attention import blockwise_attention
     from starway_tpu_torch.parallel import make_mesh
-    from starway_tpu_torch.utils.tree import tree_leaves
 
     SP = 4
     cfg = LlamaConfig.preset("llama3-8b", n_layers=2, dtype="float32",
@@ -2021,9 +2150,7 @@ def phase_train_ring_parity(dev):
             raise AssertionError(f"{layout}: launches {counts}, want {n} "
                                  f"flash_partial and flash_partial_bwd")
         loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
-        worst = 0.0
-        for g, w in zip(tree_leaves(grads), tree_leaves(want)):
-            worst = max(worst, ((g - w).abs().max() / w.abs().max()).item())
+        worst = worst_grad_rel_err(grads, want)
         log(f"  {layout}: loss {loss.item():.6f} vs plain "
             f"{want_loss.item():.6f} (rel {loss_err:.2e}, tol 1e-5); worst "
             f"gradient leaf error relative to its max {worst:.3e} (tol "
@@ -4339,55 +4466,80 @@ def convert_mixtral(dev) -> dict:
     return stats
 
 
+class PinnedRouting:
+    """The routing decisions (models/moe.py ``_route``) of one run,
+    replayed in another.  In bf16 two paths that round differently may
+    send a token whose router probabilities nearly tie to different
+    experts: a discrete change that no tolerance on the outputs was set
+    for.  :meth:`record` keeps one run's choices; :meth:`replay` sends
+    every token of the next run to those experts, its gates and balance
+    term from its own router probabilities (so they keep their
+    gradient), and counts the choices that differ from its own."""
+
+    def __init__(self):
+        from starway_tpu_torch.models import moe
+
+        self._moe, self._real = moe, moe._route
+        self.chosen, self.flips, self.pairs = [], 0, 0
+
+    def record(self):
+        def recording(xt, router_w, k):
+            out = self._real(xt, router_w, k)
+            self.chosen.append(out[0])
+            return out
+
+        return mock.patch.object(self._moe, "_route", recording)
+
+    def replay(self):
+        import torch
+        import torch.nn.functional as F
+
+        choices = iter(self.chosen)
+
+        def pinned(xt, router_w, k):
+            mine = next(choices)
+            with torch.no_grad():
+                own = self._real(xt, router_w, k)[0]
+            self.flips += int((own != mine).sum())
+            self.pairs += own.numel()
+            probs = torch.softmax((xt @ router_w).float(), dim=-1)
+            top_i = mine.reshape(k, -1).t()
+            top_p = probs.gather(1, top_i)
+            if k > 1:
+                top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+            e = router_w.shape[-1]
+            aux = e * (F.one_hot(top_i[:, 0], e).float().mean(dim=0)
+                       * probs.mean(dim=0)).sum()
+            return mine, top_p.t().reshape(-1), aux
+
+        return mock.patch.object(self._moe, "_route", pinned)
+
+
 def check_first_logits_moe(params, cfg, prompt, max_len) -> dict:
     """:func:`check_first_logits` for an MoE model.  In bf16 the flash
     kernel and the plain attention round differently, so a token whose
-    router probabilities nearly tie may take another expert on one path:
-    a discrete change that the logit tolerance was not set for.  So the
-    plain forward runs twice: routed freely (its error and the routing
-    decisions that differ from the kernel path's are logged), then with
-    every token sent to the experts the kernel path chose, its gates from
-    its own router probabilities; that run is held to LOGIT_REL_TOL."""
-    import torch
-
-    from starway_tpu_torch.models import moe
+    router probabilities nearly tie may take another expert on one path.
+    So the plain forward runs twice: routed freely (its error and the
+    routing decisions that differ from the kernel path's are logged),
+    then routed as the kernel path (:class:`PinnedRouting`); that run is
+    held to LOGIT_REL_TOL."""
     from starway_tpu_torch.models.generate import prefill
     from starway_tpu_torch.models.llama import forward
 
     padded, pb, last = first_logits_inputs(params, prompt, max_len)
-    real_route = moe._route
-    chosen, flips = [], [0, 0]
-
-    def recording(xt, router_w, k):
-        out = real_route(xt, router_w, k)
-        chosen.append(out[0])
-        return out
-
-    with mock.patch.object(moe, "_route", recording):
+    pin = PinnedRouting()
+    with pin.record():
         got, _ = prefill(params, cfg, padded, pb, logit_positions=last)
     free = forward(params, padded, cfg, plain_attn,
                    logit_positions=last)[:, 0]
-    kernel_choices = iter(chosen)
-
-    def pinned(xt, router_w, k):
-        experts, _gates, aux = real_route(xt, router_w, k)
-        mine = next(kernel_choices)
-        flips[0] += int((experts != mine).sum())
-        flips[1] += experts.numel()
-        probs = torch.softmax((xt @ router_w).float(), dim=-1)
-        top_p = probs.gather(1, mine.reshape(k, -1).t())
-        if k > 1:
-            top_p = top_p / top_p.sum(dim=-1, keepdim=True)
-        return mine, top_p.t().reshape(-1), aux
-
-    with mock.patch.object(moe, "_route", pinned):
+    with pin.replay():
         want = forward(params, padded, cfg, plain_attn,
                        logit_positions=last)[:, 0]
     out = dict(free_rel_err=((got - free).abs().max()
                              / free.abs().max()).item(),
                free_same_argmax=bool((got.argmax(-1)
                                       == free.argmax(-1)).all()),
-               routing_flips=flips[0], routed_pairs=flips[1])
+               routing_flips=pin.flips, routed_pairs=pin.pairs)
     log(f"  MoE first-token logits, the plain path routed freely: "
         f"{out}; routed as the kernel path:")
     out["pinned_rel_err"] = compare_logits(got, want)
@@ -4597,6 +4749,665 @@ def phase_mixtral_parity(dev) -> tuple:
     return st, counts
 
 
+# ------------------------------------------------------------------
+# Phases 22-24: training and serving over a mesh of several axes (one
+# process holds every slot of the mesh on cuda:0).
+
+# AdamW's update holds the parameters, the gradients, the old and the new
+# moments and the updates at once: ~21 GB a layer at its peak (3 layers
+# peaked at 76.24 GB of 80, too thin a margin), so 2.
+MIXTRAL_TRAIN_LAYERS = 2
+MIXTRAL_TRAIN = dict(batch=1, seq=2048, steps=4, ep_steps=3, ep=4)
+MIXTRAL_TRAIN_PARITY = dict(layers=2, seq=512)
+MESH_PRESET, MESH_LAYERS = "llama3-8b", 4
+MESH_BATCH = dict(batch=2, seq=2048)            # dp x tp x sp and dp x ep x tp
+MESH_MOE_LAYERS = 1
+FSDP_BATCH = dict(batch=8, seq=1024, slots=8)
+ULYSSES = dict(b=1, hq=32, hkv=8, s=4096, d=128, sp=4)
+# A bf16 sharded step against the unsharded one, each limit set from the
+# H100 readings (PERF.md, PR 15): the loss (7.8e-8 to 8.6e-5), the loss
+# after its AdamW update (3.3e-6 to 1.3e-4 dense, 2.0e-3 MoE routed
+# freely: its update moves the near ties), and its worst gradient leaf,
+# max |error| over max |gradient| (1.1e-2 to 2.1e-2: bf16 partial sums
+# under tp and over the data slots; MoE routed as the sharded step).
+MESH_LOSS_REL_TOL = 1e-3
+MESH_AFTER_REL_TOL = 5e-3
+MESH_GRAD_REL_TOL = 5e-2
+TP, TP_PRESET = 2, "llama3-8b"
+TP_PARITY_LAYERS = 2
+TP_SPEC = dict(prompt_len=512, new=32, gamma=4)
+
+
+def stats_moe_fn(cfg):
+    """The global-view MoE (switch_moe at the config's capacity and k)
+    with its router health, as a Trainer's ``moe_fn``."""
+    from starway_tpu_torch.models.moe import switch_moe
+
+    def fn(x, router, w_in, w_out, w_gate=None):
+        return switch_moe(x, router, w_in, w_out, w_gate=w_gate,
+                          capacity_factor=cfg.moe_capacity_factor,
+                          k=cfg.moe_top_k, with_stats=True)
+
+    return fn
+
+
+def moe_flops(cfg, tokens: int, s_len: int) -> float:
+    """Model FLOPs of one MoE training step: 6 * active weights * tokens
+    (attention projections, the k routed experts, the router and the
+    lm_head) plus the attention's products, without remat's recompute."""
+    from starway_tpu_torch.utils.cuda_timing import visible_pairs
+
+    hd, L, D = cfg.head_dim, cfg.n_layers, cfg.d_model
+    per_layer = (D * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+                 + cfg.n_heads * hd * D + cfg.moe_top_k * 3 * D * cfg.d_ff
+                 + D * cfg.n_experts)
+    n = L * per_layer + D * cfg.vocab_size
+    attn = 12 * hd * visible_pairs(s_len, s_len) * cfg.n_heads * L * (
+        tokens // s_len)
+    return 6.0 * n * tokens + attn
+
+
+def collective_ms(prof) -> float:
+    """Device ms of the kernels launched inside the collectives' profiler
+    range (ops/collectives.py RANGE), in one trace."""
+    import torch
+
+    from starway_tpu_torch.ops.collectives import RANGE
+
+    return sum(e.device_time_total / 1e3 for e in prof.key_averages()
+               if e.key == RANGE
+               and e.device_type == torch.autograd.DeviceType.CPU)
+
+
+def traced_run(fn):
+    """``fn()`` under torch.profiler: (result, wall ms, trace summary with
+    the collectives' device ms and their share of the busy time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    st = trace_summary(prof, ms)
+    st["collective_device_ms"] = round(collective_ms(prof), 3)
+    if st.get("device_busy_ms"):
+        st["collective_share"] = (st["collective_device_ms"]
+                                  / st["device_busy_ms"])
+    return out, ms, st
+
+
+def phase_mixtral_train(dev, card: str) -> tuple:
+    """Phase 22: Mixtral-8x7B-v0.1 widths trained: MIXTRAL_TRAIN_LAYERS
+    layers, bf16, AdamW, remat "dots", B=1, S=2048, capacity factor 1.25
+    (drops allowed), the Trainer with the router health; then the same
+    steps through make_sharded_moe over {"ep": 4} in one process; then a
+    float32 2-layer step through the kernels against the plain
+    attention.  Returns (stats, launch counts of the main-path runs)."""
+    import torch
+
+    from starway_tpu_torch.models import Trainer, forward, init_params
+    from starway_tpu_torch.models.llama import value_and_grad
+    from starway_tpu_torch.models.moe import make_sharded_moe
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.ops.attention import blockwise_attention
+    from starway_tpu_torch.parallel import make_mesh
+    from starway_tpu_torch.utils import adamw
+
+    spec = MIXTRAL_TRAIN
+    B, S, L = spec["batch"], spec["seq"], MIXTRAL_TRAIN_LAYERS
+    cfg = mixtral_config(n_layers=L, moe_capacity_factor=1.25, remat=True,
+                         remat_policy="dots")
+    params = init_params(cfg, SEED + 300, device=dev)
+    batch = train_batch(cfg, B, S + 1, SEED + 301, dev)
+    trainer = Trainer(cfg, adamw(LR_TRAIN), params,
+                      moe_fn=stats_moe_fn(cfg), with_moe_stats=True)
+    mem = fresh_peak()
+    log(f"[mixtral-train] Mixtral-8x7B-v0.1 widths, {L} of 32 layers, bf16, "
+        f"AdamW lr {LR_TRAIN:g}, remat dots, top-{cfg.moe_top_k} of "
+        f"{cfg.n_experts} experts at capacity factor "
+        f"{cfg.moe_capacity_factor}, batch [{B}, {S + 1}], {spec['steps']} "
+        f"steps on one batch ({card})")
+    reset_launch_counts()
+    losses, step_ms, traced = train_steps(trainer, batch, spec["steps"])
+    counts = launch_counts()
+    for name in ("flash_forward", "flash_backward_dkv", "flash_backward_dq"):
+        if counts[name] != spec["steps"] * L:
+            raise AssertionError(f"{name} launched {counts[name]} times in "
+                                 f"{spec['steps']} steps of {L} layers")
+    med = statistics.median(step_ms[1:])
+    flops = moe_flops(cfg, B * S, S)
+    moe_stats = {k: v.float().cpu().numpy().round(4).tolist()
+                 for k, v in trainer.last_moe_stats.items()}
+    with torch.no_grad():
+        aux = forward(trainer.state.params, batch[:, :-1], cfg,
+                      return_aux=True)[1].item()
+    st = dict(losses=losses, median_step_ms=med, step_ms=step_ms, **mem,
+              tokens_per_s=B * S / med * 1e3,
+              model_flop_share=flops / (med / 1e3) / BF16_FLOPS,
+              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+              aux_after=aux, moe_stats=moe_stats, **traced)
+    if traced.get("device_busy_ms"):
+        st["device_idle_share"] = 1 - traced["device_busy_ms"] / med
+    log(f"  median step {med:.1f} ms, {st['tokens_per_s']:.0f} tokens/s, "
+        f"model FLOP share {st['model_flop_share']:.4f}, peak "
+        f"{st['peak_memory_gb']:.2f} GB, idle share "
+        f"{st.get('device_idle_share')}; aux {aux:.4f}; router {moe_stats}")
+    log(f"  top device operations of the traced step: "
+        f"{traced.get('top_kernels_ms')}")
+    state = trainer.state
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ep_fn = make_sharded_moe(make_mesh({"ep": spec["ep"]}, device=dev),
+                             k=cfg.moe_top_k, swiglu=True,
+                             capacity_factor=cfg.moe_capacity_factor)
+    trainer = Trainer(cfg, adamw(LR_TRAIN), state.params, moe_fn=ep_fn)
+    trainer.state = state  # the run goes on with its optimizer state
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mixtral-train] the next steps with make_sharded_moe over "
+        f"{{'ep': {spec['ep']}}} in one process")
+    ep_mem = fresh_peak()
+    reset_launch_counts()
+    ep_losses, ep_ms, ep_traced = train_steps(trainer, batch,
+                                              spec["ep_steps"])
+    ep_counts = launch_counts()
+    counts = {k: counts[k] + ep_counts[k] for k in counts}
+    ep_med = statistics.median(ep_ms[1:]) if len(ep_ms) > 1 else ep_ms[0]
+    st["ep"] = dict(losses=ep_losses, median_step_ms=ep_med,
+                    step_ms=ep_ms, over_global=ep_med / med,
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    device_busy_ms=ep_traced.get("device_busy_ms"),
+                    top_kernels_ms=ep_traced.get("top_kernels_ms"), **ep_mem)
+    log(f"  ep: median step {ep_med:.1f} ms, {ep_med / med:.3f} x the "
+        f"global view's, peak {st['ep']['peak_memory_gb']:.2f} GB")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pspec = MIXTRAL_TRAIN_PARITY
+    cfg32 = mixtral_config(n_layers=pspec["layers"], dtype="float32",
+                           moe_capacity_factor=1.25, remat=True,
+                           remat_policy="dots")
+    params32 = init_params(cfg32, SEED + 302, device=dev)
+    batch32 = train_batch(cfg32, 1, pspec["seq"] + 1, SEED + 303, dev)
+    log(f"[mixtral-train-parity] float32, {pspec['layers']} layers, [1, "
+        f"{pspec['seq'] + 1}]: kernels against the plain attention")
+    reset_launch_counts()
+    loss, grads = value_and_grad(params32, batch32, cfg32)
+    torch.cuda.synchronize()
+    par_counts = launch_counts()
+    counts = {k: counts[k] + par_counts[k] for k in counts}
+
+    def plain(q, k, v):
+        return blockwise_attention(q, k, v, causal=True)
+
+    want_loss, want = value_and_grad(params32, batch32, cfg32, plain)
+    loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+    worst = worst_grad_rel_err(grads, want)
+    router = ((grads["layers"]["moe"]["router"]
+               - want["layers"]["moe"]["router"]).abs().max()
+              / want["layers"]["moe"]["router"].abs().max()).item()
+    log(f"  loss {loss.item():.6f} vs plain {want_loss.item():.6f} (rel "
+        f"{loss_err:.2e}, tol 1e-5); worst gradient leaf {worst:.3e}, "
+        f"router {router:.3e} (tol {TRAIN_GRAD_REL_TOL})")
+    if not (loss_err <= 1e-5 and worst <= TRAIN_GRAD_REL_TOL
+            and router <= TRAIN_GRAD_REL_TOL):
+        raise AssertionError("the MoE kernel train step disagrees with the "
+                             "plain-attention step")
+    st["parity"] = dict(loss_rel_err=loss_err, worst_grad_rel_err=worst,
+                        router_grad_rel_err=router)
+    del params32, grads, want
+    torch.cuda.empty_cache()
+    return st, counts
+
+
+def sharded_step(cfg, params, batch, attn_fn=None, moe_fn=None, runs=2):
+    """``runs`` AdamW steps from the same sharded ``params`` (each to a new
+    tree), the last traced: (loss, step ms of each, trace summary, the
+    loss at the last step's new parameters)."""
+    import torch
+
+    from starway_tpu_torch.models.llama import loss_fn, make_train_step
+    from starway_tpu_torch.utils import adamw
+
+    tx = adamw(LR_TRAIN)
+    opt = tx.init(params)
+    step = make_train_step(cfg, tx, attn_fn, moe_fn, in_place=False)
+    ms, loss, traced = [], None, {}
+    for i in range(runs):
+        if i == runs - 1:
+            out, t, traced = traced_run(lambda: step(params, opt, batch))
+        else:
+            out, t = timed(lambda: step(params, opt, batch))
+            t *= 1e3
+        loss = out[2].item()
+        ms.append(t)
+        if i < runs - 1:
+            del out
+    del opt
+    after = loss_fn(out[0], batch, cfg, attn_fn, moe_fn).item()
+    del out
+    torch.cuda.empty_cache()
+    return loss, ms, traced, after
+
+
+def unsharded_step(cfg, params, batch, attn_fn=None, moe_fn=None) -> dict:
+    """The reference of a sharded step: the unsharded tree's loss, its
+    gradients and the loss at its parameters after one AdamW step."""
+    import torch
+
+    from starway_tpu_torch.models.llama import (loss_fn, make_train_step,
+                                                value_and_grad)
+    from starway_tpu_torch.utils import adamw
+
+    loss, grads = value_and_grad(params, batch, cfg, attn_fn, moe_fn)
+    tx = adamw(LR_TRAIN)
+    new = make_train_step(cfg, tx, attn_fn, moe_fn, in_place=False)(
+        params, tx.init(params), batch)[0]
+    after = loss_fn(new, batch, cfg, attn_fn, moe_fn).item()
+    del new
+    torch.cuda.empty_cache()
+    return dict(loss=loss.item(), after=after, grads=grads)
+
+
+def worst_grad_rel_err(got, want) -> float:
+    """The worst leaf's max |got - want| over its max |want|, a sharded
+    tree's leaves gathered one at a time."""
+    if isinstance(want, dict):
+        # np.max keeps a NaN (0 / 0: a leaf without gradient), so it fails.
+        return float(np.max([worst_grad_rel_err(got[k], want[k])
+                             for k in want]))
+    g = got.full() if hasattr(got, "full") else got
+    return ((g.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def phase_mesh_train(dev, card: str) -> tuple:
+    """Phase 23: training over a mesh of several axes, every slot on
+    cuda:0: llama3-8b widths cut to MESH_LAYERS layers over dp x tp x sp =
+    2 x 2 x 2 (ring, then zigzag); Mixtral widths over dp x ep x tp =
+    2 x 2 x 2; the ZeRO Trainer over 8 fsdp slots against the local one;
+    Ulysses over sp = 4 against the unsharded flash.  Each step is held to
+    the unsharded one: its loss, the loss after its AdamW update, and its
+    worst gradient leaf.  Returns (stats, launch counts)."""
+    import torch
+
+    from starway_tpu_torch.models import (LlamaConfig, Trainer,
+                                          init_params, param_specs)
+    from starway_tpu_torch.models.llama import make_sharded_attn
+    from starway_tpu_torch.models.llama import value_and_grad
+    from starway_tpu_torch.models.moe import make_sharded_moe
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.ops.attention import (SCALED_TOL,
+                                                 scaled_tolerance_share)
+    from starway_tpu_torch.ops.flash import flash_attention
+    from starway_tpu_torch.parallel import (fsdp_specs, make_mesh,
+                                            make_ulysses_attention,
+                                            shard_tree)
+    from starway_tpu_torch.utils import adamw
+
+    out, counts = {}, {}
+
+    def add(c):
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+
+    def check(label, got: dict, want: dict) -> dict:
+        rel = {k: abs(got[k] - want[k]) / abs(want[k])
+               for k in ("loss", "after")}
+        log(f"  {label}: loss {got['loss']:.5f} vs unsharded "
+            f"{want['loss']:.5f} (rel {rel['loss']:.2e}, tol "
+            f"{MESH_LOSS_REL_TOL}), after the update {got['after']:.5f} vs "
+            f"{want['after']:.5f} (rel {rel['after']:.2e}, tol "
+            f"{MESH_AFTER_REL_TOL}); worst gradient leaf "
+            f"{got['grad_rel_err']:.3e} (tol {MESH_GRAD_REL_TOL})")
+        if not (rel["loss"] <= MESH_LOSS_REL_TOL
+                and rel["after"] <= MESH_AFTER_REL_TOL
+                and got["grad_rel_err"] <= MESH_GRAD_REL_TOL):
+            raise AssertionError(f"{label}: the sharded step disagrees with "
+                                 f"the unsharded one")
+        return dict(loss_rel_err=rel["loss"], after_rel_err=rel["after"],
+                    grad_rel_err=got["grad_rel_err"])
+
+    def run_sharded(cfg, sh, batch, want, attn_fn=None, moe_fn=None):
+        """The timed steps, then the gradients, of a sharded tree."""
+        loss, ms, traced, after = sharded_step(cfg, sh, batch, attn_fn,
+                                               moe_fn)
+        grads = value_and_grad(sh, batch, cfg, attn_fn, moe_fn)[1]
+        gerr = worst_grad_rel_err(grads, want["grads"])
+        del grads
+        torch.cuda.empty_cache()
+        return dict(loss=loss, after=after, grad_rel_err=gerr), ms, traced
+
+    B, S = MESH_BATCH["batch"], MESH_BATCH["seq"]
+    cfg = LlamaConfig.preset(MESH_PRESET, n_layers=MESH_LAYERS, remat=True,
+                             remat_policy="dots")
+    params = init_params(cfg, SEED + 310, device=dev)
+    batch = train_batch(cfg, B, S + 1, SEED + 311, dev)
+    want = unsharded_step(cfg, params, batch)
+    mesh = make_mesh({"dp": 2, "tp": 2, "sp": 2}, device=dev)
+    sh = shard_tree(params, mesh, param_specs(cfg))
+    del params
+    torch.cuda.empty_cache()
+    for layout in ("ring", "zigzag"):
+        mem = fresh_peak()
+        log(f"[mesh-train] {MESH_PRESET} widths, {MESH_LAYERS} layers, bf16, "
+            f"dp x tp x sp = 2 x 2 x 2 ({layout}) in one process, batch "
+            f"[{B}, {S + 1}] ({card})")
+        reset_launch_counts()
+        got, ms, traced = run_sharded(
+            cfg, sh, batch, want, make_sharded_attn(mesh, layout=layout))
+        c = launch_counts()
+        add(c)
+        if not (c["flash_partial"] > 0 and c["flash_partial_bwd"] > 0):
+            raise AssertionError(f"{layout}: no ring-step kernel launched")
+        out[f"dp_tp_sp_{layout}"] = dict(
+            **check(layout, got, want), step_ms=ms,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=c, **mem, **traced)
+        log(f"  step ms {ms}, peak {out[f'dp_tp_sp_{layout}']['peak_memory_gb']:.2f} "
+            f"GB, collectives {traced.get('collective_device_ms')} ms of "
+            f"{traced.get('device_busy_ms')} busy (share "
+            f"{traced.get('collective_share')}); launches {c}")
+    del sh, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg = mixtral_config(n_layers=MESH_MOE_LAYERS, moe_capacity_factor=1.25,
+                          remat=True, remat_policy="dots")
+    mparams = init_params(mcfg, SEED + 312, device=dev)
+    mbatch = train_batch(mcfg, B, S + 1, SEED + 313, dev)
+    mesh = make_mesh({"dp": 2, "ep": 2, "tp": 2}, device=dev)
+    moe_fn = make_sharded_moe(mesh, k=mcfg.moe_top_k, swiglu=True,
+                              capacity_factor=mcfg.moe_capacity_factor)
+    want = unsharded_step(mcfg, mparams, mbatch, moe_fn=moe_fn)
+    sh = shard_tree(mparams, mesh, param_specs(mcfg))
+    torch.cuda.empty_cache()
+    mem = fresh_peak()
+    log(f"[mesh-train] Mixtral widths, {MESH_MOE_LAYERS} layer, bf16, dp x "
+        f"ep x tp = 2 x 2 x 2, make_sharded_moe top-{mcfg.moe_top_k}")
+    reset_launch_counts()
+    loss, ms, traced, after = sharded_step(mcfg, sh, mbatch, moe_fn=moe_fn)
+    pin = PinnedRouting()
+    with pin.record():
+        grads = value_and_grad(sh, mbatch, mcfg, None, moe_fn)[1]
+    c = launch_counts()
+    add(c)
+    free = worst_grad_rel_err(grads, want.pop("grads"))
+    with pin.replay():
+        pinned = value_and_grad(mparams, mbatch, mcfg, None, moe_fn)[1]
+    got = dict(loss=loss, after=after,
+               grad_rel_err=worst_grad_rel_err(grads, pinned))
+    del grads, pinned, mparams
+    log(f"  gradients against the unsharded step's routed freely: worst "
+        f"leaf {free:.3e}, {pin.flips} of {pin.pairs} routing choices "
+        f"differ; held routed as the sharded step:")
+    out["dp_ep_tp"] = dict(**check("dp x ep x tp", got, want),
+                           free_grad_rel_err=free, routing_flips=pin.flips,
+                           routed_pairs=pin.pairs, step_ms=ms,
+                           peak_memory_gb=torch.cuda.max_memory_allocated()
+                           / 1e9, launches=c, **mem, **traced)
+    log(f"  step ms {ms}, collectives {traced.get('collective_device_ms')} "
+        f"ms of {traced.get('device_busy_ms')} busy; launches {c}")
+    del sh, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fb, fs, slots = FSDP_BATCH["batch"], FSDP_BATCH["seq"], FSDP_BATCH["slots"]
+    params = init_params(cfg, SEED + 314, device=dev)
+    fbatch = train_batch(cfg, fb, fs + 1, SEED + 315, dev)
+    fmesh = make_mesh({"fsdp": slots}, device=dev)
+    mem = fresh_peak()
+    log(f"[mesh-train] ZeRO over {{'fsdp': {slots}}} in one process (every "
+        f"slot's 1/{slots} beside the others: no memory saved on one card), "
+        f"batch [{fb}, {fs + 1}]: the gradients of the sharded tree, then "
+        f"two steps of the ZeRO Trainer against two of the local one")
+    reset_launch_counts()
+    grads = value_and_grad(params, fbatch, cfg)[1]
+    fsh = shard_tree(params, fmesh, fsdp_specs(params, fmesh))
+    gerr = worst_grad_rel_err(value_and_grad(fsh, fbatch, cfg)[1], grads)
+    del grads, fsh
+    torch.cuda.empty_cache()
+    local = Trainer(cfg, adamw(LR_TRAIN), params, donate=False)
+    want = [local.step_sync(fbatch) for _ in range(2)]
+    del local
+    torch.cuda.empty_cache()
+    zt = Trainer(cfg, adamw(LR_TRAIN), params, mesh=fmesh, fsdp_axis="fsdp")
+    del params
+    first, ms1 = timed(lambda: zt.step_sync(fbatch))
+    second, ms2, traced = traced_run(lambda: zt.step_sync(fbatch))
+    c = launch_counts()
+    add(c)
+    out["fsdp"] = dict(**check("fsdp", dict(loss=first, after=second,
+                                            grad_rel_err=gerr),
+                               dict(loss=want[0], after=want[1])),
+                       losses=[first, second], step_ms=[ms1 * 1e3, ms2],
+                       peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       launches=c, **mem, **traced)
+    log(f"  step ms {out['fsdp']['step_ms']}, collectives "
+        f"{traced.get('collective_device_ms')} ms of "
+        f"{traced.get('device_busy_ms')} busy")
+    del zt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    u = ULYSSES
+    gen = torch.Generator(device=dev).manual_seed(SEED + 316)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_()
+
+    q, k, v = (randn(u["b"], h, u["s"], u["d"])
+               for h in (u["hq"], u["hkv"], u["hkv"]))
+    w = randn(u["b"], u["hq"], u["s"], u["d"]).detach()
+    ul = make_ulysses_attention(make_mesh({"sp": u["sp"]}, device=dev))
+    log(f"[mesh-train] Ulysses over sp = {u['sp']}: q [{u['b']}, "
+        f"{u['hq']}, {u['s']}, {u['d']}], grouped kv {u['hkv']} heads, bf16, "
+        f"forward and backward against the unsharded flash")
+
+    def run(fn):
+        with torch.enable_grad():
+            o = fn(q, k, v)
+            g = torch.autograd.grad((o.float() * w.float()).sum(), (q, k, v))
+        return o.detach(), g
+
+    reset_launch_counts()
+    (got, g_got), ul_ms, traced = traced_run(lambda: run(ul))
+    c = launch_counts()
+    add(c)
+    if not (c["flash_forward"] == u["sp"] and c["flash_backward_dq"]
+            == u["sp"] and c["flash_backward_dkv"] == u["sp"]):
+        raise AssertionError(f"Ulysses launched {c}, not one flash forward "
+                             f"and backward a slot")
+    want_o, g_want = run(lambda a, b, c_: flash_attention(a, b, c_,
+                                                          causal=True))
+    flash_ms = timed(lambda: run(lambda a, b, c_: flash_attention(
+        a, b, c_, causal=True)))[1] * 1e3
+    ul_ms2 = timed(lambda: run(ul))[1] * 1e3
+    err = (got.float() - want_o.float()).abs().max().item()
+    share = scaled_tolerance_share(got, want_o)
+    gerr = max(((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+               for a, b in zip(g_got, g_want))
+    log(f"  output max_abs_err {err:.3e}, {share:.3f} of the limit "
+        f"{SCALED_TOL[0]:g} |want| + {SCALED_TOL[1]:g} rms of want's row "
+        f"(<= 1), worst gradient rel {gerr:.3e} (tol "
+        f"{GRAD_REL_TOL['bfloat16']}); fwd+bwd {ul_ms2:.2f} ms against the "
+        f"unsharded flash's {flash_ms:.2f} ms; collectives "
+        f"{traced.get('collective_device_ms')} ms of "
+        f"{traced.get('device_busy_ms')} busy")
+    if not (share <= 1.0 and gerr <= GRAD_REL_TOL["bfloat16"]):
+        raise AssertionError("Ulysses disagrees with the unsharded flash")
+    out["ulysses"] = dict(max_abs_err=err, tol_share=share,
+                          grad_rel_err=gerr, ms=ul_ms2,
+                          flash_ms=flash_ms, launches=c,
+                          collective_device_ms=traced.get(
+                              "collective_device_ms"),
+                          device_busy_ms=traced.get("device_busy_ms"))
+    return out, counts
+
+
+def first_decode_logits(tree, cfg, prompt, token):
+    """Logits of the first decode step after one request's admission:
+    the prompt prefilled at its bucket (an int8 cache quantized), then
+    ``token`` decoded at the next position through the decode kernel."""
+    import torch
+
+    from starway_tpu_torch.models.generate import decode_step, prefill
+
+    padded, pb, last = first_logits_inputs(tree, prompt, 2048)
+    _, cache = prefill(tree, cfg, padded, pb + 16, logit_positions=last)
+    return decode_step(tree, cache, torch.tensor([token], device=last.device),
+                       len(prompt), cfg)[0]
+
+
+def phase_tp_serve(dev, card: str, reqs, done4, st4, st5) -> tuple:
+    """Phase 24: SlotServer over a llama3-8b tree sharded {"tp": 2} in one
+    process, 32 layers, phase 4's 12 requests: bf16, int8 KV, then the
+    W8A16 tree of quantized_param_specs with int8 KV (phase 7's); the
+    first decode step's logits of each format against the unsharded tree
+    of that format (bf16's first logits too); tokens beside phase 4's;
+    then float32 at 2 layers: the tp server and tp speculative decoding
+    against greedy generate(), token for token.  Returns (stats, launch
+    counts)."""
+    import torch
+
+    from starway_tpu_torch.models import (LlamaConfig, generate,
+                                          generate_speculative, init_params,
+                                          param_specs,
+                                          quantized_param_specs)
+    from starway_tpu_torch.models.generate import prefill
+    from starway_tpu_torch.models.speculative import draft_from_truncation
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.ops.gemv import int8_matmul
+    from starway_tpu_torch.ops.quantize import quantize_params
+    from starway_tpu_torch.parallel import make_mesh, shard_tree
+
+    out, counts = {}, {}
+    mesh = make_mesh({"tp": TP}, device=dev)
+    cfg = LlamaConfig.preset(TP_PRESET)
+    cfg8 = LlamaConfig.preset(TP_PRESET, kv_quant="int8")
+    params = init_params(cfg, SEED, device=dev)  # phase 4's model
+    sh = shard_tree(params, mesh, param_specs(cfg))
+
+    def first_logits(tree, c):
+        padded, pb, last = first_logits_inputs(params, reqs[0][0], 2048)
+        return prefill(tree, c, padded, pb, logit_positions=last)[0]
+
+    def decode_check(label, got_tree, c, want):
+        log(f"  {label}, the first decode step against the unsharded "
+            f"tree's:")
+        return compare_logits(first_decode_logits(got_tree, c, reqs[0][0],
+                                                  token), want)
+
+    want_first = first_logits(params, cfg)
+    token = int(want_first.argmax(-1)[0])
+    want_decode = {label: first_decode_logits(params, c, reqs[0][0], token)
+                   for label, c in (("bf16", cfg), ("int8-kv", cfg8))}
+    for label, c, want_st in (("bf16", cfg, st4), ("int8-kv", cfg8, None)):
+        log(f"[tp-serve] {TP_PRESET}, {cfg.n_layers} layers, over {{'tp': {TP}}} in one "
+            f"process ({label}), phase 4's {len(reqs)} requests ({card})")
+        reset_launch_counts()
+        done, st = serve(sh, c, reqs)[:2]
+        cnt = launch_counts()
+        for k, n in cnt.items():
+            counts[k] = counts.get(k, 0) + n
+        if not (cnt["decode_attention"] > 0 and cnt["flash_forward"] > 0):
+            raise AssertionError("tp serving launched no decode or flash "
+                                 "kernel")
+        agree = sum(int((a == b).sum()) for a, b in zip(done.values(),
+                                                        done4))
+        total = sum(len(b) for b in done4)
+        if label == "bf16":
+            st["first_logits_rel_err"] = compare_logits(
+                first_logits(sh, c), want_first)
+        st.update(tokens_equal_to_phase4=agree, of=total, launches=cnt,
+                  decode_logits_rel_err=decode_check(label, sh, c,
+                                                     want_decode[label]))
+        log(f"  {st['tokens_per_s']:.1f} tokens/s (phase 4, unsharded: "
+            f"{st4['tokens_per_s']:.1f}); tokens equal to phase 4's "
+            f"{agree} of {total}; launches {cnt}")
+        out[label] = st
+    del sh
+    torch.cuda.empty_cache()
+    qparams = quantize_params(params)
+    del params
+    torch.cuda.empty_cache()
+    want_w8 = first_decode_logits(qparams, cfg8, reqs[0][0], token)
+    sq = shard_tree(qparams, mesh, quantized_param_specs(cfg))
+    del qparams
+    torch.cuda.empty_cache()
+    log("[tp-serve] W8A16 tree over tp + int8 KV, the same requests")
+    reset_launch_counts()
+    done, st = serve(sq, cfg8, reqs)[:2]
+    cnt = launch_counts()
+    by_regime = dict(int8_matmul.regime_launches)
+    for k, n in cnt.items():
+        counts[k] = counts.get(k, 0) + n
+    if not (cnt["int8_matmul"] > 0 and by_regime["decode"] > 0):
+        raise AssertionError("the tp W8A16 run did not launch the GEMV")
+    st.update(launches=cnt, gemv_by_regime=by_regime,
+              decode_logits_rel_err=decode_check("W8A16 + int8 KV", sq, cfg8,
+                                                 want_w8))
+    log(f"  {st['tokens_per_s']:.1f} tokens/s (phase 7, unsharded: "
+        f"{st5['tokens_per_s']:.1f}); launches {cnt}, GEMV by regime "
+        f"{by_regime}")
+    out["w8a16-int8-kv"] = st
+    del sq
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = LlamaConfig.preset(TP_PRESET, n_layers=TP_PARITY_LAYERS,
+                               dtype="float32")
+    p32 = init_params(cfg32, SEED + 320, device=dev)
+    s32 = shard_tree(p32, mesh, param_specs(cfg32))
+    log(f"[tp-parity] float32, {TP_PARITY_LAYERS} layers over tp = {TP}: "
+        f"SlotServer and speculative decoding against greedy generate()")
+    small = reqs[:4]
+    reset_launch_counts()
+    done = serve(s32, cfg32, small)[0]
+    for (prompt, m, _w), got in zip(small, done.values()):
+        want = generate(p32, cfg32, torch.tensor([prompt], device=dev), m,
+                        max_len=2048)[0, len(prompt):].cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"the tp server diverged from generate(): "
+                                 f"{got} != {want}")
+    sp = TP_SPEC
+    rng = np.random.default_rng(SEED + 321)
+    prompt = torch.tensor(rng.integers(1, cfg32.vocab_size,
+                                       (1, sp["prompt_len"])), device=dev)
+    draft, dcfg = draft_from_truncation(p32, cfg32, 1)
+    sdraft = shard_tree(draft, mesh, param_specs(dcfg))
+    ref = generate(s32, cfg32, prompt, sp["new"])
+    toks, stats = generate_speculative(s32, cfg32, sdraft, dcfg, prompt,
+                                       sp["new"], gamma=sp["gamma"],
+                                       return_stats=True)
+    cnt = launch_counts()
+    for k, n in cnt.items():
+        counts[k] = counts.get(k, 0) + n
+    if not torch.equal(toks, ref):
+        raise AssertionError("tp speculative decoding diverged from tp "
+                             "greedy generate()")
+    out["parity"] = dict(server_requests_equal=len(small),
+                         speculative_equal=True,
+                         accepted=int(stats["accepted"].sum()),
+                         macro_steps=int(stats["macro_steps"].sum()),
+                         launches=cnt)
+    log(f"  {len(small)} requests and the speculative run (gamma "
+        f"{sp['gamma']}, {sp['new']} tokens) token for token; {out['parity']}")
+    del p32, s32, draft, sdraft
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def main() -> int:
     import torch
 
@@ -4796,6 +5607,23 @@ def main() -> int:
     log(f"[mixtral] phases 20-21 took {t21 - t20:.1f} + "
         f"{time.perf_counter() - t21:.1f} s")
 
+    # 22-24: training and serving over a mesh of several axes.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t22 = time.perf_counter()
+    st_mt, c22 = phase_mixtral_train(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t23 = time.perf_counter()
+    st_mesh, c23 = phase_mesh_train(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t24 = time.perf_counter()
+    st_tp, c24 = phase_tp_serve(dev, card, reqs, list(done4.values()), st4,
+                                st5)
+    log(f"[mesh] phases 22-24 took {t23 - t22:.1f} + {t24 - t23:.1f} + "
+        f"{time.perf_counter() - t24:.1f} s")
+
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
     rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
@@ -4820,19 +5648,21 @@ def main() -> int:
             label: traced[label].get("attention_device_ms")
             for label in labels}
 
-    # 22. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
-    # 18, 19, 20 and 21) and the training paths' (phases 11, 13 and 16, the
-    # last the DP ranks' own counts on both engines), each counted from 0
-    # just before its run and read just after.
+    # 25. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
+    # 18, 19, 20, 21 and 24) and the training paths' (phases 11, 13, 16,
+    # 22 and 23, 16 the DP ranks' own counts on both engines), each counted
+    # from 0 just before its run and read just after.
     main_counts = {k: main_counts[k] + c7[k] + c_ring[k] + c_dp[k]
                    + c_dpn[k] + c18.get(k, 0) + c19.get(k, 0)
-                   + c20.get(k, 0) + c21.get(k, 0)
+                   + c20.get(k, 0) + c21.get(k, 0) + c22.get(k, 0)
+                   + c23.get(k, 0) + c24.get(k, 0)
                    for k in main_counts}
     kernels = []
     for key, row in rows.items():
         row = dict(row)
         row["launches"] = main_counts[key]
-        for phase, c in ((18, c18), (19, c19), (20, c20), (21, c21)):
+        for phase, c in ((18, c18), (19, c19), (20, c20), (21, c21),
+                         (22, c22), (23, c23), (24, c24)):
             row[f"launches_phase{phase}"] = c.get(key, 0)
         kernels.append(row)
     # The W8A16 runs (phases 7 and 18) launch the GEMV; the others' counts
@@ -4944,9 +5774,32 @@ def main() -> int:
         f"{st_mix['ep']}; conversion {st_mix['convert']}; first logits "
         f"{st_mix['first_logits']}; launches {c20}")
     log(f"[summary] mixtral-parity: {st_mixp}; launches {c21}")
+    log(f"[summary] mixtral-train ({card}): median step "
+        f"{st_mt['median_step_ms']:.1f} ms, {st_mt['tokens_per_s']:.0f} "
+        f"tokens/s, model FLOP share {st_mt['model_flop_share']:.4f}, peak "
+        f"{st_mt['peak_memory_gb']:.2f} GB, idle share "
+        f"{st_mt.get('device_idle_share')}, losses {st_mt['losses']}, aux "
+        f"{st_mt['aux_after']:.4f}, router {st_mt['moe_stats']}; ep=4 "
+        f"{st_mt['ep']['median_step_ms']:.1f} ms a step "
+        f"({st_mt['ep']['over_global']:.3f} x); parity {st_mt['parity']}; "
+        f"launches {c22}")
+    for name, st in st_mesh.items():
+        log(f"[summary] mesh-train {name} ({card}): "
+            + ", ".join(f"{k} {st.get(k)}" for k in (
+                "loss_rel_err", "step_ms", "ms", "flash_ms", "max_abs_err",
+                "grad_rel_err", "peak_memory_gb", "device_busy_ms",
+                "collective_device_ms", "collective_share") if k in st))
+    for name, st in st_tp.items():
+        log(f"[summary] tp-serve {name} ({card}): "
+            + ", ".join(f"{k} {st.get(k)}" for k in (
+                "tokens_per_s", "wall_s", "admission_s", "median_chunk_ms",
+                "device_idle_share", "tokens_equal_to_phase4", "of",
+                "first_logits_rel_err", "gemv_by_regime",
+                "server_requests_equal", "speculative_equal", "accepted",
+                "macro_steps") if k in st))
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 23. last line
+    # 26. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,18 +27,26 @@ import torch.nn.functional as F
 
 from ..ops.attention import NEG_BIG, repeat_kv
 from ..ops.quantize import dequantize_kv, quantize_kv
-from .llama import (LlamaConfig, apply_rope, cfg_rope_tables, decoder_layer,
-                    embed_tokens, forward, head_logits, layer_params,
-                    matmul_w, mlp_gate_act, moe_ffn, params_device, qkv_proj,
-                    resolve_longrope, rmsnorm, unstack_layers)
+from .llama import (LlamaConfig, cfg_rope_tables, decoder_block,
+                    decoder_layer, embed_tokens, final_logits, forward,
+                    head_logits, params_device, resolve_longrope,
+                    unstack_layers)
 from .moe import require_dropless
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               device="cuda") -> dict:
+               device="cuda", params=None) -> dict:
     """Zeroed decode cache: ``k/v [n_layers, B, Hkv, max_len, head_dim]``
     in the compute dtype, or int8 plus float32 ``k_scale/v_scale`` when
-    ``cfg.kv_quant == "int8"`` (the scale keys mark the format)."""
+    ``cfg.kv_quant == "int8"`` (the scale keys mark the format).  For a
+    tree sharded over ``{"tp": n}`` (``params``), each leaf is a
+    models/sharded.py ``HeadSplit``: every slot's part holds its kv
+    heads."""
+    from .sharded import tp_init_cache, tree_mesh
+
+    mesh = None if params is None else tree_mesh(params)
+    if mesh is not None:
+        return tp_init_cache(cfg, mesh, batch, max_len)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     dev = torch.device(device)
     if cfg.kv_quant == "int8":
@@ -155,46 +163,53 @@ def decode_step(params: dict, cache: dict, token, pos, cfg: LlamaConfig,
     h = embed_tokens(params, token, cfg)[:, None, :]  # [B, 1, D]
     h, cache = cached_layer_scan(params, cache, h, cos_p, sin_p, cfg, write,
                                  attend)
-    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    logits = matmul_w(h[:, 0, :], params["lm_head"]).float()
-    return logits, cache
+    return final_logits(params, h[:, 0, :], cfg), cache
 
 
 def cached_layer_scan(params, cache, h, cos_p, sin_p, cfg: LlamaConfig,
                       write, attend):
-    """The per-layer body of every cached decode path: qkv projection,
-    RoPE, quantize-on-write for an int8 cache, ``write(c, u)`` of each new
-    entry at the caller's cursor(s) into the layer's cache (in place),
-    ``attend(q, layer_cache)``, then the FFN (dense, or the MoE's
-    :func:`~starway_tpu_torch.models.moe.switch_moe` at the config's
-    capacity over the ``B * C`` tokens of the step).  ``h [B, C, D]``;
-    returns ``(h, cache)``."""
-    B, C = h.shape[0], h.shape[1]
+    """The per-layer body of every cached decode path: the model's decoder
+    block (:func:`~starway_tpu_torch.models.llama.decoder_block`) whose
+    attention quantizes each new entry for an int8 cache, writes it with
+    ``write(c, u)`` at the caller's cursor(s) into the layer's cache (in
+    place) and runs ``attend(q, layer_cache)``; the FFN is dense, or the
+    MoE's :func:`~starway_tpu_torch.models.moe.switch_moe` at the config's
+    capacity over the ``B * C`` tokens of the step.  ``h [B, C, D]``;
+    returns ``(h, cache)``.  A tree sharded over ``{"tp": n}`` runs each
+    slot's heads against its part of the cache (models/sharded.py
+    ``HeadSplit``)."""
+    from .sharded import cache_parts, serving_tree
+
+    tree = serving_tree(params)
+    parts = {name: cache_parts(c) for name, c in cache.items()}
     quant = "k_scale" in cache
+
+    def moe(xs, ms):
+        return tree.moe(xs, ms, cfg, None)
+
+    def attend_slots(lcs):
+        def run(qs, ks, vs):
+            outs = []
+            for q, k, v, lc in zip(qs, ks, vs, lcs):
+                if quant:
+                    k, k_s = quantize_kv(k)
+                    v, v_s = quantize_kv(v)
+                    write(lc["k_scale"], k_s)
+                    write(lc["v_scale"], v_s)
+                write(lc["k"], k)
+                write(lc["v"], v)
+                outs.append(attend(q, lc))
+            return outs
+
+        return run
+
+    hs = [h] * tree.n
     for li in range(cfg.n_layers):
-        lp = layer_params(params["layers"], li)
-        lc = {name: t[li] for name, t in cache.items()}
-        x = rmsnorm(h, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = qkv_proj(x, lp, cfg)
-        q = apply_rope(q, cos_p, sin_p)
-        k = apply_rope(k, cos_p, sin_p)
-        if quant:
-            k, k_s = quantize_kv(k)
-            v, v_s = quantize_kv(v)
-            write(lc["k_scale"], k_s)
-            write(lc["v_scale"], v_s)
-        write(lc["k"], k)
-        write(lc["v"], v)
-        o = attend(q, lc)
-        o = o.transpose(1, 2).reshape(B, C, cfg.n_heads * cfg.head_dim)
-        h = h + matmul_w(o, lp["wo"])
-        x = rmsnorm(h, lp["mlp_norm"], cfg.norm_eps)
-        if cfg.n_experts > 0:
-            h = h + moe_ffn(x, lp["moe"], cfg)[0]
-        else:
-            gate = mlp_gate_act(matmul_w(x, lp["w_gate"]), cfg).to(x.dtype)
-            h = h + matmul_w(gate * matmul_w(x, lp["w_up"]), lp["w_down"])
-    return h, cache
+        lcs = [{name: p[j][li] for name, p in parts.items()}
+               for j in range(tree.n)]
+        hs = decoder_block(tree.layer(li), hs, cfg, cos_p, sin_p,
+                           attend_slots(lcs), moe, tree.reduce)[0]
+    return hs[0], cache
 
 
 def prefill(params: dict, cfg: LlamaConfig, prompt,
@@ -214,15 +229,19 @@ def prefill(params: dict, cfg: LlamaConfig, prompt,
     logits, (ks, vs) = forward(
         params, prompt, cfg, attn_fn, return_kv=True,
         last_only=logit_positions is None, logit_positions=logit_positions)
+    from .sharded import per_part
+
     cache = {"k": ks, "v": vs}
     if cfg.kv_quant == "int8":
-        cache["k"], cache["k_scale"] = quantize_kv(ks)
-        cache["v"], cache["v_scale"] = quantize_kv(vs)
+        cache["k"], cache["k_scale"] = per_part(quantize_kv, ks)
+        cache["v"], cache["v_scale"] = per_part(quantize_kv, vs)
     pad = max_len - P
     if pad:
         # Every leaf's T axis sits at index 3.
-        cache = {name: F.pad(a, (0, 0, 0, pad) if a.dim() == 5 else (0, pad))
-                 for name, a in cache.items()}
+        def grow(a):
+            return F.pad(a, (0, 0, 0, pad) if a.dim() == 5 else (0, pad))
+
+        cache = {name: per_part(grow, a) for name, a in cache.items()}
     return logits[:, 0], cache
 
 

@@ -21,8 +21,14 @@ Mixture-of-experts models (``cfg.n_experts > 0``) carry a ``moe`` subtree
 in place of the dense FFN's leaves and run :func:`~starway_tpu_torch.
 models.moe.switch_moe` at the FFN site, or the ``moe_fn`` given to
 :func:`forward` (models/moe.py :func:`make_sharded_moe` for the expert
-all-to-all over a mesh's ``"ep"`` axis).  They serve; they do not train
-yet (:func:`loss_fn` refuses them).
+all-to-all over a mesh's ``"ep"`` axis); :func:`loss_fn` adds their
+balance term.
+
+A tree sharded over a mesh (:func:`param_specs`, parallel/sharding.py
+``shard_array``, parallel/fsdp.py ``shard_tree``) runs through the same
+entry points: :func:`forward`, :func:`value_and_grad` and the train step
+hand it to models/sharded.py, which runs every slot of the mesh with the
+collectives written out.
 
 Training: :func:`loss_fn` (mean next-token cross-entropy), a functional
 :func:`value_and_grad`, :func:`apply_updates` and :func:`make_train_step`
@@ -47,12 +53,6 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import blockwise_attention
 from ..utils.tree import tree_leaves, tree_unflatten
-
-_MOE_TODO = ("training mixture-of-experts models is not ported yet: the "
-             "aux term of loss_fn, value_and_grad and the Trainer's moe_fn "
-             "and with_moe_stats come with the next MoE slice (ROADMAP.md, "
-             "Queue 1 item 6); MoE models serve")
-
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -229,6 +229,51 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> dict:
                       bv=torch.zeros((L, Hkv * hd), dtype=dt, device=dev))
     return {"embed": embed, "layers": layers, "final_norm": ones((D,)),
             "lm_head": norm((D, cfg.vocab_size), D ** -0.5)}
+
+
+def param_specs(cfg: LlamaConfig) -> dict:
+    """The ``PartitionSpec`` tree of tensor parallelism over axis "tp":
+    projection out-dims (heads, ff) split over tp, wo and down on their
+    in-dim, the embedding and lm_head on the vocab (models/sharded.py
+    writes out the collectives this layout needs)."""
+    from ..parallel.sharding import P
+
+    layers = {"wq": P(None, None, "tp"), "wk": P(None, None, "tp"),
+              "wv": P(None, None, "tp"), "wo": P(None, "tp", None),
+              "attn_norm": P(None, None), "mlp_norm": P(None, None)}
+    if cfg.attn_bias:
+        # Biases live on the projection out-dim: split with their weight.
+        layers.update(bq=P(None, "tp"), bk=P(None, "tp"), bv=P(None, "tp"))
+    if cfg.n_experts > 0:
+        from .moe import moe_specs
+
+        layers["moe"] = moe_specs(swiglu=cfg.moe_swiglu)
+    else:
+        layers.update(w_gate=P(None, None, "tp"), w_up=P(None, None, "tp"),
+                      w_down=P(None, "tp", None))
+    return {"embed": P("tp", None), "layers": layers, "final_norm": P(None),
+            "lm_head": P(None, "tp")}
+
+
+def quantized_param_specs(cfg: LlamaConfig) -> dict:
+    """:func:`param_specs` for a W8A16 tree (ops/quantize.py
+    ``quantize_params``): each matmul leaf's spec applies to its ``q``,
+    and its ``s`` (which drops the contracted axis, -2) keeps the leading
+    and output dims of that spec, so tp still splits the output channels
+    and the scales follow them."""
+    from ..ops.quantize import _MATMUL_LEAVES
+    from ..parallel.sharding import P
+
+    specs = param_specs(cfg)
+
+    def split(spec):
+        return {"q": spec, "s": P(*spec[:-2], spec[-1])}
+
+    layers = dict(specs["layers"])
+    for name in _MATMUL_LEAVES:
+        if name in layers:
+            layers[name] = split(layers[name])
+    return dict(specs, layers=layers, lm_head=split(specs["lm_head"]))
 
 
 def layer_params(layers: dict, i: int) -> dict:
@@ -419,6 +464,16 @@ def head_logits(h, final_norm_w, lm_head_w, eps: float):
     return matmul_w(rmsnorm(h, final_norm_w, eps), lm_head_w).float()
 
 
+def final_logits(params: dict, h, cfg: "LlamaConfig"):
+    """The tail of the cached decode paths: :func:`head_logits` of the
+    tree (the vocab-split head of a tensor-parallel tree gathered)."""
+    from .sharded import serving_tree
+
+    tree = serving_tree({"final_norm": params["final_norm"],
+                         "lm_head": params["lm_head"]})
+    return tree.head([h] * tree.n, cfg)[0]
+
+
 def token_ce(logits, targets):
     """Mean next-token cross-entropy of ``logits [..., V]`` against int ids
     ``targets [...]``, as ``logsumexp - target_logit``: no log-softmax
@@ -474,20 +529,27 @@ def make_sharded_attn(mesh, *, seq_axis: str = "sp", dp_axis: str = "dp",
                       window: Optional[int] = None):
     """Sequence-parallel ring attention as the model's ``attn_fn``
     (``forward``, ``value_and_grad``, ``Trainer(attn_fn=...)``): q/k/v
-    arrive ``[B, H, S, Dh]`` with grouped kv, the sequence is cut into the
-    ``seq_axis`` shards of ``mesh`` (parallel/sharding.py) and the narrow
-    kv shards rotate around the ring (parallel/ring_attention.py).
+    arrive ``[B, H, S, Dh]`` with grouped kv, batch over ``dp_axis``,
+    heads over ``tp_axis`` and sequence over ``seq_axis`` (the JAX
+    package's spec ``P(dp, tp, sp, None)``; an axis the mesh lacks is
+    whole), and the narrow kv shards rotate around the ring
+    (parallel/ring_attention.py).  Requires ``n_kv_heads % tp == 0``.
+
+    The returned fn takes the global q/k/v (this process's box of them on
+    a mesh with a process group); its ``slots(qs, ks, vs)`` takes the
+    slots' tensors of a sharded tree's forward (models/sharded.py), each
+    with the whole sequence, and returns each slot's whole output.
 
     ``layout="zigzag"`` is the load-balanced causal layout (a sequence
     permutation per call).  ``window``: the sliding band (match
     ``cfg.sliding_window``; the returned fn declares ``handles_window`` so
     :func:`resolve_attn_fn` admits it on windowed configs), ring layout
-    only.  The model runs whole sequences in one process, so the mesh
-    holds every shard here (no process group).  ``dp_axis``/``tp_axis``
-    keep the JAX signature; :func:`~starway_tpu_torch.parallel.make_mesh`
-    already refuses those axes above size 1, so they are not read."""
-    from ..parallel.ring_attention import (make_ring_attention,
-                                           make_zigzag_ring_attention)
+    only."""
+    from ..ops.collectives import all_gather, axis_index
+    from ..parallel.ring_attention import (ring_attention_slots,
+                                           zigzag_indices,
+                                           zigzag_ring_attention_slots)
+    from ..parallel.sharding import cut_blocks, join_blocks
 
     if layout not in ("ring", "zigzag"):
         raise ValueError(f"unknown attention layout {layout!r}; expected "
@@ -496,14 +558,57 @@ def make_sharded_attn(mesh, *, seq_axis: str = "sp", dp_axis: str = "dp",
         raise ValueError(
             "window is supported on the plain ring layout only (zigzag's "
             "interleaved shards break the contiguous band-skip argument)")
-    if mesh.world > 1:
-        raise NotImplementedError(
-            "the model is not split over processes: make_sharded_attn "
-            "takes a mesh without a process group (ROADMAP.md, Queue 1 "
-            "item 6)")
-    if layout == "zigzag":
-        return make_zigzag_ring_attention(mesh, seq_axis)
-    fn = make_ring_attention(mesh, seq_axis, causal=True, window=window)
+    spec = tuple(a if a in mesh.shape else None
+                 for a in (dp_axis, tp_axis, seq_axis)) + (None,)
+    n = mesh.shape.get(seq_axis, 1)
+
+    def blocks_of(xs, full: bool) -> list:
+        """The slots' ring blocks of whole sequences (``full``) or of
+        their natural-order sequence blocks."""
+        if layout == "ring":
+            if not full:
+                return xs
+            t = xs[0].shape[2] // n
+            return [x[:, :, i * t:(i + 1) * t]
+                    for x, i in zip(xs, axis_index(mesh, seq_axis))]
+        if not full:
+            xs = all_gather(xs, mesh, seq_axis, 2)
+        s_len = xs[0].shape[2]
+        perm = torch.from_numpy(zigzag_indices(s_len, n)).to(xs[0].device)
+        t = s_len // n
+        return [x.index_select(2, perm[i * t:(i + 1) * t])
+                for x, i in zip(xs, axis_index(mesh, seq_axis))]
+
+    def run(qs, ks, vs, full: bool) -> list:
+        qs, ks, vs = (blocks_of(x, full) for x in (qs, ks, vs))
+        if seq_axis not in mesh.shape:
+            return [default_attn(q, k, v, window) for q, k, v in
+                    zip(qs, ks, vs)]
+        if layout == "zigzag":
+            outs = zigzag_ring_attention_slots(qs, ks, vs, mesh, seq_axis)
+        else:
+            outs = ring_attention_slots(qs, ks, vs, mesh, seq_axis,
+                                        causal=True, window=window)
+        if layout == "ring" and not full:
+            return outs
+        whole = all_gather(outs, mesh, seq_axis, 2)
+        if layout == "zigzag":
+            inv = torch.argsort(torch.from_numpy(
+                zigzag_indices(whole[0].shape[2], n)).to(whole[0].device))
+            whole = [w.index_select(2, inv) for w in whole]
+        if full:
+            return whole
+        t = whole[0].shape[2] // n
+        return [w[:, :, i * t:(i + 1) * t]
+                for w, i in zip(whole, axis_index(mesh, seq_axis))]
+
+    def fn(q, k, v):
+        outs = run(*(cut_blocks(x, mesh, spec) for x in (q, k, v)),
+                   full=False)
+        return join_blocks(outs, mesh, spec)
+
+    fn.slots = lambda qs, ks, vs: run(qs, ks, vs, full=True)
+    fn.mesh = mesh
     if window is not None:
         fn.handles_window = True
         fn.window = window  # resolve_attn_fn cross-checks the config
@@ -515,12 +620,12 @@ def make_sharded_attn(mesh, *, seq_axis: str = "sp", dp_axis: str = "dp",
 
 def embed_tokens(params: dict, tokens, cfg: LlamaConfig):
     """Token embedding gather, with sqrt(d_model) output scaling when
-    ``cfg.scaled_embed``."""
-    h = params["embed"][tokens]
-    if cfg.scaled_embed:
-        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
-                             device=h.device)
-    return h
+    ``cfg.scaled_embed`` (the vocab-parallel lookup of a tp tree,
+    models/sharded.py)."""
+    from .sharded import serving_tree
+
+    tree = serving_tree({"embed": params["embed"]})
+    return tree.embed([tokens] * tree.n, cfg)[0]
 
 
 def mlp_gate_act(x, cfg: LlamaConfig):
@@ -534,7 +639,9 @@ def mlp_gate_act(x, cfg: LlamaConfig):
 
 def qkv_proj(x, lp, cfg: LlamaConfig):
     """q/k/v projections of ``x [B, S, D]`` -> ``[B, H, S, hd]`` heads,
-    before RoPE, with the optional bq/bk/bv biases."""
+    before RoPE, with the optional bq/bk/bv biases.  The head counts are
+    the projections' widths over ``cfg.head_dim``: a tensor-parallel
+    slot's share of the heads."""
     B, S = x.shape[0], x.shape[1]
     hd = cfg.head_dim
     q = matmul_w(x, lp["wq"])
@@ -544,9 +651,9 @@ def qkv_proj(x, lp, cfg: LlamaConfig):
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
-    return (q.reshape(B, S, cfg.n_heads, hd).transpose(1, 2),
-            k.reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2),
-            v.reshape(B, S, cfg.n_kv_heads, hd).transpose(1, 2))
+    return (q.reshape(B, S, -1, hd).transpose(1, 2),
+            k.reshape(B, S, -1, hd).transpose(1, 2),
+            v.reshape(B, S, -1, hd).transpose(1, 2))
 
 
 def _gated(g, u, cfg: LlamaConfig):
@@ -583,54 +690,70 @@ def moe_ffn(x, moe: dict, cfg: LlamaConfig,
     return y, aux, None
 
 
-def decoder_layer(lp, h, cfg: LlamaConfig, cos, sin, attn_fn: Callable,
-                  moe_fn: Optional[Callable] = None):
-    """One pre-norm decoder block on ``h [B, S, D]`` with one layer's
-    params.  Returns ``(h, aux, k, v, stats)``: aux is the MoE balance
-    term (a float32 zero for dense layers), k/v the post-RoPE grouped heads
-    (the KV-cache prefix), stats the router health when ``moe_fn`` returns
-    it, else None.  An MoE layer runs :func:`moe_ffn` at the FFN site.
+def decoder_block(lps: list, hs: list, cfg: LlamaConfig, cos, sin,
+                  attend: Callable, moe: Callable, reduce: Callable):
+    """One pre-norm decoder block on a list of shards: ``lps`` each
+    shard's layer params, ``hs`` its hidden states ``[B, S, D]`` (one of
+    each for a whole tree, one a mesh slot for a sharded one,
+    models/sharded.py).  A shard runs the heads and the MLP width its
+    projections hold.  The shards meet in three hooks:
+    ``attend(qs, ks, vs)`` gives each shard's attention output from its
+    post-RoPE grouped heads; ``reduce(ys, name)`` sums the partial
+    products of the row-split ``"wo"`` and ``"w_down"`` over the shards
+    that hold parts of them (the identity for a whole tree); ``moe(xs,
+    [lp["moe"], ...])`` gives an expert layer's ``(ys, auxes, stats)``.
+
+    Returns ``(hs, auxes, ks, vs, stats)``: aux is the MoE balance term (a
+    float32 zero for dense layers), k/v the post-RoPE grouped heads (the
+    KV-cache prefix), stats the router health when the MoE function
+    returns it, else None.
 
     Under ``remat_policy="dots"`` (with autograd on) the norms, rope and
     the gate activation run in checkpointed regions: the backward replays
     them from the saved matmul outputs, the JAX package's chunked "dots"
     structure.  The attention call and the matmuls stay outside every
     region, so the flash forward never runs again in the backward."""
-    B, S, _ = h.shape
     chunked = (cfg.remat and cfg.remat_policy == "dots"
                and torch.is_grad_enabled())
     run = _replayed if chunked else _direct
-    x = run(rmsnorm, h, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = qkv_proj(x, lp, cfg)
-    q = run(apply_rope, q, cos, sin)
-    k = run(apply_rope, k, cos, sin)
-    o = attn_fn(q, k, v)  # [B, H, S, Dh]
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
-    h = h + matmul_w(o, lp["wo"])
-    x = run(rmsnorm, h, lp["mlp_norm"], cfg.norm_eps)
+    qs, ks, vs = [], [], []
+    for lp, h in zip(lps, hs):
+        x = run(rmsnorm, h, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = qkv_proj(x, lp, cfg)
+        qs.append(run(apply_rope, q, cos, sin))
+        ks.append(run(apply_rope, k, cos, sin))
+        vs.append(v)
+    ys = []
+    for o, lp in zip(attend(qs, ks, vs), lps):  # o [B, H, S, Dh]
+        B, _, S, _ = o.shape
+        ys.append(matmul_w(o.transpose(1, 2).reshape(B, S, -1), lp["wo"]))
+    hs = [h + y for h, y in zip(hs, reduce(ys, "wo"))]
+    xs = [run(rmsnorm, h, lp["mlp_norm"], cfg.norm_eps)
+          for h, lp in zip(hs, lps)]
     if cfg.n_experts > 0:
-        y, aux, stats = moe_ffn(x, lp["moe"], cfg, moe_fn)
-        return h + y, aux, k, v, stats
-    gate = run(_gated, matmul_w(x, lp["w_gate"]), matmul_w(x, lp["w_up"]),
-               cfg)
-    h = h + matmul_w(gate, lp["w_down"])
-    return h, torch.zeros((), dtype=torch.float32, device=h.device), k, v, None
+        ys, auxes, stats = moe(xs, [lp["moe"] for lp in lps])
+        return [h + y for h, y in zip(hs, ys)], auxes, ks, vs, stats
+    ys = [matmul_w(run(_gated, matmul_w(x, lp["w_gate"]),
+                       matmul_w(x, lp["w_up"]), cfg), lp["w_down"])
+          for x, lp in zip(xs, lps)]
+    zero = torch.zeros((), dtype=torch.float32, device=hs[0].device)
+    return ([h + y for h, y in zip(hs, reduce(ys, "w_down"))],
+            [zero] * len(hs), ks, vs, None)
 
 
-def _remat_wrap(layer: Callable, cfg: LlamaConfig) -> Callable:
-    """Full-layer remat (``cfg.remat`` without a policy): the whole layer,
-    attention included, is recomputed in the backward, so the flash
-    forward runs twice per layer and step.  "dots" lives inside
-    :func:`decoder_layer` instead."""
-    if not cfg.remat or cfg.remat_policy == "dots":
-        return layer
+def decoder_layer(lp, h, cfg: LlamaConfig, cos, sin, attn_fn: Callable,
+                  moe_fn: Optional[Callable] = None):
+    """:func:`decoder_block` on one whole shard: ``(h, aux, k, v,
+    stats)``, the MoE layer through :func:`moe_ffn`."""
+    def moe(xs, ms):
+        y, aux, stats = moe_ffn(xs[0], ms[0], cfg, moe_fn)
+        return [y], [aux], stats
 
-    def wrapped(lp, h, *rest):
-        if not torch.is_grad_enabled():
-            return layer(lp, h, *rest)
-        return checkpoint(layer, lp, h, *rest, use_reentrant=False)
-
-    return wrapped
+    hs, auxes, ks, vs, stats = decoder_block(
+        [lp], [h], cfg, cos, sin,
+        lambda qs, ks_, vs_: [attn_fn(qs[0], ks_[0], vs_[0])], moe,
+        lambda ys, name: ys)
+    return hs[0], auxes[0], ks[0], vs[0], stats
 
 
 def forward(params: dict, tokens, cfg: LlamaConfig,
@@ -652,8 +775,11 @@ def forward(params: dict, tokens, cfg: LlamaConfig,
     ``attn_fn(q, k, v)`` takes grouped kv and defaults to
     :func:`default_attn`; ``moe_fn(x, router_w, w_in, w_out[, w_gate]) ->
     (y, aux[, stats])`` replaces the MoE FFN (:func:`moe_ffn`).
-    """
-    attn_fn = resolve_attn_fn(cfg, attn_fn)
+
+    A sharded tree runs on its mesh's slots (models/sharded.py); the
+    logits are those of the batch rows this process's slots hold."""
+    from .sharded import SlotTree
+
     if return_moe_stats and cfg.n_experts == 0:
         raise ValueError(
             "return_moe_stats=True but cfg.n_experts == 0: a dense model "
@@ -663,67 +789,145 @@ def forward(params: dict, tokens, cfg: LlamaConfig,
             "return_moe_stats needs a stats-producing moe_fn (build one "
             "with make_sharded_moe(..., with_stats=True) or wrap "
             "switch_moe(..., with_stats=True))")
-    B, S = tokens.shape
-    cos, sin = cfg_rope_tables(cfg, S, device=tokens.device)
-    h = embed_tokens(params, tokens, cfg)
-    layer = _remat_wrap(decoder_layer, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    ks, vs, stats = [], [], []
-    for lp in unstack_layers(params["layers"], cfg.n_layers):
-        h, layer_aux, k, v, st = layer(lp, h, cfg, cos, sin, attn_fn,
-                                       moe_fn)
-        aux = aux + layer_aux
-        if return_moe_stats:
-            if st is None:
-                raise ValueError("return_moe_stats=True but moe_fn returned "
-                                 "no stats (build it with with_stats=True)")
-            stats.append(st)
-        if return_kv:
-            ks.append(k)
-            vs.append(v)
-    if last_only:
-        h = h[:, -1:]
-    elif logit_positions is not None:
-        idx = torch.as_tensor(logit_positions, device=h.device).long()
-        h = torch.gather(h, 1, idx[:, None, None].expand(-1, 1, h.shape[-1]))
-    out = (head_logits(h, params["final_norm"], params["lm_head"],
-                       cfg.norm_eps),)
+    tree = SlotTree(params, moe_fn=moe_fn)
+    pos = None
+    if logit_positions is not None:
+        pos = tree.cut_batch(torch.as_tensor(logit_positions,
+                                             device=tokens.device))
+    logits, auxes, stats, kv = _slot_forward(
+        tree, tree.cut_batch(tokens), cfg, attn_fn, moe_fn,
+        return_kv=return_kv, last_only=last_only, positions=pos)
+    if return_moe_stats and stats is None:
+        raise ValueError("return_moe_stats=True but moe_fn returned no "
+                         "stats (build it with with_stats=True)")
+    out = (tree.join_batch(logits),)
     if return_aux:
-        out += (aux,)
+        out += (auxes[0],)
     if return_moe_stats:
-        out += ({name: torch.stack([st[name] for st in stats])
-                 for name in stats[0]},)
+        out += (stats,)
     if return_kv:
-        out += ((torch.stack(ks), torch.stack(vs)),)
+        out += (tree.kv(kv),)
     return out if len(out) > 1 else out[0]
+
+
+def _slot_forward(tree, toks: list, cfg: LlamaConfig, attn_fn, moe_fn, *,
+                  return_kv: bool = False, last_only: bool = False,
+                  positions=None):
+    """The model on the slots of ``tree`` (models/sharded.py
+    ``SlotTree``), ``toks`` each slot's token block.  Returns ``(logits,
+    auxes, stats, kv)``: per-slot float32 logits, per-slot aux summed over
+    the layers, slot 0's router health stacked over the layers (or None),
+    and per-slot ``(k, v)`` stacks when ``return_kv``.
+
+    ``cfg.remat`` without a policy checkpoints each whole layer, the
+    gather of its sharded leaves included: the attention too is
+    recomputed in the backward, so the flash forward runs twice per layer
+    and step.  "dots" lives inside :func:`decoder_block` instead."""
+    attend = tree.attend(resolve_attn_fn(cfg, attn_fn))
+    cos, sin = cfg_rope_tables(cfg, toks[0].shape[1], device=toks[0].device)
+    hs = tree.embed(toks, cfg)
+    auxes = [torch.zeros((), dtype=torch.float32, device=hs[0].device)
+             for _ in hs]
+    stats, kvs = [], []
+
+    def moe(xs, ms):
+        return tree.moe(xs, ms, cfg, moe_fn)
+
+    def layer(i, *hs):
+        return decoder_block(tree.layer(i), list(hs), cfg, cos, sin, attend,
+                             moe, tree.reduce)
+
+    whole = (cfg.remat and cfg.remat_policy != "dots"
+             and torch.is_grad_enabled())
+    for i in range(cfg.n_layers):
+        if whole:
+            out = checkpoint(layer, i, *hs, use_reentrant=False)
+        else:
+            out = layer(i, *hs)
+        hs, layer_aux, ks, vs, st = out
+        auxes = [a + b for a, b in zip(auxes, layer_aux)]
+        if return_kv:
+            kvs.append((ks, vs))
+        if st is not None:
+            stats.append(st)
+    if last_only:
+        hs = [h[:, -1:] for h in hs]
+    elif positions is not None:
+        hs = [torch.gather(h, 1, p.long()[:, None, None].expand(
+            -1, 1, h.shape[-1])) for h, p in zip(hs, positions)]
+    st = ({name: torch.stack([s[name] for s in stats]) for name in stats[0]}
+          if stats else None)
+    kv = None
+    if return_kv:
+        kv = [(torch.stack([k[j] for k, _ in kvs]),
+               torch.stack([v[j] for _, v in kvs])) for j in range(len(hs))]
+    return tree.head(hs, cfg), auxes, st, kv
 
 
 # ---------------------------------------------------------------- training
 
 
 def loss_fn(params: dict, batch, cfg: LlamaConfig,
-            attn_fn: Optional[Callable] = None):
+            attn_fn: Optional[Callable] = None,
+            moe_fn: Optional[Callable] = None, *,
+            with_moe_stats: bool = False):
     """Causal LM loss: batch ``[B, S+1]`` token ids -> mean next-token
-    cross-entropy (float32 scalar).  Dense models only: MoE training (the
-    aux term) is not ported yet."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
+    cross-entropy (float32 scalar), plus ``moe_aux_coef * aux / n_layers``
+    for an MoE model.  ``with_moe_stats``: return ``(loss, stats)`` with
+    the layer-stacked router health (needs a ``with_stats=True``
+    moe_fn)."""
     tokens, targets = batch[:, :-1], batch[:, 1:]
-    logits, _aux = forward(params, tokens, cfg, attn_fn, return_aux=True)
-    return token_ce(logits, targets)
+    out = forward(params, tokens, cfg, attn_fn, return_aux=True,
+                  moe_fn=moe_fn, return_moe_stats=with_moe_stats)
+    loss = token_ce(out[0], targets)
+    if cfg.n_experts > 0:
+        loss = loss + cfg.moe_aux_coef * out[1] / cfg.n_layers
+    return (loss, out[2]) if with_moe_stats else loss
 
 
 def value_and_grad(params: dict, batch, cfg: LlamaConfig,
-                   attn_fn: Optional[Callable] = None):
+                   attn_fn: Optional[Callable] = None,
+                   moe_fn: Optional[Callable] = None, *,
+                   with_moe_stats: bool = False):
     """``(loss, grads)`` of :func:`loss_fn` at ``params``, the grads a tree
     like ``params`` in the leaves' dtypes (``jax.value_and_grad``'s
-    contract).  Leaves are taken as detached views, so ``params`` need
-    not require grad and gains no graph."""
-    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    contract); ``((loss, stats), grads)`` with ``with_moe_stats``
+    (``has_aux=True``'s).  Leaves are taken as detached views, so
+    ``params`` need not require grad and gains no graph.  A sharded tree
+    takes models/sharded.py's step: the global loss, and the gradients
+    sharded as ``params``: each slot's loss is its batch block's, weighted
+    so that the slots' sum is the global loss."""
+    from .sharded import SlotTree
+
+    if with_moe_stats and moe_fn is None:
+        raise ValueError(
+            "with_moe_stats needs a stats-producing moe_fn (build one with "
+            "make_sharded_moe(..., with_stats=True))")
     with torch.enable_grad():
-        loss = loss_fn(tree_unflatten(params, leaves), batch, cfg, attn_fn)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(params, list(grads))
+        # Built with autograd on: its layers' unbind must be recorded.
+        tree = SlotTree(params, moe_fn=moe_fn, alias=True)
+        weight = 1.0 / tree.mesh.size
+        rows = tree.cut_batch(batch)
+        logits, auxes, stats, _ = _slot_forward(
+            tree, [r[:, :-1] for r in rows], cfg, attn_fn, moe_fn)
+        losses = []
+        for lg, r, aux in zip(logits, rows, auxes):
+            loss = token_ce(lg, r[:, 1:])
+            if cfg.n_experts > 0:
+                loss = loss + cfg.moe_aux_coef * aux / cfg.n_layers
+            losses.append(loss)
+        if with_moe_stats and stats is None:
+            raise ValueError("with_moe_stats=True but moe_fn returned no "
+                             "stats (build it with with_stats=True)")
+        grads = torch.autograd.grad(
+            losses, tree.grad_inputs(),
+            grad_outputs=[torch.full_like(l, weight) for l in losses],
+            allow_unused=True, materialize_grads=True)
+    loss = tree.mean_loss(losses, weight)
+    grads = tree.grad_tree(grads, params)
+    if with_moe_stats:
+        return (loss, {k: v.detach() for k, v in stats.items()}), grads
+    return loss, grads
 
 
 def apply_updates(tx, params: dict, opt_state, grads, *,
@@ -745,24 +949,38 @@ def apply_updates(tx, params: dict, opt_state, grads, *,
 
 
 def make_train_step(cfg: LlamaConfig, tx,
-                    attn_fn: Optional[Callable] = None, *,
-                    accum_steps: int = 1, in_place: bool = True):
+                    attn_fn: Optional[Callable] = None,
+                    moe_fn: Optional[Callable] = None, *,
+                    accum_steps: int = 1, with_moe_stats: bool = False,
+                    in_place: bool = True):
     """One optimizer step: ``train_step(params, opt_state, batch) ->
-    (params, opt_state, loss)``.
+    (params, opt_state, loss[, stats])``.
 
     ``accum_steps > 1`` splits the batch into that many equal microbatches
     and accumulates their gradients in float32 before the one optimizer
     update: activation memory scales with the microbatch while the math
     matches the full-batch step (the mean of equal-size means is the
-    global mean).  The accumulated gradients are cast back to each
+    global mean; an MoE model's capacity is per microbatch, so its drops
+    may differ).  The accumulated gradients are cast back to each
     parameter's dtype, so the optimizer sees the dtypes of the
-    ``accum_steps=1`` path."""
+    ``accum_steps=1`` path.  ``with_moe_stats`` (a ``with_stats=True``
+    moe_fn) also returns the layer-stacked router health, averaged over
+    the microbatches.  A sharded tree (and its optimizer state, from
+    ``tx.init`` of it) steps shard by shard."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
+    def grad(params, batch):
+        out = value_and_grad(params, batch, cfg, attn_fn, moe_fn,
+                             with_moe_stats=with_moe_stats)
+        if with_moe_stats:
+            (loss, stats), g = out
+            return loss, g, stats
+        return out[0], out[1], None
+
     def train_step(params, opt_state, batch):
         if accum_steps == 1:
-            loss, grads = value_and_grad(params, batch, cfg, attn_fn)
+            loss, grads, stats = grad(params, batch)
         else:
             B = batch.shape[0]
             if B % accum_steps:
@@ -774,17 +992,25 @@ def make_train_step(cfg: LlamaConfig, tx,
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                    for p in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=batch.device)
+            stats_sum = None
             for chunk in chunks:
-                l, g = value_and_grad(params, chunk, cfg, attn_fn)
+                l, g, st = grad(params, chunk)
                 for a, gi in zip(acc, tree_leaves(g)):
                     a.add_(gi.float())
                 loss = loss + l
+                if st is not None:
+                    stats_sum = st if stats_sum is None else {
+                        k: stats_sum[k] + v for k, v in st.items()}
                 del g  # free this microbatch's grads before the next one
             loss = loss / accum_steps
+            stats = (None if stats_sum is None else
+                     {k: v / accum_steps for k, v in stats_sum.items()})
             grads = tree_unflatten(params, [
                 (a / accum_steps).to(p.dtype) for a, p in zip(acc, leaves)])
         params, opt_state = apply_updates(tx, params, opt_state, grads,
                                           in_place=in_place)
+        if with_moe_stats:
+            return params, opt_state, loss, stats
         return params, opt_state, loss
 
     return train_step

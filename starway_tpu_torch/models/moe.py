@@ -67,6 +67,18 @@ def init_moe_params(generator: torch.Generator, n_layers: int,
     return out
 
 
+def moe_specs(swiglu: bool = False) -> dict:
+    """``PartitionSpec``s of the expert subtree: experts shard over the
+    "ep" mesh axis, the router is replicated."""
+    from ..parallel.sharding import P
+
+    out = {"router": P(None, None, None), "w_in": P(None, "ep", None, None),
+           "w_out": P(None, "ep", None, None)}
+    if swiglu:
+        out["w_gate"] = P(None, "ep", None, None)
+    return out
+
+
 def require_dropless(cfg, context: str) -> None:
     """Raise unless ``cfg`` is dense or provably dropless MoE
     (``moe_capacity_factor >= n_experts``, so capacity >= T * k for any
@@ -196,23 +208,11 @@ def switch_moe(x, router_w, w_in, w_out, *, capacity_factor: float = 1.25,
     return y, aux
 
 
-def sharded_switch_moe(xs, router_w, w_ins, w_outs, mesh, axis: str = "ep",
-                       *, capacity_factor: float = 1.25, k: int = 1,
-                       with_stats: bool = False, w_gates=None):
-    """The view of the shards of ``axis``, with an explicit expert
-    all-to-all.  Arguments are this process's shards along the axis, in
-    the order of ``mesh.local_range(axis)``: ``xs`` tokens ``[B_loc,
-    S_loc, D]``; ``w_ins``/``w_outs`` (and ``w_gates``) experts ``[E_loc,
-    D, F]``/``[E_loc, F, D]`` (E = E_loc * ep); ``router_w [D, E]`` is
-    replicated.  Returns ``(ys, aux[, stats])``: the shards' outputs, and
-    the aux (and stats) averaged over the axis.
-
-    Capacity is per (source shard, expert), from the local token count;
-    each shard's send buffer is ``[ep, E_loc, C, D]``, one ``all_to_all``
-    brings every shard's rows for an expert to the expert's shard, the
-    local experts run over ``[E_loc, ep * C, D]``, and a second
-    ``all_to_all`` takes the outputs home.  The stats ride the aux's
-    ``pmean`` as one packed vector."""
+def _sharded_slots(xs, routers, w_ins, w_outs, w_gates, mesh, axis,
+                   capacity_factor, k, with_stats):
+    """:func:`sharded_switch_moe` with a router a slot: ``(ys, auxes,
+    stats)``, the aux (and stats) of each slot averaged over its group
+    along ``axis``."""
     ep = mesh.shape[axis]
     if not (len(xs) == len(w_ins) == len(w_outs)):
         raise ValueError(f"{len(xs)} token shards for {len(w_ins)} expert "
@@ -226,7 +226,7 @@ def sharded_switch_moe(xs, router_w, w_ins, w_outs, mesh, axis: str = "ep",
     capacity = moe_capacity(t * k, e, capacity_factor)
 
     routed, sends = [], []
-    for x in xs:
+    for x, router_w in zip(xs, routers):
         xt = x.reshape(t, d)
         expert_flat, gate_flat, aux = _route(xt, router_w, k)
         slot, keep, counts = _dispatch_slots(expert_flat, e, capacity)
@@ -252,10 +252,38 @@ def sharded_switch_moe(xs, router_w, w_ins, w_outs, mesh, axis: str = "ep",
             stats = _routing_stats(counts, keep)
             packed.append(torch.cat([torch.stack(
                 [aux, stats["drop_fraction"]]), stats["expert_load"]]))
-        packed = pmean(packed, mesh, axis)[0]
-        return ys, packed[0], {"drop_fraction": packed[1],
-                               "expert_load": packed[2:]}
-    return ys, pmean([r[4] for r in routed], mesh, axis)[0]
+        return ys, pmean(packed, mesh, axis)
+    return ys, pmean([r[4] for r in routed], mesh, axis)
+
+
+def _unpack(packed) -> tuple:
+    return packed[0], {"drop_fraction": packed[1],
+                       "expert_load": packed[2:]}
+
+
+def sharded_switch_moe(xs, router_w, w_ins, w_outs, mesh, axis: str = "ep",
+                       *, capacity_factor: float = 1.25, k: int = 1,
+                       with_stats: bool = False, w_gates=None):
+    """The view of the shards of ``axis``, with an explicit expert
+    all-to-all.  Arguments are this process's shards along the axis, in
+    the order of ``mesh.local_range(axis)``: ``xs`` tokens ``[B_loc,
+    S_loc, D]``; ``w_ins``/``w_outs`` (and ``w_gates``) experts ``[E_loc,
+    D, F]``/``[E_loc, F, D]`` (E = E_loc * ep); ``router_w [D, E]`` is
+    replicated.  Returns ``(ys, aux[, stats])``: the shards' outputs, and
+    the aux (and stats) averaged over the axis.
+
+    Capacity is per (source shard, expert), from the local token count;
+    each shard's send buffer is ``[ep, E_loc, C, D]``, one ``all_to_all``
+    brings every shard's rows for an expert to the expert's shard, the
+    local experts run over ``[E_loc, ep * C, D]``, and a second
+    ``all_to_all`` takes the outputs home.  The stats ride the aux's
+    ``pmean`` as one packed vector."""
+    ys, avg = _sharded_slots(xs, [router_w] * len(xs), w_ins, w_outs,
+                             w_gates, mesh, axis, capacity_factor, k,
+                             with_stats)
+    if with_stats:
+        return (ys,) + _unpack(avg[0])
+    return ys, avg[0]
 
 
 def make_sharded_moe(mesh, *, ep_axis: str = "ep", dp_axis: str = "dp",
@@ -263,37 +291,69 @@ def make_sharded_moe(mesh, *, ep_axis: str = "ep", dp_axis: str = "dp",
                      with_stats: bool = False, swiglu: bool = False):
     """``moe_fn(x, router_w, w_in, w_out[, w_gate]) -> (y, aux[, stats])``
     running :func:`sharded_switch_moe` for ``forward(..., moe_fn=...)``:
-    the tokens of ``x [B, S, D]`` are cut along the sequence over
-    ``ep_axis`` and the experts over it too, and the outputs are joined
-    back.  ``with_stats`` returns the averaged router health as a third
-    element; ``swiglu`` takes the ``w_gate`` experts of a Mixtral tree.
+    the tokens shard over ``(dp_axis, ep_axis)`` (batch over dp, sequence
+    over ep), the experts over ``ep_axis``, and the aux (and stats) are
+    averaged over every other axis of the mesh, as the JAX package's
+    ``shard_map`` replicates them.
 
-    The model runs whole in one process, so the mesh holds every shard
-    here (no process group; ops/collectives.py carries a group's shards
-    across processes).  ``dp_axis`` keeps the JAX signature;
-    :func:`~starway_tpu_torch.parallel.make_mesh` refuses a data axis
-    above size 1, so the batch is never cut."""
-    if mesh.world > 1:
-        raise NotImplementedError(
-            "the model is not split over processes: make_sharded_moe "
-            "takes a mesh without a process group (ROADMAP.md, Queue 1 "
-            "item 6)")
+    The returned fn takes the global ``x`` and expert tables (this
+    process's box of them on a mesh with a process group); its
+    ``slots(xs, routers, w_ins, w_outs, w_gates)`` takes the slots' values
+    of a sharded tree's forward (models/sharded.py): each slot's tokens
+    with the whole sequence and its own experts.  ``with_stats`` returns
+    the router health as a third element; ``swiglu`` takes the ``w_gate``
+    experts of a Mixtral tree."""
+    from ..ops.collectives import all_gather, axis_index
+    from ..parallel.sharding import P, cut_blocks, join_blocks
+
     ep = mesh.shape[ep_axis]
+    others = tuple(a for a in mesh.axis_names
+                   if a != ep_axis and mesh.shape[a] > 1)
+    x_spec = P(dp_axis if dp_axis in mesh.shape else None, ep_axis, None)
+    e_spec = P(ep_axis, None, None)
 
-    def fn(x, router_w, w_in, w_out, w_gate=None):
-        if (w_gate is not None) != swiglu:
+    def check(w_gates):
+        if (w_gates[0] is not None) != swiglu:
             raise ValueError(
                 f"make_sharded_moe(swiglu={swiglu}) got "
-                f"{'a' if w_gate is not None else 'no'} w_gate")
+                f"{'a' if w_gates[0] is not None else 'no'} w_gate")
+
+    def run(xs, routers, w_ins, w_outs, w_gates):
+        check(w_gates)
+        ys, avg = _sharded_slots(
+            xs, routers, w_ins, w_outs,
+            None if w_gates[0] is None else w_gates, mesh, ep_axis,
+            capacity_factor, k, with_stats)
+        if others:
+            avg = pmean(avg, mesh, others)
+        if with_stats:
+            auxes = [a[0] for a in avg]
+            return ys, auxes, _unpack(avg[0])[1]
+        return ys, avg, None
+
+    def slots(xs, routers, w_ins, w_outs, w_gates):
+        if xs[0].shape[1] % ep:
+            raise ValueError(f"sequence {xs[0].shape[1]} must divide over "
+                             f"{ep_axis}={ep}")
+        t = xs[0].shape[1] // ep
+        blocks = [x[:, i * t:(i + 1) * t]
+                  for x, i in zip(xs, axis_index(mesh, ep_axis))]
+        ys, auxes, stats = run(blocks, routers, w_ins, w_outs, w_gates)
+        return all_gather(ys, mesh, ep_axis, 1), auxes, stats
+
+    def fn(x, router_w, w_in, w_out, w_gate=None):
         if x.shape[1] % ep or w_in.shape[0] % ep:
             raise ValueError(
                 f"sequence {x.shape[1]} and experts {w_in.shape[0]} must "
                 f"both divide over {ep_axis}={ep}")
-        out = sharded_switch_moe(
-            list(x.chunk(ep, dim=1)), router_w, list(w_in.chunk(ep)),
-            list(w_out.chunk(ep)), mesh, ep_axis,
-            capacity_factor=capacity_factor, k=k, with_stats=with_stats,
-            w_gates=None if w_gate is None else list(w_gate.chunk(ep)))
-        return (torch.cat(out[0], dim=1),) + tuple(out[1:])
+        n = len(mesh.local_slots)
+        experts = [cut_blocks(w, mesh, e_spec) if w is not None
+                   else [None] * n for w in (w_in, w_out, w_gate)]
+        ys, auxes, stats = run(cut_blocks(x, mesh, x_spec), [router_w] * n,
+                               *experts)
+        out = (join_blocks(ys, mesh, x_spec), auxes[0])
+        return out + (stats,) if with_stats else out
 
+    fn.slots = slots
+    fn.ep_axis = ep_axis
     return fn

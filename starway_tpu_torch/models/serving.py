@@ -208,7 +208,7 @@ class SlotServer:
             return init_rolling_cache(self.cfg, self.n_slots,
                                       device=self.device)
         return init_cache(self.cfg, self.n_slots, self.max_len,
-                          device=self.device)
+                          device=self.device, params=self.params)
 
     def _post_init(self) -> None:
         """Subclass hook, called at the end of ``__init__``."""

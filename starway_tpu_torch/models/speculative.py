@@ -29,8 +29,8 @@ import torch.nn.functional as F
 from .generate import (_attend_cached, _filter_logits, _sample,
                        cached_layer_scan, decode_step, prefill,
                        validate_prompt_lengths)
-from .llama import (LlamaConfig, cfg_rope_tables, embed_tokens, matmul_w,
-                    params_device, resolve_longrope, rmsnorm)
+from .llama import (LlamaConfig, cfg_rope_tables, embed_tokens,
+                    final_logits, params_device, resolve_longrope)
 from .moe import require_dropless
 
 def chunk_decode_step(params, cache, tokens, pos, cfg: LlamaConfig, rope):
@@ -85,8 +85,7 @@ def chunk_decode_step(params, cache, tokens, pos, cfg: LlamaConfig, rope):
     h = embed_tokens(params, tokens, cfg)  # [B, C, D]
     h, cache = cached_layer_scan(params, cache, h, cos_p, sin_p, cfg, write,
                                  attend)
-    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return matmul_w(h, params["lm_head"]).float(), cache
+    return final_logits(params, h, cfg), cache
 
 
 # ------------------------------------------------------------ the decoders

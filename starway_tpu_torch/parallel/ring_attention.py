@@ -44,6 +44,7 @@ import torch
 from ..ops.attention import finalize_partial, merge_partials
 from ..ops.collectives import axis_index, axis_size, ring_shift
 from ..ops.flash import flash_partial, flash_partial_bwd
+from .sharding import cut_blocks, join_blocks
 
 
 def _check_mesh(q, mesh, axis_name):
@@ -51,32 +52,6 @@ def _check_mesh(q, mesh, axis_name):
         raise ValueError(f"mesh {mesh.shape} has no axis {axis_name!r}")
     if q.device.type != mesh.device.type:
         raise ValueError(f"inputs on {q.device}, mesh on {mesh.device}")
-
-
-def _shards(x, per: int, halves: bool = False):
-    """``[B, H, T, D]`` -> ``per`` contiguous shards ``[B, H, T/per, D]``
-    (``[2, B, H, T/(2 per), D]`` with ``halves``), from one copy."""
-    b, h, t, d = x.shape
-    if halves:
-        x = x.reshape(b, h, per, 2, t // (2 * per), d).permute(2, 3, 0, 1, 4, 5)
-    else:
-        x = x.reshape(b, h, per, t // per, d).permute(2, 0, 1, 3, 4)
-    return list(x.contiguous().unbind(0))
-
-
-def _unshard(xs, halves: bool = False):
-    """Inverse of :func:`_shards` (one copy)."""
-    x = torch.stack(xs)
-    if halves:
-        per, _, b, h, sb, d = x.shape
-        return x.permute(2, 3, 0, 1, 4, 5).reshape(b, h, per * 2 * sb, d)
-    per, b, h, t, d = x.shape
-    return x.permute(1, 2, 0, 3, 4).reshape(b, h, per * t, d)
-
-
-def _row_shards(x, per: int, halves: bool = False):
-    """``[B, H, T]`` row statistics, sharded as :func:`_shards` does."""
-    return [s[..., 0] for s in _shards(x[..., None], per, halves)]
 
 
 def _lse_of(acc):
@@ -175,32 +150,56 @@ def _ring_bwd(qs, ks, vs, dos, lses, deltas, mesh, axis, causal, sm_scale,
 
 
 class _Ring(torch.autograd.Function):
-    """The JAX package's ``_ring`` custom_vjp."""
+    """The JAX package's ``_ring`` custom_vjp, over the slots of a
+    process: ``per`` q, k and v blocks in, ``per`` outputs out."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mesh, axis, causal, sm_scale, window):
-        per = len(axis_index(mesh, axis))
-        qs, ks, vs = (_shards(x, per) for x in (q, k, v))
+    def forward(ctx, mesh, axis, causal, sm_scale, window, per, *blocks):
+        qs, ks, vs = (list(blocks[i * per:(i + 1) * per]) for i in range(3))
         outs, lses = _ring_fwd(qs, ks, vs, mesh, axis, causal, sm_scale,
                                window)
-        out = _unshard(outs)
-        ctx.save_for_backward(*qs, *ks, *vs, *lses, out)
+        ctx.save_for_backward(*qs, *ks, *vs, *lses, *outs)
         ctx.cfg = (mesh, axis, causal, sm_scale, window, per)
-        return out
+        return tuple(outs)
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, *dos):
         mesh, axis, causal, sm_scale, window, per = ctx.cfg
         saved = ctx.saved_tensors
-        qs, ks, vs, lses = (list(saved[i * per:(i + 1) * per])
-                            for i in range(4))
-        out = saved[-1]
-        delta = (do.float() * out.float()).sum(dim=-1)
-        dq, dk, dv = _ring_bwd(qs, ks, vs, _shards(do, per), lses,
-                               _row_shards(delta, per), mesh, axis, causal,
-                               sm_scale, window)
-        return (_unshard(dq).to(out.dtype), _unshard(dk).to(ks[0].dtype),
-                _unshard(dv).to(vs[0].dtype), None, None, None, None, None)
+        qs, ks, vs, lses, outs = (list(saved[i * per:(i + 1) * per])
+                                  for i in range(5))
+        dos = [do.contiguous() for do in dos]  # the kernels' layout
+        deltas = [(do.float() * o.float()).sum(dim=-1)
+                  for do, o in zip(dos, outs)]
+        dq, dk, dv = _ring_bwd(qs, ks, vs, dos, lses, deltas, mesh,
+                               axis, causal, sm_scale, window)
+        return (None,) * 6 + tuple(
+            [g.to(q.dtype) for g, q in zip(dq, qs)]
+            + [g.to(k.dtype) for g, k in zip(dk, ks)]
+            + [g.to(v.dtype) for g, v in zip(dv, vs)])
+
+
+def ring_attention_slots(qs, ks, vs, mesh, axis_name: str = "sp", *,
+                         causal: bool = True,
+                         sm_scale: Optional[float] = None,
+                         window: Optional[int] = None) -> list:
+    """Ring attention over the slots of this process: ``qs``/``ks``/``vs``
+    hold each slot's sequence block (``[B, Hq, t, D]`` and grouped ``[B,
+    Hkv, t, D]``), in slot order; the ring runs along ``axis_name`` in
+    every group of slots that share the other coordinates.  Returns the
+    slots' output blocks.  Differentiable (the module docstring)."""
+    _check_mesh(qs[0], mesh, axis_name)
+    if window is not None:
+        if not causal:
+            raise ValueError("window requires causal attention")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+    if sm_scale is None:
+        sm_scale = 1.0 / (qs[0].shape[-1] ** 0.5)
+    blocks = [x.contiguous() for x in (*qs, *ks, *vs)]
+    return list(_Ring.apply(mesh, axis_name, bool(causal), float(sm_scale),
+                            None if window is None else int(window),
+                            len(qs), *blocks))
 
 
 def ring_attention(q, k, v, mesh, axis_name: str = "sp", *,
@@ -217,19 +216,15 @@ def ring_attention(q, k, v, mesh, axis_name: str = "sp", *,
     steps wholly out of the band are skipped and the rotations stop after
     it, so the work scales with the band, not the sequence."""
     _check_mesh(q, mesh, axis_name)
-    if window is not None:
-        if not causal:
-            raise ValueError("window requires causal attention")
-        if window < 1:
-            raise ValueError(f"window must be >= 1, got {window}")
     per = len(axis_index(mesh, axis_name))
     if q.shape[2] % per or k.shape[2] != q.shape[2]:
         raise ValueError(f"sequence {q.shape[2]} (k/v {k.shape[2]}) does "
                          f"not split into {per} shards")
-    if sm_scale is None:
-        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    return _Ring.apply(q, k, v, mesh, axis_name, bool(causal),
-                       float(sm_scale), None if window is None else int(window))
+    spec = (None, None, axis_name, None)
+    outs = ring_attention_slots(
+        *(cut_blocks(x, mesh, spec) for x in (q, k, v)), mesh, axis_name,
+        causal=causal, sm_scale=sm_scale, window=window)
+    return join_blocks(outs, mesh, spec)
 
 
 # ------------------------------------------------------------ zigzag ring
@@ -325,33 +320,61 @@ def _zz_bwd(qs, ks, vs, dos, lses, deltas, mesh, axis, sm_scale):
     return dq, ring_shift(dk, mesh, axis, 1), ring_shift(dv, mesh, axis, 1)
 
 
+def _halves(x):
+    """A zigzag slot block ``[B, H, 2 sb, D]`` -> ``[2, B, H, sb, D]``."""
+    b, h, t, d = x.shape
+    return x.reshape(b, h, 2, t // 2, d).permute(2, 0, 1, 3, 4).contiguous()
+
+
+def _unhalves(x):
+    """Inverse of :func:`_halves`."""
+    _, b, h, sb, d = x.shape
+    return x.permute(1, 2, 0, 3, 4).reshape(b, h, 2 * sb, d)
+
+
 class _Zigzag(torch.autograd.Function):
-    """The JAX package's ``_zigzag`` custom_vjp."""
+    """The JAX package's ``_zigzag`` custom_vjp, over the slots of a
+    process."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mesh, axis, sm_scale):
-        per = len(axis_index(mesh, axis))
-        qs, ks, vs = (_shards(x, per, halves=True) for x in (q, k, v))
+    def forward(ctx, mesh, axis, sm_scale, per, *blocks):
+        qs, ks, vs = ([_halves(x) for x in blocks[i * per:(i + 1) * per]]
+                      for i in range(3))
         outs, lses = _zz_fwd(qs, ks, vs, mesh, axis, sm_scale)
-        out = _unshard(outs, halves=True)
-        ctx.save_for_backward(*qs, *ks, *vs, *lses, out)
+        ctx.save_for_backward(*qs, *ks, *vs, *lses, *outs)
         ctx.cfg = (mesh, axis, sm_scale, per)
-        return out
+        return tuple(_unhalves(o) for o in outs)
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, *dos):
         mesh, axis, sm_scale, per = ctx.cfg
         saved = ctx.saved_tensors
-        qs, ks, vs, lses = (list(saved[i * per:(i + 1) * per])
-                            for i in range(4))
-        out = saved[-1]
-        delta = (do.float() * out.float()).sum(dim=-1)
-        dq, dk, dv = _zz_bwd(qs, ks, vs, _shards(do, per, halves=True), lses,
-                             _row_shards(delta, per, halves=True), mesh, axis,
+        qs, ks, vs, lses, outs = (list(saved[i * per:(i + 1) * per])
+                                  for i in range(5))
+        dos = [_halves(do) for do in dos]
+        deltas = [(do.float() * o.float()).sum(dim=-1)
+                  for do, o in zip(dos, outs)]
+        dq, dk, dv = _zz_bwd(qs, ks, vs, dos, lses, deltas, mesh, axis,
                              sm_scale)
-        return (_unshard(dq, halves=True).to(out.dtype),
-                _unshard(dk, halves=True).to(ks[0].dtype),
-                _unshard(dv, halves=True).to(vs[0].dtype), None, None, None)
+        return (None,) * 4 + tuple(
+            [_unhalves(g).to(q.dtype) for g, q in zip(dq, qs)]
+            + [_unhalves(g).to(k.dtype) for g, k in zip(dk, ks)]
+            + [_unhalves(g).to(v.dtype) for g, v in zip(dv, vs)])
+
+
+def zigzag_ring_attention_slots(qs, ks, vs, mesh, axis_name: str = "sp", *,
+                                sm_scale: Optional[float] = None) -> list:
+    """Causal zigzag ring attention over the slots of this process: each
+    slot's block holds, in order, sequence blocks ``my`` and ``2n - 1 -
+    my`` of ``2n`` (:func:`zigzag_indices`).  Differentiable."""
+    _check_mesh(qs[0], mesh, axis_name)
+    if qs[0].shape[2] % 2:
+        raise ValueError(f"zigzag slot blocks need two equal halves, got "
+                         f"{qs[0].shape[2]} rows")
+    if sm_scale is None:
+        sm_scale = 1.0 / (qs[0].shape[-1] ** 0.5)
+    return list(_Zigzag.apply(mesh, axis_name, float(sm_scale), len(qs),
+                              *qs, *ks, *vs))
 
 
 def zigzag_ring_attention(q, k, v, mesh, axis_name: str = "sp", *,
@@ -364,14 +387,16 @@ def zigzag_ring_attention(q, k, v, mesh, axis_name: str = "sp", *,
     back-back while ``my <= src``), or never live (front q, back kv), and
     only the live ones run.  Differentiable (the module docstring)."""
     _check_mesh(q, mesh, axis_name)
-    per = len(axis_index(mesh, axis_name))
+    per = len(mesh.local_range(axis_name))
     if q.shape[2] % (2 * per) or k.shape[2] != q.shape[2]:
         raise ValueError(f"zigzag shards need two equal halves: sequence "
                          f"{q.shape[2]} (k/v {k.shape[2]}) over {per} "
                          f"shards")
-    if sm_scale is None:
-        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    return _Zigzag.apply(q, k, v, mesh, axis_name, float(sm_scale))
+    spec = (None, None, axis_name, None)
+    outs = zigzag_ring_attention_slots(
+        *(cut_blocks(x, mesh, spec) for x in (q, k, v)), mesh, axis_name,
+        sm_scale=sm_scale)
+    return join_blocks(outs, mesh, spec)
 
 
 def zigzag_wrap(inner, n: int):
@@ -391,22 +416,39 @@ def zigzag_wrap(inner, n: int):
 def make_zigzag_ring_attention(mesh, axis_name: str = "sp", *,
                                sm_scale: Optional[float] = None):
     """Causal zigzag ring attention on natural-order sequences ``[B, H, S,
-    D]``: the permutation into and out of the zigzag order wraps
-    :func:`zigzag_ring_attention`.  The permutation moves tokens between
-    shards, so it needs the whole sequence in one process: a mesh with a
-    process group takes :func:`zigzag_ring_attention` on slices already in
-    the zigzag layout."""
-    if mesh.world > 1:
-        raise NotImplementedError(
-            "the zigzag permutation of a sequence split over processes is "
-            "not ported; pass zigzag-layout slices to zigzag_ring_attention "
-            "(ROADMAP.md, Queue 1 item 6)")
+    D]`` (this process's slice on a mesh with a process group): the
+    permutation into and out of the zigzag order wraps
+    :func:`zigzag_ring_attention`.  Across processes the permutation moves
+    tokens between them: each slot gathers the sequence over the axis
+    (a differentiable ``all_gather``), takes its zigzag blocks, and gathers
+    the outputs back before the inverse permutation."""
+    from ..ops.collectives import all_gather
 
-    def local(q, k, v):
-        return zigzag_ring_attention(q, k, v, mesh, axis_name,
-                                     sm_scale=sm_scale)
+    n = mesh.shape[axis_name]
+    if mesh.world == 1:
+        def local(q, k, v):
+            return zigzag_ring_attention(q, k, v, mesh, axis_name,
+                                         sm_scale=sm_scale)
 
-    return zigzag_wrap(local, mesh.shape[axis_name])
+        return zigzag_wrap(local, n)
+    spec = (None, None, axis_name, None)
+
+    def fn(q, k, v):
+        mine = axis_index(mesh, axis_name)
+        whole = [all_gather(cut_blocks(x, mesh, spec), mesh, axis_name, 2)
+                 for x in (q, k, v)]
+        s_len = whole[0][0].shape[2]
+        perm = torch.from_numpy(zigzag_indices(s_len, n)).to(q.device)
+        t = s_len // n
+        blocks = [[x.index_select(2, perm[i * t:(i + 1) * t])
+                   for x, i in zip(xs, mine)] for xs in whole]
+        outs = all_gather(zigzag_ring_attention_slots(
+            *blocks, mesh, axis_name, sm_scale=sm_scale), mesh, axis_name, 2)
+        inv = torch.argsort(perm)
+        return join_blocks([o.index_select(2, inv)[:, :, i * t:(i + 1) * t]
+                            for o, i in zip(outs, mine)], mesh, spec)
+
+    return fn
 
 
 def make_ring_attention(mesh, axis_name: str = "sp", *, causal: bool = True,

@@ -231,6 +231,41 @@ class ShardedTensor:
                     slot.device, copy=True).contiguous()
         return cls(full.shape, full.dtype, sharding, shards)
 
+    @property
+    def device(self) -> torch.device:
+        """The device of the first shard held."""
+        return next(iter(self.shards.values())).device
+
+    def _distinct(self) -> list:
+        """The slots held, grouped by the one tensor they share: ``[(value,
+        [slot, ...]), ...]`` in the order of the first slot of each."""
+        groups: dict = {}
+        for slot in sorted(self.shards, key=lambda s: s.index):
+            value = self.shards[slot]
+            groups.setdefault(id(value), (value, []))[1].append(slot)
+        return list(groups.values())
+
+    def tree_children(self) -> list:
+        """What utils/tree.py sees as the leaves under this node: each
+        tensor held once, slots sharing a box giving one."""
+        return [value for value, _ in self._distinct()]
+
+    def tree_rebuild(self, children) -> "ShardedTensor":
+        """This node with ``children`` (one for each of
+        :meth:`tree_children`, any objects) in place of its tensors, the
+        slots that shared a tensor sharing its replacement."""
+        out = object.__new__(ShardedTensor)
+        out.shape, out.dtype, out.sharding = (self.shape, self.dtype,
+                                              self.sharding)
+        out.shards = {}
+        for child, (_, slots) in zip(children, self._distinct()):
+            for slot in slots:
+                out.shards[slot] = child
+        first = children[0] if children else None
+        if isinstance(first, torch.Tensor):
+            out.dtype = first.dtype
+        return out
+
     def full(self) -> torch.Tensor:
         """Assemble the global tensor from the shards held, on the first
         shard's device; raises if they do not cover it."""

@@ -854,3 +854,109 @@ def test_moe_servers_on_cuda_match_generate(dev):
     counts = launch_counts()
     assert all(counts[name] > 0 for name in (
         "decode_attention", "paged_decode_attention", "flash_forward"))
+
+
+# ------------------------------------------- the mesh paths' shard shapes
+
+# llama3-8b's heads over tp = 2 (16 q, 4 kv heads), dp's halved batch, and
+# Ulysses' 8 q and 2 kv heads a slot over the whole sequence.
+SHARD_HEADS = [(1, 16, 4, 512), (1, 8, 2, 1024)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s", SHARD_HEADS)
+def test_flash_kernels_at_shard_shapes(dev, b, hq, hkv, s):
+    """The flash forward and backward at the heads a tp or Ulysses slot
+    runs, bf16, against their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn(b, h, s, 128, generator=gen, device=dev)
+                   .bfloat16() for h in (hq, hkv, hkv, hq))
+    o, lse = flash_forward(q, k, v, causal=True)
+    o_r, _ = flash_forward_reference(q, k, v, causal=True)
+    _assert_attention_close(o, o_r, torch.bfloat16)
+    for g, w in zip(flash_backward(q, k, v, o, lse, do, causal=True),
+                    flash_backward_reference(q, k, v, o, lse, do,
+                                             causal=True)):
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err <= 1e-2
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_kernel_at_tp_heads(dev, quant):
+    """The decode kernel at a tp slot's 16 q / 4 kv heads, C = 1 and 4."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    kc, vc = (torch.randn(4, 4, 1024, 128, generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    kw = {}
+    if quant:
+        (kc, ks), (vc, vs) = quantize_kv(kc), quantize_kv(vc)
+        kw = dict(k_scale=ks, v_scale=vs)
+    pos = torch.tensor([100, 500, 900, 1000], dtype=torch.int32, device=dev)
+    for c in (1, 4):
+        q = torch.randn(4, 16, c, 128, generator=gen, device=dev).bfloat16()
+        got = decode_attention(q, kc, vc, pos, **kw)
+        want = decode_attention_reference(q, kc, vc, pos, **kw)
+        assert (got.float() - want.float()).abs().max() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("d,f", [(4096, 7168), (2048, 4096), (4096, 64128)])
+def test_gemv_at_tp_widths(dev, d, f):
+    """The int8 GEMV at the tp widths of llama3-8b: gate/up, a row-parallel
+    wo, the vocab-split lm_head; decode and prefill rows."""
+    from starway_tpu_torch.ops.quantize import quantize_weight
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    w = quantize_weight(torch.randn(d, f, generator=gen, device=dev)
+                        .bfloat16() * 0.02)
+    for m in (8, 64):
+        x = torch.randn(m, d, generator=gen, device=dev).bfloat16()
+        assert tolerance_share(int8_matmul(x, w["q"], w["s"]),
+                               int8_matmul_reference(x, w["q"],
+                                                     w["s"])) <= 1
+
+
+def test_tp_server_on_cuda_matches_unsharded(dev):
+    """A float32 tree over {"tp": 2} on the card: the SlotServer's tokens
+    equal the unsharded generate()'s, each slot's kernels at its heads."""
+    from starway_tpu_torch.models import param_specs
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.parallel import make_mesh, shard_tree
+
+    cfg = LlamaConfig.preset("debug")
+    params = init_params(cfg, 0, device=dev)
+    sharded = shard_tree(params, make_mesh({"tp": 2}, device=dev),
+                         param_specs(cfg))
+    reqs = [([3, 1, 4, 1, 5], 6), ([2, 7, 1, 8], 5)]
+    reset_launch_counts()
+    srv = SlotServer(sharded, cfg, n_slots=2, max_len=64, chunk=4)
+    rids = [srv.submit(p, m) for p, m in reqs]
+    done = srv.run()
+    assert launch_counts()["decode_attention"] > 0
+    for rid, (p, m) in zip(rids, reqs):
+        want = generate(params, cfg, torch.tensor([p], device=dev), m)
+        np.testing.assert_array_equal(done[rid],
+                                      want[0, len(p):].cpu().numpy())
+
+
+def test_sharded_train_step_on_cuda_matches_cpu(dev):
+    """One loss and gradient over dp x tp x sp = 2 x 2 x 2 on the card
+    (ring-step kernels at tp's heads) against the same step on the CPU."""
+    from starway_tpu_torch.models import param_specs
+    from starway_tpu_torch.models.llama import (make_sharded_attn,
+                                                value_and_grad)
+    from starway_tpu_torch.parallel import make_mesh, shard_tree
+
+    cfg = LlamaConfig.preset("debug", n_layers=1)
+    params = init_params(cfg, 0, device="cpu")
+    batch = torch.randint(0, 512, (2, 65), generator=torch.Generator()
+                          .manual_seed(3))
+    out = {}
+    for where in ("cpu", "cuda"):
+        mesh = make_mesh({"dp": 2, "tp": 2, "sp": 2}, device=where)
+        tree = shard_tree(params, mesh, param_specs(cfg))
+        out[where] = value_and_grad(tree, batch.to(where), cfg,
+                                    make_sharded_attn(mesh))
+    assert abs(out["cpu"][0].item() - out["cuda"][0].item()) < 1e-4
+    for name in ("wq", "wo", "w_down"):
+        a = out["cpu"][1]["layers"][name].full()
+        b = out["cuda"][1]["layers"][name].full().cpu()
+        assert (a - b).abs().max() <= 1e-4 * a.abs().max()

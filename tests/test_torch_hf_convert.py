@@ -214,9 +214,9 @@ def test_logits_and_generation_match_transformers(family):
 
 
 def test_mixtral_converts_and_forward_refuses():
-    """Mixtral converts dropless; its forward serves, and what stays
-    refused is training: the loss of an MoE tree (the aux term is the next
-    MoE slice)."""
+    """Mixtral converts dropless; its forward serves, and its loss trains:
+    cross-entropy plus ``moe_aux_coef * aux / n_layers`` of the
+    forward's balance term."""
     model = hf_model("mixtral")
     cfg = config_from_hf(model.config, dtype="float32")
     assert (cfg.n_experts, cfg.moe_top_k, cfg.moe_swiglu,
@@ -224,8 +224,12 @@ def test_mixtral_converts_and_forward_refuses():
     params = params_from_hf(model, cfg, device="cpu")
     assert forward(params, torch.tensor([[1, 2, 3]]), cfg).shape == (
         1, 3, cfg.vocab_size)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn(params, torch.tensor([[1, 2, 3, 4]]), cfg)
+    batch = torch.tensor([[1, 2, 3, 4]])
+    logits, aux = forward(params, batch[:, :-1], cfg, return_aux=True)
+    want = (torch.nn.functional.cross_entropy(logits[0], batch[0, 1:])
+            + cfg.moe_aux_coef * aux / cfg.n_layers)
+    torch.testing.assert_close(loss_fn(params, batch, cfg), want,
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_mixtral_logits_and_generation_match_transformers():

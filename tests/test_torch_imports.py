@@ -207,3 +207,29 @@ def test_scan_covers_the_serving_stack():
             "starway_tpu_torch/models/beam.py",
             "starway_tpu_torch/models/hf_convert.py",
             "starway_tpu_torch/models/serving.py"} <= scanned
+
+
+def test_mesh_layer_imports_keep_jax_out_of_the_process():
+    """Ulysses, FSDP, the model over a mesh and the sharded MoE import
+    without jax or the JAX package."""
+    code = ("import sys\n"
+            "from starway_tpu_torch.parallel import (fsdp_specs, shard_tree, "
+            "make_fsdp_train_step, make_ulysses_attention, "
+            "ulysses_attention, mesh_sharding, shard_array)\n"
+            "from starway_tpu_torch.models import param_specs, "
+            "quantized_param_specs\n"
+            "import starway_tpu_torch.models.sharded\n"
+            "from starway_tpu_torch.models.moe import moe_specs\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_scan_covers_the_mesh_layer():
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {"starway_tpu_torch/parallel/ulysses.py",
+            "starway_tpu_torch/parallel/fsdp.py",
+            "starway_tpu_torch/models/sharded.py"} <= scanned

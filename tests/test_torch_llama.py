@@ -195,18 +195,21 @@ def test_decode_step_clamps_out_of_range_writes():
 
 
 def test_unported_paths_raise():
-    """MoE training still refuses, naming ROADMAP.md; MoE serving is
-    ported (tests/test_torch_moe.py).  The rolling paths are ported
+    """MoE training is ported: ``loss_fn`` and ``value_and_grad`` of an
+    expert model equal the JAX package's loss (its gradients:
+    tests/test_torch_mesh_train.py).  The rolling paths are ported
     (tests/test_torch_rolling.py): on a config without a window they
     refuse as the JAX package does, with a ValueError."""
+    jcfg = jl.LlamaConfig.preset("debug", n_experts=4)
     cfg = tl.LlamaConfig.preset("debug", n_experts=4)
-    mp = tl.init_params(cfg, 0, device="cpu")
+    jp = jl.init_params(jax.random.PRNGKey(0), jcfg)
+    mp = params_from_numpy(tree_to_numpy(jp), device="cpu")
     assert "moe" in mp["layers"] and "w_up" not in mp["layers"]
-    batch = torch.ones((1, 5), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.loss_fn(mp, batch, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.value_and_grad(mp, batch, cfg)
+    batch = _tokens(5, b=1, s=5)
+    want = float(jl.loss_fn(jp, jnp.asarray(batch), jcfg))
+    tb = torch.as_tensor(batch).long()
+    assert abs(float(tl.loss_fn(mp, tb, cfg)) - want) < 1e-5
+    assert abs(float(tl.value_and_grad(mp, tb, cfg)[0]) - want) < 1e-5
     _, tcfg, _, tp = _pair()
     cache = tgen.init_cache(tcfg, 1, 8, device="cpu")
     with pytest.raises(ValueError, match="sliding_window"):
@@ -216,21 +219,27 @@ def test_unported_paths_raise():
 
 
 def test_trainer_unported_options_raise():
-    """The Trainer options that need unported layers refuse, naming
-    ROADMAP.md: mesh/fsdp (parallel layer), MoE.  The DP port is ported
-    (tests/test_torch_dp.py holds it)."""
+    """Every Trainer option is ported now (ZeRO mode and MoE:
+    tests/test_torch_fsdp.py, tests/test_torch_mesh_train.py); what the
+    JAX Trainer refuses the port refuses alike: half of mesh/fsdp_axis,
+    stats without a stats-producing moe_fn, stats in ZeRO mode, and a DP
+    port beside ZeRO."""
     from starway_tpu_torch.models.trainer import Trainer
+    from starway_tpu_torch.parallel import make_mesh
     from starway_tpu_torch.utils.optim import adamw
 
     _, tcfg, _, tp = _pair()
     assert Trainer(tcfg, adamw(1e-3), tp, dp_port=object()).dp_port is not None
-    for kw in (dict(mesh=object(), fsdp_axis="fsdp"),
-               dict(fsdp_axis="fsdp"), dict(moe_fn=lambda *a: a),
-               dict(with_moe_stats=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(tcfg, adamw(1e-3), tp, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(tl.LlamaConfig.preset("debug", n_experts=4), adamw(1e-3), tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.loss_fn(tp, torch.zeros((1, 3), dtype=torch.long),
-                   tl.LlamaConfig.preset("debug", n_experts=4))
+    mesh = make_mesh({"fsdp": 2}, device="cpu")
+    mcfg = tl.LlamaConfig.preset("debug", n_experts=4)
+    for cfg, kw, err in (
+            (tcfg, dict(fsdp_axis="fsdp"), ValueError),
+            (tcfg, dict(mesh=mesh), ValueError),
+            (tcfg, dict(mesh=mesh, fsdp_axis="fsdp", dp_port=object()),
+             ValueError),
+            (tcfg, dict(with_moe_stats=True), ValueError),
+            (mcfg, dict(with_moe_stats=True), ValueError),
+            (mcfg, dict(mesh=mesh, fsdp_axis="fsdp", with_moe_stats=True),
+             NotImplementedError)):
+        with pytest.raises(err):
+            Trainer(cfg, adamw(1e-3), tp, **kw)

@@ -19,8 +19,9 @@ inputs, on the CPU.
   JAX's ``shard_map`` collectives (exact, or 1e-6 for sums); the
   collectives and the expert dispatch across two gloo processes with two
   shards each equal the one-process run bit for bit;
-* what stays refused: MoE training (``loss_fn``, ``value_and_grad``,
-  ``Trainer``) and ``quantize_params`` on an MoE tree.
+* MoE training (``loss_fn``, ``value_and_grad``, ``Trainer``) against
+  the JAX package's loss, and what stays refused: ``quantize_params`` on
+  an MoE tree (tests/test_torch_mesh_train.py holds the gradients).
 
 Debug preset (``n_experts=4``), float32, weights from the JAX package's
 ``init_params`` carried by ``params_from_numpy``."""
@@ -454,13 +455,19 @@ def test_remote_slot_server_stream(model, port, monkeypatch):
 
 
 def test_training_and_quantization_stay_refused(model):
+    """MoE training is ported: ``loss_fn`` (cross-entropy plus the
+    balance term) and ``value_and_grad``'s loss equal the JAX package's,
+    and the Trainer steps.  W8A16 expert weights stay refused in both
+    packages."""
+    jlf = importlib.import_module("starway_tpu.models.llama").loss_fn
     jcfg, tcfg, jp, tp = model
-    batch = torch.as_tensor(_prompts(1, 2, 9)).long()
-    for call in (lambda: loss_fn(tp, batch, tcfg),
-                 lambda: value_and_grad(tp, batch, tcfg),
-                 lambda: Trainer(tcfg, adamw(1e-3), tp)):
-        with pytest.raises(NotImplementedError, match="next MoE slice"):
-            call()
+    batch = _prompts(1, 2, 9)
+    want = float(jlf(jp, jnp.asarray(batch), jcfg))
+    tb = torch.as_tensor(batch).long()
+    assert abs(float(loss_fn(tp, tb, tcfg)) - want) < ATOL
+    assert abs(float(value_and_grad(tp, tb, tcfg)[0]) - want) < ATOL
+    trainer = Trainer(tcfg, adamw(1e-3), tp, donate=False)
+    assert np.isfinite(trainer.step_sync(tb))
     with pytest.raises(NotImplementedError, match="MoE expert weights"):
         quantize_params(tp)
 
@@ -512,8 +519,11 @@ def test_sharded_moe_as_the_models_moe_fn(model):
         tmoe.make_sharded_moe(make_mesh({"ep": 4}, device="cpu"))(
             torch.zeros(1, 4, 128), moe["router"], moe["w_in"],
             moe["w_out"], moe["w_gate"])
-    with pytest.raises(NotImplementedError, match="dp"):
-        make_mesh({"dp": 2, "ep": 4}, device="cpu")
+    # A data axis beside ep now holds its slots (the dp x ep x tp step is
+    # tests/test_torch_mesh_train.py's); a pipeline axis stays refused.
+    assert make_mesh({"dp": 2, "ep": 4}, device="cpu").size == 8
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_mesh({"pp": 2, "ep": 4}, device="cpu")
 
 
 # ------------------------------------------------------------ collectives

@@ -304,12 +304,16 @@ def test_windowed_sharded_attn_matches_one_device():
 
 
 def test_mesh_and_sharded_attn_refusals():
-    """What this slice does not port raises, naming ROADMAP.md; a band on
-    zigzag and an undeclared or mismatched window are refused as in JAX."""
+    """A pipeline axis, which this slice does not port, raises, naming
+    ROADMAP.md; a band on zigzag and an undeclared or mismatched window
+    are refused as in JAX."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh({"dp": 2, "sp": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh({"tp": 2}, device="cpu")
+        make_mesh({"pp": 2, "sp": 2}, device="cpu")
+    # dp and tp above 1 make a grid of slots, row-major as JAX's devices.
+    grid = make_mesh({"dp": 2, "tp": 2, "sp": 2}, device="cpu")
+    assert grid.size == 8 and list(grid.local_slots) == list(range(8))
+    assert grid.slot_coords(5) == {"dp": 1, "tp": 0, "sp": 1}
+    assert grid.slot_at({"dp": 1, "tp": 0, "sp": 1}) == 5
     with pytest.raises(ValueError):
         make_mesh({"sp": 0}, device="cpu")
     mesh = make_mesh({"dp": 1, "tp": 1, "sp": 4}, device="cpu")

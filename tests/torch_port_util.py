@@ -131,6 +131,103 @@ def ep_runs(data: dict, n: int, mesh, mine) -> dict:
     return runs
 
 
+def mesh_worker(rank: int, world: int, port: int, folder: str) -> None:
+    """One process of a ``torch.distributed`` (gloo) run of the model over
+    a mesh split over ``world`` processes: :func:`mesh_runs` with the
+    default group, written to ``out<rank>.npz`` in ``folder``."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        np.savez(f"{folder}/out{rank}.npz", **mesh_runs(dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
+
+
+def _record(out: dict, name: str, tree) -> None:
+    """Every shard of a sharded tree (each slot's box) into ``out``."""
+    from starway_tpu_torch.models.sharded import _paths
+    from starway_tpu_torch.parallel.sharding import spec_axes
+
+    for path, x in _paths(tree):
+        key = f"{name}/{'.'.join(path)}"
+        if hasattr(x, "shards"):
+            for slot, t in x.shards.items():
+                out[f"{key}/{slot.index}"] = to_numpy(t)
+            out[f"{key}/held"] = np.int64(sum(
+                t.numel() for t in x.tree_children()))
+            out[f"{key}/total"] = np.int64(np.prod(x.shape))
+            out[f"{key}/sharded"] = np.bool_(spec_axes(x.sharding.spec))
+        else:
+            out[key] = to_numpy(x)
+
+
+def mesh_runs(group=None) -> dict:
+    """The model over meshes of four slots (debug widths, float32, seeded
+    weights and batch), ``group`` holding the slots (None: this process
+    holds all four): a dp x tp forward, loss and gradients; an
+    expert-parallel (dp x ep) AdamW step with ``make_sharded_moe``; the
+    natural-order zigzag attention of a sequence over ``{"sp": 4}``, and
+    the gradient of its q; and a ZeRO ``Trainer`` step over ``{"fsdp":
+    4}``.  Returns ``{name:
+    array}``, the shards of this process's slots."""
+    from starway_tpu_torch.models import llama as tl
+    from starway_tpu_torch.models.moe import make_sharded_moe
+    from starway_tpu_torch.models.trainer import Trainer
+    from starway_tpu_torch.parallel import (make_mesh,
+                                            make_zigzag_ring_attention,
+                                            shard_tree)
+    from starway_tpu_torch.utils.optim import adamw
+
+    out = {}
+    batch = torch.as_tensor(np.random.default_rng(3).integers(
+        0, 512, (4, 17))).long()
+    cfg = tl.LlamaConfig.preset("debug", n_layers=1)
+    mesh = make_mesh({"dp": 2, "tp": 2}, device="cpu", group=group)
+    sh = shard_tree(tl.init_params(cfg, seed=0, device="cpu"), mesh,
+                    tl.param_specs(cfg))
+    out["dptp/logits"] = to_numpy(tl.forward(sh, batch[:, :-1], cfg))
+    loss, grads = tl.value_and_grad(sh, batch, cfg)
+    out["dptp/loss"] = to_numpy(loss)
+    _record(out, "dptp/grad", grads)
+
+    mcfg = tl.LlamaConfig.preset("debug", n_layers=1, n_experts=4,
+                                 moe_top_k=2, moe_swiglu=True)
+    mesh = make_mesh({"dp": 2, "ep": 2, "tp": 1}, device="cpu",
+                     group=group)
+    sh = shard_tree(tl.init_params(mcfg, seed=1, device="cpu"), mesh,
+                    tl.param_specs(mcfg))
+    tx = adamw(1e-3)
+    step = tl.make_train_step(mcfg, tx, moe_fn=make_sharded_moe(
+        mesh, k=2, swiglu=True, capacity_factor=1.25))
+    sh, opt, loss = step(sh, tx.init(sh), batch)
+    out["ep/loss"] = to_numpy(loss)
+    _record(out, "ep/params", sh)
+
+    q, k, v, vd = (torch.from_numpy(np.random.default_rng(i).standard_normal(
+        (1, 2, 32, 16)).astype(np.float32)) for i in range(4))
+    mesh = make_mesh({"sp": 4}, device="cpu", group=group)
+    rows = 32 // mesh.world
+    cut = slice(mesh.rank * rows, (mesh.rank + 1) * rows)
+    leaves = [x[:, :, cut].clone().requires_grad_() for x in (q, k, v)]
+    o = make_zigzag_ring_attention(mesh)(*leaves)
+    (o * vd[:, :, cut]).sum().backward()
+    out["zigzag/out"] = to_numpy(o)
+    out["zigzag/dq"] = to_numpy(leaves[0].grad)
+
+    fcfg = tl.LlamaConfig.preset("debug", n_layers=1, d_model=64, n_heads=4,
+                                 n_kv_heads=4, d_ff=128, vocab_size=256)
+    mesh = make_mesh({"fsdp": 4}, device="cpu", group=group)
+    t = Trainer(fcfg, adamw(3e-3), tl.init_params(fcfg, seed=2, device="cpu"),
+                mesh=mesh, fsdp_axis="fsdp")
+    out["fsdp/loss"] = np.float32(t.step_sync(batch % 256))
+    _record(out, "fsdp/params", t.state.params)
+    _record(out, "fsdp/mu", t.state.opt_state.mu)
+    _record(out, "fsdp/nu", t.state.opt_state.nu)
+    return out
+
+
 # ------------------------------------------------- transport children
 #
 # Spawned across a real process boundary by tests/test_torch_transport.py
