@@ -217,10 +217,31 @@ Phases, each of which raises on failure:
               generate_lookup and generate_beam(beams=1) equal
               generate(); a droppy config (capacity factor 1.25) is
               refused with "dropless"
-22. a JSON line of the kernels with their launches on the serving paths
-   (phases 4-7 and 18-21, the last four also apart) and the training
-   paths (phases 11, 13 and 16) and the numbers of phase 3
-23. the last line: {"ok": true, "device": {...}}
+22. mixtral-train -- Mixtral-8x7B-v0.1 widths trained (2 layers, bf16,
+              AdamW), then through make_sharded_moe over {"ep": 4}, then a
+              float32 step against the plain attention
+23. mesh-train -- llama3-8b widths over dp x tp x sp (ring, zigzag),
+              Mixtral widths over dp x ep x tp, ZeRO over 8 fsdp slots and
+              Ulysses over sp = 4, each held to the unsharded step
+24. tp-serve -- serving over {"tp": 2} against phases 4 and 7
+25. pipeline -- the pipeline family, every slot on cuda:0, bf16: llama3-8b
+              widths cut to 8 layers, batch [4, 2049]: (a) 1F1B over 4
+              stages of 2 layers, 4 microbatches; (b) the same layers
+              interleaved, 4 stages x 2 chunks; (c) pp x dp = 2 x 2, 2
+              microbatches; (d) pp x ep = 2 x 2 at Mixtral-8x7B widths, 2
+              layers, 2 microbatches, routed as the pipeline routed (and
+              freely, logged); each held to the unsharded step of the same
+              tree and batch (the loss, the loss after one AdamW update in
+              the pipeline layout, the worst gradient leaf) at phase 23's
+              limits, with its step ms beside the unsharded value_and_grad,
+              its peak memory and its flash launches, asserted from the
+              schedule (2 forward and 1 backward a layer, microbatch and
+              data slot); (e) the forward-only make_pipeline over (a)'s
+              stages against the unsharded forward of each microbatch
+26. a JSON line of the kernels with their launches on the serving paths
+   (phases 4-7, 18-21 and 24) and the training paths (phases 11, 13, 16,
+   22, 23 and 25), phases 18-25 also apart, and the numbers of phase 3
+27. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -5408,6 +5429,420 @@ def phase_tp_serve(dev, card: str, reqs, done4, st4, st5) -> tuple:
     return out, counts
 
 
+# ---------------------------------------------------------------- pipeline
+
+PP_PRESET, PP_LAYERS = "llama3-8b", 8   # 1.75 G layer parameters, bf16
+PP_BATCH = dict(batch=4, seq=2048)
+PP_STAGES, PP_MICRO, PP_CHUNKS = 4, 4, 2  # parts a, b (2 chunks), e
+PP_DP = dict(pp=2, dp=2, micro=2)         # part c
+PP_MOE = dict(layers=2, pp=2, ep=2, micro=2)  # part d, Mixtral widths
+# Each pipelined step is held to the unsharded one at phase 23's limits
+# (MESH_LOSS_REL_TOL, MESH_AFTER_REL_TOL, MESH_GRAD_REL_TOL).
+
+
+class StageRouting(PinnedRouting):
+    """:class:`PinnedRouting` from a pipelined step to its reference.  The
+    pipeline's F slots route stage by stage as the ticks go, out of the
+    reference's order; its B slots route the same tokens again under
+    autograd to the same choices.  :meth:`record` keeps the F slots'
+    choices (routed without autograd) and :meth:`reorder` lays them out
+    as the reference routes: microbatch by microbatch, layer by layer,
+    ep shard by shard."""
+
+    def record(self):
+        import torch
+
+        def recording(xt, router_w, k):
+            out = self._real(xt, router_w, k)
+            if not torch.is_grad_enabled():
+                self.chosen.append(out[0])
+            return out
+
+        return mock.patch.object(self._moe, "_route", recording)
+
+    def reorder(self, n_micro: int, n_stages: int, per_stage: int,
+                ep: int) -> None:
+        from starway_tpu_torch.parallel.pipeline import pipeline_ticks
+
+        order = [(s * per_stage + l, t - s, e)
+                 for t in range(pipeline_ticks(n_micro, n_stages))
+                 for s in range(n_stages) if 0 <= t - s < n_micro
+                 for l in range(per_stage) for e in range(ep)]
+        if len(order) != len(self.chosen):
+            raise AssertionError(f"{len(self.chosen)} routings recorded, "
+                                 f"{len(order)} F-slot routings expected")
+        by = dict(zip(order, self.chosen))
+        self.chosen = [by[(g, j, e)] for j in range(n_micro)
+                       for g in range(n_stages * per_stage)
+                       for e in range(ep)]
+
+
+def rows_ep_moe(cfg, mesh):
+    """The MoE FFN as a pipeline stage runs it under pp x ep, as a
+    ``moe_fn``: the rows of x split over the mesh's ``"ep"`` slots, each
+    routing its own tokens (its capacity from them) to the experts split
+    over ep, the aux averaged over the slots (models/moe.py)."""
+    import torch
+
+    from starway_tpu_torch.models.moe import _sharded_slots
+
+    ep = mesh.shape["ep"]
+
+    def fn(x, router, w_in, w_out, w_gate=None):
+        ys, auxes = _sharded_slots(
+            list(x.chunk(ep, 0)), [router] * ep, list(w_in.chunk(ep, 0)),
+            list(w_out.chunk(ep, 0)),
+            None if w_gate is None else list(w_gate.chunk(ep, 0)), mesh,
+            "ep", cfg.moe_capacity_factor, cfg.moe_top_k, False)
+        return torch.cat(ys, 0), auxes[0]
+
+    return fn
+
+
+def micro_loss(params, batch, cfg, n_micro: int, moe_fn=None) -> float:
+    """The mean over ``n_micro`` microbatches of ``loss_fn``, no
+    autograd."""
+    import torch
+
+    from starway_tpu_torch.models.llama import loss_fn
+
+    with torch.no_grad():
+        return float(sum(loss_fn(params, mb, cfg, None, moe_fn).item()
+                         for mb in batch.chunk(n_micro)) / n_micro)
+
+
+def pp_reference(cfg, params, batch, n_micro: int = 1, moe_fn=None,
+                 pin=None) -> dict:
+    """The unsharded step a pipelined one is held to: the gradients of the
+    mean over ``n_micro`` microbatches of ``value_and_grad`` (accumulated
+    in float32 and given the params' dtypes, as make_train_step's
+    accumulation does; ``pin``: a context for that pass), its loss and
+    ms, and the loss after one AdamW update with those gradients."""
+    import torch
+
+    from starway_tpu_torch.models.llama import apply_updates, value_and_grad
+    from starway_tpu_torch.utils import adamw
+    from starway_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+
+    def grads_of():
+        loss, acc = 0.0, None
+        for mb in batch.chunk(n_micro):
+            l, g = value_and_grad(params, mb, cfg, None, moe_fn)
+            loss += l.item()
+            if n_micro == 1:
+                return loss, g
+            leaves = tree_leaves(g)
+            acc = ([x.float() for x in leaves] if acc is None
+                   else [a.add_(x) for a, x in zip(acc, leaves)])
+            del g, leaves
+        return loss / n_micro, tree_unflatten(params, [
+            (a / n_micro).to(p.dtype)
+            for a, p in zip(acc, tree_leaves(params))])
+
+    with pin if pin is not None else contextlib.nullcontext():
+        (loss, grads), sec = timed(grads_of)
+    tx = adamw(LR_TRAIN)
+    new = apply_updates(tx, params, tx.init(params), grads,
+                        in_place=False)[0]
+    after = micro_loss(new, batch, cfg, n_micro, moe_fn)
+    del new
+    torch.cuda.empty_cache()
+    return dict(loss=loss, after=after, grads=grads, ms=sec * 1e3)
+
+
+def pp_after(cfg, tree, grads, batch, merge, n_micro: int = 1,
+             moe_fn=None) -> float:
+    """One AdamW update of the pipeline-layout ``tree`` (in place) with
+    ``grads`` in the params' dtypes, then the loss of the merged tree."""
+    import torch
+
+    from starway_tpu_torch.models.llama import apply_updates
+    from starway_tpu_torch.utils import adamw
+    from starway_tpu_torch.utils.tree import tree_map
+
+    tx = adamw(LR_TRAIN)
+    grads = tree_map(lambda g, p: g.to(p.dtype), grads, tree)
+    apply_updates(tx, tree, tx.init(tree), grads)
+    del grads
+    torch.cuda.empty_cache()
+    flat = merge(tree)
+    after = micro_loss(flat, batch, cfg, n_micro, moe_fn)
+    del flat
+    torch.cuda.empty_cache()
+    return after
+
+
+def pp_launches(c: dict, fwd: int, bwd: int, label: str) -> None:
+    """The flash kernels of a pipelined run launched exactly as counted
+    from its schedule."""
+    got = (c["flash_forward"], c["flash_backward_dkv"],
+           c["flash_backward_dq"])
+    if got != (fwd, bwd, bwd):
+        raise AssertionError(f"{label}: flash forward, dK/dV and dQ "
+                             f"launched {got} times, not {(fwd, bwd, bwd)}")
+
+
+def last_hidden(params, cfg, tokens):
+    """The unsharded forward's last hidden state (before the final norm)
+    of ``tokens``, layer by layer through decoder_layer, no autograd."""
+    import torch
+
+    from starway_tpu_torch.models.llama import (cfg_rope_tables,
+                                                decoder_layer,
+                                                default_attn, embed_tokens,
+                                                layer_params)
+
+    with torch.no_grad():
+        h = embed_tokens(params, tokens, cfg)
+        cos, sin = cfg_rope_tables(cfg, tokens.shape[1],
+                                   device=tokens.device)
+        for i in range(cfg.n_layers):
+            h = decoder_layer(layer_params(params["layers"], i), h, cfg,
+                              cos, sin, default_attn)[0]
+    return h
+
+
+def phase_pipeline(dev, card: str) -> tuple:
+    """Phase 25: the pipeline family on cuda:0, every slot in this
+    process, bf16, remat "dots".  llama3-8b widths cut to PP_LAYERS
+    layers, batch PP_BATCH: (a) 1F1B over PP_STAGES stages, PP_MICRO
+    microbatches; (b) the same layers interleaved, PP_CHUNKS chunks a
+    stage; (c) pp x dp; (d) pp x ep at Mixtral-8x7B widths (PP_MOE),
+    routed as the pipeline routed (StageRouting) and also freely; (e) the
+    forward-only pipeline over (a)'s stages.  Parts a-d are held to the
+    unsharded step of the same tree and batch: the loss, the loss after
+    one AdamW update applied in the pipeline layout, and the worst
+    gradient leaf; e to the unsharded forward of each microbatch within
+    BF16_TOL.  Returns (stats, launch counts)."""
+    import torch
+
+    from starway_tpu_torch.models import LlamaConfig, init_params
+    from starway_tpu_torch.models import pp_llama as tpp
+    from starway_tpu_torch.models.llama import embed_tokens, value_and_grad
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.parallel import make_mesh, make_pipeline
+    from starway_tpu_torch.utils.tree import tree_map
+
+    out, counts = {}, {}
+
+    def add(c):
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+
+    def check(label, got: dict, want: dict) -> dict:
+        rel = {k: abs(got[k] - want[k]) / abs(want[k])
+               for k in ("loss", "after")}
+        log(f"  {label}: loss {got['loss']:.5f} vs unsharded "
+            f"{want['loss']:.5f} (rel {rel['loss']:.2e}, tol "
+            f"{MESH_LOSS_REL_TOL}), after the update {got['after']:.5f} vs "
+            f"{want['after']:.5f} (rel {rel['after']:.2e}, tol "
+            f"{MESH_AFTER_REL_TOL}); worst gradient leaf "
+            f"{got['grad_rel_err']:.3e} (tol {MESH_GRAD_REL_TOL})")
+        if not (rel["loss"] <= MESH_LOSS_REL_TOL
+                and rel["after"] <= MESH_AFTER_REL_TOL
+                and got["grad_rel_err"] <= MESH_GRAD_REL_TOL):
+            raise AssertionError(f"{label}: the pipelined step disagrees "
+                                 f"with the unsharded one")
+        return dict(loss_rel_err=rel["loss"], after_rel_err=rel["after"],
+                    grad_rel_err=got["grad_rel_err"])
+
+    def run(label, step, tree, batch, fwd, bwd, record=None, trace=False):
+        """Two pipelined steps (the first with ``record``; with ``trace``
+        a traced one between them), their ms, the last one's launches and
+        the peak memory: (loss, grads, stats)."""
+        mem = fresh_peak()
+        with record if record is not None else contextlib.nullcontext():
+            first = timed(lambda: step(tree, batch))[1] * 1e3
+        traced = {}
+        if trace:
+            _, traced_ms, traced = traced_run(lambda: step(tree, batch)[0])
+            if traced.get("device_busy_ms"):
+                traced["device_idle_share"] = (
+                    1 - traced["device_busy_ms"] / traced_ms)
+            log(f"  {label}, a traced step: {traced_ms:.1f} ms, device busy "
+                f"{traced.get('device_busy_ms')} ms, idle share "
+                f"{traced.get('device_idle_share')}, by family "
+                f"{traced.get('device_ms_by_family')}; top device "
+                f"operations {traced.get('top_kernels_ms')}")
+        reset_launch_counts()
+        (loss, grads), sec = timed(lambda: step(tree, batch))
+        c = launch_counts()
+        add(c)
+        pp_launches(c, fwd, bwd, label)
+        st = dict(step_ms=[first, sec * 1e3], launches={
+            k: c[k] for k in ("flash_forward", "flash_backward_dkv",
+                              "flash_backward_dq")},
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **mem,
+            **{k: traced[k] for k in ("device_busy_ms", "device_idle_share",
+                                      "device_ms_by_family",
+                                      "top_kernels_ms") if k in traced})
+        log(f"  {label}: step ms {st['step_ms']}, peak "
+            f"{st['peak_memory_gb']:.2f} GB, launches {st['launches']}")
+        return loss.item(), grads, st
+
+    B, S = PP_BATCH["batch"], PP_BATCH["seq"]
+    cfg = LlamaConfig.preset(PP_PRESET, n_layers=PP_LAYERS, remat=True,
+                             remat_policy="dots")
+    params = init_params(cfg, SEED + 320, device=dev)
+    batch = train_batch(cfg, B, S + 1, SEED + 321, dev)
+    log(f"[pipeline] {PP_PRESET} widths, {PP_LAYERS} layers, {cfg.dtype}, "
+        f"remat dots, batch [{B}, {S + 1}], every slot on {dev} ({card}): the "
+        f"unsharded step first")
+    value_and_grad(params, batch, cfg)  # a warm run: the second is timed
+    want = pp_reference(cfg, params, batch)
+    log(f"  unsharded: loss {want['loss']:.5f}, value_and_grad "
+        f"{want['ms']:.1f} ms")
+    tokens = batch[:, :-1]
+    h_micro = torch.stack([last_hidden(params, cfg, tokens[i:i + 1])
+                           for i in range(PP_MICRO)])
+    h_whole = last_hidden(params, cfg, tokens)
+    L = PP_LAYERS
+
+    # a. 1F1B over 4 stages of 2 layers.
+    mesh = make_mesh({"pp": PP_STAGES}, device=dev)
+    tree = tpp.shard_pp_params(tpp.pp_split_params(params, PP_STAGES), mesh)
+    step = tpp.make_pp_llama_train(mesh, cfg, n_micro=PP_MICRO)
+    log(f"[pipeline] a. 1F1B: {PP_STAGES} stages x {L // PP_STAGES} "
+        f"layers, {PP_MICRO} microbatches")
+    loss, grads, st = run("1f1b", step, tree, batch, 2 * PP_MICRO * L,
+                          PP_MICRO * L, trace=True)
+    gerr = worst_grad_rel_err(grads, tpp.pp_split_params(want["grads"],
+                                                          PP_STAGES))
+    after = pp_after(cfg, tree, grads, batch, tpp.pp_merge_params)
+    del grads
+    st["over_unsharded"] = st["step_ms"][1] / want["ms"]
+    out["a_1f1b"] = dict(**check("1f1b", dict(loss=loss, after=after,
+                                              grad_rel_err=gerr), want),
+                         unsharded_ms=want["ms"], **st)
+    log(f"  1f1b step / unsharded value_and_grad: "
+        f"{st['over_unsharded']:.3f}")
+
+    # e. the forward-only pipeline over the same stages (restored).
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    tree = tpp.shard_pp_params(tpp.pp_split_params(params, PP_STAGES), mesh)
+    h0 = embed_tokens(params, tokens, cfg).reshape(PP_MICRO, B // PP_MICRO,
+                                                   S, cfg.d_model)
+    pipe = make_pipeline(mesh, tpp.make_pp_stage_fn(cfg))
+    reset_launch_counts()
+    got, sec = timed(lambda: pipe(tree["stages"], h0))
+    c = launch_counts()
+    add(c)
+    pp_launches(c, PP_MICRO * L, 0, "forward")
+    err = (got.float() - h_micro.float()).abs().max().item()
+    whole = (got.reshape(h_whole.shape).float()
+             - h_whole.float()).abs().max().item()
+    log(f"[pipeline] e. forward-only make_pipeline: {sec * 1e3:.1f} ms, "
+        f"max_abs_err {err:.3e} against the unsharded forward of each "
+        f"microbatch (tol {BF16_TOL}), {whole:.3e} against the whole "
+        f"batch's (max |h| {h_whole.float().abs().max().item():.3f})")
+    if not err <= BF16_TOL:
+        raise AssertionError("the forward pipeline disagrees with the "
+                             "unsharded forward")
+    out["e_forward"] = dict(ms=sec * 1e3, max_abs_err=err,
+                            whole_batch_max_abs_err=whole,
+                            launches=c["flash_forward"])
+    del tree, got, h0, h_micro, h_whole
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. the same layers interleaved: 4 stages x 2 chunks of 1 layer.
+    tree = tpp.shard_ppv_params(
+        tpp.ppv_split_params(params, PP_STAGES, PP_CHUNKS), mesh)
+    step = tpp.make_pp_llama_train(mesh, cfg, n_micro=PP_MICRO,
+                                   n_chunks=PP_CHUNKS)
+    log(f"[pipeline] b. interleaved: {PP_STAGES} stages x {PP_CHUNKS} "
+        f"chunks x {L // (PP_STAGES * PP_CHUNKS)} layer")
+    loss, grads, st = run("interleaved", step, tree, batch,
+                          2 * PP_MICRO * L, PP_MICRO * L)
+    gerr = worst_grad_rel_err(grads, tpp.ppv_split_params(
+        want["grads"], PP_STAGES, PP_CHUNKS))
+    after = pp_after(cfg, tree, grads, batch, tpp.ppv_merge_params)
+    del grads, tree
+    st["over_unsharded"] = st["step_ms"][1] / want["ms"]
+    out["b_interleaved"] = dict(**check("interleaved", dict(
+        loss=loss, after=after, grad_rel_err=gerr), want),
+        unsharded_ms=want["ms"], **st)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. pp x dp = 2 x 2, 2 microbatches.
+    p = PP_DP
+    mesh = make_mesh({"pp": p["pp"], "dp": p["dp"]}, device=dev)
+    tree = tpp.shard_pp_params(tpp.pp_split_params(params, p["pp"]), mesh)
+    step = tpp.make_pp_llama_train(mesh, cfg, n_micro=p["micro"],
+                                   dp_axis="dp")
+    log(f"[pipeline] c. pp x dp = {p['pp']} x {p['dp']}, {p['micro']} "
+        f"microbatches")
+    loss, grads, st = run("pp x dp", step, tree, batch,
+                          2 * p["micro"] * L * p["dp"],
+                          p["micro"] * L * p["dp"])
+    gerr = worst_grad_rel_err(grads, tpp.pp_split_params(want["grads"],
+                                                          p["pp"]))
+    after = pp_after(cfg, tree, grads, batch, tpp.pp_merge_params)
+    del grads, tree
+    st["over_unsharded"] = st["step_ms"][1] / want["ms"]
+    out["c_pp_dp"] = dict(**check("pp x dp", dict(
+        loss=loss, after=after, grad_rel_err=gerr), want),
+        unsharded_ms=want["ms"], **st)
+    del params, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. pp x ep at Mixtral-8x7B widths: 2 stages x 1 layer, ep = 2.
+    p = PP_MOE
+    mcfg = mixtral_config(n_layers=p["layers"], remat=True,
+                          remat_policy="dots")
+    params = init_params(mcfg, SEED + 322, device=dev)
+    batch = train_batch(mcfg, B, S + 1, SEED + 323, dev)
+    mesh = make_mesh({"pp": p["pp"], "ep": p["ep"]}, device=dev)
+    moe_fn = rows_ep_moe(mcfg, make_mesh({"ep": p["ep"]}, device=dev))
+    tree = tpp.shard_pp_params(tpp.pp_split_params(params, p["pp"]), mesh,
+                               ep_axis="ep")
+    step = tpp.make_pp_llama_train(mesh, mcfg, n_micro=p["micro"],
+                                   ep_axis="ep")
+    log(f"[pipeline] d. pp x ep = {p['pp']} x {p['ep']}, Mixtral-8x7B "
+        f"widths, {p['layers']} layers, top-{mcfg.moe_top_k} of "
+        f"{mcfg.n_experts} at capacity factor {mcfg.moe_capacity_factor} "
+        f"(dropless), aux {mcfg.moe_aux_coef}, {p['micro']} microbatches")
+    pin = StageRouting()
+    n_layers = p["layers"]
+    loss, grads, st = run("pp x ep", step, tree, batch,
+                          2 * p["micro"] * n_layers * p["ep"],
+                          p["micro"] * n_layers * p["ep"],
+                          record=pin.record())
+    pin.reorder(p["micro"], p["pp"], n_layers // p["pp"], p["ep"])
+    # Kept in the params' dtypes (as the update takes them): the float32
+    # gradients of these experts would hold 12.6 GB beside the references.
+    grads = tree_map(lambda g, q: g.to(q.dtype), grads, tree)
+    torch.cuda.empty_cache()
+    after = pp_after(mcfg, tree, grads, batch, tpp.pp_merge_params,
+                     p["micro"], moe_fn)
+    del tree
+    torch.cuda.empty_cache()
+    free = pp_reference(mcfg, params, batch, p["micro"], moe_fn)
+    free_err = worst_grad_rel_err(grads, tpp.pp_split_params(
+        free.pop("grads"), p["pp"]))
+    want = pp_reference(mcfg, params, batch, p["micro"], moe_fn,
+                        pin=pin.replay())
+    gerr = worst_grad_rel_err(grads, tpp.pp_split_params(want["grads"],
+                                                          p["pp"]))
+    log(f"  gradients against the reference routed freely: worst leaf "
+        f"{free_err:.3e} (loss {free['loss']:.5f}); {pin.flips} of "
+        f"{pin.pairs} routing choices differ; held routed as the "
+        f"pipeline:")
+    st["over_unsharded"] = st["step_ms"][1] / want["ms"]
+    out["d_pp_ep"] = dict(**check("pp x ep", dict(
+        loss=loss, after=after, grad_rel_err=gerr), want),
+        free_grad_rel_err=free_err, routing_flips=pin.flips,
+        routed_pairs=pin.pairs, unsharded_ms=want["ms"], **st)
+    del params, grads, want, free
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def main() -> int:
     import torch
 
@@ -5624,6 +6059,14 @@ def main() -> int:
     log(f"[mesh] phases 22-24 took {t23 - t22:.1f} + {t24 - t23:.1f} + "
         f"{time.perf_counter() - t24:.1f} s")
 
+    # 25: the pipeline family: 1F1B, interleaved, pp x dp, pp x ep MoE
+    # and the forward pipeline.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t25 = time.perf_counter()
+    st_pp, c25 = phase_pipeline(dev, card)
+    log(f"[pipeline] phase 25 took {time.perf_counter() - t25:.1f} s")
+
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
     rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
@@ -5648,21 +6091,21 @@ def main() -> int:
             label: traced[label].get("attention_device_ms")
             for label in labels}
 
-    # 25. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
+    # 26. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
     # 18, 19, 20, 21 and 24) and the training paths' (phases 11, 13, 16,
-    # 22 and 23, 16 the DP ranks' own counts on both engines), each counted
-    # from 0 just before its run and read just after.
+    # 22, 23 and 25, 16 the DP ranks' own counts on both engines), each
+    # counted from 0 just before its run and read just after.
     main_counts = {k: main_counts[k] + c7[k] + c_ring[k] + c_dp[k]
                    + c_dpn[k] + c18.get(k, 0) + c19.get(k, 0)
                    + c20.get(k, 0) + c21.get(k, 0) + c22.get(k, 0)
-                   + c23.get(k, 0) + c24.get(k, 0)
+                   + c23.get(k, 0) + c24.get(k, 0) + c25.get(k, 0)
                    for k in main_counts}
     kernels = []
     for key, row in rows.items():
         row = dict(row)
         row["launches"] = main_counts[key]
         for phase, c in ((18, c18), (19, c19), (20, c20), (21, c21),
-                         (22, c22), (23, c23), (24, c24)):
+                         (22, c22), (23, c23), (24, c24), (25, c25)):
             row[f"launches_phase{phase}"] = c.get(key, 0)
         kernels.append(row)
     # The W8A16 runs (phases 7 and 18) launch the GEMV; the others' counts
@@ -5797,9 +6240,18 @@ def main() -> int:
                 "first_logits_rel_err", "gemv_by_regime",
                 "server_requests_equal", "speculative_equal", "accepted",
                 "macro_steps") if k in st))
+    for name, st in st_pp.items():
+        log(f"[summary] pipeline {name} ({card}): "
+            + ", ".join(f"{k} {st.get(k)}" for k in (
+                "loss_rel_err", "after_rel_err", "grad_rel_err",
+                "free_grad_rel_err", "routing_flips", "step_ms",
+                "unsharded_ms", "over_unsharded", "device_idle_share",
+                "ms", "max_abs_err", "whole_batch_max_abs_err",
+                "peak_memory_gb", "launches")
+                if k in st))
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 26. last line
+    # 27. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

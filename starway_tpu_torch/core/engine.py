@@ -979,9 +979,13 @@ class Worker:
             conn._registered = False
 
     def _on_conn_io(self, conn: TcpConn, mask, fires) -> None:
-        if mask & selectors.EVENT_WRITE:
+        # A conn without a socket is a suspended session: it stays alive
+        # while it waits for its redial.  Its socket may go within this
+        # very call (a failed write suspends it) or earlier in the
+        # selector's batch, and the stale readiness must not be acted on.
+        if mask & selectors.EVENT_WRITE and conn.sock is not None:
             conn.on_writable(fires)
-        if mask & selectors.EVENT_READ and conn.alive:
+        if mask & selectors.EVENT_READ and conn.alive and conn.sock is not None:
             conn.on_readable(fires)
 
     def _conn_broken(self, conn, fires) -> None:

@@ -703,8 +703,9 @@ def decoder_block(lps: list, hs: list, cfg: LlamaConfig, cos, sin,
     that hold parts of them (the identity for a whole tree); ``moe(xs,
     [lp["moe"], ...])`` gives an expert layer's ``(ys, auxes, stats)``.
 
-    Returns ``(hs, auxes, ks, vs, stats)``: aux is the MoE balance term (a
-    float32 zero for dense layers), k/v the post-RoPE grouped heads (the
+    Returns ``(hs, auxes, ks, vs, stats)``: aux is the MoE balance term
+    (None for a dense layer: no tensor is made that no caller reads), k/v
+    the post-RoPE grouped heads (the
     KV-cache prefix), stats the router health when the MoE function
     returns it, else None.
 
@@ -736,15 +737,15 @@ def decoder_block(lps: list, hs: list, cfg: LlamaConfig, cos, sin,
     ys = [matmul_w(run(_gated, matmul_w(x, lp["w_gate"]),
                        matmul_w(x, lp["w_up"]), cfg), lp["w_down"])
           for x, lp in zip(xs, lps)]
-    zero = torch.zeros((), dtype=torch.float32, device=hs[0].device)
-    return ([h + y for h, y in zip(hs, reduce(ys, "w_down"))],
-            [zero] * len(hs), ks, vs, None)
+    return ([h + y for h, y in zip(hs, reduce(ys, "w_down"))], None, ks, vs,
+            None)
 
 
 def decoder_layer(lp, h, cfg: LlamaConfig, cos, sin, attn_fn: Callable,
                   moe_fn: Optional[Callable] = None):
     """:func:`decoder_block` on one whole shard: ``(h, aux, k, v,
-    stats)``, the MoE layer through :func:`moe_ffn`."""
+    stats)``, the MoE layer through :func:`moe_ffn` (aux None for a dense
+    layer)."""
     def moe(xs, ms):
         y, aux, stats = moe_ffn(xs[0], ms[0], cfg, moe_fn)
         return [y], [aux], stats
@@ -753,7 +754,7 @@ def decoder_layer(lp, h, cfg: LlamaConfig, cos, sin, attn_fn: Callable,
         [lp], [h], cfg, cos, sin,
         lambda qs, ks_, vs_: [attn_fn(qs[0], ks_[0], vs_[0])], moe,
         lambda ys, name: ys)
-    return hs[0], auxes[0], ks[0], vs[0], stats
+    return hs[0], None if auxes is None else auxes[0], ks[0], vs[0], stats
 
 
 def forward(params: dict, tokens, cfg: LlamaConfig,
@@ -845,7 +846,8 @@ def _slot_forward(tree, toks: list, cfg: LlamaConfig, attn_fn, moe_fn, *,
         else:
             out = layer(i, *hs)
         hs, layer_aux, ks, vs, st = out
-        auxes = [a + b for a, b in zip(auxes, layer_aux)]
+        if layer_aux is not None:
+            auxes = [a + b for a, b in zip(auxes, layer_aux)]
         if return_kv:
             kvs.append((ks, vs))
         if st is not None:

@@ -513,7 +513,7 @@ def _tp_only(mesh):
         raise NotImplementedError(
             f"serving a tree sharded over {mesh.shape} (world "
             f"{mesh.world}): the port serves over {{'tp': n}} in one "
-            f"process (ROADMAP.md, Queue 1 item 6)")
+            f"process (ROADMAP.md, Queue 1 item 2)")
 
 
 def tp_init_cache(cfg, mesh, batch: int, max_len: int) -> dict:

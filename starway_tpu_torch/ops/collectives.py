@@ -5,7 +5,8 @@ Port of the JAX package's ``ops/collectives.py``: ``axis_size``,
 ``axis_index``, ``ring_shift`` (the rotation of ring attention),
 ``all_to_all`` (the expert dispatch of MoE, Ulysses and the KV-cache
 shuffle), ``all_gather``, ``psum``, ``pmean``, ``reduce_scatter`` and
-``ring_reduce``.  A collective takes the list of this process's slots of
+``ring_reduce``, and ``broadcast`` from one coordinate (a pipeline's head
+gradient and input cotangent).  A collective takes the list of this process's slots of
 one tensor, in slot order (parallel/sharding.py ``Mesh.local_slots``), and
 returns the list after the exchange.  On a mesh of several axes it works
 along one axis: within each group of slots that share every other
@@ -278,6 +279,35 @@ def reduce_scatter(shards, mesh, axis: str, scatter_axis: int = 0) -> list:
         lambda xs: _raw_reduce_scatter(xs, mesh, axis, scatter_axis, True),
         lambda gs: _raw_all_gather(gs, mesh, axis, scatter_axis, True),
         shards)
+
+
+def broadcast(shards, mesh, axis: str, coord: int, like=None) -> list:
+    """Every slot receives the slot at coordinate ``coord`` of its group
+    along ``axis``: the ``psum`` of a value that only ``coord`` holds,
+    without the sum.  The entries of the other slots are not read and may
+    be None; ``like``, a tensor of the value's shape and dtype (a ``meta``
+    one will do), shapes what a process that holds no slot at ``coord``
+    receives on the mesh's device.  Slots of one process share the
+    tensor; it has no adjoint (values outside autograd)."""
+    local = mesh.local_slots
+    out = [None] * len(local)
+    ops = []
+    for dst in range(mesh.size):
+        src = _peer(mesh, dst, axis, coord)
+        if src in local and dst in local:
+            out[dst - local.start] = shards[src - local.start]
+        elif src in local:
+            ops.append(dist.P2POp(dist.isend,
+                                  shards[src - local.start].contiguous(),
+                                  mesh.rank_of(dst), mesh.group, tag=dst))
+        elif dst in local:
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              device=mesh.device)
+            out[dst - local.start] = buf
+            ops.append(dist.P2POp(dist.irecv, buf, mesh.rank_of(src),
+                                  mesh.group, tag=dst))
+    _post(ops)
+    return out
 
 
 def ring_reduce(shards, mesh, axis: str, op=None) -> list:

@@ -18,9 +18,9 @@ that crosses to another process goes through ``torch.distributed``
 :func:`mesh_sharding` and :func:`shard_array` are the port's face of
 ``NamedSharding`` and ``device_put``: a ``ShardedTensor`` holds this
 process's boxes, slots whose boxes are equal sharing one tensor.
-
-A pipeline axis (``"pp"``) above size 1 is refused: the pipelines come
-with the next slice (ROADMAP.md, Queue 1 item 6).
+:class:`AxisSlice` is the mesh of the slots at one coordinate of an axis
+(a pipeline stage's slots), over which the collectives of the other axes
+run.
 """
 
 from __future__ import annotations
@@ -136,13 +136,48 @@ def make_mesh(axes: dict, device=None, group=None) -> Mesh:
         if int(size) != size or size < 1:
             raise ValueError(f"axis {name!r} needs a size >= 1, got {size}")
         sizes[name] = int(size)
-    if sizes.get("pp", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {sizes}: a pipeline axis is not ported yet; the "
-            f"pipelines come with the next slice (ROADMAP.md, Queue 1 "
-            f"item 6)")
     return Mesh(sizes, torch.device("cuda" if device is None else device),
                 group)
+
+
+class AxisSlice:
+    """The slots of ``mesh`` at coordinate ``coord`` of ``axis``, as a mesh
+    of the other axes (``lax``'s view of the other axes inside one shard
+    of ``axis``): slot ``k`` is the ``k``-th such slot of ``mesh`` in
+    order, so the collectives of ops/collectives.py run along the other
+    axes among them, across processes as on ``mesh``."""
+
+    def __init__(self, mesh: Mesh, axis: str, coord: int):
+        self.parent, self.axis, self.coord = mesh, axis, coord
+        self.shape = {a: n for a, n in mesh.shape.items() if a != axis}
+        self.axis_names = tuple(self.shape)
+        self.size = math.prod(self.shape.values())
+        self.device, self.group = mesh.device, mesh.group
+        self.rank, self.world = mesh.rank, mesh.world
+        self._of = [i for i in range(mesh.size)
+                    if mesh.slot_coords(i)[axis] == coord]
+        mine = [k for k, i in enumerate(self._of) if i in mesh.local_slots]
+        # A process's slots are contiguous in the mesh, so in the slice.
+        self.local_slots = range(mine[0], mine[-1] + 1) if mine else range(0)
+
+    def slot_coords(self, index: int) -> dict:
+        c = self.parent.slot_coords(self._of[index])
+        del c[self.axis]
+        return c
+
+    def slot_at(self, coords: dict) -> int:
+        return self._of.index(self.parent.slot_at(
+            {**coords, self.axis: self.coord}))
+
+    def rank_of(self, index: int) -> int:
+        return self.parent.rank_of(self._of[index])
+
+    def local_range(self, axis: str) -> range:
+        seen = sorted({self.slot_coords(i)[axis] for i in self.local_slots})
+        return range(seen[0], seen[-1] + 1)
+
+    def __repr__(self):
+        return f"AxisSlice({self.parent!r}, {self.axis}={self.coord})"
 
 
 def mesh_sharding(mesh: Mesh, *spec) -> SlotSharding:
@@ -208,6 +243,14 @@ def _local_boxes(mesh: Mesh, spec, shape) -> list:
     mine = [boxes[mesh.slots[i]] for i in mesh.local_slots]
     origin = tuple(min(b[d][0] for b in mine) for d in range(len(shape)))
     return mine, origin
+
+
+def process_box(x, mesh: Mesh, spec):
+    """This process's box of the global ``x`` under ``spec``: the union of
+    its slots' boxes (a process holds contiguous slots, so it is a box)."""
+    mine, origin = _local_boxes(mesh, spec, tuple(x.shape))
+    return x[tuple(slice(lo, max(box[d][1] for box in mine))
+                   for d, lo in enumerate(origin))]
 
 
 def cut_blocks(x, mesh: Mesh, spec) -> list:

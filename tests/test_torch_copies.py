@@ -166,6 +166,22 @@ EDITS = {
          '                ack_extra["devpull"] = "ok"\n',
          '            if existing.devpull_ok and existing.cudaipc_peer is None:\n'
          '                ack_extra["devpull"] = "ok"\n'),
+        (# core/engine.py:978-981: a failed write suspends a session's conn
+         # (alive, its socket dropped) and the read half of the same event
+         # read from None, crashing the engine thread (the port's repair;
+         # tests/test_torch_reshard.py's conn-kill case went red on it).
+         '        if mask & selectors.EVENT_WRITE:\n'
+         '            conn.on_writable(fires)\n'
+         '        if mask & selectors.EVENT_READ and conn.alive:\n'
+         '            conn.on_readable(fires)\n',
+         '        # A conn without a socket is a suspended session: it stays alive\n'
+         '        # while it waits for its redial.  Its socket may go within this\n'
+         "        # very call (a failed write suspends it) or earlier in the\n"
+         "        # selector's batch, and the stale readiness must not be acted on.\n"
+         '        if mask & selectors.EVENT_WRITE and conn.sock is not None:\n'
+         '            conn.on_writable(fires)\n'
+         '        if mask & selectors.EVENT_READ and conn.alive and conn.sock is not None:\n'
+         '            conn.on_readable(fires)\n'),
     ],
     'core/conn.py': [
         (# core/conn.py:509-510

@@ -233,3 +233,27 @@ def test_scan_covers_the_mesh_layer():
     assert {"starway_tpu_torch/parallel/ulysses.py",
             "starway_tpu_torch/parallel/fsdp.py",
             "starway_tpu_torch/models/sharded.py"} <= scanned
+
+
+def test_pipeline_family_imports_keep_jax_out_of_the_process():
+    """The 1F1B schedules, interleaved and plain, and the pipelined Llama
+    import without jax or the JAX package."""
+    code = ("import sys\n"
+            "from starway_tpu_torch.parallel import (make_pipeline, "
+            "make_pipeline_train, make_interleaved_pipeline_train, "
+            "build_interleaved_schedule)\n"
+            "from starway_tpu_torch.models import (make_pp_llama_train, "
+            "shard_pp_params, shard_ppv_params)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_scan_covers_the_pipeline_family():
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {"starway_tpu_torch/parallel/pipeline.py",
+            "starway_tpu_torch/parallel/interleaved.py",
+            "starway_tpu_torch/models/pp_llama.py"} <= scanned

@@ -519,11 +519,15 @@ def test_sharded_moe_as_the_models_moe_fn(model):
         tmoe.make_sharded_moe(make_mesh({"ep": 4}, device="cpu"))(
             torch.zeros(1, 4, 128), moe["router"], moe["w_in"],
             moe["w_out"], moe["w_gate"])
-    # A data axis beside ep now holds its slots (the dp x ep x tp step is
-    # tests/test_torch_mesh_train.py's); a pipeline axis stays refused.
+    # A data axis beside ep holds its slots (the dp x ep x tp step is
+    # tests/test_torch_mesh_train.py's), and so does a pipeline axis (pp
+    # x ep is tests/test_torch_pp_moe.py's), numbered as JAX's devices.
     assert make_mesh({"dp": 2, "ep": 4}, device="cpu").size == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh({"pp": 2, "ep": 4}, device="cpu")
+    pp = make_mesh({"pp": 2, "ep": 4}, device="cpu")
+    assert pp.size == 8
+    assert [pp.slot_coords(i) for i in (0, 3, 4, 7)] == [
+        {"pp": 0, "ep": 0}, {"pp": 0, "ep": 3}, {"pp": 1, "ep": 0},
+        {"pp": 1, "ep": 3}]
 
 
 # ------------------------------------------------------------ collectives

@@ -495,6 +495,39 @@ async def test_schedule_survives_conn_kill_with_session(port, monkeypatch):
             proxy.stop()
 
 
+def test_conn_io_skips_a_conn_its_write_suspended():
+    """A reset peer makes a socket writable and readable in one event.
+    The failed write suspends a session's conn, which stays alive without
+    its socket; the read half of the event must then leave it alone
+    (reading from the dropped socket crashed the engine thread, the rare
+    red of the conn-kill case above)."""
+    import selectors
+
+    from starway_tpu_torch.core.engine import Worker
+
+    class SuspendedOnWrite:
+        alive = True
+
+        def __init__(self):
+            self.sock, self.reads = object(), 0
+
+        def on_writable(self, fires):
+            self.sock = None  # _conn_broken -> suspend() of a session
+
+        def on_readable(self, fires):
+            self.reads += 1
+            self.sock.recv_into(bytearray(1))
+
+    conn = SuspendedOnWrite()
+    Worker._on_conn_io(None, conn, selectors.EVENT_READ
+                       | selectors.EVENT_WRITE, [])
+    assert conn.sock is None and conn.reads == 0
+    # A readiness left in the selector's batch after the conn lost its
+    # socket earlier in that batch is not acted on either.
+    Worker._on_conn_io(None, conn, selectors.EVENT_READ, [])
+    assert conn.reads == 0
+
+
 # ----------------------------------------- observability + wire parity
 
 

@@ -304,11 +304,15 @@ def test_windowed_sharded_attn_matches_one_device():
 
 
 def test_mesh_and_sharded_attn_refusals():
-    """A pipeline axis, which this slice does not port, raises, naming
-    ROADMAP.md; a band on zigzag and an undeclared or mismatched window
+    """A pipeline axis is one more axis of slots, numbered row-major as
+    JAX's devices; a band on zigzag and an undeclared or mismatched window
     are refused as in JAX."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh({"pp": 2, "sp": 2}, device="cpu")
+    pp = make_mesh({"pp": 2, "sp": 2}, device="cpu")
+    ids = np.vectorize(lambda d: d.id)(jax_mesh({"pp": 2, "sp": 2}).devices)
+    assert pp.size == 4 and list(pp.local_slots) == [0, 1, 2, 3]
+    for i in range(pp.size):
+        c = pp.slot_coords(i)
+        assert ids[c["pp"], c["sp"]] == i
     # dp and tp above 1 make a grid of slots, row-major as JAX's devices.
     grid = make_mesh({"dp": 2, "tp": 2, "sp": 2}, device="cpu")
     assert grid.size == 8 and list(grid.local_slots) == list(range(8))

@@ -228,6 +228,69 @@ def mesh_runs(group=None) -> dict:
     return out
 
 
+def pp_worker(rank: int, world: int, port: int, folder: str) -> None:
+    """One process of a ``torch.distributed`` (gloo) run of the pipeline
+    schedules over meshes split over ``world`` processes: :func:`pp_runs`
+    with the default group, written to ``out<rank>.npz`` in ``folder``."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        np.savez(f"{folder}/out{rank}.npz", **pp_runs(dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
+
+
+def pp_runs(group=None) -> dict:
+    """The pipeline schedules over meshes of four slots (debug widths,
+    float32, seeded weights and batch), ``group`` holding the slots (None:
+    this process holds them all): the pipelined Llama over ``{"pp": 4}``
+    (its loss, the embedding and head gradients and every stage's), over
+    ``{"dp": 2, "pp": 2}`` (the data axis split over the processes), the
+    interleaved schedule over ``{"pp": 4}`` with the input cotangent, and
+    the forward pipeline's output on the process of the last stage.
+    Returns ``{name: array}``: what this process holds."""
+    from starway_tpu_torch.models import llama as tl
+    from starway_tpu_torch.models import pp_llama as tpp
+    from starway_tpu_torch.parallel import (make_interleaved_pipeline_train,
+                                            make_mesh, make_pipeline)
+
+    out = {}
+    cfg = tl.LlamaConfig.preset("debug", n_layers=8, d_model=32, n_heads=4,
+                                n_kv_heads=2, d_ff=48, vocab_size=64)
+    params = tl.init_params(cfg, seed=7, device="cpu")
+    batch = torch.as_tensor(np.random.default_rng(7).integers(
+        0, 64, (8, 9))).long()
+    for name, axes in (("pp", {"pp": 4}), ("dppp", {"dp": 2, "pp": 2})):
+        mesh = make_mesh(axes, device="cpu", group=group)
+        sh = tpp.shard_pp_params(tpp.pp_split_params(params, axes["pp"]),
+                                 mesh)
+        step = tpp.make_pp_llama_train(
+            mesh, cfg, n_micro=4, dp_axis="dp" if "dp" in axes else None)
+        loss, grads = step(sh, batch)
+        out[f"{name}/loss"] = to_numpy(loss)
+        _record(out, f"{name}/grad", grads)
+
+    rng = np.random.default_rng(8)
+    ws, xs, ts = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for s in ((2, 4, 8, 8), (4, 4, 8), (4, 4, 8)))
+    mesh = make_mesh({"pp": 4}, device="cpu", group=group)
+    loss, g, dx = make_interleaved_pipeline_train(
+        mesh, lambda w, x: torch.tanh(x @ w),
+        lambda y, t: ((y - t) ** 2).mean(), n_chunks=2, n_micro=4,
+        return_dx=True)(ws[:, mesh.local_range("pp")], xs, ts)
+    out["inter/loss"] = to_numpy(loss)
+    out["inter/dx"] = to_numpy(dx)
+    for i, block in zip(mesh.local_range("pp"), g.unbind(1)):
+        out[f"inter/grad/{i}"] = to_numpy(block)
+    y = make_pipeline(mesh, lambda w, x: torch.tanh(x @ w[0]))(
+        ws[0, mesh.local_range("pp")], xs)
+    if y is not None:
+        out["forward/out"] = to_numpy(y)
+    return out
+
+
 # ------------------------------------------------- transport children
 #
 # Spawned across a real process boundary by tests/test_torch_transport.py
@@ -522,6 +585,10 @@ def reshard_dtensor_worker(rank, gloo_port, sw_port, q) -> None:
             res = await redistribute(src, dst, {1 - rank: link}, rank=rank,
                                      lease_slot=5, round_timeout=60)
             await link.aflush()
+            # A flush waits for the peer's answer: neither side closes
+            # until both have flushed (the loop keeps serving meanwhile).
+            await asyncio.get_running_loop().run_in_executor(None,
+                                                             dist.barrier)
             await closer.aclose()
             return res
 
