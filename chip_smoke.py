@@ -238,10 +238,20 @@ Phases, each of which raises on failure:
               schedule (2 forward and 1 backward a layer, microbatch and
               data slot); (e) the forward-only make_pipeline over (a)'s
               stages against the unsharded forward of each microbatch
-26. a JSON line of the kernels with their launches on the serving paths
-   (phases 4-7, 18-21 and 24) and the training paths (phases 11, 13, 16,
-   22, 23 and 25), phases 18-25 also apart, and the numbers of phase 3
-27. the last line: {"ok": true, "device": {...}}
+26. dptp-serve -- serving over {"dp": 2, "tp": 2} in one process against
+              phases 4, 7 and 24: bf16 and W8A16 + int8 KV at 32 layers
+              (both data groups' first decode logits against the
+              unsharded tree's, tokens/s, the idle share of bf16's traced
+              chunk, the weights held and the peak memory), then float32
+              at 2 layers (the server against generate(), speculative
+              decoding on a batch of two)
+27. gate     -- python -m starway_tpu_torch.analysis on this checkout, all
+              twelve passes, wirefuzz's native leg against the port's
+              engine; the seconds of each pass
+28. a JSON line of the kernels with their launches on the serving paths
+   (phases 4-7, 18-21, 24 and 26) and the training paths (phases 11, 13,
+   16, 22, 23 and 25), phases 18-26 also apart, and the numbers of phase 3
+29. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -1551,10 +1561,11 @@ def moe_device_ms(avgs) -> dict:
 
 
 def serve(params, cfg, reqs, *, server=None, prefix=None, n_slots=8,
-          max_len=2048, chunk=8, **kw):
+          max_len=2048, chunk=8, trace=True, **kw):
     """Drive ``server`` (SlotServer by default) over ``reqs`` of (tokens,
     budget, prefixed); with ``prefix`` registered first, a prefixed
-    request's tokens are its suffix.  Returns (finished, stats, server)."""
+    request's tokens are its suffix; ``trace=False`` traces no chunk.
+    Returns (finished, stats, server)."""
     import torch
 
     from starway_tpu_torch.models import SlotServer
@@ -1562,6 +1573,8 @@ def serve(params, cfg, reqs, *, server=None, prefix=None, n_slots=8,
     timed = type("Timed", (TimedChunks, server or SlotServer), {})
     srv = timed(params, cfg, n_slots=n_slots, max_len=max_len, chunk=chunk,
                 seed=SEED, **kw)
+    if not trace:
+        srv.traced = {"traced": False}  # TimedChunks traces while it is empty
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pid = None if prefix is None else srv.register_prefix(prefix)
@@ -5429,6 +5442,224 @@ def phase_tp_serve(dev, card: str, reqs, done4, st4, st5) -> tuple:
     return out, counts
 
 
+DPTP = {"dp": 2, "tp": 2}
+DPTP_PARITY_REQS = 4
+
+
+def dptp_decode_logits(tree, cfg, prompt, token):
+    """:func:`first_decode_logits` of a tree over the data axes: the same
+    request in each data group's row (the batch must split over them)."""
+    import torch
+
+    from starway_tpu_torch.models.generate import decode_step, prefill
+
+    padded, pb, last = first_logits_inputs(tree, prompt, 2048)
+    rows = DPTP["dp"]
+    _, cache = prefill(tree, cfg, padded.repeat(rows, 1), pb + 16,
+                       logit_positions=last.repeat(rows))
+    return decode_step(tree, cache,
+                       torch.full((rows,), token, device=last.device),
+                       len(prompt), cfg)[0]
+
+
+def held_gb(tree) -> float:
+    """GB of the distinct tensors a tree holds (a data group's view and
+    the replicas over dp share theirs)."""
+    from starway_tpu_torch.models.sharded import _walk
+
+    seen, n = set(), 0
+    for leaf in _walk(tree):
+        for t in (leaf.tree_children() if hasattr(leaf, "shards")
+                  else [leaf]):
+            if t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                n += t.numel() * t.element_size()
+    return n / 1e9
+
+
+def phase_dptp_serve(dev, card: str, reqs, done4, st4, st5,
+                     st_tp) -> tuple:
+    """Phase 26: SlotServer over a llama3-8b tree sharded {"dp": 2, "tp":
+    2} in one process, 32 layers, phase 4's 12 requests on 8 slots (4 a
+    data group, 16 q / 4 kv heads a slot): bf16, then the W8A16 tree of
+    quantized_param_specs with int8 KV; the first decode step's logits
+    of both data groups against the unsharded tree's; tokens/s beside
+    tp-serve's (phase 24) and the unsharded server's (phases 4 and 7),
+    the idle share of a traced chunk (bf16's; the W8A16 run is untraced)
+    and the peak memory (the unsharded tree beside the sharded one); then
+    float32 at 2 layers: the dp x tp server against greedy generate() of
+    the unsharded tree, and dp x tp speculative decoding on a batch of two
+    against dp x tp generate().
+    Returns (stats, launch counts)."""
+    import torch
+
+    from starway_tpu_torch.models import (LlamaConfig, generate,
+                                          generate_speculative, init_params,
+                                          param_specs,
+                                          quantized_param_specs)
+    from starway_tpu_torch.models.speculative import draft_from_truncation
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+    from starway_tpu_torch.ops.gemv import int8_matmul
+    from starway_tpu_torch.ops.quantize import quantize_params
+    from starway_tpu_torch.parallel import make_mesh, shard_tree
+
+    out, counts = {}, {}
+    mesh = make_mesh(DPTP, device=dev)
+    cfg = LlamaConfig.preset(TP_PRESET)
+    cfg8 = LlamaConfig.preset(TP_PRESET, kv_quant="int8")
+    params = init_params(cfg, SEED, device=dev)  # phase 4's model
+    token = None
+
+    def run(label, tree, c, want_tree, base, base_label, trace=True):
+        nonlocal token
+        log(f"[dptp-serve] {TP_PRESET}, {c.n_layers} layers, over {DPTP} in "
+            f"one process ({label}), phase 4's {len(reqs)} requests on 8 "
+            f"slots ({card})")
+        if token is None:
+            padded, pb, last = first_logits_inputs(want_tree, reqs[0][0],
+                                                   2048)
+            from starway_tpu_torch.models.generate import prefill
+
+            token = int(prefill(want_tree, c, padded, pb,
+                                logit_positions=last)[0].argmax(-1)[0])
+        want = first_decode_logits(want_tree, c, reqs[0][0], token)
+        got = dptp_decode_logits(tree, c, reqs[0][0], token)
+        log(f"  {label}, the first decode step of each data group against "
+            f"the unsharded tree's:")
+        errs = [compare_logits(got[g:g + 1], want) for g in range(got.shape[0])]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        done, st = serve(tree, c, reqs, trace=trace)[:2]
+        cnt = launch_counts()
+        for k, n in cnt.items():
+            counts[k] = counts.get(k, 0) + n
+        if not (cnt["decode_attention"] > 0 and cnt["flash_forward"] > 0):
+            raise AssertionError("dp x tp serving launched no decode or "
+                                 "flash kernel")
+        agree = sum(int((a == b).sum()) for a, b in zip(done.values(),
+                                                        done4))
+        total = sum(len(b) for b in done4)
+        st.update(tokens_equal_to_phase4=agree, of=total, launches=cnt,
+                  decode_logits_rel_err=errs, weights_gb=held_gb(tree),
+                  peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                  tp_serve_tokens_per_s=st_tp[base_label]["tokens_per_s"],
+                  unsharded_tokens_per_s=base["tokens_per_s"])
+        log(f"  {st['tokens_per_s']:.1f} tokens/s (tp-serve "
+            f"{st['tp_serve_tokens_per_s']:.1f}, unsharded "
+            f"{st['unsharded_tokens_per_s']:.1f}); idle share of the traced "
+            f"chunk {st.get('device_idle_share')}; weights held "
+            f"{st['weights_gb']:.2f} GB, peak {st['peak_memory_gb']:.2f} GB; "
+            f"tokens equal to phase 4's {agree} of {total}; launches {cnt}")
+        return st
+
+    sh = shard_tree(params, mesh, param_specs(cfg))
+    out["bf16"] = run("bf16", sh, cfg, params, st4, "bf16")
+    del sh
+    qparams = quantize_params(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    sq = shard_tree(qparams, mesh, quantized_param_specs(cfg))
+    # Untraced: a traced chunk of 4 slot bodies a layer costs the profiler
+    # ~50 s to process (bf16's trace gives the idle share).
+    st = run("W8A16 + int8 KV", sq, cfg8, qparams, st5, "w8a16-int8-kv",
+             trace=False)
+    by_regime = dict(int8_matmul.regime_launches)
+    if not (st["launches"]["int8_matmul"] > 0 and by_regime["decode"] > 0):
+        raise AssertionError("the dp x tp W8A16 run did not launch the GEMV")
+    st["gemv_by_regime"] = by_regime
+    out["w8a16-int8-kv"] = st
+    del sq, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = LlamaConfig.preset(TP_PRESET, n_layers=TP_PARITY_LAYERS,
+                               dtype="float32")
+    p32 = init_params(cfg32, SEED + 320, device=dev)
+    s32 = shard_tree(p32, mesh, param_specs(cfg32))
+    log(f"[dptp-parity] float32, {TP_PARITY_LAYERS} layers over {DPTP}: "
+        f"SlotServer against greedy generate() of the unsharded tree, "
+        f"speculative decoding on a batch of two against dp x tp "
+        f"generate()")
+    small = reqs[:DPTP_PARITY_REQS]
+    reset_launch_counts()
+    done = serve(s32, cfg32, small)[0]
+    for (prompt, m, _w), got in zip(small, done.values()):
+        want = generate(p32, cfg32, torch.tensor([prompt], device=dev), m,
+                        max_len=2048)[0, len(prompt):].cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"the dp x tp server diverged from "
+                                 f"generate(): {got} != {want}")
+    sp = TP_SPEC
+    rng = np.random.default_rng(SEED + 322)
+    prompt = torch.tensor(rng.integers(1, cfg32.vocab_size,
+                                       (DPTP["dp"], sp["prompt_len"])),
+                          device=dev)
+    draft, dcfg = draft_from_truncation(p32, cfg32, 1)
+    sdraft = shard_tree(draft, mesh, param_specs(dcfg))
+    ref = generate(s32, cfg32, prompt, sp["new"])
+    toks, stats = generate_speculative(s32, cfg32, sdraft, dcfg, prompt,
+                                       sp["new"], gamma=sp["gamma"],
+                                       return_stats=True)
+    cnt = launch_counts()
+    for k, n in cnt.items():
+        counts[k] = counts.get(k, 0) + n
+    if not torch.equal(toks, ref):
+        raise AssertionError("dp x tp speculative decoding diverged from "
+                             "dp x tp greedy generate()")
+    out["parity"] = dict(server_requests_equal=len(small),
+                         speculative_equal=True,
+                         accepted=int(stats["accepted"].sum()),
+                         macro_steps=int(stats["macro_steps"].sum()),
+                         launches=cnt)
+    log(f"  {len(small)} requests and the speculative run (batch "
+        f"{DPTP['dp']}, gamma {sp['gamma']}, {sp['new']} tokens) token for "
+        f"token; {out['parity']}")
+    del p32, s32, draft, sdraft
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def phase_gate(card: str) -> dict:
+    """Phase 27: the port's static-analysis gate (python -m
+    starway_tpu_torch.analysis, all twelve passes) on this checkout, with
+    the port's C++ engine built for wirefuzz's native leg.  Fails unless
+    the gate is clean and the native leg ran.  Returns the per-pass
+    seconds."""
+    from pathlib import Path
+
+    from starway_tpu_torch import native_build
+    from starway_tpu_torch.analysis import PASSES, find_root, run_all
+    from starway_tpu_torch.analysis import wirefuzz
+
+    root = find_root(str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    so = native_build.ensure_built()
+    build_s = time.perf_counter() - t0
+    timings: dict = {}
+    findings = run_all(root, timings=timings)
+    for f in findings:
+        log(f"  {f.render()}")
+    if findings:
+        raise AssertionError(f"the analysis gate found {len(findings)} "
+                             f"finding(s)")
+    if wirefuzz._NATIVE_CACHE.get(str(native_build.artifact(root))) is None:
+        raise AssertionError(f"wirefuzz did not run its native leg against "
+                             f"{so}")
+    if sorted(timings) != sorted(PASSES):
+        raise AssertionError(f"the gate ran {sorted(timings)}")
+    log(f"[gate] python -m starway_tpu_torch.analysis: OK "
+        f"[{', '.join(PASSES)}], wirefuzz's native leg against "
+        f"{so.relative_to(root)} (engine build {build_s:.2f} s); seconds a "
+        f"pass ({card}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+        + f"; total {sum(timings.values()):.3f}")
+    return dict(timings_s=timings, total_s=sum(timings.values()),
+                native=str(so.relative_to(root)), build_s=build_s)
+
+
 # ---------------------------------------------------------------- pipeline
 
 PP_PRESET, PP_LAYERS = "llama3-8b", 8   # 1.75 G layer parameters, bf16
@@ -6067,6 +6298,17 @@ def main() -> int:
     st_pp, c25 = phase_pipeline(dev, card)
     log(f"[pipeline] phase 25 took {time.perf_counter() - t25:.1f} s")
 
+    # 26: serving over dp x tp; 27: the static-analysis gate.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t26 = time.perf_counter()
+    st_dptp, c26 = phase_dptp_serve(dev, card, reqs, list(done4.values()),
+                                    st4, st5, st_tp)
+    t27 = time.perf_counter()
+    st_gate = phase_gate(card)
+    log(f"[dptp-serve] phase 26 took {t27 - t26:.1f} s; [gate] phase 27 "
+        f"took {time.perf_counter() - t27:.1f} s")
+
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
     rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
@@ -6091,21 +6333,23 @@ def main() -> int:
             label: traced[label].get("attention_device_ms")
             for label in labels}
 
-    # 26. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
-    # 18, 19, 20, 21 and 24) and the training paths' (phases 11, 13, 16,
-    # 22, 23 and 25, 16 the DP ranks' own counts on both engines), each
+    # 28. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
+    # 18, 19, 20, 21, 24 and 26) and the training paths' (phases 11, 13,
+    # 16, 22, 23 and 25, 16 the DP ranks' own counts on both engines), each
     # counted from 0 just before its run and read just after.
     main_counts = {k: main_counts[k] + c7[k] + c_ring[k] + c_dp[k]
                    + c_dpn[k] + c18.get(k, 0) + c19.get(k, 0)
                    + c20.get(k, 0) + c21.get(k, 0) + c22.get(k, 0)
                    + c23.get(k, 0) + c24.get(k, 0) + c25.get(k, 0)
+                   + c26.get(k, 0)
                    for k in main_counts}
     kernels = []
     for key, row in rows.items():
         row = dict(row)
         row["launches"] = main_counts[key]
         for phase, c in ((18, c18), (19, c19), (20, c20), (21, c21),
-                         (22, c22), (23, c23), (24, c24), (25, c25)):
+                         (22, c22), (23, c23), (24, c24), (25, c25),
+                         (26, c26)):
             row[f"launches_phase{phase}"] = c.get(key, 0)
         kernels.append(row)
     # The W8A16 runs (phases 7 and 18) launch the GEMV; the others' counts
@@ -6249,9 +6493,22 @@ def main() -> int:
                 "ms", "max_abs_err", "whole_batch_max_abs_err",
                 "peak_memory_gb", "launches")
                 if k in st))
+    for name, st in st_dptp.items():
+        log(f"[summary] dptp-serve {name} ({card}): "
+            + ", ".join(f"{k} {st.get(k)}" for k in (
+                "tokens_per_s", "tp_serve_tokens_per_s",
+                "unsharded_tokens_per_s", "wall_s", "admission_s",
+                "median_chunk_ms", "device_idle_share", "peak_memory_gb",
+                "weights_gb", "tokens_equal_to_phase4", "of",
+                "decode_logits_rel_err", "gemv_by_regime",
+                "server_requests_equal", "speculative_equal", "accepted",
+                "macro_steps") if k in st))
+    log(f"[summary] gate ({card}): total {st_gate['total_s']:.3f} s, by pass "
+        f"{ {k: round(v, 3) for k, v in st_gate['timings_s'].items()} }, "
+        f"native leg {st_gate['native']}")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 27. last line
+    # 29. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -21,7 +21,7 @@ from both ends:
   ctl-plane handoff (context only -- the model describes the *dispatch*
   machine, so the monitor checks rx + lifecycle), and
   ``lost``/``resume``/``expire``/``down`` for the lifecycle.  ``python -m
-  starway_tpu.analysis refine --replay <dump>`` replays any ring dump
+  starway_tpu_torch.analysis refine --replay <dump>`` replays any ring dump
   through the monitor; ``core/monitor.py`` does the same in-process when
   STARWAY_MONITOR is armed.
 

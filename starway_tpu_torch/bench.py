@@ -51,6 +51,7 @@ def _encode_ctl(payload: Mapping[str, Any]) -> np.ndarray:
 
 
 def _decode_ctl(buffer: np.ndarray, length: int) -> dict:
+    # swcheck: allow(hotpath-copy): a bench control message (a small JSON body), not a payload
     return json.loads(bytes(memoryview(buffer)[:length]).decode())
 
 

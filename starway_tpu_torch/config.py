@@ -213,7 +213,7 @@ benchmark.md:114-126 for ``UCX_TLS``).  The TPU build mirrors that shape:
     event per dispatched inbound frame (``rx:<FRAME>``), per ctl-plane
     frame handed to a transport (``tx:<FRAME>``), plus the conn lifecycle
     (``st:hello-sent``/``st:estab`` at creation, ``lost``/``resume``/
-    ``expire``/``down``).  ``python -m starway_tpu.analysis refine
+    ``expire``/``down``).  ``python -m starway_tpu_torch.analysis refine
     --replay <ring dump>`` replays the channel through the protocol
     monitor automaton compiled from the engines' own state machines.
     Default off; setting it arms the trace ring even without

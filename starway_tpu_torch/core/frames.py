@@ -301,7 +301,7 @@ HEADER_ONLY = frozenset((T_FLUSH, T_FLUSH_ACK, T_PING, T_PONG, T_SEQ,
 # Striped-DATA sub-header (DESIGN.md §17): u64 msg_id, u64 offset,
 # u64 total -- little-endian, leading every SDATA body.  The 24-byte size
 # is cross-engine contract surface (SDATA_SUB_SIZE in sw_engine.cpp,
-# machine-checked by `python -m starway_tpu.analysis`).
+# machine-checked by `python -m starway_tpu_torch.analysis`).
 SDATA_SUB = struct.Struct("<QQQ")
 SDATA_SUB_SIZE = SDATA_SUB.size  # 24
 
@@ -538,7 +538,7 @@ def pack_devpull(tag: int, desc: dict) -> bytes:
 # The normative structural decoder for the framed stream: the exact
 # accept/reject/short outcome of core/conn.py's `_pump_frames` parser
 # (and the C++ engine's `pump_frames`), as one pure function over a flat
-# byte buffer.  `python -m starway_tpu.analysis` (the `wirefuzz` pass,
+# byte buffer.  `python -m starway_tpu_torch.analysis` (the `wirefuzz` pass,
 # DESIGN.md §21) feeds identical adversarial buffers to this function, to
 # its own grammar-derived oracle, and to the native engine's
 # `sw_wire_decode` export, and diffs the canonical outcome strings --

@@ -12,7 +12,7 @@ soaks call it every run; ``swtrace.retire`` checks each worker
 automatically at close).
 
 This module is deliberately tiny: the automaton, the event grammar, and
-the replay semantics live in ``starway_tpu.analysis.refine`` (stdlib-only,
+the replay semantics live in ``starway_tpu_torch.analysis.refine`` (stdlib-only,
 imported lazily and only when the monitor is armed) so the gate and the
 runtime can never drift apart -- one monitor, two drivers.  Off path
 (env unset): nothing here is ever imported by the data plane.

@@ -60,7 +60,7 @@ stream semantics above the ring are unchanged.  Verification happens at
 dequeue: a mismatch raises :class:`SmCorrupt` and the conn poisons with
 the stable ``"corrupt"`` reason (core/conn.py).  The 8-byte record
 header (``REC_HDR``) is cross-engine contract surface (``SM_REC_HDR`` in
-sw_engine.cpp, machine-checked by ``python -m starway_tpu.analysis``).
+sw_engine.cpp, machine-checked by ``python -m starway_tpu_torch.analysis``).
 
 Wakeup protocol: every cross-side wakeup rides the TCP socket, never shared
 memory.  A producer that advances ``tail`` sends a doorbell byte (DB_DATA);

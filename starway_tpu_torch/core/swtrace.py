@@ -54,7 +54,7 @@ from .. import config
 #
 # Shared with the C++ engine (native/sw_engine.cpp kEv* literals); the
 # mapping is mechanical (EV_SEND_POST <-> kEvSendPost) and machine-checked
-# by `python -m starway_tpu.analysis` (rule contract-trace).
+# by `python -m starway_tpu_torch.analysis` (rule contract-trace).
 
 EV_SEND_POST = "send_post"    # tagged send (or DEVPULL descriptor) submitted
 EV_SEND_DONE = "send_done"    # send locally complete (eager: handed to

@@ -53,7 +53,7 @@ logger = logging.getLogger("starway_tpu_torch")
 #
 # One name list, two implementations (Worker.gauges_snapshot in
 # core/engine.py and the kGaugeNames/sw_gauges pair in sw_engine.cpp);
-# machine-checked by `python -m starway_tpu.analysis` (contract-trace).
+# machine-checked by `python -m starway_tpu_torch.analysis` (contract-trace).
 # All are instantaneous per-conn values that drain to ZERO on an idle,
 # flushed connection -- the invariant tests/test_telemetry.py pins.
 

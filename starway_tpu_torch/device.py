@@ -703,8 +703,11 @@ class TransferManager:
         """Forget offers already pulled (under the lock)."""
         with _local_lock:
             done = [uid for uid, c in self._offers.items()
-                    if (uid not in _local_offers if c is None
-                        else c.get() <= 0)]
+                    if c is None and uid not in _local_offers]
+        # The IPC counters are read outside _local_lock: they are shared
+        # memory and need none of it.
+        done += [uid for uid, c in self._offers.items()
+                 if c is not None and c.get() <= 0]
         for uid in done:
             del self._offers[uid]
 
@@ -772,11 +775,16 @@ class TransferManager:
         return dst
 
     def _submit(self, thunk) -> None:
+        # Only the check-and-set needs the lock; the thread starts outside
+        # it (thunks queued meanwhile wait in the queue), so nothing is
+        # ever called with the manager's lock held.
         with self._lock:
+            thread = None
             if self._thread is None:
-                self._thread = threading.Thread(
+                thread = self._thread = threading.Thread(
                     target=self._run, name="starway-devpull", daemon=True)
-                self._thread.start()
+        if thread is not None:
+            thread.start()
         self._q.put(thunk)
 
     def _run(self):

@@ -39,9 +39,9 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
     """Zeroed decode cache: ``k/v [n_layers, B, Hkv, max_len, head_dim]``
     in the compute dtype, or int8 plus float32 ``k_scale/v_scale`` when
     ``cfg.kv_quant == "int8"`` (the scale keys mark the format).  For a
-    tree sharded over ``{"tp": n}`` (``params``), each leaf is a
+    tree sharded over tp and the data axes (``params``), each leaf is a
     models/sharded.py ``HeadSplit``: every slot's part holds its kv
-    heads."""
+    heads of its data group's rows."""
     from .sharded import tp_init_cache, tree_mesh
 
     mesh = None if params is None else tree_mesh(params)
@@ -118,7 +118,21 @@ def decode_step(params: dict, cache: dict, token, pos, cfg: LlamaConfig,
     the window; keys carry their absolute rope, and attention does not
     depend on the order of the keys).  Its rope tables must be passed:
     positions run past the cache.  A ``pos`` tensor is never read on the
-    host."""
+    host.
+
+    A tree over the data axes decodes each data group's rows on the
+    group's slots (models/sharded.py ``data_groups``); every process gets
+    the logits of the whole batch."""
+    from .sharded import data_groups
+
+    groups = data_groups(params)
+    if groups is not None:
+        def one(view, g, rows):
+            p = pos[rows] if isinstance(pos, torch.Tensor) and pos.dim() else pos
+            return decode_step(view, groups.cache_of(cache, g), token[rows],
+                               p, cfg, rope, rolling)[0]
+
+        return groups.run(token.shape[0], one), cache
     T = cache["k"].shape[3]
     if rolling:
         if cfg.sliding_window is None or T != cfg.sliding_window:
@@ -220,17 +234,33 @@ def prefill(params: dict, cfg: LlamaConfig, prompt,
     Returns ``(next_logits [B, V], cache)``; the cache holds the post-RoPE
     grouped k/v of positions ``0..P-1``, zero-padded to ``max_len``.
     ``logit_positions`` ([B] ints, right-padded ragged batches) takes each
-    row's logits from its own position instead of the last column."""
+    row's logits from its own position instead of the last column.  A
+    tree over the data axes prefills each data group's rows on the
+    group's slots; the batch must split over them."""
     B, P = prompt.shape
     if max_len is None:
         max_len = P
     elif max_len < P:
         raise ValueError(f"max_len={max_len} is smaller than the prompt ({P})")
+    from .sharded import data_groups, per_part
+
+    groups = data_groups(params)
+    if groups is not None:
+        lp = (None if logit_positions is None else
+              torch.as_tensor(logit_positions, device=prompt.device))
+        caches = {}
+
+        def one(view, g, rows):
+            logits, caches[g] = prefill(view, cfg, prompt[rows], max_len,
+                                        attn_fn,
+                                        None if lp is None else lp[rows])
+            return logits
+
+        logits = groups.run(B, one)
+        return logits, groups.join_cache(caches, B)
     logits, (ks, vs) = forward(
         params, prompt, cfg, attn_fn, return_kv=True,
         last_only=logit_positions is None, logit_positions=logit_positions)
-    from .sharded import per_part
-
     cache = {"k": ks, "v": vs}
     if cfg.kv_quant == "int8":
         cache["k"], cache["k_scale"] = per_part(quantize_kv, ks)

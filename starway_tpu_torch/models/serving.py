@@ -187,6 +187,19 @@ class SlotServer:
         self.rope = cfg_rope_tables(cfg, max_len, device=self.device)
 
         dev = self.device
+        # Admission prefills one request: over a tree with data axes it
+        # runs on one data group's slots (the weights are replicated over
+        # them) and its rows are filed into the slot's group.
+        from .sharded import data_groups, tree_mesh
+
+        if self.rolling and tree_mesh(params) is not None:
+            raise NotImplementedError(
+                "rolling (sliding-window) slots serve an unsharded tree; "
+                "a sharded one serves with a full cache window "
+                "(ROADMAP.md, Queue 1)")
+        groups = data_groups(params)
+        self._admit_params = (params if groups is None
+                              else groups.views[groups.local[0]])
         self.cache = self._make_cache()
         self.token = torch.zeros(n_slots, dtype=torch.long, device=dev)
         self.pos = torch.zeros(n_slots, dtype=torch.int32, device=dev)
@@ -243,8 +256,9 @@ class SlotServer:
         """Prefill ``tokens`` padded to ``width``: ``(logits [1, V] at the
         last real token, cache [L, 1, Hkv, width, ...])``."""
         last = torch.tensor([len(tokens) - 1], device=self.device)
-        return prefill(self.params, self.cfg, self._padded(tokens, width),
-                       width, logit_positions=last)
+        return prefill(self._admit_params, self.cfg,
+                       self._padded(tokens, width), width,
+                       logit_positions=last)
 
     def _check_prefix_tokens(self, tokens) -> np.ndarray:
         if self.rolling:
@@ -341,8 +355,8 @@ class SlotServer:
     def _admit_plain(self, slot: int, prompt: np.ndarray):
         """Prefill ``prompt`` into ``slot``; returns its first token."""
         if self.rolling:
-            logits, small = _rolling_prefill_state(self.params, self.cfg,
-                                                   prompt)
+            logits, small = _rolling_prefill_state(self._admit_params,
+                                                   self.cfg, prompt)
         else:
             logits, small = self._prefill_bucket(
                 prompt, _bucket(len(prompt), self.buckets))
@@ -365,7 +379,7 @@ class SlotServer:
         # cursor: masked out of every real token's attention and
         # overwritten by decode before the cursor reaches them.
         tokens = self._padded(suffix, _bucket(len(suffix), self.buckets))
-        logits, _ = chunk_decode_step(self.params, rows, tokens, plen,
+        logits, _ = chunk_decode_step(self._admit_params, rows, tokens, plen,
                                       self.cfg, self.rope)
         return _sample(logits[:, len(suffix) - 1], self.generator,
                        *self.sampling)[0]

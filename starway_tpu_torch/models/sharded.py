@@ -38,10 +38,18 @@ leaf is its share, and the shares are summed over the axes the leaf is
 replicated on.  Every sum runs in a fixed order, so a mesh split over
 processes gives the bits of the one-process run.
 
-Serving (``decode_step``, ``SlotServer``, the speculative drivers) takes a
-tree over ``{"tp": n}`` in one process: the cache of each slot holds its
-kv heads (:class:`HeadSplit`), and the decode kernel runs at the slot's
-head count.
+Serving (``prefill``, ``decode_step``, ``generate``, ``SlotServer``, the
+speculative drivers) takes a tree over tp and the data axes ``"dp"`` and
+``"fsdp"``, in one process or over a group of processes: the cache of each
+slot holds its kv heads of its block of the batch rows
+(:class:`HeadSplit`), and the decode kernel runs at the slot's head count.
+The batch rows are cut over the data axes as :meth:`SlotTree.cut_batch`
+cuts a training batch; each data group (the tp slots that share a block
+of rows, :class:`DataGroups`) runs the decode paths on its rows with the
+tree's tp shards, which the data groups share (the weights are replicated
+over the data axes: one process holds them once).  Every process runs the
+same loop on the same requests, and the logits of the rows are gathered
+over the data axes, so every process samples the same tokens.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -61,6 +70,8 @@ from .llama import matmul_w, moe_ffn, rmsnorm
 TP = "tp"
 EP = "ep"
 MODEL_AXES = ("tp", "sp", "ep")
+#: The axes a serving tree's batch rows are cut over.
+SERVE_DATA_AXES = ("dp", "fsdp")
 
 
 # ------------------------------------------------------------ the tree
@@ -362,10 +373,20 @@ class SlotTree:
 
     def kv(self, kvs: list):
         """Per-slot ``(k, v)`` stacks as the cache prefix: the tensors of a
-        whole tree, or :class:`HeadSplit` s over the tp slots."""
+        whole tree, or :class:`HeadSplit` s over the tp slots (and the
+        data groups' rows)."""
         if not self.sharded:
             return kvs[0]
-        _tp_only(self.mesh)
+        _serving_axes(self.mesh)
+        if self.data_axes:
+            batch = kvs[0][0].shape[1] * math.prod(
+                self.mesh.shape[a] for a in self.data_axes)
+            boxes = SlotSharding(self.mesh, self._batch_spec()).indices_map(
+                (batch,))
+            rows = [boxes[self.mesh.slots[i]][0]
+                    for i in self.mesh.local_slots]
+            return (HeadSplit([k for k, _ in kvs], 2, rows, batch),
+                    HeadSplit([v for _, v in kvs], 2, rows, batch))
         return (HeadSplit([k for k, _ in kvs], 2),
                 HeadSplit([v for _, v in kvs], 2))
 
@@ -427,27 +448,159 @@ def _like(params: dict, flat: dict) -> dict:
 
 def serving_tree(params: dict) -> SlotTree:
     """The :class:`SlotTree` of a tree the decode paths take: whole, or
-    sharded over ``{"tp": n}`` in one process."""
+    sharded over tp (in one process or over a group of processes).  A
+    tree with a data axis runs them per data group
+    (:func:`data_groups`)."""
     tree = SlotTree(params)
     if tree.sharded:
-        _tp_only(tree.mesh)
+        _serving_axes(tree.mesh)
+        if tree.data_axes:
+            raise NotImplementedError(
+                f"a tree over {tree.mesh.shape} runs the decode paths per "
+                f"data group (models/sharded.py data_groups)")
     return tree
 
 
-class HeadSplit:
-    """A tensor ``[..., H, ...]`` held as the parts of the tp slots, split
-    on dimension ``dim`` (the heads of a KV cache ``[L, B, Hkv, T, D]``,
-    dim 2).  Indexing that keeps ``dim`` whole applies to every part, so
-    the servers' cache bookkeeping runs unchanged."""
+class DataGroups:
+    """The data groups of a serving tree over tp and the data axes: the
+    slots at one coordinate of the data axes, which hold one block of the
+    batch rows (row-major over the data axes, as :meth:`SlotTree.cut_batch`
+    cuts them).  Each group this process holds has a view of the tree
+    (``views[g]``: the tree over the group's tp slots, on a mesh of its
+    own, sharing the shards' storage).  A group's slots are held by one
+    process."""
 
-    def __init__(self, parts: list, dim: int):
+    def __init__(self, params: dict, mesh, axes: tuple):
+        self.mesh, self.axes = mesh, axes
+        self.size = math.prod(mesh.shape[a] for a in axes)
+        self.group_of = []
+        for i in range(mesh.size):
+            c, g = mesh.slot_coords(i), 0
+            for a in axes:
+                g = g * mesh.shape[a] + c[a]
+            self.group_of.append(g)
+        local = list(mesh.local_slots)
+        self.local = sorted({self.group_of[i] for i in local})
+        self.sub = Mesh({a: n for a, n in mesh.shape.items() if a not in axes},
+                        mesh.device)
+        self.members = {}  # g -> [(local part index, parent slot index)]
+        for g in self.local:
+            slots = [i for i in range(mesh.size) if self.group_of[i] == g]
+            if any(i not in mesh.local_slots for i in slots):
+                raise NotImplementedError(
+                    f"serving over {mesh.shape} on {mesh.world} processes: "
+                    f"a data group's tp slots must be held by one process "
+                    f"(ROADMAP.md, Queue 1)")
+            self.members[g] = [(local.index(i), i) for i in slots]
+        self.views = {g: _group_view(params, mesh, self.sub,
+                                     [i for _, i in self.members[g]],
+                                     axes) for g in self.local}
+
+    def rows(self, batch: int, g: int) -> slice:
+        """Group ``g``'s block of a batch of ``batch`` rows."""
+        if batch % self.size:
+            raise ValueError(
+                f"a batch of {batch} rows does not split over the data "
+                f"axes {dict((a, self.mesh.shape[a]) for a in self.axes)} "
+                f"of the serving tree over {self.mesh.shape}")
+        n = batch // self.size
+        return slice(g * n, (g + 1) * n)
+
+    def cache_of(self, cache: dict, g: int) -> dict:
+        """Group ``g``'s parts of a cache (its rows, every head)."""
+        return {name: HeadSplit([c.parts[j] for j, _ in self.members[g]],
+                                c.dim) for name, c in cache.items()}
+
+    def join_cache(self, caches: dict, batch: int) -> dict:
+        """One cache from each local group's (``{g: cache}``)."""
+        names = next(iter(caches.values())).keys()
+        parts = {name: [None] * len(self.mesh.local_slots) for name in names}
+        rows = [None] * len(self.mesh.local_slots)
+        for g, cache in caches.items():
+            r = self.rows(batch, g)
+            for k, (j, _) in enumerate(self.members[g]):
+                rows[j] = (r.start, r.stop)
+                for name in names:
+                    parts[name][j] = cache[name].parts[k]
+        dim = next(iter(caches.values()))[next(iter(names))].dim
+        return {name: HeadSplit(parts[name], dim, rows, batch)
+                for name in names}
+
+    def run(self, batch: int, fn):
+        """``fn(view, g, rows)`` of every local group; its outputs (each
+        the group's rows, on dim 0) gathered over the data axes into the
+        whole batch's, which every process receives."""
+        outs = {g: fn(self.views[g], g, self.rows(batch, g))
+                for g in self.local}
+        vals = [outs[self.group_of[i]] for i in self.mesh.local_slots]
+        for a in reversed(self.axes):
+            vals = col.all_gather(vals, self.mesh, a, 0)
+        return vals[0]
+
+
+def _group_view(params, mesh, sub, slots: list, axes: tuple):
+    """``params`` over the slots ``slots`` of ``mesh`` (one data group, in
+    order) as a tree over ``sub``: the same shard tensors, new shardings."""
+    if isinstance(params, dict):
+        return {k: _group_view(v, mesh, sub, slots, axes)
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_group_view(v, mesh, sub, slots, axes)
+                            for v in params)
+    if not isinstance(params, ShardedTensor):
+        return params
+    spec = params.sharding.spec
+    split = [a for entry in spec if entry is not None
+             for a in ((entry,) if isinstance(entry, str) else entry)
+             if a in axes]
+    if split:
+        raise NotImplementedError(
+            f"serving a leaf split over the data axes {split} (spec "
+            f"{spec}): a serving tree is replicated over its data axes")
+    return ShardedTensor(params.shape, params.dtype,
+                         SlotSharding(sub, spec),
+                         {sub.slots[k]: params.shards[mesh.slots[i]]
+                          for k, i in enumerate(slots)})
+
+
+def data_groups(params: dict) -> Optional[DataGroups]:
+    """The :class:`DataGroups` of a serving tree with a data axis above 1,
+    else None (a whole tree, or one over tp alone)."""
+    mesh = tree_mesh(params)
+    if mesh is None:
+        return None
+    _serving_axes(mesh)
+    axes = tuple(a for a in mesh.axis_names
+                 if a in SERVE_DATA_AXES and mesh.shape[a] > 1)
+    return DataGroups(params, mesh, axes) if axes else None
+
+
+class HeadSplit:
+    """A tensor ``[..., B, H, ...]`` held as the parts of the slots, split
+    on dimension ``dim`` over tp (the heads of a KV cache ``[L, B, Hkv, T,
+    D]``, dim 2) and, with ``rows``, on the batch dimension before it over
+    the data axes: ``rows`` gives each part's ``(lo, hi)`` of the batch of
+    ``batch`` rows (a process may hold the parts of some rows only).
+    Indexing that keeps ``dim`` whole applies to every part; a slice of
+    the batch dimension takes the parts whose rows hold it (none of a
+    process that holds no slot of those rows), so the servers' cache
+    bookkeeping runs unchanged."""
+
+    def __init__(self, parts: list, dim: int, rows=None,
+                 batch: Optional[int] = None):
         self.parts = list(parts)
         self.dim = dim
+        self.rows = None if rows is None else [tuple(r) for r in rows]
+        self.batch = batch
 
     @property
     def shape(self) -> tuple:
         s = list(self.parts[0].shape)
-        s[self.dim] = sum(p.shape[self.dim] for p in self.parts)
+        first = self.rows[0] if self.rows else None
+        s[self.dim] = sum(p.shape[self.dim] for j, p in enumerate(self.parts)
+                          if first is None or self.rows[j] == first)
+        if self.rows:
+            s[self.dim - 1] = self.batch
         return tuple(s)
 
     @property
@@ -459,6 +612,7 @@ class HeadSplit:
         return self.parts[0].device
 
     def _index(self, idx):
+        """``(parts, each part's index, dim, rows)`` of an index."""
         idx = idx if isinstance(idx, tuple) else (idx,)
         dim = self.dim
         for d, i in enumerate(idx[:self.dim]):
@@ -466,16 +620,35 @@ class HeadSplit:
                 dim -= 1
         if len(idx) > self.dim and idx[self.dim] != slice(None):
             raise IndexError("a HeadSplit keeps its head dimension whole")
-        return idx, dim
+        row = self.dim - 1
+        if (self.rows is None or len(idx) <= row
+                or idx[row] == slice(None)):
+            return self.parts, [idx] * len(self.parts), dim, self.rows
+        sel = idx[row]
+        if not isinstance(sel, slice) or sel.step not in (None, 1):
+            raise IndexError("a HeadSplit over the data axes takes a "
+                             "contiguous slice of its batch rows")
+        a, b, _ = sel.indices(self.batch)
+        parts, idxs = [], []
+        for p, (lo, hi) in zip(self.parts, self.rows):
+            if lo <= a and b <= hi:
+                parts.append(p)
+                idxs.append(idx[:row] + (slice(a - lo, b - lo),)
+                            + idx[row + 1:])
+            elif a < hi and lo < b:
+                raise IndexError(f"rows {a}:{b} cross the data groups' "
+                                 f"blocks {self.rows}")
+        return parts, idxs, dim, None
 
     def __getitem__(self, idx):
-        idx, dim = self._index(idx)
-        return HeadSplit([p[idx] for p in self.parts], dim)
+        parts, idxs, dim, rows = self._index(idx)
+        return HeadSplit([p[i] for p, i in zip(parts, idxs)], dim, rows,
+                         self.batch)
 
     def __setitem__(self, idx, value):
-        idx, _ = self._index(idx)
-        for p, v in zip(self.parts, value.parts):
-            p[idx] = v
+        parts, idxs, _, _ = self._index(idx)
+        for p, i, v in zip(parts, idxs, value.parts):
+            p[i] = v
 
     def copy_(self, other):
         for p, o in zip(self.parts, other.parts):
@@ -487,12 +660,14 @@ class HeadSplit:
         tuple of HeadSplits."""
         outs = [fn(p) for p in self.parts]
         if isinstance(outs[0], tuple):
-            return tuple(HeadSplit(list(o), self.dim) for o in zip(*outs))
-        return HeadSplit(outs, self.dim)
+            return tuple(HeadSplit(list(o), self.dim, self.rows, self.batch)
+                         for o in zip(*outs))
+        return HeadSplit(outs, self.dim, self.rows, self.batch)
 
     def index_select(self, dim: int, index):
-        if dim == self.dim:
-            raise IndexError("a HeadSplit keeps its head dimension whole")
+        if dim == self.dim or (self.rows is not None and dim == self.dim - 1):
+            raise IndexError("a HeadSplit keeps its head dimension whole "
+                             "(and the batch rows of its data groups)")
         return self.map(lambda p: p.index_select(dim, index))
 
 
@@ -507,20 +682,23 @@ def cache_parts(x) -> list:
     return x.parts if isinstance(x, HeadSplit) else [x]
 
 
-def _tp_only(mesh):
-    extra = [a for a, n in mesh.shape.items() if n > 1 and a != TP]
-    if extra or mesh.world > 1:
+def _serving_axes(mesh):
+    """Refuse a serving tree over an axis the decode paths do not cut."""
+    extra = [a for a, n in mesh.shape.items()
+             if n > 1 and a != TP and a not in SERVE_DATA_AXES]
+    if extra:
         raise NotImplementedError(
-            f"serving a tree sharded over {mesh.shape} (world "
-            f"{mesh.world}): the port serves over {{'tp': n}} in one "
-            f"process (ROADMAP.md, Queue 1 item 2)")
+            f"serving a tree sharded over {mesh.shape}: the port serves "
+            f"over tp and the data axes {SERVE_DATA_AXES}; {extra} above 1 "
+            f"serve in a later slice (ROADMAP.md, Queue 1)")
 
 
 def tp_init_cache(cfg, mesh, batch: int, max_len: int) -> dict:
-    """A zeroed cache for a tp tree: each slot's part holds its kv heads."""
+    """A zeroed cache for a tree over tp and the data axes: each slot's
+    part holds its kv heads of its group's block of the ``batch`` rows."""
     from .generate import init_cache
 
-    _tp_only(mesh)
+    _serving_axes(mesh)
     tp = mesh.shape.get(TP, 1)
     if cfg.n_kv_heads % tp:
         raise ValueError(f"n_kv_heads={cfg.n_kv_heads} does not split over "
@@ -528,7 +706,19 @@ def tp_init_cache(cfg, mesh, batch: int, max_len: int) -> dict:
     lcfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
                                n_kv_heads=cfg.n_kv_heads // tp,
                                head_dim_override=cfg.head_dim)
-    parts = [init_cache(lcfg, batch, max_len, device=mesh.device)
-             for _ in range(tp)]
-    return {name: HeadSplit([p[name] for p in parts], 2)
+    axes = tuple(a for a in mesh.axis_names
+                 if a in SERVE_DATA_AXES and mesh.shape[a] > 1)
+    rows = None
+    if axes:
+        if batch % math.prod(mesh.shape[a] for a in axes):
+            raise ValueError(
+                f"a cache of {batch} rows does not split over the data "
+                f"axes {dict((a, mesh.shape[a]) for a in axes)} of the "
+                f"serving tree over {mesh.shape}")
+        boxes = SlotSharding(mesh, (axes,)).indices_map((batch,))
+        rows = [boxes[mesh.slots[i]][0] for i in mesh.local_slots]
+    parts = [init_cache(lcfg, batch if rows is None else hi - lo, max_len,
+                        device=mesh.device)
+             for lo, hi in (rows or [(0, batch)] * len(mesh.local_slots))]
+    return {name: HeadSplit([p[name] for p in parts], 2, rows, batch)
             for name in parts[0]}

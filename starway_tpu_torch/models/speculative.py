@@ -50,7 +50,18 @@ def chunk_decode_step(params, cache, tokens, pos, cfg: LlamaConfig, rope):
     A cache of exactly ``cfg.sliding_window`` slots is a rolling cache,
     whose modular slots absolute positions cannot address, and is refused;
     allocate a full cache (``max_len = window + C`` costs nothing, as
-    positions past the window are masked)."""
+    positions past the window are masked).  A tree over the data axes runs
+    each data group's rows on the group's slots."""
+    from .sharded import data_groups
+
+    groups = data_groups(params)
+    if groups is not None:
+        def one(view, g, rows):
+            p = pos[rows] if isinstance(pos, torch.Tensor) and pos.dim() else pos
+            return chunk_decode_step(view, groups.cache_of(cache, g),
+                                     tokens[rows], p, cfg, rope)[0]
+
+        return groups.run(tokens.shape[0], one), cache
     B, C = tokens.shape
     T = cache["k"].shape[3]
     if cfg.sliding_window is not None and T == cfg.sliding_window:

@@ -33,10 +33,27 @@ _LOCK = _OUT.with_name("_sw_native.lock")
 _BUILD_TIMEOUT_S = 300
 
 
-def _fresh() -> bool:
-    return (_SRC.exists() and _HDR.exists() and _OUT.exists()
-            and _OUT.stat().st_mtime >= max(_SRC.stat().st_mtime,
-                                            _HDR.stat().st_mtime))
+def artifact(root=None) -> Path:
+    """The engine artifact of the tree at ``root`` (default: the tree this
+    package lives in): ``build/starway_tpu_torch/_sw_native.so``."""
+    if root is None:
+        return _OUT
+    return Path(root) / "build" / "starway_tpu_torch" / "_sw_native.so"
+
+
+def _sources(root=None) -> tuple:
+    if root is None:
+        return _SRC, _HDR
+    native = Path(root) / "starway_tpu_torch" / "native"
+    return native / "sw_engine.cpp", native / "sw_engine.h"
+
+
+def _fresh(root=None) -> bool:
+    src, hdr = _sources(root)
+    out = artifact(root)
+    return (src.exists() and hdr.exists() and out.exists()
+            and out.stat().st_mtime >= max(src.stat().st_mtime,
+                                           hdr.stat().st_mtime))
 
 
 def prebuilt() -> "Path | None":
@@ -45,32 +62,36 @@ def prebuilt() -> "Path | None":
     return _OUT if _fresh() else None
 
 
-def _tail(cmd: list, out: str) -> str:
+def _tail(log: Path, cmd: list, out: str) -> str:
     """Write the build transcript to the log and return its tail."""
     try:
-        _LOG.write_text(f"$ {' '.join(cmd)}\n{out}\n")
+        log.write_text(f"$ {' '.join(cmd)}\n{out}\n")
     except OSError:
         pass  # the tail in the exception still names the failure
     return out.strip()[-4000:]
 
 
-def ensure_built(force: bool = False) -> Path:
+def ensure_built(force: bool = False, root=None) -> Path:
     """Compile the engine's copy into the artifact unless it is fresh;
-    returns its path."""
-    for src in (_SRC, _HDR):
-        if not src.exists():
-            raise FileNotFoundError(f"native source missing: {src}")
-    if not force and _fresh():
-        return _OUT
-    _OUT.parent.mkdir(parents=True, exist_ok=True)
-    with open(_LOCK, "w") as lock:
+    returns its path.  ``root`` names another tree (a checkout or a copy
+    under test) whose own engine copy is built into its own ``build/``."""
+    src, hdr = _sources(root)
+    out_path = artifact(root)
+    log = out_path.with_name(_LOG.name)
+    for path in (src, hdr):
+        if not path.exists():
+            raise FileNotFoundError(f"native source missing: {path}")
+    if not force and _fresh(root):
+        return out_path
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(out_path.with_name(_LOCK.name), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        if not force and _fresh():
-            return _OUT  # another process built it while this one waited
-        tmp = _OUT.with_suffix(f".tmp.{os.getpid()}.so")
+        if not force and _fresh(root):
+            return out_path  # another process built it while this one waited
+        tmp = out_path.with_suffix(f".tmp.{os.getpid()}.so")
         # -lrt: shm_open/shm_unlink live in librt on glibc < 2.34.
         cmd = ["g++", "-std=c++20", "-O2", "-fPIC", "-shared", "-pthread",
-               "-Wall", "-Wextra", str(_SRC), "-o", str(tmp), "-lrt"]
+               "-Wall", "-Wextra", str(src), "-o", str(tmp), "-lrt"]
         try:
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True,
@@ -78,20 +99,20 @@ def ensure_built(force: bool = False) -> Path:
             except subprocess.TimeoutExpired as e:
                 raise RuntimeError(
                     f"native build timed out after {_BUILD_TIMEOUT_S}s "
-                    f"(log: {_LOG})") from e
+                    f"(log: {log})") from e
             except OSError as e:  # g++ missing or not executable
                 raise RuntimeError(
                     f"native build could not start ({e}); is a C++ "
                     f"toolchain installed?") from e
-            tail = _tail(cmd, proc.stdout + proc.stderr)
+            tail = _tail(log, cmd, proc.stdout + proc.stderr)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"native build failed with exit code {proc.returncode} "
-                    f"(log: {_LOG})\n{tail}")
-            os.replace(tmp, _OUT)
+                    f"(log: {log})\n{tail}")
+            os.replace(tmp, out_path)
         finally:
             tmp.unlink(missing_ok=True)
-    return _OUT
+    return out_path
 
 
 if __name__ == "__main__":

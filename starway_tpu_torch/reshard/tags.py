@@ -15,7 +15,7 @@ one redistribution pass the same ``slot`` (the way they already share a
 ``base_tag`` in parallel/dp_exchange.py) and the registry guarantees
 that two live leases *in one process* never overlap -- double-acquiring
 a slot, or leasing while every slot is live, raises instead of silently
-reusing tags.  ``python -m starway_tpu.analysis`` has no opinion here;
+reusing tags.  ``python -m starway_tpu_torch.analysis`` has no opinion here;
 tests/test_reshard.py pins the collision behaviour.
 
 Layout of one lease (``SLOT_SPAN`` = 2^20 tags):

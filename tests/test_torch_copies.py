@@ -6,16 +6,18 @@ package's transport that imports no JAX (``errors``, ``config``, ``perf``,
 ``benchmarks/``, whose device payloads become tensors), of its telemetry
 viewer and trace export (``metrics``, ``trace``), of the reshard
 planner and executor (``reshard/`` but ``api.py``, which imports JAX and
-which the port writes its own), of the analysis core that the runtime
-protocol monitor compiles (``analysis/{base,py_model,protomodel,refine}.py``
-and ``refine_corpus.txt``) and of the fault proxy (``testing/``).  Each
-equals its original after the package rename, except in the named edits
-below, so the proofs that the JAX package's analysis gate makes of the
-originals (it scans ``starway_tpu/`` only) hold for the copies too.  The
-rename leaves references to the gate itself (``starway_tpu.analysis``)
-pointing at the JAX package, which owns it; it turns the source paths that
-the analysis copies read (``starway_tpu/core/...``) into the port's, which
-``test_analysis_reads_the_ports_sources`` pins site by site.
+which the port writes its own), of the whole static-analysis gate
+(``analysis/``, its twelve passes, the CLI and its three data files:
+``python -m starway_tpu_torch.analysis`` checks the port's own tree) and
+of the fault proxy (``testing/``).  Each equals its original after the
+package rename, except in the named edits below, so the gate the port
+runs on its copies is the JAX package's gate, pointed at the port.  The
+rename turns the source paths that the analysis copies read
+(``starway_tpu/core/...``) into the port's, which
+``test_analysis_reads_the_ports_sources`` pins site by site; the engine
+copy's paths (``native/`` at the root in the original) are named edits.
+The swcost ledger (``analysis/cost_budgets.txt``) is re-pinned from the
+port's engines, so it is held row by row against the original's.
 
 The C++ engine is copied too (``starway_tpu_torch/native/sw_engine.{cpp,h}``
 from ``native/``): a C++ file has no package rename, so each of its
@@ -30,7 +32,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 JAX_PKG = REPO / "starway_tpu"
 PORT_PKG = REPO / "starway_tpu_torch"
-RENAME = re.compile(r"\bstarway_tpu\b(?!\.analysis)")
+RENAME = re.compile(r"\bstarway_tpu\b")
 
 CORE = sorted(p.name for p in (JAX_PKG / "core").glob("*.py"))
 
@@ -245,6 +247,11 @@ EDITS = {
          '    itself imports no array library."""\n'),
     ],
     'bench.py': [
+        (# bench.py:53-53: the port's gate lints bench.py (base.py's
+         # LINT_EXTRA_FILES); its one copy is a control message's.
+         'def _decode_ctl(buffer: np.ndarray, length: int) -> dict:\n',
+         'def _decode_ctl(buffer: np.ndarray, length: int) -> dict:\n'
+         '    # swcheck: allow(hotpath-copy): a bench control message (a small JSON body), not a payload\n'),
         (# bench.py:71-72
          '        help="Buffer kind for large-array/streaming-duplex: host numpy (default) or jax.Array device buffers.",\n'
          '    )\n',
@@ -468,6 +475,233 @@ EDITS.update({
     ],
 })
 
+# The analysis gate on the port's tree: the root is where the port and
+# its engine copy stand (no root-level native/ or starway_tpu/ needed); every
+# pass reads the engine copy under starway_tpu_torch/native/; the lint surface
+# gains the port's own top-level runtime modules and the markers/waiver scan
+# takes the port's tests (tests/test_torch_*.py); the device pull is
+# negotiated under "cudaipc"; the framework core/ and reshard/ must not bind
+# is torch (jax stays banned); wirefuzz's native leg runs the port's build
+# (native_build.py) of the tree under check, and a leg that cannot run is a
+# finding.
+EDITS.update({
+    'analysis/base.py': [
+        (# analysis/base.py:88-88
+         '        if (p / "starway_tpu_torch").is_dir() and (p / "native").is_dir():\n',
+         '        if (p / "starway_tpu_torch" / "native").is_dir():\n'),
+        (# analysis/base.py:91-92
+         '        "swcheck: cannot locate the repo root (need starway_tpu_torch/ and "\n'
+         '        "native/ side by side); pass --root"\n',
+         '        "swcheck: cannot locate the repo root (need starway_tpu_torch/ "\n'
+         '        "with its engine copy, starway_tpu_torch/native/); pass --root"\n'),
+        (# analysis/base.py:238-238
+         'LINT_EXTRA_FILES = ("starway_tpu_torch/metrics.py",)\n',
+         "#: The port's own top-level runtime modules join it: the device plane's\n"
+         '#: pull and its staging threads (device.py), the headline and pull-step\n'
+         '#: probes, the engine build and the bench CLI.\n'
+         'LINT_EXTRA_FILES = ("starway_tpu_torch/metrics.py",\n'
+         '                    "starway_tpu_torch/device.py",\n'
+         '                    "starway_tpu_torch/headline.py",\n'
+         '                    "starway_tpu_torch/ipc_steps.py",\n'
+         '                    "starway_tpu_torch/native_build.py",\n'
+         '                    "starway_tpu_torch/bench.py")\n'),
+        (# analysis/base.py:257-258
+         '        root / "native" / "sw_engine.h",\n'
+         '        root / "native" / "sw_engine.cpp",\n',
+         '        root / "starway_tpu_torch" / "native" / "sw_engine.h",\n'
+         '        root / "starway_tpu_torch" / "native" / "sw_engine.cpp",\n'),
+        (# analysis/base.py:282-282
+         '    return sorted(tests.glob("test_*.py"))\n',
+         "    # The port's own tests: the JAX package's gate scans the rest.\n"
+         '    return sorted(tests.glob("test_torch_*.py"))\n'),
+    ],
+    'analysis/contract.py': [
+        (# analysis/contract.py:53-54
+         '# negotiation (DESIGN.md §19).\n'
+         '_HANDSHAKE_KEYS = ["ka", "sm", "devpull", "sess", "tr", "rails", "rail_of",\n',
+         "# negotiation (DESIGN.md §19).  The port's engines negotiate their device\n"
+         '# pull under "cudaipc" (device.py\'s identity), never under "devpull".\n'
+         '_HANDSHAKE_KEYS = ["ka", "sm", "cudaipc", "sess", "tr", "rails", "rail_of",\n'),
+    ],
+    'analysis/layering.py': [
+        (# analysis/layering.py:5-5
+         '* **core/ imports no jax** (``layering-jax``).  The matcher and\n',
+         '* **core/ imports no torch and no jax** (``layering-jax``).  The matcher and\n'),
+        (# analysis/layering.py:9-11
+         "  unimportable in jax-free processes (the wheel's test-command imports\n"
+         '  core.native with only numpy installed) and couple the engine to the\n'
+         '  device plane.\n',
+         '  unimportable in torch-free processes (core.native runs with only\n'
+         '  numpy installed) and couple the engine to the device plane.\n'),
+        (# analysis/layering.py:15-17
+         '  and under reshard/ only ``api.py`` -- the jax adapter -- may import\n'
+         '  jax, so the planner/executor stay runnable in jax-free processes the\n'
+         '  same way core/ does.\n',
+         '  and under reshard/ only ``api.py`` -- the torch adapter -- may import\n'
+         '  torch (and none of them jax), so the planner/executor stay runnable\n'
+         '  in torch-free processes the same way core/ does.\n'),
+        (# analysis/layering.py:27-28
+         '#: The one reshard/ module allowed to bind jax (the adapter) -- exact\n'
+         '#: repo-relative path, so a nested helper named api.py is NOT exempt.\n',
+         '#: The one reshard/ module allowed to bind the framework (the adapter) --\n'
+         '#: exact repo-relative path, so a nested helper named api.py is NOT exempt.\n'),
+        (# analysis/layering.py:29-31
+         'RESHARD_JAX_OK = ("starway_tpu_torch/reshard/api.py",)\n'
+         '\n'
+         '\n',
+         'RESHARD_JAX_OK = ("starway_tpu_torch/reshard/api.py",)\n'
+         '\n'
+         "#: The framework these rules guard is the port's, torch; jax (the JAX\n"
+         "#: package's) may be bound by none of these modules, the adapter included.\n"
+         "#: The rule names stay the JAX gate's so waivers and --rules line up.\n"
+         'FRAMEWORKS = ("torch", "jax")\n'
+         '\n'),
+        (# analysis/layering.py:32-33
+         'def _is_jax(module: str) -> bool:\n'
+         '    return module == "jax" or module.startswith("jax.")\n',
+         '\n'
+         'def _is_jax(module: str, frameworks=FRAMEWORKS) -> bool:\n'
+         '    return any(module == m or module.startswith(m + ".") for m in frameworks)\n'),
+        (# analysis/layering.py:112-113
+         '        if relpath in RESHARD_JAX_OK:\n'
+         '            continue\n',
+         '        banned = ("jax",) if relpath in RESHARD_JAX_OK else FRAMEWORKS\n'),
+        (# analysis/layering.py:119-123
+         '            if isinstance(node, ast.Import):\n'
+         '                for alias in node.names:\n'
+         '                    if _is_jax(alias.name):\n'
+         '                        out.append(Finding(\n'
+         '                            relpath, node.lineno, "layering-reshard",\n',
+         '            if isinstance(node, ast.Import):\n'
+         '                for alias in node.names:\n'
+         '                    if _is_jax(alias.name, banned):\n'
+         '                        out.append(Finding(\n'
+         '                            relpath, node.lineno, "layering-reshard",\n'),
+        (# analysis/layering.py:125-125
+         '                            "-- only the api.py adapter may bind jax; the "\n',
+         '                            "-- only the api.py adapter may bind torch; the "\n'),
+        (# analysis/layering.py:126-129
+         '                            "planner/executor stay jax-free (DESIGN.md §20)"))\n'
+         '            elif isinstance(node, ast.ImportFrom):\n'
+         '                if node.level == 0 and node.module and _is_jax(node.module):\n'
+         '                    out.append(Finding(\n',
+         '                            "planner/executor stay jax-free (DESIGN.md §20)"))\n'
+         '            elif isinstance(node, ast.ImportFrom):\n'
+         '                if (node.level == 0 and node.module\n'
+         '                        and _is_jax(node.module, banned)):\n'
+         '                    out.append(Finding(\n'),
+        (# analysis/layering.py:133-133
+         '                        "may bind jax (DESIGN.md §20)"))\n',
+         '                        "may bind torch (DESIGN.md §20)"))\n'),
+    ],
+    'analysis/wirefuzz.py': [
+        (# analysis/wirefuzz.py:19-21
+         "3. the native engine's ``sw_wire_decode`` export, when the tree's built\n"
+         "   artifact is present (skipped quietly in a bare venv -- the repo's CI\n"
+         '   gate and test suite always have it).\n',
+         "3. the native engine's ``sw_wire_decode`` export, from the tree's own\n"
+         '   copy of the engine built by ``native_build``\n'
+         "   (``build/starway_tpu_torch/_sw_native.so`` under the tree's root); an\n"
+         '   engine that cannot be built or loaded is a finding, never a skip.\n'),
+        (# analysis/wirefuzz.py:529-529
+         '_NATIVE_CACHE: dict = {}\n',
+         '_NATIVE_CACHE: dict = {}\n'
+         '#: artifact path -> why it could not be loaded (the wire-diff finding).\n'
+         '_NATIVE_ERRORS: dict = {}\n'),
+        (# analysis/wirefuzz.py:533-535
+         '    """The tree\'s built engine artifact with the sw_wire_decode export,\n'
+         '    or None (fresh checkout / bare venv / pre-§21 build)."""\n'
+         '    so = root / "starway_tpu_torch" / "_sw_native.so"\n',
+         '    """The tree\'s engine artifact with the sw_wire_decode export, built\n'
+         "    from the tree's own engine copy by native_build when it is missing\n"
+         '    or older than its sources; None when it cannot be built or loaded,\n'
+         '    with the reason in _NATIVE_ERRORS."""\n'
+         '    from .. import native_build\n'
+         '\n'
+         '    so = native_build.artifact(root)\n'),
+        (# analysis/wirefuzz.py:540-550
+         '    if so.is_file():\n'
+         '        try:\n'
+         '            cand = ctypes.CDLL(str(so))\n'
+         '            if hasattr(cand, "sw_wire_decode"):\n'
+         '                cand.sw_wire_decode.argtypes = [\n'
+         '                    ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int,\n'
+         '                    ctypes.c_char_p, ctypes.c_int,\n'
+         '                ]\n'
+         '                lib = cand\n'
+         '        except OSError:\n'
+         '            lib = None\n',
+         '    try:\n'
+         '        native_build.ensure_built(root=root)\n'
+         '        cand = ctypes.CDLL(str(so))\n'
+         '        if hasattr(cand, "sw_wire_decode"):\n'
+         '            cand.sw_wire_decode.argtypes = [\n'
+         '                ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int,\n'
+         '                ctypes.c_char_p, ctypes.c_int,\n'
+         '            ]\n'
+         '            lib = cand\n'
+         '        else:\n'
+         '            _NATIVE_ERRORS[key] = "the artifact has no sw_wire_decode export"\n'
+         '    except (OSError, RuntimeError) as e:\n'
+         '        _NATIVE_ERRORS[key] = str(e)\n'),
+        (# analysis/wirefuzz.py:748-748
+         '                "native/sw_engine.cpp", 1, "wire-diff",\n',
+         '                "starway_tpu_torch/native/sw_engine.cpp", 1, "wire-diff",\n'),
+        (# analysis/wirefuzz.py:780-780
+         '        counts["native"] = lib is not None\n',
+         '        counts["native"] = lib is not None\n'
+         '        if lib is None:\n'
+         '            from .. import native_build\n'
+         '\n'
+         '            so = native_build.artifact(root)\n'
+         '            out.append(Finding(\n'
+         '                "starway_tpu_torch/native/sw_engine.cpp", 1, "wire-diff",\n'
+         '                f"the native leg cannot run: {so} "\n'
+         '                f"({_NATIVE_ERRORS.get(str(so), \'not loaded\')}) -- only "\n'
+         '                "two of the three decoders would be diffed"))\n'),
+    ],
+    'analysis/cpp_model.py': [
+        (# analysis/cpp_model.py:76-77
+         '    cpp_file: str = "native/sw_engine.cpp"\n'
+         '    h_file: str = "native/sw_engine.h"\n',
+         '    cpp_file: str = "starway_tpu_torch/native/sw_engine.cpp"\n'
+         '    h_file: str = "starway_tpu_torch/native/sw_engine.h"\n'),
+        (# analysis/cpp_model.py:154-155
+         '    cpp_path = root / "native" / "sw_engine.cpp"\n'
+         '    h_path = root / "native" / "sw_engine.h"\n',
+         '    cpp_path = root / "starway_tpu_torch" / "native" / "sw_engine.cpp"\n'
+         '    h_path = root / "starway_tpu_torch" / "native" / "sw_engine.h"\n'),
+    ],
+    'analysis/concurrency.py': [
+        (# analysis/concurrency.py:411-411
+         '    path = root / "native" / "sw_engine.cpp"\n',
+         '    path = root / "starway_tpu_torch" / "native" / "sw_engine.cpp"\n'),
+        (# analysis/concurrency.py:414-414
+         '    relpath = "native/sw_engine.cpp"\n',
+         '    relpath = "starway_tpu_torch/native/sw_engine.cpp"\n'),
+    ],
+    'analysis/cost.py': [
+        (# analysis/cost.py:55-55
+         'F_CPP = "native/sw_engine.cpp"\n',
+         'F_CPP = "starway_tpu_torch/native/sw_engine.cpp"\n'),
+    ],
+    'analysis/taint.py': [
+        (# analysis/taint.py:53-53
+         'F_CPP = "native/sw_engine.cpp"\n',
+         'F_CPP = "starway_tpu_torch/native/sw_engine.cpp"\n'),
+    ],
+    'analysis/__init__.py': [
+        (# analysis/__init__.py:8-8
+         '  ``core/engine.py``-side sources and ``native/sw_engine.{h,cpp}``\n',
+         '  ``core/engine.py``-side sources and the engine copy,\n'
+         '  ``starway_tpu_torch/native/sw_engine.{h,cpp}``\n'),
+        (# analysis/__init__.py:15-15
+         '* **layering** -- no jax imports under core/.\n',
+         '* **layering** -- no torch (and no jax) imports under core/.\n'),
+    ],
+})
+
+
 # The port's copy of the C++ engine (native/ -> starway_tpu_torch/native/):
 # the pull is negotiated under "cudaipc" (the peer's identity, kept per
 # conn and reported by sw_conn_info), never under "devpull".
@@ -600,16 +834,69 @@ COPIES = ["errors.py", "config.py", "perf.py", "api.py"] + [
     "benchmarks/scenarios.py"] + [
     f"reshard/{name}" for name in ("__init__.py", "plan.py", "tags.py",
                                    "executor.py")] + [
-    f"analysis/{name}" for name in ("base.py", "py_model.py",
-                                    "protomodel.py", "refine.py",
-                                    "refine_corpus.txt")] + [
+    f"analysis/{name}" for name in (
+        "__init__.py", "__main__.py", "base.py", "compose.py",
+        "concurrency.py", "contract.py", "cost.py", "cpp_model.py",
+        "explore.py", "hotpath.py", "layering.py", "markers.py",
+        "protomodel.py", "py_model.py", "refine.py", "taint.py",
+        "wirefuzz.py", "refine_corpus.txt", "wirefuzz_corpus.txt")] + [
     "testing/__init__.py", "testing/faults.py"]
 
-# The source paths the analysis copies read, by the original's line: each
-# names the port's file, so the monitor checks the port's own engines --
-# the C++ one too, its copy under starway_tpu_torch/native/ being what
-# native_build.py builds.
+# The source paths the analysis copies read, by the port's line: each
+# names the port's file, so the monitor and the gate check the port's own
+# engines -- the C++ one too, its copy under starway_tpu_torch/native/ being
+# what native_build.py builds.
 READ_SITES = {
+    "analysis/base.py": {
+        227: 'root / "starway_tpu_torch" / "core"',
+        241: '"starway_tpu_torch/metrics.py"',
+        242: '"starway_tpu_torch/device.py"',
+        243: '"starway_tpu_torch/headline.py"',
+        244: '"starway_tpu_torch/ipc_steps.py"',
+        245: '"starway_tpu_torch/native_build.py"',
+        246: '"starway_tpu_torch/bench.py"',
+        264: 'root / "starway_tpu_torch" / "errors.py"',
+        265: 'root / "starway_tpu_torch" / "native" / "sw_engine.h"',
+        266: 'root / "starway_tpu_torch" / "native" / "sw_engine.cpp"',
+        268: '"starway_tpu_torch" / "analysis" / "cost_budgets.txt"',
+        271: 'root / "starway_tpu_torch").glob("*.py")',
+        274: '(root / "starway_tpu_torch" / "reshard")',
+        291: 'tests.glob("test_torch_*.py")'},
+    "analysis/cpp_model.py": {
+        76: '"starway_tpu_torch/native/sw_engine.cpp"',
+        77: '"starway_tpu_torch/native/sw_engine.h"',
+        154: 'root / "starway_tpu_torch" / "native" / "sw_engine.cpp"',
+        155: 'root / "starway_tpu_torch" / "native" / "sw_engine.h"'},
+    "analysis/concurrency.py": {
+        411: 'root / "starway_tpu_torch" / "native" / "sw_engine.cpp"',
+        414: '"starway_tpu_torch/native/sw_engine.cpp"',
+        563: 'root / "starway_tpu_torch" / "core" / "conn.py"',
+        566: '"starway_tpu_torch/core/conn.py"',
+        845: 'root / "starway_tpu_torch"'},
+    "analysis/cost.py": {
+        52: '"starway_tpu_torch/core/conn.py"',
+        53: '"starway_tpu_torch/core/shmring.py"',
+        54: '"starway_tpu_torch/core/lane.py"',
+        55: '"starway_tpu_torch/native/sw_engine.cpp"',
+        426: '"starway_tpu_torch/analysis/cost_budgets.txt"'},
+    "analysis/taint.py": {
+        51: '"starway_tpu_torch/core/conn.py"',
+        52: '"starway_tpu_torch/core/shmring.py"',
+        53: '"starway_tpu_torch/native/sw_engine.cpp"'},
+    "analysis/wirefuzz.py": {
+        131: '"starway_tpu_torch/core/frames.py"',
+        193: '"starway_tpu_torch/core/shmring.py"',
+        285: '"starway_tpu_torch/core/conn.py"',
+        513: 'root / "starway_tpu_torch" / "core"',
+        542: "native_build.artifact(root)",
+        665: '"starway_tpu_torch" / "analysis" / "wirefuzz_corpus.txt"',
+        677: '"starway_tpu_torch/analysis/wirefuzz_corpus.txt"',
+        757: '"starway_tpu_torch/native/sw_engine.cpp"'},
+    "analysis/layering.py": {
+        28: '"starway_tpu_torch/reshard/api.py"',
+        60: 'root / "starway_tpu_torch" / "reshard"'},
+    "analysis/explore.py": {433: '"starway_tpu_torch/core/session.py"'},
+    "analysis/compose.py": {480: '"starway_tpu_torch/core/lane.py"'},
     "analysis/protomodel.py": {
         311: '"starway_tpu_torch/native/sw_engine.cpp"',
         287: '"starway_tpu_torch/core/conn.py"',
@@ -695,3 +982,35 @@ def test_analysis_reads_the_ports_sources(rel):
         path = text.split('"')[1] if text.count('"') == 2 else None
         if path and "/" in path:
             assert (REPO / path).is_file(), path
+
+
+def _ledger_rows(path: Path) -> dict:
+    rows = {}
+    for line in path.read_text().splitlines():
+        s = line.strip()
+        if s and not s.startswith("#"):
+            engine, pname, metric, value = s.split()[:4]
+            rows[(engine, pname, metric)] = int(value)
+    return rows
+
+
+#: Rows of the port's swcost ledger that differ from the JAX package's, by
+#: (engine, path, metric) -> the port edit that explains the difference.
+#: None today: the port's edits (the "cudaipc" negotiation, the suspended
+#: conn's readiness guard, the dropped fires batch) add no hot-path site.
+LEDGER_DIFFERS: dict = {}
+
+
+def test_cost_ledger_holds_row_by_row():
+    """The port's ledger is re-pinned from the port's engines
+    (``python -m starway_tpu_torch.analysis cost --write-budgets``); each
+    row equals the JAX ledger's row for the same path, but where named."""
+    port = _ledger_rows(PORT_PKG / "analysis" / "cost_budgets.txt")
+    jax_rows = _ledger_rows(JAX_PKG / "analysis" / "cost_budgets.txt")
+    assert set(port) == set(jax_rows)
+    differ = {k for k in port if port[k] != jax_rows[k]}
+    assert differ == set(LEDGER_DIFFERS), sorted(differ)
+    header = RENAME.sub("starway_tpu_torch", (
+        JAX_PKG / "analysis" / "cost_budgets.txt").read_text()).split("\n\n")[0]
+    assert (PORT_PKG / "analysis" / "cost_budgets.txt").read_text().startswith(
+        header)

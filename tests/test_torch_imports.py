@@ -257,3 +257,30 @@ def test_scan_covers_the_pipeline_family():
     assert {"starway_tpu_torch/parallel/pipeline.py",
             "starway_tpu_torch/parallel/interleaved.py",
             "starway_tpu_torch/models/pp_llama.py"} <= scanned
+
+
+ANALYSIS_MODULES = ("compose", "concurrency", "contract", "cost",
+                    "cpp_model", "explore", "hotpath", "layering", "markers",
+                    "taint", "wirefuzz", "__main__")
+
+
+def test_scan_covers_the_analysis_gate():
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {f"starway_tpu_torch/analysis/{m}.py"
+            for m in ANALYSIS_MODULES} <= scanned
+
+
+def test_analysis_gate_import_keeps_jax_out_of_the_process():
+    code = ("import sys\n"
+            "from starway_tpu_torch.analysis import PASSES, RULES\n"
+            "import starway_tpu_torch.analysis.__main__ as cli\n"
+            f"for m in {ANALYSIS_MODULES[:-1]!r}:\n"
+            "    __import__('starway_tpu_torch.analysis.' + m)\n"
+            "assert len(PASSES) == 12, PASSES\n"
+            "assert cli.main(['--rules']) == 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

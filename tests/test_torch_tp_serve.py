@@ -128,11 +128,19 @@ def test_speculative_tp_matches_jax(kv_quant):
 
 
 def test_tp_serving_refuses_other_meshes():
-    """Serving takes a tree over {"tp": n} in one process; a tree with a
-    data axis above 1 is refused, naming ROADMAP.md."""
+    """Serving takes a tree over tp and the data axes (dp, fsdp); a tree
+    with another axis above 1 ("sp") is refused naming ROADMAP.md, and a
+    cache whose rows the data axes do not divide is refused naming the
+    shapes."""
     cfg = LlamaConfig.preset("debug")
-    sh = shard_tree(tl.init_params(cfg, 0, device="cpu"),
-                    make_mesh({"dp": 2, "tp": 2}, device="cpu"),
+    params = tl.init_params(cfg, 0, device="cpu")
+    sp = shard_tree(params, make_mesh({"sp": 2, "tp": 2}, device="cpu"),
                     param_specs(cfg))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_cache(cfg, 2, 8, device="cpu", params=sp)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        generate(sp, cfg, torch.tensor([[1, 2]]), 2)
+    sh = shard_tree(params, make_mesh({"dp": 2, "tp": 2}, device="cpu"),
+                    param_specs(cfg))
+    with pytest.raises(ValueError, match=r"1 rows.*'dp': 2"):
         init_cache(cfg, 1, 8, device="cpu", params=sh)

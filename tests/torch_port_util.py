@@ -610,3 +610,76 @@ def reshard_dtensor_worker(rank, gloo_port, sw_port, q) -> None:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+SERVE_REQS = [([3, 1, 4, 1], 5), ([2, 7], 4), ([5, 5, 6], 3), ([9, 2, 6], 4)]
+SERVE_PROMPT = [[3, 1, 4, 1, 5], [2, 7, 1, 8, 2]]
+
+
+def save_tree(path: str, tree: dict) -> None:
+    """A nested dict of numpy arrays into one npz (keys joined by "/")."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat["/".join(prefix + (k,))] = np.asarray(v)
+
+    walk(tree, ())
+    np.savez(path, **flat)
+
+
+def load_tree(path: str) -> dict:
+    """Inverse of :func:`save_tree`."""
+    out: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = out
+            *head, last = key.split("/")
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = data[key]
+    return out
+
+
+def serve_runs(shape: dict, folder: str, group=None) -> dict:
+    """The serving stack over a tree sharded by ``param_specs`` on a mesh
+    of ``shape`` (debug widths, float32, the weights of
+    ``folder/params.npz``), ``group`` holding the slots (None: this
+    process holds them all): the tokens of ``SlotServer`` on
+    :data:`SERVE_REQS` and of ``generate()`` on :data:`SERVE_PROMPT`."""
+    from starway_tpu_torch.models import (LlamaConfig, SlotServer, generate,
+                                          param_specs)
+    from starway_tpu_torch.parallel import make_mesh, shard_tree
+
+    cfg = LlamaConfig.preset("debug")
+    params = params_from_numpy(load_tree(f"{folder}/params.npz"),
+                               device="cpu")
+    mesh = make_mesh(shape, device="cpu", group=group)
+    tree = shard_tree(params, mesh, param_specs(cfg))
+    srv = SlotServer(tree, cfg, n_slots=2, max_len=32, chunk=4)
+    rids = [srv.submit(p, m) for p, m in SERVE_REQS]
+    done = srv.run()
+    out = {f"server/{i}": done[rid] for i, rid in enumerate(rids)}
+    out["generate"] = generate(tree, cfg, torch.tensor(SERVE_PROMPT),
+                               6).numpy()
+    return out
+
+
+def serve_worker(rank: int, world: int, port: int, folder: str,
+                 shape: str) -> None:
+    """One process of a gloo run of :func:`serve_runs` (``shape`` as
+    ``"dp=2,tp=2"``), written to ``out<rank>.npz`` in ``folder``."""
+    import torch.distributed as dist
+
+    mesh_shape = {k: int(v) for k, v in
+                  (kv.split("=") for kv in shape.split(","))}
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        np.savez(f"{folder}/out{rank}.npz",
+                 **serve_runs(mesh_shape, folder, dist.group.WORLD))
+    finally:
+        dist.destroy_process_group()
