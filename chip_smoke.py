@@ -248,10 +248,21 @@ Phases, each of which raises on failure:
 27. gate     -- python -m starway_tpu_torch.analysis on this checkout, all
               twelve passes, wirefuzz's native leg against the port's
               engine; the seconds of each pass
-28. a JSON line of the kernels with their launches on the serving paths
-   (phases 4-7, 18-21, 24 and 26) and the training paths (phases 11, 13,
-   16, 22, 23 and 25), phases 18-26 also apart, and the numbers of phase 3
-29. the last line: {"ok": true, "device": {...}}
+28. examples -- every twin of examples/ (examples/torch/*.py) on cuda:0 at
+              its original's defaults (pingpong and throughput at 256
+              MiB), and the transport's scripts (scripts/torch/: the
+              session soak, one pair of each bench); each exits 0 with its
+              own checks, device_pull arrives "device" by one CUDA IPC
+              pull, dp_training's ranks end bit-equal, the serving twins
+              launch #1 and #3, serve_hf --quantize int8 #4, and
+              spmd_training and pp_training #3, #5 and #6
+              (phase_examples says more);
+              each one's wall seconds and the transport twins' GB/s
+29. a JSON line of the kernels with their launches on the serving paths
+   (phases 4-7, 18-21, 24 and 26), the training paths (phases 11, 13, 16,
+   22, 23 and 25) and the in-process twins of examples/ (phase 28), phases
+   18-26 and 28 also apart, and the numbers of phase 3
+30. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -6074,6 +6085,222 @@ def phase_pipeline(dev, card: str) -> tuple:
     return out, counts
 
 
+# ---------------------------------------------------------------- examples
+
+# The twins of examples/ that run in this process (their launches counted
+# around each run), and the twins that spawn processes and the
+# transport's scripts, each a process of its own, with the argv phase 28
+# gives them.  The originals' defaults, but for pingpong's and
+# throughput's 256 MiB (their 1 GiB default takes the budget) and the two
+# bench scripts' one pair of runs (five by default).
+EXAMPLE_RUNS = (
+    ("pingpong", ["--max-size", "256M"]),
+    ("cancel_on_close", []),
+    ("throughput", ["--size", "256M"]),
+    ("all_to_all_p2p", []),
+    ("serve_continuous", []),
+    ("speculative", []),
+    ("serve_remote", []),
+    ("serve_remote/tcp", []),
+    ("serve_remote/native-tcp", []),
+    ("serve_hf", []),
+    ("serve_hf/int8", ["--quantize", "int8"]),
+    ("spmd_training", []),
+    ("pp_training", []),
+)
+EXAMPLE_ENV = {"serve_remote/tcp": {"STARWAY_TLS": "tcp"},
+               "serve_remote/native-tcp": {"STARWAY_TLS": "tcp",
+                                           "STARWAY_NATIVE": "1"}}
+SERVING_TWINS = ("serve_continuous", "speculative", "serve_remote",
+                 "serve_hf")
+TRAINING_TWINS = ("spmd_training", "pp_training")
+SCRIPTS = ("session_chaos", "paired_bench", "integrity_bench")
+SPAWNED_RUNS = (
+    ("device_pull", "examples/torch/device_pull.py", []),
+    ("dp_training_2proc", "examples/torch/dp_training_2proc.py", []),
+    ("session_chaos", "scripts/torch/session_chaos.py", []),
+    ("paired_bench", "scripts/torch/paired_bench.py", ["--pairs", "1"]),
+    ("integrity_bench", "scripts/torch/integrity_bench.py",
+     ["--pairs", "1", "--gate", "0"]),
+)
+
+
+@contextlib.contextmanager
+def starway_env(extra: dict):
+    """os.environ with no STARWAY_* setting of an earlier phase, plus
+    ``extra``; restored on the way out."""
+    import os
+
+    saved = dict(os.environ)
+    for key in [k for k in os.environ if k.startswith("STARWAY_")]:
+        del os.environ[key]
+    os.environ.update(extra)
+    try:
+        yield dict(os.environ)
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def example_module(name: str):
+    """examples/torch/<name>.py as a module (the folder joins the end of
+    the path)."""
+    import importlib
+    from pathlib import Path
+
+    folder = str(Path(__file__).resolve().parent / "examples" / "torch")
+    if folder not in sys.path:
+        sys.path.append(folder)
+    return importlib.import_module(name)
+
+
+def start_run(path, argv: list, env: dict) -> dict:
+    """``python path argv`` from the checkout's root in a session of its
+    own, a thread collecting its output and its wall seconds (``out``,
+    ``err``, ``wall_s``) as it ends."""
+    import threading
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, str(path)] + argv, env=env,
+                            cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    run = {"proc": proc, "name": f"{path} {' '.join(argv)}".strip()}
+
+    def collect():
+        run["out"], run["err"] = proc.communicate()
+        run["wall_s"] = time.perf_counter() - t0
+
+    run["thread"] = threading.Thread(target=collect, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def finish_run(run: dict, timeout: float = 300) -> str:
+    """The stdout of a :func:`start_run` run once it exited 0 (its output
+    is logged and the phase fails otherwise)."""
+    run["thread"].join(timeout)
+    if run["thread"].is_alive() or run["proc"].returncode != 0:
+        log(run.get("out", "")[-4000:])
+        log(run.get("err", "")[-4000:])
+        raise AssertionError(f"{run['name']} exited "
+                             f"{run['proc'].returncode}")
+    return run["out"]
+
+
+def phase_examples() -> tuple:
+    """Phase 28: every twin of examples/ (examples/torch/*.py) on cuda:0 at
+    its original's defaults, and the transport's scripts
+    (scripts/torch/*.py, host only). Cuts: pingpong --max-size 256M and
+    throughput --size 256M (1 GiB by default); paired_bench and
+    integrity_bench one pair of runs (five by default), integrity_bench's
+    gate opened (one pair on a shared host is no verdict, as its docstring
+    says). In this process, the launch counts read around each run:
+    pingpong, cancel_on_close, throughput, all_to_all_p2p,
+    serve_continuous, speculative, serve_remote (in process, tcp, the C++
+    engine over tcp: the original's three runs), serve_hf (the tiny random
+    Llama, then --quantize int8), spmd_training and pp_training, each under
+    its own autograd default. device_pull and dp_training_2proc (which
+    spawn processes) and the three scripts run as processes of their own,
+    all at once, beside the in-process model twins (after the transport
+    twins, which have the host to themselves). Every run must exit 0 with
+    its own checks; device_pull must arrive "device" by one CUDA IPC pull,
+    dp_training's ranks bit-equal with every gradient leaf pulled over CUDA
+    IPC; each serving twin launches #1 and #3, serve_hf --quantize int8 #4,
+    spmd_training and pp_training #3, #5 and #6. Returns (per-run seconds,
+    GB/s and launches; the launches summed)."""
+    import os
+    import re
+    import signal
+    from pathlib import Path
+
+    import torch
+
+    from starway_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    root = Path(__file__).resolve().parent
+    runs, total, procs = {}, {}, {}
+    try:
+        for label, argv in EXAMPLE_RUNS:
+            if label == "serve_continuous":
+                # The runs that are processes of their own go beside the
+                # in-process model twins from here on (their wall is mostly
+                # processes reaching the card, and the scripts are host
+                # only); the transport twins before them had the host to
+                # themselves.
+                with starway_env({}) as env:
+                    for name, path, args in SPAWNED_RUNS:
+                        procs[name] = start_run(path, args, env)
+            name = label.split("/")[0]
+            mod = example_module(name)
+            with starway_env(EXAMPLE_ENV.get(label, {})), torch.enable_grad():
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                res = mod.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = launch_counts()
+            st = {"wall_s": wall, "launches": {k: v for k, v in counts.items()
+                                               if v}}
+            if name == "pingpong":
+                st["gb_per_s"] = {size: gbps for size, _, _, gbps in res}
+            elif name in ("throughput", "all_to_all_p2p"):
+                st["gb_per_s"] = res["gb_per_s"]
+            elif name == "cancel_on_close" and "cancel" not in res:
+                raise AssertionError(f"cancel_on_close's receive failed with "
+                                     f"{res!r}")
+            if name in SERVING_TWINS and not (counts["decode_attention"] > 0
+                                              and counts["flash_forward"] > 0):
+                raise AssertionError(f"{label} launched no decode or flash "
+                                     f"kernel: {counts}")
+            if label == "serve_hf/int8" and not counts["int8_matmul"] > 0:
+                raise AssertionError(f"serve_hf --quantize int8 launched no "
+                                     f"GEMV: {counts}")
+            if name in TRAINING_TWINS and not all(counts[k] > 0 for k in (
+                    "flash_forward", "flash_backward_dkv",
+                    "flash_backward_dq")):
+                raise AssertionError(f"{name} missed a flash kernel: "
+                                     f"{counts}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            runs[label] = st
+            log(f"[examples] {label} {' '.join(argv)}: {wall:.2f} s, "
+                f"launches {st['launches']}"
+                + (f", GB/s {st['gb_per_s']}" if "gb_per_s" in st else ""))
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        outs = {name: finish_run(run) for name, run in procs.items()}
+    finally:  # a failed run leaves no process of its own behind
+        for run in procs.values():
+            if run["proc"].poll() is None:
+                os.killpg(run["proc"].pid, signal.SIGKILL)
+                run["proc"].wait()
+    for name, run in procs.items():
+        runs[name] = {"wall_s": run["wall_s"]}
+        log(f"[examples] {run['name']}: {run['wall_s']:.2f} s (beside the "
+            f"in-process twins): "
+            + " | ".join(outs[name].strip().splitlines()))
+    if not (re.search(r"via 'device' in .* content_ok=True",
+                      outs["device_pull"])
+            and "CUDA IPC pulls on the receiver: 1" in outs["device_pull"]):
+        raise AssertionError(f"device_pull did not arrive 'device' by one "
+                             f"CUDA IPC pull: {outs['device_pull']}")
+    if not ("parameters identical across ranks" in outs["dp_training_2proc"]
+            and "every gradient leaf crossed by CUDA IPC"
+            in outs["dp_training_2proc"]):
+        raise AssertionError(f"dp_training_2proc: "
+                             f"{outs['dp_training_2proc']}")
+    for name in SCRIPTS:
+        report = json.loads(outs[name].strip().splitlines()[-1])
+        if report.get("ok") is not True:
+            raise AssertionError(f"{name}: {report}")
+        runs[name]["report"] = report
+    return runs, total
+
+
 def main() -> int:
     import torch
 
@@ -6309,6 +6536,14 @@ def main() -> int:
     log(f"[dptp-serve] phase 26 took {t27 - t26:.1f} s; [gate] phase 27 "
         f"took {time.perf_counter() - t27:.1f} s")
 
+    # 28: the twins of examples/ and the transport's scripts.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t28 = time.perf_counter()
+    st_ex, c28 = phase_examples()
+    t_ex = time.perf_counter() - t28
+    log(f"[examples] phase 28 took {t_ex:.1f} s")
+
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
     rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
@@ -6333,15 +6568,16 @@ def main() -> int:
             label: traced[label].get("attention_device_ms")
             for label in labels}
 
-    # 28. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
+    # 29. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
     # 18, 19, 20, 21, 24 and 26) and the training paths' (phases 11, 13,
-    # 16, 22, 23 and 25, 16 the DP ranks' own counts on both engines), each
-    # counted from 0 just before its run and read just after.
+    # 16, 22, 23 and 25, 16 the DP ranks' own counts on both engines) and
+    # the in-process twins of examples/ (phase 28), each counted from 0
+    # just before its run and read just after.
     main_counts = {k: main_counts[k] + c7[k] + c_ring[k] + c_dp[k]
                    + c_dpn[k] + c18.get(k, 0) + c19.get(k, 0)
                    + c20.get(k, 0) + c21.get(k, 0) + c22.get(k, 0)
                    + c23.get(k, 0) + c24.get(k, 0) + c25.get(k, 0)
-                   + c26.get(k, 0)
+                   + c26.get(k, 0) + c28.get(k, 0)
                    for k in main_counts}
     kernels = []
     for key, row in rows.items():
@@ -6349,7 +6585,7 @@ def main() -> int:
         row["launches"] = main_counts[key]
         for phase, c in ((18, c18), (19, c19), (20, c20), (21, c21),
                          (22, c22), (23, c23), (24, c24), (25, c25),
-                         (26, c26)):
+                         (26, c26), (28, c28)):
             row[f"launches_phase{phase}"] = c.get(key, 0)
         kernels.append(row)
     # The W8A16 runs (phases 7 and 18) launch the GEMV; the others' counts
@@ -6506,9 +6742,18 @@ def main() -> int:
     log(f"[summary] gate ({card}): total {st_gate['total_s']:.3f} s, by pass "
         f"{ {k: round(v, 3) for k, v in st_gate['timings_s'].items()} }, "
         f"native leg {st_gate['native']}")
+    log(f"[summary] examples ({card}): phase 28 {t_ex:.1f} s; wall s "
+        + ", ".join(f"{k} {v['wall_s']:.2f}" for k, v in st_ex.items())
+        + "; GB/s pingpong by size "
+        + ", ".join(f"{size} B {g:.2f}" for size, g in
+                    st_ex["pingpong"]["gb_per_s"].items())
+        + f", throughput 5 x 256 MiB {st_ex['throughput']['gb_per_s']:.2f}"
+        f", all_to_all_p2p 4 ranks x 1 MiB "
+        f"{st_ex['all_to_all_p2p']['gb_per_s']:.2f}; launches {c28}; "
+        f"script total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 29. last line
+    # 30. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

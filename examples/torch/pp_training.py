@@ -22,14 +22,14 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--dp", action="store_true",
                     help="compose with data parallelism (pp2 x dp2 mesh)")
     ap.add_argument("--device", default="cuda",
                     help="where the slots live (default: the card)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import numpy as np
     import torch

@@ -31,6 +31,8 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Union
 
+import torch
+
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from .sharding import P, shard_array, spec_axes
 
@@ -94,10 +96,13 @@ def fsdp_specs(tree, mesh, *, axis: str = "fsdp", base_specs=None,
 
 def shard_tree(tree, mesh, specs):
     """``shard_array`` of every leaf onto its spec (each process keeps the
-    boxes of its slots)."""
+    boxes of its slots).  A 0-d leaf (the optimizer's step count) has no
+    dim to shard: it moves to the mesh's device as a plain tensor, which is
+    what ``tx.init`` of a sharded tree holds there."""
     flat = tree_leaves(tree)
     spec_flat = tree_leaves(specs)  # a P is a leaf
-    out = [shard_array(mesh, x, *s) for x, s in zip(flat, spec_flat)]
+    out = [torch.as_tensor(x).to(mesh.device) if not x.shape
+           else shard_array(mesh, x, *s) for x, s in zip(flat, spec_flat)]
     return tree_unflatten(tree, out)
 
 

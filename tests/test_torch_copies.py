@@ -842,6 +842,71 @@ COPIES = ["errors.py", "config.py", "perf.py", "api.py"] + [
         "wirefuzz.py", "refine_corpus.txt", "wirefuzz_corpus.txt")] + [
     "testing/__init__.py", "testing/faults.py"]
 
+# The transport's soak and bench scripts, copied to scripts/torch/ with the
+# package renamed: each drives the port's transport (the soaks) or its
+# bench CLI (``python -m starway_tpu_torch.bench``).  Their text is the
+# originals' word for word, but for these named edits: the repo root one
+# directory further up, the scripts' own paths in their usage lines, no
+# JAX platform pinned for the bench runs (the port imports no JAX), and
+# each bench run on a free port that the OS picks (the original's runs all
+# take the bench CLI's default 17777, so two runs on one host at once
+# collide).
+_FREE_PORT = (
+    "def _free_port() -> int:\n"
+    '    """A free loopback port, bound and released (the bench CLI\'s\n'
+    '    default port would collide with another run on the host)."""\n'
+    "    import socket\n"
+    "\n"
+    "    with socket.socket() as s:\n"
+    '        s.bind(("127.0.0.1", 0))\n'
+    "        return s.getsockname()[1]\n"
+    "\n"
+    "\n")
+_ROOT_UP2 = ("sys.path.insert(0, os.path.dirname(os.path.dirname("
+             "os.path.abspath(__file__))))\n")
+_ROOT_UP3 = ("sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(\n"
+             "    os.path.abspath(__file__)))))\n")
+SCRIPT_EDITS = {
+    "session_chaos.py": [
+        (_ROOT_UP2, _ROOT_UP3),
+        ('    python scripts/session_chaos.py --server-engine native',
+         '    python scripts/torch/session_chaos.py --server-engine native'),
+    ],
+    "paired_bench.py": [
+        (_ROOT_UP2, _ROOT_UP3),
+        ('    python scripts/paired_bench.py --pairs 5 --gate 0.70',
+         '    python scripts/torch/paired_bench.py --pairs 5 --gate 0.70'),
+        ('    python scripts/paired_bench.py --a-env STARWAY_NATIVE=0',
+         '    python scripts/torch/paired_bench.py --a-env STARWAY_NATIVE=0'),
+        ('    python scripts/paired_bench.py --b-env STARWAY_FC_WINDOW=1M',
+         '    python scripts/torch/paired_bench.py --b-env STARWAY_FC_WINDOW=1M'),
+        ('    base.setdefault("JAX_PLATFORMS", "cpu")\n', ''),
+        ('def _one_run(env: dict, args) -> float:\n',
+         _FREE_PORT + 'def _one_run(env: dict, args) -> float:\n'),
+        ('               "--scenarios", args.scenario,\n'
+         '               "--output", out] + (args.bench_arg or [])\n',
+         '               "--scenarios", args.scenario,\n'
+         '               "--port", str(_free_port()),\n'
+         '               "--output", out] + (args.bench_arg or [])\n'),
+    ],
+    "integrity_bench.py": [
+        (_ROOT_UP2, _ROOT_UP3),
+        ('    python scripts/integrity_bench.py [--pairs 5]',
+         '    python scripts/torch/integrity_bench.py [--pairs 5]'),
+        ('    python scripts/integrity_bench.py --json out.json',
+         '    python scripts/torch/integrity_bench.py --json out.json'),
+        ('    env["JAX_PLATFORMS"] = "cpu"\n', ''),
+        ('def _one_run(integrity: bool, args) -> float:\n',
+         _FREE_PORT + 'def _one_run(integrity: bool, args) -> float:\n'),
+        ('               "--stream-warmup", str(args.warmup),\n'
+         '               "--output", out]\n',
+         '               "--stream-warmup", str(args.warmup),\n'
+         '               "--port", str(_free_port()),\n'
+         '               "--output", out]\n'),
+    ],
+}
+
+
 # The source paths the analysis copies read, by the port's line: each
 # names the port's file, so the monitor and the gate check the port's own
 # engines -- the C++ one too, its copy under starway_tpu_torch/native/ being
@@ -937,6 +1002,25 @@ def test_copy_equals_its_original(rel):
     diff = "".join(difflib.unified_diff(
         want.splitlines(True), got.splitlines(True),
         f"starway_tpu/{rel} (renamed, edited)", f"starway_tpu_torch/{rel}"))
+    assert got == want, diff
+
+
+def _expected_script(name: str) -> str:
+    text = RENAME.sub("starway_tpu_torch",
+                      (REPO / "scripts" / name).read_text())
+    for old, new in SCRIPT_EDITS[name]:
+        assert text.count(old) == 1, f"scripts/{name}: the edited original moved"
+        text = text.replace(old, new)
+    return text
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPT_EDITS))
+def test_script_copy_equals_its_original(name):
+    want = _expected_script(name)
+    got = (REPO / "scripts" / "torch" / name).read_text()
+    diff = "".join(difflib.unified_diff(
+        want.splitlines(True), got.splitlines(True),
+        f"scripts/{name} (renamed, edited)", f"scripts/torch/{name}"))
     assert got == want, diff
 
 

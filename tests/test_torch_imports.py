@@ -19,7 +19,9 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "starway_tpu")
 def _port_files():
     files = sorted((REPO / "starway_tpu_torch").rglob("*.py"))
     assert len(files) >= 17
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py"] + sorted(
+        (REPO / "examples" / "torch").glob("*.py")) + sorted(
+        (REPO / "scripts" / "torch").glob("*.py"))
 
 
 def _imported_roots(path: Path):
@@ -113,6 +115,18 @@ def test_scan_covers_the_parallel_layer():
     assert {"starway_tpu_torch/parallel/ring_attention.py",
             "starway_tpu_torch/parallel/sharding.py",
             "starway_tpu_torch/ops/collectives.py"} <= scanned
+
+
+def test_scan_covers_the_twins():
+    """The port's twins: one for each of examples/*.py and for the
+    transport's three soak and bench scripts."""
+    scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    examples = {f"examples/torch/{p.name}" for p in
+                (REPO / "examples").glob("*.py")}
+    scripts = {f"scripts/torch/{name}" for name in (
+        "session_chaos.py", "paired_bench.py", "integrity_bench.py")}
+    assert len(examples) == 12
+    assert examples | scripts <= scanned
 
 
 def test_scan_covers_the_transport():

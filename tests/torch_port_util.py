@@ -683,3 +683,85 @@ def serve_worker(rank: int, world: int, port: int, folder: str,
                  **serve_runs(mesh_shape, folder, dist.group.WORLD))
     finally:
         dist.destroy_process_group()
+
+
+# The port's twins of examples/ (examples/torch/*.py) run from the repo
+# root in one fresh process: each script under runpy as ``__main__`` with
+# its own argv (so the processes it spawns re-import it), its stdout kept
+# apart, with ``torch.cuda.is_available`` false (a run without
+# ``--device cpu`` must refuse), and, at the end, the JAX modules the
+# process holds (the twins import none).
+_TWIN_RUNNER = r"""
+import contextlib, io, json, runpy, sys, traceback
+import torch
+torch.cuda.is_available = lambda: False
+out = {}
+for label, script, argv in json.loads(sys.argv[1]):
+    buf = io.StringIO()
+    sys.argv = [script] + argv
+    code = 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(script, run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    except BaseException:
+        code = traceback.format_exc()
+    out[label] = {"stdout": buf.getvalue(), "exit": code}
+out["imported"] = sorted({m.split(".")[0] for m in sys.modules}
+                         & {"jax", "jaxlib", "optax", "starway_tpu"})
+print("\n" + json.dumps(out))
+"""
+
+
+def run_twins(repo, runs, timeout: int = 300) -> dict:
+    """``runs``: ``[(label, name, argv), ...]`` of
+    ``examples/torch/<name>.py``, one after another in one fresh process.
+    Returns ``{label: {"stdout", "exit"}}`` (``exit`` 0, a ``sys.exit``
+    argument or a traceback) and ``"imported"``, the JAX modules the
+    process held at its end."""
+    import json
+    import subprocess
+    import sys
+
+    spec = [(label, str(repo / "examples" / "torch" / f"{name}.py"),
+             list(argv)) for label, name, argv in runs]
+    r = subprocess.run([sys.executable, "-c", _TWIN_RUNNER,
+                        json.dumps(spec)], cwd=repo, capture_output=True,
+                       text=True, timeout=timeout)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def twin_output(runs: dict, label: str) -> str:
+    """The stdout of a run that exited 0 in a process that imported
+    nothing of JAX."""
+    assert runs[label]["exit"] in (0, None), runs[label]
+    assert not runs["imported"], runs["imported"]
+    return runs[label]["stdout"]
+
+
+def assert_refused(runs: dict, label: str) -> None:
+    """A run without ``--device cpu`` and without a card stopped with the
+    twins' message and printed nothing."""
+    assert str(runs[label]["exit"]).startswith(
+        "no CUDA device: pass --device cpu"), runs[label]
+    assert not runs[label]["stdout"]
+
+
+def twin(name: str):
+    """``examples/torch/<name>.py`` as a module, its directory on the path
+    (the processes it spawns import it by name)."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    folder = str(Path(__file__).resolve().parent.parent / "examples" / "torch")
+    if folder not in sys.path:
+        sys.path.insert(0, folder)
+    return importlib.import_module(name)
+
+
+def carried(jtree):
+    """A JAX parameter tree as the port's, on the CPU."""
+    return params_from_numpy(tree_to_numpy(jtree), device="cpu")
