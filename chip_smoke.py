@@ -165,7 +165,7 @@ Phases, each of which raises on failure:
               params_from_hf (seconds and peak memory logged; phase 3
               holds the kernels against their plain versions at this
               phase's shapes).  The rolling SlotServer (n_slots 8, rope
-              horizon 16384, chunk 8) with 12 requests of 128 tokens,
+              horizon 16384, chunk 8) with 8 requests of 128 tokens,
               prompts 512-9000 cycled:
               every budget met, the cache [32, 8, 8, 4096, 128], the
               9000-token request's first logits against a one-pass
@@ -175,8 +175,9 @@ Phases, each of which raises on failure:
               generate_lookup on a repetitive prompt (P=4600, tokens/s,
               acceptance and tokens equal to generate()'s logged); beam
               search (K=4, B=2, P=512, 32 tokens; the reorder's bytes a
-              step); then W8A16 weights with an int8 KV cache serving 4
-              requests, the GEMV in both regimes.  The decode, flash and
+              step); then W8A16 weights with an int8 KV cache serving 2
+              requests (prompts 2048 and 4000; 4000 + 128 wraps the int8
+              window; untraced), the GEMV in both regimes.  The decode, flash and
               GEMV kernels must launch
 19. mistral-parity -- float32, 2 layers, window 4096: the rolling
               SlotServer (prompts 4000, 4500 and 700; 4000 + 160 wraps the
@@ -223,7 +224,8 @@ Phases, each of which raises on failure:
 23. mesh-train -- llama3-8b widths over dp x tp x sp (ring, zigzag),
               Mixtral widths over dp x ep x tp, ZeRO over 8 fsdp slots and
               Ulysses over sp = 4, each held to the unsharded step
-24. tp-serve -- serving over {"tp": 2} against phases 4 and 7
+24. tp-serve -- serving over {"tp": 2} against phases 4 and 7, on the
+              first 6 of phase 4's requests (bf16's chunk alone traced)
 25. pipeline -- the pipeline family, every slot on cuda:0, bf16: llama3-8b
               widths cut to 8 layers, batch [4, 2049]: (a) 1F1B over 4
               stages of 2 layers, 4 microbatches; (b) the same layers
@@ -239,10 +241,11 @@ Phases, each of which raises on failure:
               data slot); (e) the forward-only make_pipeline over (a)'s
               stages against the unsharded forward of each microbatch
 26. dptp-serve -- serving over {"dp": 2, "tp": 2} in one process against
-              phases 4, 7 and 24: bf16 and W8A16 + int8 KV at 32 layers
+              phases 4, 7 and 24 (the first 6 of phase 4's requests):
+              bf16 and W8A16 + int8 KV at 32 layers, untraced
               (both data groups' first decode logits against the
-              unsharded tree's, tokens/s, the idle share of bf16's traced
-              chunk, the weights held and the peak memory), then float32
+              unsharded tree's, tokens/s, the weights held and the peak
+              memory), then float32
               at 2 layers (the server against generate(), speculative
               decoding on a batch of two)
 27. gate     -- python -m starway_tpu_torch.analysis on this checkout, all
@@ -258,11 +261,24 @@ Phases, each of which raises on failure:
               spmd_training and pp_training #3, #5 and #6
               (phase_examples says more);
               each one's wall seconds and the transport twins' GB/s
-29. a JSON line of the kernels with their launches on the serving paths
-   (phases 4-7, 18-21, 24 and 26), the training paths (phases 11, 13, 16,
-   22, 23 and 25) and the in-process twins of examples/ (phase 28), phases
-   18-26 and 28 also apart, and the numbers of phase 3
-30. the last line: {"ok": true, "device": {...}}
+29. mesh-serve -- serving every sharded tree the JAX package serves, in
+              one process: the PagedSlotServer over {"tp": 2} on phase 5's
+              traffic (bf16, then W8A16; first decode logits against the
+              unsharded paged server's, pages in use equal to phase 5's
+              after every step, #9 launched 2 slots x 32 layers a step),
+              the rolling SlotServer over {"tp": 2} at Mistral-7B widths
+              on four of phase 19's requests (one wraps the cache, one
+              starts past it), Mixtral-8x7B widths cut to 8 layers
+              over {"ep": 2, "tp": 2} (SlotServer and PagedSlotServer, no
+              gather along ep, the peak memory beside both trees), and
+              float32 at 2 layers: greedy tokens equal to the unsharded
+              generate() over dp x ep x tp, dp x tp x sp, fsdp = 4 (the
+              fsdp_specs tree, paged) and 3 slots over dp x tp
+30. a JSON line of the kernels with their launches on the serving paths
+   (phases 4-7, 18-21, 24, 26 and 29), the training paths (phases 11, 13,
+   16, 22, 23 and 25) and the in-process twins of examples/ (phase 28),
+   phases 18-26, 28 and 29 also apart, and the numbers of phase 3
+31. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -398,6 +414,8 @@ def phase_kernels(dev):
 
     rows["int8_matmul"] = gemv_rows(dev, randn)
     shard = shard_shape_rows(dev, randn)
+    rows["paged_decode_attention"]["shard_shape_ms"] = shard.pop(
+        "paged_shard_ms")
     for key, share in shard.pop("shares").items():
         rows[key]["shard_shapes_tol_share"] = share
     for key, err in shard.items():
@@ -532,7 +550,54 @@ def shard_shape_rows(dev, randn) -> dict:
     if not worst_g <= 1:
         raise AssertionError("the int8 GEMV disagrees at tp's widths")
     out["int8_matmul"] = worst_g
+    out["paged_decode_attention"], out["shares"]["paged_decode_attention"], \
+        out["paged_shard_ms"] = paged_shard_row(dev, randn, limit)
     return out
+
+
+def paged_shard_row(dev, randn, limit: str) -> tuple:
+    """#9 at the shape phase 29's paged-tp gives it: llama3-8b's heads
+    over tp = 2 (16 q, 4 kv heads a slot), bf16, 16 slots, page 64, D =
+    128, ragged cursors over a scrambled table whose entries past each
+    cursor point outside the pool; against its plain version to the
+    limit that scales with the output (ops/attention.py SCALED_TOL).
+    Returns the error, its share of the limit and both times (CUDA
+    events)."""
+    import torch
+
+    from starway_tpu_torch.ops.attention import scaled_tolerance_share
+    from starway_tpu_torch.ops.paged import (paged_decode_attention,
+                                             paged_decode_attention_reference)
+
+    rng = np.random.default_rng(SEED + 29)
+    b, hq, hkv, d, page, max_len = 16, 16, 4, 128, 64, 4096
+    max_pages = max_len // page
+    pos_np = rng.integers(100, 2001, b).astype(np.int32)
+    n_pages = 1 + b * max_pages
+    table = rng.permutation(np.arange(1, n_pages)).astype(np.int32)
+    table = table.reshape(b, max_pages)
+    for i, last in enumerate(pos_np // page):
+        table[i, last + 1:] = 2 ** 30 + i  # never read
+    kp, vp = randn(n_pages, hkv, page, d), randn(n_pages, hkv, page, d)
+    q = randn(b, hq, 1, d)
+    table_d, pos = (torch.from_numpy(a).to(dev) for a in (table, pos_np))
+    got = paged_decode_attention(q, kp, vp, table_d, pos)
+    want = paged_decode_attention_reference(q, kp, vp, table_d, pos)
+    err = (got.float() - want.float()).abs().max().item()
+    share = scaled_tolerance_share(got, want)
+    ms = dict(kernel_ms=cuda_ms(lambda: paged_decode_attention(
+        q, kp, vp, table_d, pos)), plain_ms=cuda_ms(
+        lambda: paged_decode_attention_reference(q, kp, vp, table_d, pos),
+        iters=5))
+    log(f"[shard shapes] paged_decode_attention at 16 q / 4 kv heads, 16 "
+        f"slots, page {page}, pos {pos_np.min()}-{pos_np.max()}: max_abs_err "
+        f"{err:.3e}, {share:.3f} of the limit {limit} (<= 1); {ms}")
+    if not share <= 1.0:
+        raise AssertionError("paged_decode_attention disagrees at tp's "
+                             "heads")
+    del kp, vp
+    torch.cuda.empty_cache()
+    return err, share, ms
 
 
 def flash_forward_rows(dev, randn) -> dict:
@@ -1480,12 +1545,19 @@ def make_paged_requests(cfg):
 class TimedChunks:
     """Mixin for SlotServer and PagedSlotServer: host time of every decode
     chunk, one steady chunk traced (its kernels' device ms, the GEMV's and
-    the decode-attention kernels'), and the peak of the paged pool's pages
-    in use."""
+    the decode-attention kernels'), and the paged pool's pages in use
+    after every step (their peak)."""
 
     def __init__(self, *args, **kwargs):
         self.chunk_ms, self.traced, self.peak_pages = [], {}, 0
+        self.pages_steps = []
         super().__init__(*args, **kwargs)
+
+    def step(self):
+        out = super().step()
+        if hasattr(self, "pages_in_use"):
+            self.pages_steps.append(self.pages_in_use)
+        return out
 
     def _run_chunk(self):
         import torch
@@ -1608,7 +1680,7 @@ def serve(params, cfg, reqs, *, server=None, prefix=None, n_slots=8,
     # outside the decode chunks.
     decode_s = (sum(chunk_ms) + traced.get("traced_chunk_ms", 0.0)) / 1e3
     stats = dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
-                 chunks=len(chunk_ms) + bool(traced),
+                 chunks=len(chunk_ms) + ("traced_chunk_ms" in traced),
                  median_chunk_ms=statistics.median(chunk_ms),
                  admission_s=wall - decode_s, **traced)
     if traced.get("device_busy_ms"):  # else: not measured (no CUDA events)
@@ -1617,6 +1689,8 @@ def serve(params, cfg, reqs, *, server=None, prefix=None, n_slots=8,
             1 - traced["device_busy_ms"] / stats["median_chunk_ms"])
     if srv.peak_pages:
         stats["peak_pages_in_use"] = srv.peak_pages
+    if srv.pages_steps:
+        stats["pages_in_use_steps"] = srv.pages_steps
     return dict(zip(rids, (done[r] for r in rids))), stats, srv
 
 
@@ -4038,6 +4112,10 @@ MISTRAL_7B = dict(
 MISTRAL_PROMPTS = (512, 2048, 4000, 4096, 4097, 6000, 9000)
 MISTRAL_HORIZON = 16384   # the rolling server's rope horizon (max_len)
 MISTRAL_BUDGET = 128
+MISTRAL_REQS = 8          # every prompt length once, the first twice
+# The W8A16 + int8 KV run's requests (a slice of phase 18's): prompts 2048
+# (64-row admission chunks) and 4000, whose 4000 + 128 wraps the window.
+MISTRAL_INT8_REQS = slice(1, 3)
 ROLLING_PROMPT = 6000     # aligned rolling generate(): P > W
 SPEC_PROMPT = 4600        # past the window: the verify's window bites
 SPEC_NEW = 48
@@ -4257,7 +4335,7 @@ def phase_mistral(dev, card: str) -> tuple:
     params, st["convert_bf16"] = convert_mistral(cfg, dev, SEED + 18,
                                                  torch.bfloat16)
     counts = {}
-    reqs = mistral_requests(cfg)
+    reqs = mistral_requests(cfg, MISTRAL_REQS)
     log(f"[mistral] rolling SlotServer: n_slots 8, max_len "
         f"{MISTRAL_HORIZON}, chunk 8, {len(reqs)} requests of "
         f"{MISTRAL_BUDGET} tokens, prompts {MISTRAL_PROMPTS} cycled")
@@ -4292,13 +4370,16 @@ def phase_mistral(dev, card: str) -> tuple:
     torch.cuda.empty_cache()
 
     cfg8 = mistral_config(kv_quant="int8")
+    int8_reqs = reqs[MISTRAL_INT8_REQS]
     log("[mistral] W8A16 weights (params_from_hf quantize='int8') and an "
-        "int8 KV cache, 4 requests")
+        f"int8 KV cache, prompts {[len(p) for p, _m, _w in int8_reqs]} of "
+        f"{MISTRAL_BUDGET} tokens, untraced")
     qparams, st["convert_int8"] = convert_mistral(
         cfg8, dev, SEED + 18, torch.bfloat16, quantize="int8")
     c8 = {}
+    # Untraced: the profiler's processing of a chunk costs ~15 s here.
     st["serve_int8"] = counted(c8, lambda: serve(
-        qparams, cfg8, reqs[:4], max_len=MISTRAL_HORIZON))[1]
+        qparams, cfg8, int8_reqs, max_len=MISTRAL_HORIZON, trace=False))[1]
     log(f"  {st['serve_int8']}")
     if not (c8["int8_matmul/decode"] > 0 and c8["int8_matmul/prefill"] > 0):
         raise AssertionError("the W8A16 rolling run did not launch the GEMV "
@@ -4819,6 +4900,7 @@ MESH_LOSS_REL_TOL = 1e-3
 MESH_AFTER_REL_TOL = 5e-3
 MESH_GRAD_REL_TOL = 5e-2
 TP, TP_PRESET = 2, "llama3-8b"
+TP_SERVE_REQS = 6  # of phase 4's 12: phases 24 and 26 are host-bound
 TP_PARITY_LAYERS = 2
 TP_SPEC = dict(prompt_len=512, new=32, gamma=4)
 
@@ -5361,7 +5443,8 @@ def phase_tp_serve(dev, card: str, reqs, done4, st4, st5) -> tuple:
         log(f"[tp-serve] {TP_PRESET}, {cfg.n_layers} layers, over {{'tp': {TP}}} in one "
             f"process ({label}), phase 4's {len(reqs)} requests ({card})")
         reset_launch_counts()
-        done, st = serve(sh, c, reqs)[:2]
+        # Only bf16's chunk is traced: the profiler takes ~12 s a trace.
+        done, st = serve(sh, c, reqs, trace=label == "bf16")[:2]
         cnt = launch_counts()
         for k, n in cnt.items():
             counts[k] = counts.get(k, 0) + n
@@ -5392,7 +5475,7 @@ def phase_tp_serve(dev, card: str, reqs, done4, st4, st5) -> tuple:
     torch.cuda.empty_cache()
     log("[tp-serve] W8A16 tree over tp + int8 KV, the same requests")
     reset_launch_counts()
-    done, st = serve(sq, cfg8, reqs)[:2]
+    done, st = serve(sq, cfg8, reqs, trace=False)[:2]
     cnt = launch_counts()
     by_regime = dict(int8_matmul.regime_launches)
     for k, n in cnt.items():
@@ -5495,9 +5578,10 @@ def phase_dptp_serve(dev, card: str, reqs, done4, st4, st5,
     data group, 16 q / 4 kv heads a slot): bf16, then the W8A16 tree of
     quantized_param_specs with int8 KV; the first decode step's logits
     of both data groups against the unsharded tree's; tokens/s beside
-    tp-serve's (phase 24) and the unsharded server's (phases 4 and 7),
-    the idle share of a traced chunk (bf16's; the W8A16 run is untraced)
-    and the peak memory (the unsharded tree beside the sharded one); then
+    tp-serve's (phase 24) and the unsharded server's (phases 4 and 7)
+    and the peak memory (the unsharded tree beside the sharded one), both
+    runs untraced (a traced chunk of 4 slot bodies a layer costs the
+    profiler ~35-50 s to process; phase 24 traces tp's); then
     float32 at 2 layers: the dp x tp server against greedy generate() of
     the unsharded tree, and dp x tp speculative decoding on a batch of two
     against dp x tp generate().
@@ -5521,7 +5605,7 @@ def phase_dptp_serve(dev, card: str, reqs, done4, st4, st5,
     params = init_params(cfg, SEED, device=dev)  # phase 4's model
     token = None
 
-    def run(label, tree, c, want_tree, base, base_label, trace=True):
+    def run(label, tree, c, want_tree, base, base_label, trace):
         nonlocal token
         log(f"[dptp-serve] {TP_PRESET}, {c.n_layers} layers, over {DPTP} in "
             f"one process ({label}), phase 4's {len(reqs)} requests on 8 "
@@ -5559,22 +5643,19 @@ def phase_dptp_serve(dev, card: str, reqs, done4, st4, st5,
                   unsharded_tokens_per_s=base["tokens_per_s"])
         log(f"  {st['tokens_per_s']:.1f} tokens/s (tp-serve "
             f"{st['tp_serve_tokens_per_s']:.1f}, unsharded "
-            f"{st['unsharded_tokens_per_s']:.1f}); idle share of the traced "
-            f"chunk {st.get('device_idle_share')}; weights held "
+            f"{st['unsharded_tokens_per_s']:.1f}); weights held "
             f"{st['weights_gb']:.2f} GB, peak {st['peak_memory_gb']:.2f} GB; "
             f"tokens equal to phase 4's {agree} of {total}; launches {cnt}")
         return st
 
     sh = shard_tree(params, mesh, param_specs(cfg))
-    out["bf16"] = run("bf16", sh, cfg, params, st4, "bf16")
+    out["bf16"] = run("bf16", sh, cfg, params, st4, "bf16", trace=False)
     del sh
     qparams = quantize_params(params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     sq = shard_tree(qparams, mesh, quantized_param_specs(cfg))
-    # Untraced: a traced chunk of 4 slot bodies a layer costs the profiler
-    # ~50 s to process (bf16's trace gives the idle share).
     st = run("W8A16 + int8 KV", sq, cfg8, qparams, st5, "w8a16-int8-kv",
              trace=False)
     by_regime = dict(int8_matmul.regime_launches)
@@ -5630,6 +5711,353 @@ def phase_dptp_serve(dev, card: str, reqs, done4, st4, st5,
         f"token; {out['parity']}")
     del p32, s32, draft, sdraft
     torch.cuda.empty_cache()
+    return out, counts
+
+
+# ------------------------------------------------------------ mesh-serve
+
+MESH_SERVE_PRESET = "llama3-8b"
+MESH_SERVE_TP = {"tp": 2}
+MESH_SERVE_EP = {"ep": 2, "tp": 2}
+MIXTRAL_EP_LAYERS = 8      # of 32: 23.7 GB of bf16 weights, twice held
+# The requests rolling-tp serves, indices into PARITY_REQS (phase 19's
+# three at their budgets: 4000 + 160 wraps the cache, 4500 starts past
+# it), the 700-token one twice to fill the four slots.
+MESH_ROLLING = (0, 1, 2, 2)
+MIXTRAL_EP_REQS = 6
+MESH_PARITY_LAYERS = 2
+# Aligned generate() of the Mixtral tree at a capacity that drops tokens,
+# over dp x ep x tp: 3 rows of 64 tokens, 8 new.
+MESH_DROP_CAPACITY = 1.25
+MESH_DROP_BATCH = (3, 64, 8)
+MESH_PARITY_MESHES = (("dp x ep x tp", {"dp": 2, "ep": 2, "tp": 2}),
+                      ("dp x tp x sp", {"dp": 2, "tp": 2, "sp": 2}),
+                      ("fsdp = 4, paged", {"fsdp": 4}),
+                      ("3 slots over dp x tp", {"dp": 2, "tp": 2}))
+
+
+def first_paged_logits(tree, cfg, prompt, token):
+    """Logits of the first decode step after one request's admission into
+    a PagedSlotServer (page 64): the prompt prefilled at its bucket and
+    filed into pool pages, then ``token`` decoded at the next position
+    through the paged kernel."""
+    import torch
+
+    from starway_tpu_torch.models import PagedSlotServer
+
+    page, max_len = 64, 4096
+    srv = PagedSlotServer(tree, cfg, n_slots=1, max_len=max_len, page=page,
+                          n_pages=1 + max_len // page)
+    prompt = np.asarray(prompt, np.int64)
+    srv._admit_plain(0, prompt)
+    srv._alloc_to(0, -(-(len(prompt) + 1) // page))
+    srv._table_dev.copy_(torch.from_numpy(srv._tables))
+    dev = srv.device
+    return srv._decode_one(srv.cache, torch.tensor([token], device=dev),
+                           torch.tensor([len(prompt)], dtype=torch.int32,
+                                        device=dev))[0]
+
+
+def no_ep_gather():
+    """A context that fails a gather along ``"ep"``: the expert leaves of
+    a serving tree over ep stay split (each slot runs its own)."""
+    from starway_tpu_torch.ops import collectives
+
+    real = collectives.all_gather
+
+    def guarded(shards, mesh, axis, *a, **kw):
+        if axis == "ep":
+            raise AssertionError("a serving tree over ep gathered along ep")
+        return real(shards, mesh, axis, *a, **kw)
+
+    return mock.patch.object(collectives, "all_gather", guarded)
+
+
+def phase_mesh_serve(dev, card: str, st_paged) -> tuple:
+    """Phase 29: serving every sharded tree the JAX package serves, all
+    slots on cuda:0.  (a) PagedSlotServer over a llama3-8b tree sharded
+    {"tp": 2} (32 layers, bf16, phase 5's traffic: 16 slots, page 64, the
+    1000-token prompt, 24 requests): the first decode step's logits
+    against the unsharded paged server's, pages in use equal to phase 5's
+    after every step, #9's launches (2 slots x 32 layers a decode step and
+    prefixed admission), tokens/s beside phase 5's; then the W8A16 tree,
+    untraced.  (b) the rolling SlotServer over a Mistral-7B tree sharded
+    {"tp": 2} (32 layers, window 4096) on four of phase 19's requests
+    (MESH_ROLLING: 4000 + 160 wraps the cache): the rolling admission's
+    logits against the unsharded tree's, tokens/s.  (c) Mixtral-8x7B
+    widths cut to 8 layers over {"ep": 2, "tp": 2}, dropless: the first
+    decode step's logits against the
+    unsharded tree's (routing pinned, as phase 20), SlotServer and
+    PagedSlotServer with no gather along ep, and the peak memory beside
+    the two trees.  (d) float32 at 2 layers: greedy tokens equal to the
+    unsharded generate() over dp x ep x tp, dp x tp x sp, the fsdp_specs
+    tree over fsdp = 4 (paged) and 3 slots over dp x tp; over dp x ep x tp
+    also aligned generate() at a capacity that drops tokens.  Returns
+    (stats, launch counts)."""
+    import torch
+
+    from starway_tpu_torch.models import (LlamaConfig, PagedSlotServer,
+                                          SlotServer, generate, init_params,
+                                          param_specs,
+                                          quantized_param_specs)
+    from starway_tpu_torch.models.generate import prefill
+    from starway_tpu_torch.models.serving import _rolling_prefill_state
+    from starway_tpu_torch.ops.quantize import quantize_params
+    from starway_tpu_torch.parallel import fsdp_specs, make_mesh, shard_tree
+
+    out, counts = {}, {}
+    t0 = time.perf_counter()
+
+    # (a) paged-tp, bf16 and W8A16
+    cfg = LlamaConfig.preset(MESH_SERVE_PRESET)
+    params = init_params(cfg, SEED, device=dev)  # phase 4's model
+    mesh = make_mesh(MESH_SERVE_TP, device=dev)
+    prefix, reqs = make_paged_requests(cfg)
+    n_prefixed = sum(w for _p, _m, w in reqs)
+    padded, pb, last = first_logits_inputs(params, reqs[0][0], 4096)
+    token = int(prefill(params, cfg, padded, pb,
+                        logit_positions=last)[0].argmax(-1)[0])
+    want = first_paged_logits(params, cfg, reqs[0][0], token)
+    sh = shard_tree(params, mesh, param_specs(cfg))
+    kw = dict(server=PagedSlotServer, prefix=prefix, n_slots=16,
+              max_len=4096, chunk=8, page=64, n_pages=16 * 33 + 1,
+              trace=False)
+
+    def paged_run(label, tree, c, want_logits):
+        log(f"[mesh-serve] paged-tp ({label}): {MESH_SERVE_PRESET}, "
+            f"{c.n_layers} layers, over {MESH_SERVE_TP} in one process, "
+            f"phase 5's traffic "
+            f"({len(reqs)} requests, the {len(prefix)}-token prompt; "
+            f"{card})")
+        log(f"  {label}, the first decode step against the unsharded paged "
+            f"server's:")
+        err = compare_logits(first_paged_logits(tree, c, reqs[0][0], token),
+                             want_logits)
+        cnt = {}
+        _done, st, srv = counted(cnt, lambda: serve(tree, c, reqs, **kw))
+        for k, n in cnt.items():
+            counts[k] = counts.get(k, 0) + n
+        steps = 8 * len(srv.chunk_ms)
+        want_n = MESH_SERVE_TP["tp"] * c.n_layers * (steps + n_prefixed)
+        if cnt["paged_decode_attention"] != want_n:
+            raise AssertionError(
+                f"paged_decode_attention launched "
+                f"{cnt['paged_decode_attention']} times, not 2 slots x "
+                f"{c.n_layers} layers x ({steps} decode steps + "
+                f"{n_prefixed} prefixed admissions) = {want_n}")
+        if cnt["decode_attention"] or not cnt["flash_forward"]:
+            raise AssertionError("paged-tp must decode through the paged "
+                                 "kernel only and prefill through flash")
+        if srv.pages_steps != st_paged["pages_in_use_steps"]:
+            raise AssertionError(
+                f"pages in use after each step {srv.pages_steps} differ "
+                f"from the unsharded server's "
+                f"{st_paged['pages_in_use_steps']}")
+        del srv
+        st.pop("pages_in_use_steps")
+        st.update(first_decode_logits_rel_err=err, launches=cnt,
+                  paged_launches_per_decode_step=2 * c.n_layers,
+                  phase5_tokens_per_s=st_paged["tokens_per_s"],
+                  pages_in_use_equal_steps=len(st_paged[
+                      "pages_in_use_steps"]))
+        log(f"  {st['tokens_per_s']:.1f} tokens/s (phase 5, unsharded: "
+            f"{st_paged['tokens_per_s']:.1f}); pages in use equal to phase "
+            f"5's at all {st['pages_in_use_equal_steps']} steps; launches "
+            f"{cnt}")
+        return st
+
+    out["paged-tp"] = paged_run("bf16", sh, cfg, want)
+    del sh
+    qparams = quantize_params(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = first_paged_logits(qparams, cfg, reqs[0][0], token)
+    sq = shard_tree(qparams, mesh, quantized_param_specs(cfg))
+    del qparams
+    out["paged-tp-w8a16"] = paged_run("W8A16", sq, cfg, want)
+    if not counts.get("int8_matmul/decode"):
+        raise AssertionError("the W8A16 paged-tp run launched no GEMV")
+    del sq
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["paged_s"] = time.perf_counter() - t0
+
+    # (b) rolling-tp, Mistral-7B widths
+    t1 = time.perf_counter()
+    mcfg = mistral_config()
+    params = init_params(mcfg, SEED + 29, device=dev)
+    rng = np.random.default_rng(SEED + 19)  # phase 19's prompts
+    drawn = [rng.integers(1, mcfg.vocab_size, n).tolist()
+             for n, _m in PARITY_REQS]
+    rreqs = [(drawn[i], PARITY_REQS[i][1], False) for i in MESH_ROLLING]
+    sh = shard_tree(params, mesh, param_specs(mcfg))
+    short = min((p for p, _m, _w in rreqs), key=len)
+    log(f"[mesh-serve] rolling-tp: Mistral-7B widths, {mcfg.n_layers} "
+        f"layers, window {mcfg.sliding_window}, over {MESH_SERVE_TP}; "
+        f"requests {[(len(p), m) for p, m, _w in rreqs]} (prompt, budget) "
+        f"of phase 19's ({card})")
+    log(f"  the rolling admission's logits at P={len(short)} against the "
+        f"unsharded tree's:")
+    err = compare_logits(_rolling_prefill_state(sh, mcfg, short)[0],
+                         _rolling_prefill_state(params, mcfg, short)[0])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cnt = {}
+    _done, st, srv = counted(cnt, lambda: serve(
+        sh, mcfg, rreqs, n_slots=4, max_len=PARITY_HORIZON, trace=False))
+    shape = tuple(srv.cache["k"].shape)
+    parts = [tuple(p.shape) for p in srv.cache["k"].parts]
+    del srv, sh
+    for k, n in cnt.items():
+        counts[k] = counts.get(k, 0) + n
+    if not cnt["decode_attention"] or parts != [
+            (mcfg.n_layers, 4, mcfg.n_kv_heads // 2, mcfg.sliding_window,
+             mcfg.head_dim)] * 2:
+        raise AssertionError(f"the rolling tp run: launches {cnt}, cache "
+                             f"parts {parts}")
+    st.update(admission_logits_rel_err=err, launches=cnt, cache=shape,
+              cache_parts=parts, s=time.perf_counter() - t1)
+    log(f"  {st['tokens_per_s']:.1f} tokens/s; cache {shape} as parts "
+        f"{parts}; launches {cnt}")
+    out["rolling-tp"] = st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) mixtral-ep
+    t2 = time.perf_counter()
+    xcfg = mixtral_config(n_layers=MIXTRAL_EP_LAYERS)
+    params = init_params(xcfg, SEED + 29, device=dev)
+    emesh = make_mesh(MESH_SERVE_EP, device=dev)
+    sh = shard_tree(params, emesh, param_specs(xcfg))
+    torch.cuda.synchronize()
+    st = dict(weights_gb=held_gb(params), sharded_weights_gb=held_gb(sh))
+    expert_gb = (3 * xcfg.n_experts * xcfg.d_model * xcfg.d_ff * 2) / 1e9
+    xreqs = make_requests(xcfg, MIXTRAL_EP_REQS)
+    log(f"[mesh-serve] mixtral-ep: Mixtral-8x7B widths cut to "
+        f"{xcfg.n_layers} of 32 layers, dropless, over {MESH_SERVE_EP}; "
+        f"the unsharded tree {st['weights_gb']:.2f} GB and the sharded "
+        f"{st['sharded_weights_gb']:.2f} GB on the card ({card})")
+    padded, pb, last = first_logits_inputs(params, xreqs[0][0], 2048)
+    tok = int(prefill(params, xcfg, padded, pb,
+                      logit_positions=last)[0].argmax(-1)[0])
+    pin = PinnedRouting()
+    with pin.record():
+        want = first_decode_logits(params, xcfg, xreqs[0][0], tok)
+    with pin.replay(), no_ep_gather():
+        got = first_decode_logits(sh, xcfg, xreqs[0][0], tok)
+    log(f"  the first decode step against the unsharded tree's, routed as "
+        f"it ({pin.flips} of {pin.pairs} choices differ when routed "
+        f"freely):")
+    st.update(first_decode_logits_rel_err=compare_logits(got, want),
+              routing_flips=pin.flips, routed_pairs=pin.pairs)
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for label, server, extra in (
+            ("SlotServer", SlotServer, {}),
+            ("PagedSlotServer", PagedSlotServer,
+             dict(page=64, n_pages=8 * 32 + 1))):
+        cnt = {}
+        with no_ep_gather():
+            _done, sst = counted(cnt, lambda: serve(
+                sh, xcfg, xreqs, server=server, trace=False, **extra))[:2]
+        for k, n in cnt.items():
+            counts[k] = counts.get(k, 0) + n
+        kernel = ("paged_decode_attention" if server is PagedSlotServer
+                  else "decode_attention")
+        if not (cnt[kernel] and cnt["flash_forward"]):
+            raise AssertionError(f"mixtral-ep {label} launched no {kernel} "
+                                 f"or flash kernel")
+        sst["launches"] = cnt
+        st[label] = sst
+        log(f"  {label}: {sst['tokens_per_s']:.1f} tokens/s, {len(xreqs)} "
+            f"requests; launches {cnt}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    st.update(resident_gb=base / 1e9, peak_gb=peak / 1e9,
+              peak_over_resident_gb=(peak - base) / 1e9,
+              one_layer_experts_gb=expert_gb,
+              s=time.perf_counter() - t2)
+    log(f"  peak {st['peak_gb']:.2f} GB, {st['peak_over_resident_gb']:.2f} "
+        f"GB over the {st['resident_gb']:.2f} GB resident (both trees); "
+        f"one layer's {xcfg.n_experts} experts are {expert_gb:.2f} GB, "
+        f"and a gather would give each of the 4 slots a copy")
+    if not st["peak_over_resident_gb"] < 4 * expert_gb:
+        raise AssertionError("mixtral-ep's peak leaves room for gathered "
+                             "experts")
+    out["mixtral-ep"] = st
+    del params, sh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) float32 at 2 layers
+    t3 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 290)
+    parity = {}
+    for label, shape in MESH_PARITY_MESHES:
+        moe = "ep" in shape
+        c = (mixtral_config(n_layers=MESH_PARITY_LAYERS, dtype="float32")
+             if moe else LlamaConfig.preset(
+                 MESH_SERVE_PRESET, n_layers=MESH_PARITY_LAYERS,
+                 dtype="float32"))
+        p32 = init_params(c, SEED + 291, device=dev)
+        m32 = make_mesh(shape, device=dev)
+        specs = (fsdp_specs(p32, m32) if "fsdp" in shape
+                 else param_specs(c))
+        s32 = shard_tree(p32, m32, specs)
+        n_slots = 3 if label.startswith("3 slots") else 4
+        extra = (dict(server=PagedSlotServer, page=64) if "paged" in label
+                 else {})
+        small = [(rng.integers(1, c.vocab_size,
+                               int(rng.integers(20, 300))).tolist(),
+                  int(rng.integers(6, 13)), False) for _ in range(4)]
+        cnt = {}
+        with no_ep_gather():
+            done = counted(cnt, lambda: serve(
+                s32, c, small, n_slots=n_slots, trace=False, **extra))[0]
+        for k, n in cnt.items():
+            counts[k] = counts.get(k, 0) + n
+        for (prompt, m, _w), got in zip(small, done.values()):
+            want = generate(p32, c, torch.tensor([prompt], device=dev), m,
+                            max_len=2048)[0, len(prompt):].cpu().numpy()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{label}: the server diverged from the "
+                                     f"unsharded generate(): {got} != {want}")
+        parity[label] = dict(requests_equal=len(small), launches=cnt)
+        log(f"[mesh-serve] float32, {MESH_PARITY_LAYERS} layers, {label} "
+            f"{shape}: {len(small)} requests token for token equal to the "
+            f"unsharded generate(); launches {cnt}")
+        if moe and "dp" in shape:
+            # Capacity and priority from the whole batch, as the JAX
+            # package's GSPMD routes it: every data group runs every row.
+            cd = mixtral_config(n_layers=MESH_PARITY_LAYERS, dtype="float32",
+                                moe_capacity_factor=MESH_DROP_CAPACITY)
+            b, plen, new = MESH_DROP_BATCH
+            rows = torch.tensor(rng.integers(1, c.vocab_size, (b, plen)),
+                                device=dev)
+            with no_ep_gather():
+                got = counted(counts, lambda: generate(s32, cd, rows, new))
+            want = generate(p32, cd, rows, new)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{label}, capacity {MESH_DROP_CAPACITY}: generate() "
+                    f"diverged from the unsharded tree's: "
+                    f"{got[:, plen:].tolist()} != {want[:, plen:].tolist()}")
+            parity[label]["dropping_generate_rows_equal"] = b
+            log(f"  capacity {MESH_DROP_CAPACITY} (drops tokens): aligned "
+                f"generate() of {b} rows x {plen}, {new} new, equal to the "
+                f"unsharded tree's")
+        del p32, s32
+        gc.collect()
+        torch.cuda.empty_cache()
+    parity["s"] = time.perf_counter() - t3
+    out["parity"] = parity
+    log(f"  launches {counts}")
     return out, counts
 
 
@@ -6512,7 +6940,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t24 = time.perf_counter()
-    st_tp, c24 = phase_tp_serve(dev, card, reqs, list(done4.values()), st4,
+    st_tp, c24 = phase_tp_serve(dev, card, reqs[:TP_SERVE_REQS],
+                                list(done4.values())[:TP_SERVE_REQS], st4,
                                 st5)
     log(f"[mesh] phases 22-24 took {t23 - t22:.1f} + {t24 - t23:.1f} + "
         f"{time.perf_counter() - t24:.1f} s")
@@ -6529,7 +6958,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t26 = time.perf_counter()
-    st_dptp, c26 = phase_dptp_serve(dev, card, reqs, list(done4.values()),
+    st_dptp, c26 = phase_dptp_serve(dev, card, reqs[:TP_SERVE_REQS],
+                                    list(done4.values())[:TP_SERVE_REQS],
                                     st4, st5, st_tp)
     t27 = time.perf_counter()
     st_gate = phase_gate(card)
@@ -6543,6 +6973,14 @@ def main() -> int:
     st_ex, c28 = phase_examples()
     t_ex = time.perf_counter() - t28
     log(f"[examples] phase 28 took {t_ex:.1f} s")
+
+    # 29: serving every sharded tree the JAX package serves.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t29 = time.perf_counter()
+    st_ms, c29 = phase_mesh_serve(dev, card, st_paged)
+    t_ms = time.perf_counter() - t29
+    log(f"[mesh-serve] phase 29 took {t_ms:.1f} s")
 
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
@@ -6568,16 +7006,16 @@ def main() -> int:
             label: traced[label].get("attention_device_ms")
             for label in labels}
 
-    # 29. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
-    # 18, 19, 20, 21, 24 and 26) and the training paths' (phases 11, 13,
-    # 16, 22, 23 and 25, 16 the DP ranks' own counts on both engines) and
-    # the in-process twins of examples/ (phase 28), each counted from 0
-    # just before its run and read just after.
+    # 30. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
+    # 18, 19, 20, 21, 24, 26 and 29) and the training paths' (phases 11,
+    # 13, 16, 22, 23 and 25, 16 the DP ranks' own counts on both engines)
+    # and the in-process twins of examples/ (phase 28), each counted from
+    # 0 just before its run and read just after.
     main_counts = {k: main_counts[k] + c7[k] + c_ring[k] + c_dp[k]
                    + c_dpn[k] + c18.get(k, 0) + c19.get(k, 0)
                    + c20.get(k, 0) + c21.get(k, 0) + c22.get(k, 0)
                    + c23.get(k, 0) + c24.get(k, 0) + c25.get(k, 0)
-                   + c26.get(k, 0) + c28.get(k, 0)
+                   + c26.get(k, 0) + c28.get(k, 0) + c29.get(k, 0)
                    for k in main_counts}
     kernels = []
     for key, row in rows.items():
@@ -6585,13 +7023,14 @@ def main() -> int:
         row["launches"] = main_counts[key]
         for phase, c in ((18, c18), (19, c19), (20, c20), (21, c21),
                          (22, c22), (23, c23), (24, c24), (25, c25),
-                         (26, c26), (28, c28)):
+                         (26, c26), (28, c28), (29, c29)):
             row[f"launches_phase{phase}"] = c.get(key, 0)
         kernels.append(row)
-    # The W8A16 runs (phases 7 and 18) launch the GEMV; the others' counts
-    # of it are 0 and in main_counts.
+    # The W8A16 runs (phases 7, 18 and 29) launch the GEMV; the others'
+    # counts of it are 0 and in main_counts.
     kernels[list(rows).index("int8_matmul")]["launches_by_regime"] = {
-        r: n + c18.get(f"int8_matmul/{r}", 0) for r, n in by_regime.items()}
+        r: n + c18.get(f"int8_matmul/{r}", 0) + c29.get(f"int8_matmul/{r}", 0)
+        for r, n in by_regime.items()}
     steps, admits = 8 * st4["chunks"], len(reqs)  # per serving run
     log(f"[summary] launches per serving step: decode_attention "
         f"{c4['decode_attention'] / steps:g} per decode step, "
@@ -6751,9 +7190,31 @@ def main() -> int:
         f", all_to_all_p2p 4 ranks x 1 MiB "
         f"{st_ex['all_to_all_p2p']['gb_per_s']:.2f}; launches {c28}; "
         f"script total {time.perf_counter() - t_start:.1f} s")
+    for name, st in st_ms.items():
+        if name == "parity":
+            log(f"[summary] mesh-serve parity ({card}): " + "; ".join(
+                f"{k} {v['requests_equal']} requests equal" if k != "s"
+                else f"{v:.1f} s" for k, v in st.items()))
+        elif isinstance(st, dict):
+            log(f"[summary] mesh-serve {name} ({card}): "
+                + ", ".join(f"{k} {st.get(k)}" for k in (
+                    "tokens_per_s", "phase5_tokens_per_s", "wall_s",
+                    "admission_s", "median_chunk_ms",
+                    "first_decode_logits_rel_err",
+                    "admission_logits_rel_err", "pages_in_use_equal_steps",
+                    "paged_launches_per_decode_step", "weights_gb",
+                    "sharded_weights_gb", "resident_gb", "peak_gb",
+                    "peak_over_resident_gb", "one_layer_experts_gb",
+                    "routing_flips", "s") if k in st)
+                + "".join(f", {label} {st[label]['tokens_per_s']:.1f} "
+                          f"tokens/s" for label in ("SlotServer",
+                                                    "PagedSlotServer")
+                          if label in st))
+    log(f"[summary] mesh-serve ({card}): phase 29 {t_ms:.1f} s; launches "
+        f"{c29}; script total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 30. last line
+    # 31. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -36,6 +36,14 @@ def check_sys_libs() -> str:
     return "native" if _use_native_engine() else "python"
 
 
+def list_benchmark_scenarios() -> list[str]:
+    """The names of the bench CLI's scenarios, in registry order."""
+    from .benchmarks import list_scenarios
+
+    return list_scenarios()
+
+
+# The JAX package's public names; ``mesh``'s helpers above stay importable
+# from the root.
 __all__ = ["Server", "Client", "ServerEndpoint", "DeviceBuffer",
-           "MeshAddress", "bootstrap_distributed", "check_sys_libs",
-           "export_mesh_address", "parse_mesh_address"]
+           "check_sys_libs", "list_benchmark_scenarios"]

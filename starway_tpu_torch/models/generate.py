@@ -28,9 +28,8 @@ import torch.nn.functional as F
 from ..ops.attention import NEG_BIG, repeat_kv
 from ..ops.quantize import dequantize_kv, quantize_kv
 from .llama import (LlamaConfig, cfg_rope_tables, decoder_block,
-                    decoder_layer, embed_tokens, final_logits, forward,
-                    head_logits, params_device, resolve_longrope,
-                    unstack_layers)
+                    embed_tokens, final_logits, forward, params_device,
+                    resolve_longrope)
 from .moe import require_dropless
 
 
@@ -39,14 +38,15 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
     """Zeroed decode cache: ``k/v [n_layers, B, Hkv, max_len, head_dim]``
     in the compute dtype, or int8 plus float32 ``k_scale/v_scale`` when
     ``cfg.kv_quant == "int8"`` (the scale keys mark the format).  For a
-    tree sharded over tp and the data axes (``params``), each leaf is a
-    models/sharded.py ``HeadSplit``: every slot's part holds its kv
-    heads of its data group's rows."""
-    from .sharded import tp_init_cache, tree_mesh
+    sharded serving tree (``params``), each leaf is a models/sharded.py
+    ``HeadSplit``: every slot's part holds its kv heads of its data
+    group's rows."""
+    from .sharded import shard_cache, tree_mesh
 
     mesh = None if params is None else tree_mesh(params)
     if mesh is not None:
-        return tp_init_cache(cfg, mesh, batch, max_len)
+        return shard_cache(cfg, params, batch, lambda c, rows: init_cache(
+            c, rows, max_len, device=mesh.device))
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     dev = torch.device(device)
     if cfg.kv_quant == "int8":
@@ -62,12 +62,16 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
 
 
-def init_rolling_cache(cfg: LlamaConfig, batch: int, device="cuda") -> dict:
+def init_rolling_cache(cfg: LlamaConfig, batch: int, device="cuda",
+                       params=None) -> dict:
     """O(window) cache for sliding-window models: ``sliding_window`` slots
-    per layer, written modulo the window (``decode_step(rolling=True)``)."""
+    per layer, written modulo the window (``decode_step(rolling=True)``);
+    per slot ``HeadSplit`` parts for a sharded tree (``params``), as
+    :func:`init_cache`."""
     if cfg.sliding_window is None:
         raise ValueError("rolling caches require cfg.sliding_window")
-    return init_cache(cfg, batch, cfg.sliding_window, device=device)
+    return init_cache(cfg, batch, cfg.sliding_window, device=device,
+                      params=params)
 
 
 def _attend_cached(q, k_cache, v_cache, pos, n_rep, window=None,
@@ -125,14 +129,14 @@ def decode_step(params: dict, cache: dict, token, pos, cfg: LlamaConfig,
     the logits of the whole batch."""
     from .sharded import data_groups
 
-    groups = data_groups(params)
+    groups = data_groups(params, cfg)
     if groups is not None:
         def one(view, g, rows):
             p = pos[rows] if isinstance(pos, torch.Tensor) and pos.dim() else pos
             return decode_step(view, groups.cache_of(cache, g), token[rows],
                                p, cfg, rope, rolling)[0]
 
-        return groups.run(token.shape[0], one), cache
+        return groups.run(token.shape[0], one, (cfg.vocab_size,)), cache
     T = cache["k"].shape[3]
     if rolling:
         if cfg.sliding_window is None or T != cfg.sliding_window:
@@ -181,30 +185,35 @@ def decode_step(params: dict, cache: dict, token, pos, cfg: LlamaConfig,
 
 
 def cached_layer_scan(params, cache, h, cos_p, sin_p, cfg: LlamaConfig,
-                      write, attend):
+                      write, attend, attend_first: bool = False):
     """The per-layer body of every cached decode path: the model's decoder
     block (:func:`~starway_tpu_torch.models.llama.decoder_block`) whose
     attention quantizes each new entry for an int8 cache, writes it with
     ``write(c, u)`` at the caller's cursor(s) into the layer's cache (in
-    place) and runs ``attend(q, layer_cache)``; the FFN is dense, or the
-    MoE's :func:`~starway_tpu_torch.models.moe.switch_moe` at the config's
+    place) and runs ``attend(q, layer_cache)``; with ``attend_first``,
+    ``attend(q, layer_cache, k, v)`` runs before the write, on the new
+    entries as computed (rolling admission, whose writes overwrite keys
+    its own queries still see).  The FFN is dense, or the MoE's
+    :func:`~starway_tpu_torch.models.moe.switch_moe` at the config's
     capacity over the ``B * C`` tokens of the step.  ``h [B, C, D]``;
-    returns ``(h, cache)``.  A tree sharded over ``{"tp": n}`` runs each
-    slot's heads against its part of the cache (models/sharded.py
-    ``HeadSplit``)."""
+    returns ``(h, cache)``.  A sharded tree runs each slot's heads
+    against its part of the cache (models/sharded.py ``HeadSplit``) and,
+    over ``"ep"``, its own experts (``serving_tree``)."""
     from .sharded import cache_parts, serving_tree
 
-    tree = serving_tree(params)
+    tree = serving_tree(params, cfg)
     parts = {name: cache_parts(c) for name, c in cache.items()}
     quant = "k_scale" in cache
 
     def moe(xs, ms):
-        return tree.moe(xs, ms, cfg, None)
+        return tree.moe(xs, ms, cfg, tree.moe_fn)
 
     def attend_slots(lcs):
         def run(qs, ks, vs):
             outs = []
             for q, k, v, lc in zip(qs, ks, vs, lcs):
+                if attend_first:
+                    outs.append(attend(q, lc, k, v))
                 if quant:
                     k, k_s = quantize_kv(k)
                     v, v_s = quantize_kv(v)
@@ -212,7 +221,8 @@ def cached_layer_scan(params, cache, h, cos_p, sin_p, cfg: LlamaConfig,
                     write(lc["v_scale"], v_s)
                 write(lc["k"], k)
                 write(lc["v"], v)
-                outs.append(attend(q, lc))
+                if not attend_first:
+                    outs.append(attend(q, lc))
             return outs
 
         return run
@@ -242,13 +252,14 @@ def prefill(params: dict, cfg: LlamaConfig, prompt,
         max_len = P
     elif max_len < P:
         raise ValueError(f"max_len={max_len} is smaller than the prompt ({P})")
-    from .sharded import data_groups, per_part
+    from .sharded import data_groups, per_part, serving_moe
 
-    groups = data_groups(params)
+    groups = data_groups(params, cfg)
     if groups is not None:
         lp = (None if logit_positions is None else
               torch.as_tensor(logit_positions, device=prompt.device))
-        caches = {}
+        caches = {g: init_cache(cfg, 0, max_len, params=groups.views[g])
+                  for g in groups.local}
 
         def one(view, g, rows):
             logits, caches[g] = prefill(view, cfg, prompt[rows], max_len,
@@ -256,11 +267,12 @@ def prefill(params: dict, cfg: LlamaConfig, prompt,
                                         None if lp is None else lp[rows])
             return logits
 
-        logits = groups.run(B, one)
+        logits = groups.run(B, one, (cfg.vocab_size,))
         return logits, groups.join_cache(caches, B)
     logits, (ks, vs) = forward(
         params, prompt, cfg, attn_fn, return_kv=True,
-        last_only=logit_positions is None, logit_positions=logit_positions)
+        moe_fn=serving_moe(params, cfg), last_only=logit_positions is None,
+        logit_positions=logit_positions)
     cache = {"k": ks, "v": vs}
     if cfg.kv_quant == "int8":
         cache["k"], cache["k_scale"] = per_part(quantize_kv, ks)
@@ -311,34 +323,47 @@ def prefill_rolling(params: dict, cfg: LlamaConfig, prompt, *,
     ``decode_step(..., pos=P, rolling=True)``.  Equal to the one-pass
     windowed prefill up to the order of the softmax sums (the two partials
     of each chunk merge as in ring attention).  ``attn_fn`` must be None:
-    the chunk owns its attention."""
+    the chunk owns its attention.  A sharded tree fills each slot's part
+    of the cache with its kv heads (each data group its rows)."""
     W = cfg.sliding_window
     if W is None:
         raise ValueError("prefill_rolling requires cfg.sliding_window")
     if attn_fn is not None:
         raise ValueError("prefill_rolling owns its attention; attn_fn must "
                          "be None")
+    from .sharded import data_groups
+
     dev = params_device(params)
     prompt = torch.as_tensor(prompt, device=dev).long()
     B, P = prompt.shape
+    groups = data_groups(params, cfg)
+    if groups is not None:
+        caches = {g: init_rolling_cache(cfg, 0, params=groups.views[g])
+                  for g in groups.local}
+
+        def one(view, g, rows):
+            logits, caches[g] = prefill_rolling(view, cfg, prompt[rows],
+                                                chunk=chunk, widths=widths)
+            return logits
+
+        logits = groups.run(B, one, (cfg.vocab_size,))
+        return logits, groups.join_cache(caches, B)
     cos, sin = cfg_rope_tables(cfg, P, device=dev)
-    cache = init_rolling_cache(cfg, B, device=dev)
-    layers = unstack_layers(params["layers"], cfg.n_layers)
+    cache = init_rolling_cache(cfg, B, device=dev, params=params)
     h, c0 = None, 0
     for Cc in rolling_plan(P, W, chunk, widths):
-        h = _prefill_chunk(params, layers, cache, prompt[:, c0:c0 + Cc], c0,
+        h = _prefill_chunk(params, cache, prompt[:, c0:c0 + Cc], c0,
                            cos[c0:c0 + Cc], sin[c0:c0 + Cc], cfg)
         c0 += Cc
-    logits = head_logits(h[:, -1:], params["final_norm"], params["lm_head"],
-                         cfg.norm_eps)
-    return logits[:, 0], cache
+    return final_logits(params, h[:, -1], cfg), cache
 
 
-def _prefill_chunk(params, layers, cache, tokens, c0: int, cos, sin,
+def _prefill_chunk(params, cache, tokens, c0: int, cos, sin,
                    cfg: LlamaConfig):
     """One chunk of :func:`prefill_rolling` (tokens at ``c0 .. c0 + Cc -
-    1``) through every layer; writes its entries into ``cache`` in place
-    at slots ``(c0 + i) % W`` and returns the last hidden states.
+    1``) through every layer (:func:`cached_layer_scan`, attending before
+    it writes); writes its entries into ``cache`` in place at slots ``(c0
+    + i) % W`` and returns the last hidden states.
 
     Each layer's cache is read in position order ``c0 - W .. c0 - 1``
     (slot ``s`` holds the latest position ``p < c0`` with ``p % W ==
@@ -355,39 +380,27 @@ def _prefill_chunk(params, layers, cache, tokens, c0: int, cos, sin,
     Cc = tokens.shape[1]
     slots = (c0 + torch.arange(Cc, device=dev)) % W
     order = (c0 - W + torch.arange(W, device=dev)) % W
-    quant = "k_scale" in cache
 
-    def chunk_attn(lc):
-        def attn(q, k, v):
-            kco, vco = lc["k"][:, :, order], lc["v"][:, :, order]
-            if quant:
-                kco = dequantize_kv(kco, lc["k_scale"][:, :, order], q.dtype)
-                vco = dequantize_kv(vco, lc["v_scale"][:, :, order], q.dtype)
-            past = partial_attention(
-                q, repeat_kv(kco, n_rep), repeat_kv(vco, n_rep),
-                q_offset=c0, kv_offset=c0 - W, causal=True, window=W,
-                kv_min=0)
-            here = partial_attention(
-                q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), q_offset=c0,
-                kv_offset=c0, causal=True, window=W)
-            return finalize_partial(*merge_partials(past, here),
-                                    out_dtype=q.dtype)
+    def write(c, u):
+        c[:, :, slots] = u
 
-        return attn
+    def attend(q, lc, k, v):
+        kco, vco = lc["k"][:, :, order], lc["v"][:, :, order]
+        if "k_scale" in lc:
+            kco = dequantize_kv(kco, lc["k_scale"][:, :, order], q.dtype)
+            vco = dequantize_kv(vco, lc["v_scale"][:, :, order], q.dtype)
+        past = partial_attention(
+            q, repeat_kv(kco, n_rep), repeat_kv(vco, n_rep), q_offset=c0,
+            kv_offset=c0 - W, causal=True, window=W, kv_min=0)
+        here = partial_attention(
+            q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), q_offset=c0,
+            kv_offset=c0, causal=True, window=W)
+        return finalize_partial(*merge_partials(past, here),
+                                out_dtype=q.dtype)
 
     h = embed_tokens(params, tokens, cfg)
-    for li, lp in enumerate(layers):
-        lc = {name: t[li] for name, t in cache.items()}
-        h, _aux, k, v, _stats = decoder_layer(lp, h, cfg, cos, sin,
-                                              chunk_attn(lc))
-        if quant:
-            k, k_s = quantize_kv(k)
-            v, v_s = quantize_kv(v)
-            lc["k_scale"][:, :, slots] = k_s
-            lc["v_scale"][:, :, slots] = v_s
-        lc["k"][:, :, slots] = k
-        lc["v"][:, :, slots] = v
-    return h
+    return cached_layer_scan(params, cache, h, cos, sin, cfg, write, attend,
+                             attend_first=True)[0]
 
 
 def validate_prompt_lengths(prompt_lengths, B: int, P: int) -> torch.Tensor:

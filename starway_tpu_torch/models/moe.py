@@ -357,3 +357,54 @@ def make_sharded_moe(mesh, *, ep_axis: str = "ep", dp_axis: str = "dp",
     fn.slots = slots
     fn.ep_axis = ep_axis
     return fn
+
+
+def make_expert_view(mesh, *, ep_axis: str = "ep",
+                     capacity_factor: float = 1.25, k: int = 1):
+    """The experts split over ``ep_axis`` for slots that all hold the same
+    tokens (a serving tree's slots, models/sharded.py: the batch rows are
+    cut over the data axes, never over ``ep_axis``, so the cut of
+    :func:`make_sharded_moe` does not apply to a decode step's one token a
+    row).  As ``moe_fn``, the global view (:func:`switch_moe`); its
+    ``slots(xs, routers, w_ins, w_outs, w_gates)`` routes the tokens once,
+    runs each local shard of experts (one a coordinate of ``ep_axis``) on
+    the rows routed to its experts, at :func:`switch_moe`'s capacity over
+    all the tokens, and sums the outputs over ``ep_axis``: no expert leaf
+    is gathered.  Equal to :func:`switch_moe` on the same tokens up to the
+    order of the sum over the k choices (bit for bit at k <= 2)."""
+    from ..ops.collectives import axis_index, psum
+
+    def fn(x, router_w, w_in, w_out, w_gate=None):
+        return switch_moe(x, router_w, w_in, w_out, w_gate=w_gate,
+                          capacity_factor=capacity_factor, k=k)
+
+    def slots(xs, routers, w_ins, w_outs, w_gates):
+        b, s, d = xs[0].shape
+        t = b * s
+        xt = xs[0].reshape(t, d)
+        e_loc = w_ins[0].shape[0]
+        e = e_loc * mesh.shape[ep_axis]
+        capacity = moe_capacity(t * k, e, capacity_factor)
+        expert_flat, gate_flat, aux = _route(xt, routers[0], k)
+        slot, keep, _counts = _dispatch_slots(expert_flat, e, capacity)
+        shards = {}
+        for j, c in enumerate(axis_index(mesh, ep_axis)):
+            if c in shards:
+                continue
+            lo = c * e_loc
+            mine = keep & (expert_flat >= lo) & (expert_flat < lo + e_loc)
+            local = torch.where(mine, slot - lo * capacity,
+                                torch.full_like(slot, e_loc * capacity))
+            expert_in = _scatter_tokens(xt, local, k, e_loc,
+                                        capacity).reshape(e_loc, capacity, d)
+            out = _expert_ffn(expert_in, w_ins[j], w_outs[j], w_gates[j])
+            shards[c] = _combine_tokens(out.reshape(e_loc * capacity, d),
+                                        local, mine, gate_flat, k,
+                                        t).reshape(b, s, d)
+        ys = psum([shards[c] for c in axis_index(mesh, ep_axis)], mesh,
+                  ep_axis)
+        return ys, [aux] * len(xs), None
+
+    fn.slots = slots
+    fn.ep_axis = ep_axis
+    return fn

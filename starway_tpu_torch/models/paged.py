@@ -28,7 +28,14 @@ first own page, and the suffix is ingested as one chunk of
 Greedy outputs equal the dense server's and ``generate()``'s: paging
 changes where the bytes live, not what attention computes.  Scope:
 full-causal models with a cache in the compute dtype (sliding-window and
-int8 caches are refused).
+int8 caches are refused, as the JAX package refuses them), over a whole
+tree or any sharded serving tree (models/sharded.py): each slot holds a
+contiguous pool part ``[L, n_pages, Hkv / tp, page, D]`` of its kv heads,
+every data group a part of the whole page range; the page table, the
+free list and the prefix registry stay one a server.  Admission writes
+(a prompt's pages, a prefix's, a prefixed suffix's) go to every local
+data group's pool; a decode step writes each row's entries into its own
+group's.
 """
 
 from __future__ import annotations
@@ -40,14 +47,24 @@ import torch
 
 from ..ops.paged import paged_decode_attention
 from .generate import _sample, cached_layer_scan
-from .llama import LlamaConfig, embed_tokens, matmul_w, rmsnorm
+from .llama import LlamaConfig, embed_tokens, final_logits
 from .serving import SlotServer, _bucket
+from .sharded import data_groups, per_part, tree_mesh
 
 
 def init_paged_pool(cfg: LlamaConfig, n_pages: int, page: int,
-                    device="cuda") -> dict:
+                    device="cuda", params=None) -> dict:
     """Zeroed k/v pools ``[L, n_pages, Hkv, page, D]`` in the compute dtype
-    (page 0 is the trash page)."""
+    (page 0 is the trash page).  For a sharded serving tree (``params``),
+    each leaf is a models/sharded.py ``HeadSplit``: every local slot's
+    own contiguous pool of its kv heads."""
+    mesh = None if params is None else tree_mesh(params)
+    if mesh is not None:
+        from .sharded import shard_cache
+
+        return shard_cache(cfg, params, None, lambda c, _rows:
+                           init_paged_pool(c, n_pages, page,
+                                           device=mesh.device))
     shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page, cfg.head_dim)
     dev = torch.device(device)
     return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
@@ -65,7 +82,18 @@ def paged_chunk_step(params, pool, table, tokens, pos, cfg: LlamaConfig,
     attend: the new k/v of position p of slot b land in ``pool[table[b, p
     // page], :, p % page]`` in place, then the chunk attends the slot's
     pages through :func:`~starway_tpu_torch.ops.paged.paged_decode_attention`.
-    Returns ``(logits [B, C, V] float32, pool)``."""
+    Returns ``(logits [B, C, V] float32, pool)``.  A tree over the data
+    axes runs each data group's rows over its pool part."""
+    groups = data_groups(params, cfg)
+    if groups is not None:
+        def one(view, g, rows):
+            p = pos[rows] if isinstance(pos, torch.Tensor) and pos.dim() else pos
+            return paged_chunk_step(view, groups.cache_of(pool, g),
+                                    table[rows], tokens[rows], p, cfg,
+                                    rope)[0]
+
+        return groups.run(tokens.shape[0], one,
+                          (tokens.shape[1], cfg.vocab_size)), pool
     B, C = tokens.shape
     page = pool["k"].shape[3]
     dev = tokens.device
@@ -91,8 +119,7 @@ def paged_chunk_step(params, pool, table, tokens, pos, cfg: LlamaConfig,
     h = embed_tokens(params, tokens, cfg)  # [B, C, D]
     h, pool = cached_layer_scan(params, pool, h, cos_p, sin_p, cfg, write,
                                 attend)
-    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return matmul_w(h, params["lm_head"]).float(), pool
+    return final_logits(params, h, cfg), pool
 
 
 def paged_decode_step(params, pool, table, token, pos, cfg: LlamaConfig,
@@ -170,7 +197,15 @@ class PagedSlotServer(SlotServer):
     # ------------------------------------------------------------- hooks
     def _make_cache(self):
         return init_paged_pool(self.cfg, self.n_pages, self.page,
-                               device=self.device)
+                               device=self.device, params=self.params)
+
+    def _pools(self) -> list:
+        """``(params, pool)`` of every local data group (its view and pool
+        parts), or the server's own: where admission writes."""
+        if self._groups is None:
+            return [(self.params, self.cache)]
+        return [(self._groups.views[g], self._groups.cache_of(self.cache, g))
+                for g in self._groups.local]
 
     def _post_init(self) -> None:
         # Host allocator: every slot starts on the trash page.
@@ -263,16 +298,20 @@ class PagedSlotServer(SlotServer):
 
     def _file_pages(self, small: dict, pids: list, n: int) -> dict:
         """Scatter the first ``n`` pages of a prefill cache ``[L, 1, Hkv,
-        bucket, D]`` into pool pages ``pids``; returns every page of it as
-        ``[L, bucket / page, Hkv, page, D]`` views."""
-        paged = {}
-        for name, pool in self.cache.items():
-            L, _, hkv, width, d = small[name].shape
-            paged[name] = small[name].reshape(
-                L, hkv, width // self.page, self.page, d).transpose(1, 2)
-            if n:
-                ids = torch.tensor(pids[:n], device=self.device)
-                pool[:, ids] = paged[name][:, :n]
+        bucket, D]`` into pool pages ``pids`` (of every local group);
+        returns every page of it as ``[L, bucket / page, Hkv, page, D]``
+        views."""
+        def pages(t):
+            L, _, hkv, width, d = t.shape
+            return t.reshape(L, hkv, width // self.page, self.page,
+                             d).transpose(1, 2)
+
+        paged = {name: per_part(pages, small[name]) for name in self.cache}
+        if n:
+            ids = torch.tensor(pids[:n], device=self.device)
+            for _params, pool in self._pools():
+                for name, c in pool.items():
+                    c[:, ids] = per_part(lambda t: t[:, :n], paged[name])
         return paged
 
     # --------------------------------------------------------- admission
@@ -288,7 +327,8 @@ class PagedSlotServer(SlotServer):
         _logits, small = self._prefill_bucket(
             tokens, _bucket(plen, self.buckets))
         paged = self._file_pages(small, pids, n_full)
-        tails = {name: (p[:, n_full].clone() if plen % self.page else None)
+        tails = {name: (per_part(lambda t: t[:, n_full].clone(), p)
+                        if plen % self.page else None)
                  for name, p in paged.items()}
         self._commit(n_full)
         for p in pids:
@@ -340,15 +380,18 @@ class PagedSlotServer(SlotServer):
         ingest the suffix as one ``C = bucket`` chunk over the table.
         Returns the logits ``[1, V]`` of the suffix's last real token."""
         (_shared, tail_k, tail_v), plen = self._prefixes[prefix]
-        if tail_k is not None:
-            own0 = int(row[plen // self.page])
-            self.cache["k"][:, own0] = tail_k
-            self.cache["v"][:, own0] = tail_v
         table = torch.from_numpy(row[None]).to(self.device)
         tokens = self._padded(suffix, _bucket(len(suffix), self.buckets))
-        logits, _ = paged_chunk_step(self.params, self.cache, table, tokens,
-                                     plen, self.cfg, self.rope)
-        return logits[:, len(suffix) - 1]
+        out = None
+        for params, pool in self._pools():
+            if tail_k is not None:
+                own0 = int(row[plen // self.page])
+                pool["k"][:, own0] = tail_k
+                pool["v"][:, own0] = tail_v
+            logits, _ = paged_chunk_step(params, pool, table, tokens, plen,
+                                         self.cfg, self.rope)
+            out = logits[:, len(suffix) - 1] if out is None else out
+        return out
 
     # ------------------------------------------------------------ decode
     def _run_chunk(self):

@@ -26,8 +26,9 @@
   exactly what ``generate(prefix + suffix)`` would, while admission
   compute scales with the suffix.
 * **Rolling slots.**  A sliding-window model serves through per-slot
-  rolling caches ``[L, n_slots, Hkv, W, Dh]``: O(window) memory per slot
-  however long a request runs.  Admission is the chunked
+  rolling caches ``[L, n_slots, Hkv, W, Dh]`` (over a sharded tree, each
+  slot's part of its kv heads of its group's rows): O(window) memory per
+  slot however long a request runs.  Admission is the chunked
   ``prefill_rolling`` with the denominations :data:`ROLLING_ADMIT_WIDTHS`
   (no prompt buckets), ``max_len`` bounds only the rope horizon, and
   prefixes are refused (each slot rebuilds its own window).
@@ -37,8 +38,10 @@ failed kernel launch) propagate out of ``step()``; a request is never
 silently re-queued.  MoE models serve when their capacity is provably
 dropless (``moe_capacity_factor >= n_experts``, models/moe.py
 ``require_dropless``): slots that share a decode step share its expert
-capacity.  Subclasses (the paged
-server, models/paged.py) replace the cache through the hooks
+capacity.  The server takes any sharded serving tree (models/sharded.py:
+the rows cut over the data axes, each slot's kv heads, each slot's
+experts over ``"ep"``).  Subclasses (the paged server, models/paged.py)
+replace the cache through the hooks
 ``_make_cache``, ``_post_init``, ``_on_slot_freed``, ``_decode_one``,
 ``_admit_plain``, ``_admit_prefixed``, ``_admissible`` and
 ``_check_pages``.
@@ -188,18 +191,15 @@ class SlotServer:
 
         dev = self.device
         # Admission prefills one request: over a tree with data axes it
-        # runs on one data group's slots (the weights are replicated over
-        # them) and its rows are filed into the slot's group.
-        from .sharded import data_groups, tree_mesh
+        # runs on one data group's slots (the groups' views share the
+        # model's shards) and its rows are filed into the slot's group.
+        from .sharded import data_groups
 
-        if self.rolling and tree_mesh(params) is not None:
-            raise NotImplementedError(
-                "rolling (sliding-window) slots serve an unsharded tree; "
-                "a sharded one serves with a full cache window "
-                "(ROADMAP.md, Queue 1)")
-        groups = data_groups(params)
-        self._admit_params = (params if groups is None
-                              else groups.views[groups.local[0]])
+        self._groups = data_groups(params, cfg)
+        if self._groups is not None:
+            self._groups.check_rows(n_slots)
+        self._admit_params = (params if self._groups is None else
+                              self._groups.views[self._groups.local[0]])
         self.cache = self._make_cache()
         self.token = torch.zeros(n_slots, dtype=torch.long, device=dev)
         self.pos = torch.zeros(n_slots, dtype=torch.int32, device=dev)
@@ -219,7 +219,7 @@ class SlotServer:
     def _make_cache(self):
         if self.rolling:
             return init_rolling_cache(self.cfg, self.n_slots,
-                                      device=self.device)
+                                      device=self.device, params=self.params)
         return init_cache(self.cfg, self.n_slots, self.max_len,
                           device=self.device, params=self.params)
 

@@ -38,18 +38,33 @@ leaf is its share, and the shares are summed over the axes the leaf is
 replicated on.  Every sum runs in a fixed order, so a mesh split over
 processes gives the bits of the one-process run.
 
-Serving (``prefill``, ``decode_step``, ``generate``, ``SlotServer``, the
-speculative drivers) takes a tree over tp and the data axes ``"dp"`` and
-``"fsdp"``, in one process or over a group of processes: the cache of each
-slot holds its kv heads of its block of the batch rows
-(:class:`HeadSplit`), and the decode kernel runs at the slot's head count.
-The batch rows are cut over the data axes as :meth:`SlotTree.cut_batch`
-cuts a training batch; each data group (the tp slots that share a block
-of rows, :class:`DataGroups`) runs the decode paths on its rows with the
-tree's tp shards, which the data groups share (the weights are replicated
-over the data axes: one process holds them once).  Every process runs the
-same loop on the same requests, and the logits of the rows are gathered
-over the data axes, so every process samples the same tokens.
+Serving (``prefill``, ``decode_step``, ``prefill_rolling``,
+``generate``, ``SlotServer`` dense or rolling, ``PagedSlotServer``, the
+speculative decoders) takes every tree the JAX package serves, in one
+process or over a group of processes.  :func:`serving_axes` splits the
+mesh: the model's axes, ``"tp"`` and ``"ep"`` where a leaf is split over
+them, and the data axes, every other one (``"dp"``, ``"fsdp"``, and
+``"sp"``, ``"pp"`` or a dense tree's ``"ep"``, over which no leaf of
+``param_specs`` is split).  The batch rows are cut over the data axes in
+blocks as even as they come (:func:`row_blocks`; a block may be empty),
+except for a MoE whose capacity can drop tokens: which tokens it drops
+depends on the whole batch's routing, as the JAX package's GSPMD routes
+it, so every group runs every row (aligned ``generate()`` and the
+prefill; the servers need a dropless MoE).  Each data group (the slots that share a block, :class:`DataGroups`) runs
+the decode paths on its rows with a view of the tree over its slots,
+which shares the shards' storage (weights replicated over the data axes
+are held once), and a leaf split over a data axis (``fsdp_specs``) is
+gathered a layer before its use, as in training.  The cache of each slot
+holds its kv heads of its group's rows (:class:`HeadSplit`; a paged pool
+a contiguous part ``[L, n_pages, Hkv / tp, page, D]`` of every page), the
+decode and paged kernels run at the slot's head count, and over ``"ep"``
+each slot runs its own experts (models/moe.py ``make_expert_view``: no
+expert leaf is gathered).  Every process runs the same loop on the same
+requests, and the logits of the rows are gathered over the data axes, so
+every process samples the same tokens.  A data group whose slots sit in
+several processes is refused (ROADMAP.md), and so is a batch with fewer
+rows than data groups where a leaf split over a data axis is gathered
+across processes: the group with no rows would miss the gathers.
 """
 
 from __future__ import annotations
@@ -70,8 +85,6 @@ from .llama import matmul_w, moe_ffn, rmsnorm
 TP = "tp"
 EP = "ep"
 MODEL_AXES = ("tp", "sp", "ep")
-#: The axes a serving tree's batch rows are cut over.
-SERVE_DATA_AXES = ("dp", "fsdp")
 
 
 # ------------------------------------------------------------ the tree
@@ -80,7 +93,7 @@ SERVE_DATA_AXES = ("dp", "fsdp")
 def tree_mesh(tree):
     """The mesh of the first sharded leaf of ``tree``, or None."""
     for leaf in _walk(tree):
-        if isinstance(leaf, ShardedTensor):
+        if isinstance(leaf, (ShardedTensor, _GroupLeaf)):
             return leaf.sharding.mesh
     return None
 
@@ -101,7 +114,8 @@ def is_sharded(tree) -> bool:
 
 def _spec(x, ndim: int) -> list:
     """Per dimension, the axes that split it (a tuple, maybe empty)."""
-    spec = x.sharding.spec if isinstance(x, ShardedTensor) else ()
+    spec = (x.sharding.spec if isinstance(x, (ShardedTensor, _GroupLeaf))
+            else ())
     out = []
     for d in range(ndim):
         entry = spec[d] if d < len(spec) else None
@@ -145,21 +159,34 @@ class _Leaf:
     layers (``stacked``) is split into its layers by one ``unbind`` when
     autograd records: the gradient of the stacked leaf is then one stack
     of the per-layer gradients, where indexing it once a layer would
-    write a zero tensor the size of the whole stack for every layer."""
+    write a zero tensor the size of the whole stack for every layer.
+
+    A data group's leaf split over the data axes (:class:`_GroupLeaf`)
+    holds the tensors of every local slot of the whole mesh: each use
+    gathers them over the data axes there and keeps the group's."""
 
     def __init__(self, x, mesh, keep, alias: bool, stacked: bool):
-        self.x, self.mesh = x, mesh
-        if isinstance(x, ShardedTensor):
-            vals = local_shards(x)
+        self.x, self.mesh, self.src, self.pick = x, mesh, mesh, None
+        if isinstance(x, (ShardedTensor, _GroupLeaf)):
             boxes = x.sharding.indices_map(x.shape)
             self.lo = [[lo for lo, _ in boxes[mesh.slots[i]]]
                        for i in mesh.local_slots]
+        if isinstance(x, _GroupLeaf):
+            self.src = x.parent
+            vals = local_shards(x.x)
+            local = list(x.parent.local_slots)
+            self.pick = [local.index(i) for i in x.slots]
+            split = _spec(x.x, vals[0].dim())
+        elif isinstance(x, ShardedTensor):
+            vals = local_shards(x)
+            split = _spec(x, vals[0].dim())
         else:
             vals = [x] * len(mesh.local_slots)
             self.lo = [[0] * x.dim() for _ in mesh.local_slots]
+            split = _spec(x, vals[0].dim())
         self.spec = _spec(x, vals[0].dim())
-        self.gathers = _gathers(self.spec[1:] if stacked else self.spec,
-                                mesh, keep)
+        self.gathers = _gathers(split[1:] if stacked else split, self.src,
+                                keep)
         self.trains = alias and vals[0].is_floating_point()
         if self.trains:
             vals = [v.detach().requires_grad_() for v in vals]
@@ -178,7 +205,9 @@ class _Leaf:
         else:
             vals = [v[i] for v in self.vals]
         for d, a in self.gathers:
-            vals = col.all_gather(vals, self.mesh, a, d)
+            vals = col.all_gather(vals, self.src, a, d)
+        if self.pick is not None:
+            vals = [vals[j] for j in self.pick]
         return vals
 
 
@@ -223,6 +252,7 @@ class SlotTree:
         self.sharded = mesh is not None
         self.mesh = mesh if self.sharded else Mesh({}, _device(params))
         self.n = len(self.mesh.local_slots)
+        self.moe_fn = moe_fn
         self.keep = {TP}
         if self.sharded and getattr(moe_fn, "slots", None) is not None:
             self.keep.add(getattr(moe_fn, "ep_axis", EP))
@@ -377,7 +407,8 @@ class SlotTree:
         data groups' rows)."""
         if not self.sharded:
             return kvs[0]
-        _serving_axes(self.mesh)
+        heads = kvs[0][0].shape[2] * self.mesh.shape.get(TP, 1)
+        rows = batch = None
         if self.data_axes:
             batch = kvs[0][0].shape[1] * math.prod(
                 self.mesh.shape[a] for a in self.data_axes)
@@ -385,10 +416,8 @@ class SlotTree:
                 (batch,))
             rows = [boxes[self.mesh.slots[i]][0]
                     for i in self.mesh.local_slots]
-            return (HeadSplit([k for k, _ in kvs], 2, rows, batch),
-                    HeadSplit([v for _, v in kvs], 2, rows, batch))
-        return (HeadSplit([k for k, _ in kvs], 2),
-                HeadSplit([v for _, v in kvs], 2))
+        return (HeadSplit([k for k, _ in kvs], 2, rows, batch, heads),
+                HeadSplit([v for _, v in kvs], 2, rows, batch, heads))
 
     # ---------------------------------------------------- gradients
 
@@ -446,39 +475,110 @@ def _like(params: dict, flat: dict) -> dict:
 # ------------------------------------------------------------ serving
 
 
-def serving_tree(params: dict) -> SlotTree:
+def serving_axes(params: dict) -> tuple:
+    """``(model, data)``: the axes of a serving tree's mesh (above 1)
+    that its slots consume sharded, and those its batch rows are cut
+    over.  The model's axes are ``"tp"`` and ``"ep"`` where a leaf is
+    split over them (the heads, the experts); every other axis is a data
+    axis: ``"dp"``, ``"fsdp"``, and ``"sp"``, ``"pp"`` or a dense tree's
+    ``"ep"``, over which no leaf of ``param_specs`` is split."""
+    mesh = tree_mesh(params)
+    split = set()
+    for leaf in _walk(params):
+        if isinstance(leaf, (ShardedTensor, _GroupLeaf)):
+            split.update(a for axes in _spec(leaf, len(leaf.shape))
+                         for a in axes)
+    model = tuple(a for a in mesh.axis_names
+                  if a in (TP, EP) and a in split and mesh.shape[a] > 1)
+    data = tuple(a for a in mesh.axis_names
+                 if a not in model and mesh.shape[a] > 1)
+    return model, data
+
+
+def serving_moe(params: dict, cfg):
+    """The MoE function of the decode paths over a tree whose experts are
+    split over ``"ep"`` (models/moe.py ``make_expert_view``: no expert
+    leaf is gathered), else None (the global view, or a dense tree)."""
+    if cfg is None or cfg.n_experts == 0 or tree_mesh(params) is None:
+        return None
+    if EP not in serving_axes(params)[0]:
+        return None
+    from .moe import make_expert_view
+
+    return make_expert_view(tree_mesh(params),
+                            capacity_factor=cfg.moe_capacity_factor,
+                            k=cfg.moe_top_k)
+
+
+def serving_tree(params: dict, cfg=None) -> SlotTree:
     """The :class:`SlotTree` of a tree the decode paths take: whole, or
-    sharded over tp (in one process or over a group of processes).  A
-    tree with a data axis runs them per data group
-    (:func:`data_groups`)."""
-    tree = SlotTree(params)
-    if tree.sharded:
-        _serving_axes(tree.mesh)
-        if tree.data_axes:
-            raise NotImplementedError(
-                f"a tree over {tree.mesh.shape} runs the decode paths per "
-                f"data group (models/sharded.py data_groups)")
+    sharded over the model's axes (in one process or over a group of
+    processes); over ``"ep"`` the experts stay split (:func:`serving_moe`,
+    which needs ``cfg``).  A tree with a data axis runs them per data
+    group (:func:`data_groups`; the embedding's or the head's subtree
+    alone, which does not show the model's axes, is taken as it comes)."""
+    tree = SlotTree(params, moe_fn=serving_moe(params, cfg))
+    if tree.sharded and "layers" in params and serving_axes(params)[1]:
+        raise NotImplementedError(
+            f"a tree over {tree.mesh.shape} runs the decode paths per "
+            f"data group (models/sharded.py data_groups)")
     return tree
 
 
-class DataGroups:
-    """The data groups of a serving tree over tp and the data axes: the
-    slots at one coordinate of the data axes, which hold one block of the
-    batch rows (row-major over the data axes, as :meth:`SlotTree.cut_batch`
-    cuts them).  Each group this process holds has a view of the tree
-    (``views[g]``: the tree over the group's tp slots, on a mesh of its
-    own, sharing the shards' storage).  A group's slots are held by one
-    process."""
+def row_blocks(batch: int, n: int, every_row: bool = False) -> list:
+    """``(lo, hi)`` of each of ``n`` blocks of ``batch`` rows: as even as
+    they come, the first ``batch % n`` a row longer (a block may be
+    empty); with ``every_row``, every block all the rows."""
+    if every_row:
+        return [(0, batch)] * n
+    size, extra = divmod(batch, n)
+    out, lo = [], 0
+    for g in range(n):
+        hi = lo + size + (g < extra)
+        out.append((lo, hi))
+        lo = hi
+    return out
 
-    def __init__(self, params: dict, mesh, axes: tuple):
+
+def routes_whole_batch(cfg) -> bool:
+    """Whether ``cfg`` is a MoE whose capacity can drop tokens: which it
+    drops then depends on the whole batch's routing (the JAX package's
+    GSPMD routes the global batch), so every data group runs every row
+    (:class:`DataGroups`).  A dropless MoE routes each token alone."""
+    return (cfg is not None and cfg.n_experts > 0
+            and cfg.moe_capacity_factor < cfg.n_experts)
+
+
+def _group_of(mesh, axes: tuple, index: int) -> int:
+    """The data group of slot ``index``: its coordinate over ``axes``,
+    row-major."""
+    c, g = mesh.slot_coords(index), 0
+    for a in axes:
+        g = g * mesh.shape[a] + c[a]
+    return g
+
+
+class DataGroups:
+    """The data groups of a serving tree: the slots at one coordinate of
+    its data axes (:func:`serving_axes`), which hold one block of the
+    batch rows (row-major over the data axes, in the blocks of
+    :func:`row_blocks`).  Each group this process holds has a view of the
+    tree (``views[g]``: the tree over the group's slots, on a mesh of the
+    model's axes, sharing the shards' storage; a leaf split over a data
+    axis is a :class:`_GroupLeaf`, gathered a layer at a time).  A
+    group's slots are held by one process.
+
+    Every group runs every row where ``cfg`` routes a MoE over the whole
+    batch (:func:`routes_whole_batch`).  Where a leaf split over a data
+    axis is gathered across processes, every group must join every
+    gather, so a batch that leaves a group no rows is refused
+    (:meth:`check_rows`)."""
+
+    def __init__(self, params: dict, mesh, axes: tuple, cfg=None):
         self.mesh, self.axes = mesh, axes
         self.size = math.prod(mesh.shape[a] for a in axes)
-        self.group_of = []
-        for i in range(mesh.size):
-            c, g = mesh.slot_coords(i), 0
-            for a in axes:
-                g = g * mesh.shape[a] + c[a]
-            self.group_of.append(g)
+        self.every_row = routes_whole_batch(cfg)
+        self.group_of = [_group_of(mesh, axes, i) for i in range(mesh.size)]
         local = list(mesh.local_slots)
         self.local = sorted({self.group_of[i] for i in local})
         self.sub = Mesh({a: n for a, n in mesh.shape.items() if a not in axes},
@@ -489,58 +589,110 @@ class DataGroups:
             if any(i not in mesh.local_slots for i in slots):
                 raise NotImplementedError(
                     f"serving over {mesh.shape} on {mesh.world} processes: "
-                    f"a data group's tp slots must be held by one process "
+                    f"a data group's slots must be held by one process "
                     f"(ROADMAP.md, Queue 1)")
             self.members[g] = [(local.index(i), i) for i in slots]
         self.views = {g: _group_view(params, mesh, self.sub,
                                      [i for _, i in self.members[g]],
                                      axes) for g in self.local}
+        self.gathers_across = mesh.world > 1 and any(
+            isinstance(leaf, _GroupLeaf) for v in self.views.values()
+            for leaf in _walk(v))
+
+    def blocks(self, batch: int) -> list:
+        """``(lo, hi)`` of each group's rows of a batch of ``batch``."""
+        return row_blocks(batch, self.size, self.every_row)
+
+    def check_rows(self, batch: int) -> None:
+        """Refuse a batch of ``batch`` rows that leaves a group none while
+        the groups' leaves are gathered across processes: that group
+        would skip the gathers the others wait in."""
+        if self.gathers_across and not self.every_row and batch < self.size:
+            raise NotImplementedError(
+                f"{batch} row(s) over {self.size} data groups whose leaves "
+                f"are gathered across processes: a group with no rows "
+                f"would miss the gathers (ROADMAP.md, Queue 1)")
 
     def rows(self, batch: int, g: int) -> slice:
         """Group ``g``'s block of a batch of ``batch`` rows."""
-        if batch % self.size:
-            raise ValueError(
-                f"a batch of {batch} rows does not split over the data "
-                f"axes {dict((a, self.mesh.shape[a]) for a in self.axes)} "
-                f"of the serving tree over {self.mesh.shape}")
-        n = batch // self.size
-        return slice(g * n, (g + 1) * n)
+        return slice(*self.blocks(batch)[g])
 
     def cache_of(self, cache: dict, g: int) -> dict:
         """Group ``g``'s parts of a cache (its rows, every head)."""
         return {name: HeadSplit([c.parts[j] for j, _ in self.members[g]],
-                                c.dim) for name, c in cache.items()}
+                                c.dim, heads=c.heads)
+                for name, c in cache.items()}
 
     def join_cache(self, caches: dict, batch: int) -> dict:
         """One cache from each local group's (``{g: cache}``)."""
-        names = next(iter(caches.values())).keys()
-        parts = {name: [None] * len(self.mesh.local_slots) for name in names}
+        first = next(iter(caches.values()))
+        parts = {name: [None] * len(self.mesh.local_slots) for name in first}
         rows = [None] * len(self.mesh.local_slots)
         for g, cache in caches.items():
             r = self.rows(batch, g)
             for k, (j, _) in enumerate(self.members[g]):
                 rows[j] = (r.start, r.stop)
-                for name in names:
+                for name in first:
                     parts[name][j] = cache[name].parts[k]
-        dim = next(iter(caches.values()))[next(iter(names))].dim
-        return {name: HeadSplit(parts[name], dim, rows, batch)
-                for name in names}
+        return {name: HeadSplit(parts[name], c.dim, rows, batch, c.heads)
+                for name, c in first.items()}
 
-    def run(self, batch: int, fn):
-        """``fn(view, g, rows)`` of every local group; its outputs (each
-        the group's rows, on dim 0) gathered over the data axes into the
-        whole batch's, which every process receives."""
-        outs = {g: fn(self.views[g], g, self.rows(batch, g))
-                for g in self.local}
+    def run(self, batch: int, fn, tail: tuple):
+        """``fn(view, g, rows)`` of every local group whose block of the
+        ``batch`` rows is not empty; its output (the group's rows on dim
+        0, ``tail`` the trailing shape, float32) gathered over the data
+        axes into the whole batch's, which every process receives.  The
+        blocks are padded to the longest for the gather.  Where every
+        group runs every row, each computes the whole batch's output and
+        the first local group's is returned."""
+        self.check_rows(batch)
+        if self.every_row:
+            outs = [fn(self.views[g], g, slice(0, batch))
+                    for g in self.local]
+            return outs[0]
+        blocks = self.blocks(batch)
+        most = blocks[0][1] - blocks[0][0]
+        outs = {}
+        for g in self.local:
+            lo, hi = blocks[g]
+            out = (fn(self.views[g], g, slice(lo, hi)) if hi > lo else
+                   torch.zeros((0,) + tuple(tail), dtype=torch.float32,
+                               device=self.mesh.device))
+            if hi - lo < most:
+                out = torch.cat([out, out.new_zeros(
+                    (most - (hi - lo),) + tuple(out.shape[1:]))])
+            outs[g] = out
         vals = [outs[self.group_of[i]] for i in self.mesh.local_slots]
         for a in reversed(self.axes):
             vals = col.all_gather(vals, self.mesh, a, 0)
-        return vals[0]
+        whole = vals[0]
+        if batch % self.size:
+            whole = torch.cat([whole[g * most:g * most + hi - lo]
+                               for g, (lo, hi) in enumerate(blocks)])
+        return whole
+
+
+class _GroupLeaf:
+    """A leaf split over the data axes as a data group's view holds it:
+    the tree's leaf ``x`` over ``parent``, the group's ``slots`` (their
+    parent indices, in the view's order) and the view's ``sharding`` (the
+    spec of ``x`` without the data axes, over the view's mesh).
+    :class:`_Leaf` gathers it over the data axes before each use."""
+
+    def __init__(self, x: ShardedTensor, parent, slots: list, sharding):
+        self.x, self.parent, self.slots = x, parent, slots
+        self.sharding = sharding
+        self.shape, self.dtype = x.shape, x.dtype
+
+    @property
+    def device(self):
+        return self.x.device
 
 
 def _group_view(params, mesh, sub, slots: list, axes: tuple):
     """``params`` over the slots ``slots`` of ``mesh`` (one data group, in
-    order) as a tree over ``sub``: the same shard tensors, new shardings."""
+    order) as a tree over ``sub``: the same shard tensors, new shardings;
+    a leaf split over the data ``axes`` as a :class:`_GroupLeaf`."""
     if isinstance(params, dict):
         return {k: _group_view(v, mesh, sub, slots, axes)
                 for k, v in params.items()}
@@ -550,55 +702,59 @@ def _group_view(params, mesh, sub, slots: list, axes: tuple):
     if not isinstance(params, ShardedTensor):
         return params
     spec = params.sharding.spec
-    split = [a for entry in spec if entry is not None
-             for a in ((entry,) if isinstance(entry, str) else entry)
-             if a in axes]
-    if split:
-        raise NotImplementedError(
-            f"serving a leaf split over the data axes {split} (spec "
-            f"{spec}): a serving tree is replicated over its data axes")
-    return ShardedTensor(params.shape, params.dtype,
-                         SlotSharding(sub, spec),
+    kept = []
+    for entry in spec:
+        names = (() if entry is None else
+                 (entry,) if isinstance(entry, str) else tuple(entry))
+        names = tuple(a for a in names if a not in axes)
+        kept.append(names[0] if len(names) == 1 else (names or None))
+    sharding = SlotSharding(sub, tuple(kept))
+    if tuple(kept) != tuple(spec):
+        return _GroupLeaf(params, mesh, slots, sharding)
+    return ShardedTensor(params.shape, params.dtype, sharding,
                          {sub.slots[k]: params.shards[mesh.slots[i]]
                           for k, i in enumerate(slots)})
 
 
-def data_groups(params: dict) -> Optional[DataGroups]:
+def data_groups(params: dict, cfg=None) -> Optional[DataGroups]:
     """The :class:`DataGroups` of a serving tree with a data axis above 1,
-    else None (a whole tree, or one over tp alone)."""
+    else None (a whole tree, or one over the model's axes alone); ``cfg``
+    the model's (a MoE that drops tokens runs every row in every
+    group)."""
     mesh = tree_mesh(params)
     if mesh is None:
         return None
-    _serving_axes(mesh)
-    axes = tuple(a for a in mesh.axis_names
-                 if a in SERVE_DATA_AXES and mesh.shape[a] > 1)
-    return DataGroups(params, mesh, axes) if axes else None
+    axes = serving_axes(params)[1]
+    return DataGroups(params, mesh, axes, cfg) if axes else None
 
 
 class HeadSplit:
     """A tensor ``[..., B, H, ...]`` held as the parts of the slots, split
     on dimension ``dim`` over tp (the heads of a KV cache ``[L, B, Hkv, T,
-    D]``, dim 2) and, with ``rows``, on the batch dimension before it over
-    the data axes: ``rows`` gives each part's ``(lo, hi)`` of the batch of
-    ``batch`` rows (a process may hold the parts of some rows only).
-    Indexing that keeps ``dim`` whole applies to every part; a slice of
-    the batch dimension takes the parts whose rows hold it (none of a
-    process that holds no slot of those rows), so the servers' cache
-    bookkeeping runs unchanged."""
+    D]``, dim 2; ``heads`` the whole count, where slots along ``"ep"``
+    hold copies of the same heads) and, with ``rows``, on the batch
+    dimension before it over the data axes: ``rows`` gives each part's
+    ``(lo, hi)`` of the batch of ``batch`` rows (a process may hold the
+    parts of some rows only).  Indexing that keeps ``dim`` whole applies
+    to every part; a slice of the batch dimension takes the parts whose
+    rows hold it (none of a process that holds no slot of those rows), so
+    the servers' cache bookkeeping runs unchanged."""
 
     def __init__(self, parts: list, dim: int, rows=None,
-                 batch: Optional[int] = None):
+                 batch: Optional[int] = None, heads: Optional[int] = None):
         self.parts = list(parts)
         self.dim = dim
         self.rows = None if rows is None else [tuple(r) for r in rows]
         self.batch = batch
+        self.heads = heads
 
     @property
     def shape(self) -> tuple:
         s = list(self.parts[0].shape)
         first = self.rows[0] if self.rows else None
-        s[self.dim] = sum(p.shape[self.dim] for j, p in enumerate(self.parts)
-                          if first is None or self.rows[j] == first)
+        s[self.dim] = (self.heads if self.heads is not None else
+                       sum(p.shape[self.dim] for j, p in enumerate(self.parts)
+                           if first is None or self.rows[j] == first))
         if self.rows:
             s[self.dim - 1] = self.batch
         return tuple(s)
@@ -643,7 +799,7 @@ class HeadSplit:
     def __getitem__(self, idx):
         parts, idxs, dim, rows = self._index(idx)
         return HeadSplit([p[i] for p, i in zip(parts, idxs)], dim, rows,
-                         self.batch)
+                         self.batch, self.heads)
 
     def __setitem__(self, idx, value):
         parts, idxs, _, _ = self._index(idx)
@@ -660,9 +816,9 @@ class HeadSplit:
         tuple of HeadSplits."""
         outs = [fn(p) for p in self.parts]
         if isinstance(outs[0], tuple):
-            return tuple(HeadSplit(list(o), self.dim, self.rows, self.batch)
-                         for o in zip(*outs))
-        return HeadSplit(outs, self.dim, self.rows, self.batch)
+            return tuple(HeadSplit(list(o), self.dim, self.rows, self.batch,
+                                   self.heads) for o in zip(*outs))
+        return HeadSplit(outs, self.dim, self.rows, self.batch, self.heads)
 
     def index_select(self, dim: int, index):
         if dim == self.dim or (self.rows is not None and dim == self.dim - 1):
@@ -682,43 +838,30 @@ def cache_parts(x) -> list:
     return x.parts if isinstance(x, HeadSplit) else [x]
 
 
-def _serving_axes(mesh):
-    """Refuse a serving tree over an axis the decode paths do not cut."""
-    extra = [a for a, n in mesh.shape.items()
-             if n > 1 and a != TP and a not in SERVE_DATA_AXES]
-    if extra:
-        raise NotImplementedError(
-            f"serving a tree sharded over {mesh.shape}: the port serves "
-            f"over tp and the data axes {SERVE_DATA_AXES}; {extra} above 1 "
-            f"serve in a later slice (ROADMAP.md, Queue 1)")
-
-
-def tp_init_cache(cfg, mesh, batch: int, max_len: int) -> dict:
-    """A zeroed cache for a tree over tp and the data axes: each slot's
-    part holds its kv heads of its group's block of the ``batch`` rows."""
-    from .generate import init_cache
-
-    _serving_axes(mesh)
-    tp = mesh.shape.get(TP, 1)
+def shard_cache(cfg, params: dict, batch: Optional[int], make) -> dict:
+    """A cache for a sharded serving tree: ``make(local_cfg, rows)``, the
+    cache of a whole tree at a slot's head counts (``n_heads / tp``,
+    ``n_kv_heads / tp``) for ``rows`` batch rows, once a local slot: each
+    part holds the slot's kv heads of its data group's block of the
+    ``batch`` rows (all of them where the tree has no data axis; a
+    ``batch`` of None cuts no rows: a paged pool, whose pages any row
+    may take)."""
+    mesh = tree_mesh(params)
+    model, data = serving_axes(params)
+    tp = mesh.shape[TP] if TP in model else 1
     if cfg.n_kv_heads % tp:
         raise ValueError(f"n_kv_heads={cfg.n_kv_heads} does not split over "
                          f"tp={tp}")
     lcfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
                                n_kv_heads=cfg.n_kv_heads // tp,
                                head_dim_override=cfg.head_dim)
-    axes = tuple(a for a in mesh.axis_names
-                 if a in SERVE_DATA_AXES and mesh.shape[a] > 1)
     rows = None
-    if axes:
-        if batch % math.prod(mesh.shape[a] for a in axes):
-            raise ValueError(
-                f"a cache of {batch} rows does not split over the data "
-                f"axes {dict((a, mesh.shape[a]) for a in axes)} of the "
-                f"serving tree over {mesh.shape}")
-        boxes = SlotSharding(mesh, (axes,)).indices_map((batch,))
-        rows = [boxes[mesh.slots[i]][0] for i in mesh.local_slots]
-    parts = [init_cache(lcfg, batch if rows is None else hi - lo, max_len,
-                        device=mesh.device)
+    if data and batch is not None:
+        blocks = row_blocks(batch, math.prod(mesh.shape[a] for a in data),
+                            routes_whole_batch(cfg))
+        rows = [blocks[_group_of(mesh, data, i)] for i in mesh.local_slots]
+    parts = [make(lcfg, batch if rows is None else hi - lo)
              for lo, hi in (rows or [(0, batch)] * len(mesh.local_slots))]
-    return {name: HeadSplit([p[name] for p in parts], 2, rows, batch)
+    return {name: HeadSplit([p[name] for p in parts], 2, rows,
+                            None if rows is None else batch, cfg.n_kv_heads)
             for name in parts[0]}

@@ -54,14 +54,15 @@ def chunk_decode_step(params, cache, tokens, pos, cfg: LlamaConfig, rope):
     each data group's rows on the group's slots."""
     from .sharded import data_groups
 
-    groups = data_groups(params)
+    groups = data_groups(params, cfg)
     if groups is not None:
         def one(view, g, rows):
             p = pos[rows] if isinstance(pos, torch.Tensor) and pos.dim() else pos
             return chunk_decode_step(view, groups.cache_of(cache, g),
                                      tokens[rows], p, cfg, rope)[0]
 
-        return groups.run(tokens.shape[0], one), cache
+        return groups.run(tokens.shape[0], one,
+                          (tokens.shape[1], cfg.vocab_size)), cache
     B, C = tokens.shape
     T = cache["k"].shape[3]
     if cfg.sliding_window is not None and T == cfg.sliding_window:

@@ -62,8 +62,8 @@ def _port(tree, specs, shape=DPTP):
     return shard_tree(tree, make_mesh(shape, device="cpu"), specs)
 
 
-def _jax(tree, specs):
-    mesh = jax_mesh(DPTP)
+def _jax(tree, specs, shape=DPTP):
+    mesh = jax_mesh(shape)
     return jax.tree_util.tree_map(
         lambda x, s: jax.device_put(x, NamedSharding(mesh, s)), tree, specs)
 
@@ -202,23 +202,44 @@ def test_fsdp_axis_cuts_the_rows_like_dp():
 
 
 def test_dptp_refuses_what_does_not_split():
-    """A batch, or a server's slots, that the data axes do not divide is
-    refused naming the shapes; so are a leaf split over a data axis and
-    rolling slots over a sharded tree."""
+    """What the data axes do not divide is served in uneven blocks, as the
+    JAX package serves it over the same mesh: a batch of three rows and a
+    server of three slots over dp = 2, rolling slots over the sharded
+    tree, and a leaf split over a data axis (gathered before its use)."""
+    jcfg = JaxConfig.preset("debug")
+    jp = jax_init_params(jax.random.PRNGKey(0), jcfg)
     cfg = LlamaConfig.preset("debug")
-    tree = _port(tl.init_params(cfg, 0, device="cpu"), param_specs(cfg))
-    with pytest.raises(ValueError, match=r"3 rows.*'dp': 2"):
-        generate(tree, cfg, torch.tensor([[1, 2]] * 3), 2)
-    with pytest.raises(ValueError, match=r"3 rows.*'dp': 2"):
-        SlotServer(tree, cfg, n_slots=3, max_len=16)
-    rolling = LlamaConfig.preset("debug", sliding_window=8)
-    with pytest.raises(NotImplementedError, match="rolling"):
-        SlotServer(tree, rolling, n_slots=2, max_len=16)
-    specs = param_specs(cfg)
+    tree = _port(_torch(jp), param_specs(cfg))
+    jtree = _jax(jp, jax_param_specs(jcfg))
+    three = [[1, 2], [3, 4], [5, 6]]
+    want = np.asarray(jax_generate(jtree, jcfg, jnp.asarray(three,
+                                                            jnp.int32), 4))
+    np.testing.assert_array_equal(
+        generate(tree, cfg, torch.tensor(three), 4).numpy(), want)
+    srv = SlotServer(tree, cfg, n_slots=3, max_len=16)
+    assert srv.cache["k"].rows == [(0, 2), (0, 2), (2, 3), (2, 3)]
+    rids = [srv.submit(p, 4) for p in three]
+    done = srv.run()
+    for rid, row in zip(rids, want):
+        np.testing.assert_array_equal(done[rid], row[2:])
+    rcfg = LlamaConfig.preset("debug", sliding_window=4)
+    jrcfg = JaxConfig.preset("debug", sliding_window=4)
+    srv = SlotServer(tree, rcfg, n_slots=2, max_len=16)
+    rids = [srv.submit(p, 7) for p in three]
+    done = srv.run()
+    want = np.asarray(jax_generate(jtree, jrcfg, jnp.asarray(three,
+                                                             jnp.int32), 7))
+    for rid, row in zip(rids, want):
+        np.testing.assert_array_equal(done[rid], row[2:])
+    specs, jspecs = param_specs(cfg), jax_param_specs(jcfg)
     specs["embed"] = type(specs["embed"])("dp", None)
-    split = _port(tl.init_params(cfg, 0, device="cpu"), specs)
-    with pytest.raises(NotImplementedError, match="data axes"):
-        generate(split, cfg, torch.tensor(SERVE_PROMPT), 2)
+    jspecs["embed"] = type(jspecs["embed"])("dp", None)
+    split = _port(_torch(jp), specs)
+    want = jax_generate(_jax(jp, jspecs), jcfg,
+                        jnp.asarray(SERVE_PROMPT, jnp.int32), 4)
+    np.testing.assert_array_equal(
+        generate(split, cfg, torch.tensor(SERVE_PROMPT), 4).numpy(),
+        np.asarray(want))
 
 
 def test_head_split_rows_route_a_slot_to_its_group():

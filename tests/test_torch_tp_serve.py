@@ -128,19 +128,33 @@ def test_speculative_tp_matches_jax(kv_quant):
 
 
 def test_tp_serving_refuses_other_meshes():
-    """Serving takes a tree over tp and the data axes (dp, fsdp); a tree
-    with another axis above 1 ("sp") is refused naming ROADMAP.md, and a
-    cache whose rows the data axes do not divide is refused naming the
-    shapes."""
+    """Serving takes a tree over every mesh the JAX package serves: over
+    ``{"sp": 2, "tp": 2}`` (no leaf split over sp: sp cuts the rows as a
+    data axis) ``generate()`` gives JAX's tokens over the same mesh, and a
+    cache of one row over dp = 2 holds it in the first data group."""
+    from jax.sharding import NamedSharding
+
+    from starway_tpu.models import param_specs as jax_param_specs
+    from starway_tpu.parallel import make_mesh as jax_mesh
+
+    jcfg = JaxConfig.preset("debug")
+    jp = jax_init_params(jax.random.PRNGKey(3), jcfg)
     cfg = LlamaConfig.preset("debug")
-    params = tl.init_params(cfg, 0, device="cpu")
-    sp = shard_tree(params, make_mesh({"sp": 2, "tp": 2}, device="cpu"),
+    shape = {"sp": 2, "tp": 2}
+    sp = shard_tree(_torch(jp), make_mesh(shape, device="cpu"),
                     param_specs(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 2, 8, device="cpu", params=sp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate(sp, cfg, torch.tensor([[1, 2]]), 2)
-    sh = shard_tree(params, make_mesh({"dp": 2, "tp": 2}, device="cpu"),
+    jmesh = jax_mesh(shape)
+    jsp = jax.tree_util.tree_map(
+        lambda x, s: jax.device_put(x, NamedSharding(jmesh, s)), jp,
+        jax_param_specs(jcfg))
+    prompt = [[1, 2, 3], [4, 5, 6]]
+    want = jax_generate(jsp, jcfg, jnp.asarray(prompt, jnp.int32), 4)
+    np.testing.assert_array_equal(
+        generate(sp, cfg, torch.tensor(prompt), 4).numpy(), np.asarray(want))
+    assert init_cache(cfg, 2, 8, device="cpu", params=sp)["k"].rows == [
+        (0, 1), (0, 1), (1, 2), (1, 2)]
+    sh = shard_tree(_torch(jp), make_mesh({"dp": 2, "tp": 2}, device="cpu"),
                     param_specs(cfg))
-    with pytest.raises(ValueError, match=r"1 rows.*'dp': 2"):
-        init_cache(cfg, 1, 8, device="cpu", params=sh)
+    k = init_cache(cfg, 1, 8, device="cpu", params=sh)["k"]
+    assert k.rows == [(0, 1), (0, 1), (1, 1), (1, 1)]
+    assert k.shape == (cfg.n_layers, 1, cfg.n_kv_heads, 8, cfg.head_dim)

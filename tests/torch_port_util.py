@@ -644,21 +644,58 @@ def load_tree(path: str) -> dict:
     return out
 
 
-def serve_runs(shape: dict, folder: str, group=None) -> dict:
+#: The prefix of the paged runs of :func:`serve_runs`: whole pages of 16
+#: and a tail page that the prefixed requests' suffixes continue.
+SERVE_PREFIX = [7, 3, 9, 1, 4, 4, 2, 8, 6, 5, 3, 1, 7, 2, 9, 8, 5, 1]
+
+
+def serve_runs(shape: dict, folder: str, group=None,
+               paged: bool = False, fsdp: bool = False) -> dict:
     """The serving stack over a tree sharded by ``param_specs`` on a mesh
     of ``shape`` (debug widths, float32, the weights of
     ``folder/params.npz``), ``group`` holding the slots (None: this
     process holds them all): the tokens of ``SlotServer`` on
-    :data:`SERVE_REQS` and of ``generate()`` on :data:`SERVE_PROMPT`."""
-    from starway_tpu_torch.models import (LlamaConfig, SlotServer, generate,
-                                          param_specs)
-    from starway_tpu_torch.parallel import make_mesh, shard_tree
+    :data:`SERVE_REQS` and of ``generate()`` on :data:`SERVE_PROMPT`.
+    ``paged``: the ``PagedSlotServer``'s tokens instead (page 16, every
+    other request continuing :data:`SERVE_PREFIX`) and its pages in use
+    after every step.  ``fsdp``: the tree of ``fsdp_specs`` instead (both
+    servers' tokens, ``SlotServer`` under ``server/``, the paged one,
+    page 16, under ``paged/``)."""
+    from starway_tpu_torch.models import (LlamaConfig, PagedSlotServer,
+                                          SlotServer, generate, param_specs)
+    from starway_tpu_torch.parallel import fsdp_specs, make_mesh, shard_tree
 
     cfg = LlamaConfig.preset("debug")
     params = params_from_numpy(load_tree(f"{folder}/params.npz"),
                                device="cpu")
     mesh = make_mesh(shape, device="cpu", group=group)
+    if fsdp:
+        tree = shard_tree(params, mesh, fsdp_specs(params, mesh))
+        out = {}
+        for name, cls, kw in (("server", SlotServer, {}),
+                              ("paged", PagedSlotServer, dict(page=16))):
+            srv = cls(tree, cfg, n_slots=2, max_len=32, chunk=4, **kw)
+            rids = [srv.submit(p, m) for p, m in SERVE_REQS]
+            done = srv.run()
+            out.update({f"{name}/{i}": done[rid]
+                        for i, rid in enumerate(rids)})
+        out["generate"] = generate(tree, cfg, torch.tensor(SERVE_PROMPT),
+                                   6).numpy()
+        return out
     tree = shard_tree(params, mesh, param_specs(cfg))
+    if paged:
+        srv = PagedSlotServer(tree, cfg, n_slots=2, max_len=64, chunk=4,
+                              page=16)
+        pid = srv.register_prefix(SERVE_PREFIX)
+        rids = [srv.submit(p, m, prefix=pid if i % 2 else None)
+                for i, (p, m) in enumerate(SERVE_REQS)]
+        done, pages = {}, []
+        while srv.busy:
+            done.update(srv.step())
+            pages.append(srv.pages_in_use)
+        out = {f"server/{i}": done[rid] for i, rid in enumerate(rids)}
+        out["pages"] = np.asarray(pages)
+        return out
     srv = SlotServer(tree, cfg, n_slots=2, max_len=32, chunk=4)
     rids = [srv.submit(p, m) for p, m in SERVE_REQS]
     done = srv.run()
@@ -669,9 +706,14 @@ def serve_runs(shape: dict, folder: str, group=None) -> dict:
 
 
 def serve_worker(rank: int, world: int, port: int, folder: str,
-                 shape: str) -> None:
+                 shape: str, kind: str = "dense") -> None:
     """One process of a gloo run of :func:`serve_runs` (``shape`` as
-    ``"dp=2,tp=2"``), written to ``out<rank>.npz`` in ``folder``."""
+    ``"dp=2,tp=2"``; ``kind`` "dense", "paged" or "fsdp"), written to
+    ``out<rank>.npz`` in ``folder``.  A paged run also records what a
+    serving tree over ``{"tp": 2, "dp": 2}`` raises, whose data groups'
+    slots sit in both processes; an fsdp run what one row over its two
+    data groups raises in ``generate()`` and ``SlotServer``, whose
+    leaves are gathered across the processes."""
     import torch.distributed as dist
 
     mesh_shape = {k: int(v) for k, v in
@@ -679,8 +721,47 @@ def serve_worker(rank: int, world: int, port: int, folder: str,
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
     try:
-        np.savez(f"{folder}/out{rank}.npz",
-                 **serve_runs(mesh_shape, folder, dist.group.WORLD))
+        out = serve_runs(mesh_shape, folder, dist.group.WORLD,
+                         paged=kind == "paged", fsdp=kind == "fsdp")
+        if kind == "paged":
+            from starway_tpu_torch.models import (LlamaConfig, SlotServer,
+                                                  param_specs)
+            from starway_tpu_torch.parallel import make_mesh, shard_tree
+
+            cfg = LlamaConfig.preset("debug")
+            params = params_from_numpy(load_tree(f"{folder}/params.npz"),
+                                       device="cpu")
+            mesh = make_mesh({"tp": 2, "dp": 2}, device="cpu",
+                             group=dist.group.WORLD)
+            try:
+                SlotServer(shard_tree(params, mesh, param_specs(cfg)), cfg,
+                           n_slots=2, max_len=32)
+                out["refused"] = np.asarray("")
+            except NotImplementedError as e:
+                out["refused"] = np.asarray(str(e))
+        if kind == "fsdp":
+            from starway_tpu_torch.models import (LlamaConfig, SlotServer,
+                                                  generate)
+            from starway_tpu_torch.parallel import (fsdp_specs, make_mesh,
+                                                    shard_tree)
+
+            cfg = LlamaConfig.preset("debug")
+            params = params_from_numpy(load_tree(f"{folder}/params.npz"),
+                                       device="cpu")
+            mesh = make_mesh(mesh_shape, device="cpu",
+                             group=dist.group.WORLD)
+            tree = shard_tree(params, mesh, fsdp_specs(params, mesh))
+            for name, fn in (
+                    ("generate", lambda: generate(
+                        tree, cfg, torch.tensor(SERVE_PROMPT[:1]), 2)),
+                    ("server", lambda: SlotServer(tree, cfg, n_slots=1,
+                                                  max_len=32))):
+                try:
+                    fn()
+                    out[f"refused/{name}"] = np.asarray("")
+                except NotImplementedError as e:
+                    out[f"refused/{name}"] = np.asarray(str(e))
+        np.savez(f"{folder}/out{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
 
