@@ -274,11 +274,18 @@ Phases, each of which raises on failure:
               float32 at 2 layers: greedy tokens equal to the unsharded
               generate() over dp x ep x tp, dp x tp x sp, fsdp = 4 (the
               fsdp_specs tree, paged) and 3 slots over dp x tp
-30. a JSON line of the kernels with their launches on the serving paths
+30. bench-twins -- the twins of scripts/kernel_bench.py and
+              collect_baseline.py on cuda:0, each in a process of its
+              own: the nine kernels against their plain versions
+              (--which check), the bench's matmul, flash_window and
+              spec_verify rows at 3 iterations, and the five baseline
+              configurations at --quick sizes; each process's wall
+              seconds
+31. a JSON line of the kernels with their launches on the serving paths
    (phases 4-7, 18-21, 24, 26 and 29), the training paths (phases 11, 13,
    16, 22, 23 and 25) and the in-process twins of examples/ (phase 28),
    phases 18-26, 28 and 29 also apart, and the numbers of phase 3
-31. the last line: {"ok": true, "device": {...}}
+32. the last line: {"ok": true, "device": {...}}
 
 Exits non-zero, printing no result, without a CUDA device.  Imports
 nothing of JAX.
@@ -6099,6 +6106,74 @@ def phase_gate(card: str) -> dict:
                 native=str(so.relative_to(root)), build_s=build_s)
 
 
+# ---------------------------------------------------------------- bench twins
+
+# The kernel bench's rows that phase 3 does not time, at short iteration
+# counts, and the seconds each twin's process may take.
+BENCH_TWIN_ROWS = ("matmul", "flash_window", "spec_verify")
+BENCH_TWIN_ITERS = 3
+BENCH_TWIN_TIMEOUT = 120
+
+
+def phase_bench_twins(card: str) -> dict:
+    """Phase 30: the twins of scripts/kernel_bench.py and
+    scripts/collect_baseline.py on cuda:0, each in a process of its own
+    (the kernels are already built): the nine kernels against their plain
+    versions (``--which check``, phase 3's tolerances), the bench's rows
+    that phase 3 does not time (:data:`BENCH_TWIN_ROWS`) at
+    :data:`BENCH_TWIN_ITERS` iterations, and the five baseline
+    configurations at ``--quick`` sizes.  Fails if a twin exits with
+    another code than 0, a check row is out of its tolerance or a row is
+    an error.  Returns the rows and each process's wall seconds."""
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("STARWAY_BENCH_REHEARSAL", "REHEARSAL",
+                        "STARWAY_BENCH_CPU")}
+
+    def twin(script, *args):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, str(root / "scripts" / "torch" / script), *args],
+            cwd=root, capture_output=True, text=True, env=env,
+            timeout=BENCH_TWIN_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"{script} {' '.join(args)}: exit "
+                                 f"{r.returncode}\n{r.stdout[-3000:]}\n"
+                                 f"{r.stderr[-3000:]}")
+        rows = [json.loads(line) for line in r.stdout.splitlines()
+                if line.startswith("{")]
+        return rows, wall
+
+    check, wall_check = twin("kernel_bench.py", "--which", "check")
+    for row in check:
+        log(f"[bench-twins] {row['detail']}: {row['metric']} "
+            f"{row['value']:.3e} (tol {row['tol']}) ok={row['ok']}")
+    if len(check) != 9 or not all(row["ok"] for row in check):
+        raise AssertionError(f"kernel_bench --which check: {check}")
+    rows, wall_rows = twin("kernel_bench.py", "--which",
+                           ",".join(BENCH_TWIN_ROWS), "--iters",
+                           str(BENCH_TWIN_ITERS))
+    for row in rows:
+        log(f"[bench-twins] {row}")
+    if (len(rows) != len(BENCH_TWIN_ROWS)
+            or any("error" in row for row in rows)):
+        raise AssertionError(f"kernel_bench rows: {rows}")
+    base, wall_base = twin("collect_baseline.py", "--quick", "--json")
+    configs = base[-1]["configs"] if base else {}
+    for name, val in configs.items():
+        log(f"[bench-twins] {name}: {val}")
+    if len(configs) != 5:
+        raise AssertionError(f"collect_baseline --quick: {base}")
+    wall = dict(check=wall_check, rows=wall_rows, baseline=wall_base)
+    log(f"[bench-twins] wall s a process ({card}): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+    return dict(check=check, rows=rows, baseline=configs, wall_s=wall)
+
+
 # ---------------------------------------------------------------- pipeline
 
 PP_PRESET, PP_LAYERS = "llama3-8b", 8   # 1.75 G layer parameters, bf16
@@ -6982,6 +7057,15 @@ def main() -> int:
     t_ms = time.perf_counter() - t29
     log(f"[mesh-serve] phase 29 took {t_ms:.1f} s")
 
+    # 30: the twins of the kernel bench and the baseline collector, each
+    # in a process of its own (their launches are not the main path's).
+    gc.collect()
+    torch.cuda.empty_cache()
+    t30 = time.perf_counter()
+    st_bt = phase_bench_twins(card)
+    t_bt = time.perf_counter() - t30
+    log(f"[bench-twins] phase 30 took {t_bt:.1f} s")
+
     regs = finish_ptxas_report(ptxas)
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
     rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
@@ -7006,7 +7090,7 @@ def main() -> int:
             label: traced[label].get("attention_device_ms")
             for label in labels}
 
-    # 30. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
+    # 31. kernels line: launches are the serving paths' (phases 4, 5, 6, 7,
     # 18, 19, 20, 21, 24, 26 and 29) and the training paths' (phases 11,
     # 13, 16, 22, 23 and 25, 16 the DP ranks' own counts on both engines)
     # and the in-process twins of examples/ (phase 28), each counted from
@@ -7211,10 +7295,16 @@ def main() -> int:
                                                     "PagedSlotServer")
                           if label in st))
     log(f"[summary] mesh-serve ({card}): phase 29 {t_ms:.1f} s; launches "
-        f"{c29}; script total {time.perf_counter() - t_start:.1f} s")
+        f"{c29}")
+    log(f"[summary] bench-twins ({card}): phase 30 {t_bt:.1f} s; check "
+        + ", ".join(f"{r['detail'].split()[0]} {r['value']:.3e}"
+                    for r in st_bt["check"])
+        + "; " + "; ".join(f"{r['metric']} {r['value']} {r['unit']}"
+                           for r in st_bt["rows"])
+        + f"; script total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    # 31. last line
+    # 32. last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -346,7 +346,9 @@ def prefill_rolling(params: dict, cfg: LlamaConfig, prompt, *,
                                                 chunk=chunk, widths=widths)
             return logits
 
-        logits = groups.run(B, one, (cfg.vocab_size,))
+        bodies = len(rolling_plan(P, W, chunk, widths))
+        logits = groups.run(B, one, (cfg.vocab_size,),
+                            lambda view: groups.post_gathers(view, bodies))
         return logits, groups.join_cache(caches, B)
     cos, sin = cfg_rope_tables(cfg, P, device=dev)
     cache = init_rolling_cache(cfg, B, device=dev, params=params)

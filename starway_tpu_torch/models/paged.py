@@ -49,7 +49,7 @@ from ..ops.paged import paged_decode_attention
 from .generate import _sample, cached_layer_scan
 from .llama import LlamaConfig, embed_tokens, final_logits
 from .serving import SlotServer, _bucket
-from .sharded import data_groups, per_part, tree_mesh
+from .sharded import HeadSplit, data_groups, per_part, tree_mesh
 
 
 def init_paged_pool(cfg: LlamaConfig, n_pages: int, page: int,
@@ -199,14 +199,6 @@ class PagedSlotServer(SlotServer):
         return init_paged_pool(self.cfg, self.n_pages, self.page,
                                device=self.device, params=self.params)
 
-    def _pools(self) -> list:
-        """``(params, pool)`` of every local data group (its view and pool
-        parts), or the server's own: where admission writes."""
-        if self._groups is None:
-            return [(self.params, self.cache)]
-        return [(self._groups.views[g], self._groups.cache_of(self.cache, g))
-                for g in self._groups.local]
-
     def _post_init(self) -> None:
         # Host allocator: every slot starts on the trash page.
         self._tables = np.zeros((self.n_slots, self.max_pages), np.int32)
@@ -298,20 +290,30 @@ class PagedSlotServer(SlotServer):
 
     def _file_pages(self, small: dict, pids: list, n: int) -> dict:
         """Scatter the first ``n`` pages of a prefill cache ``[L, 1, Hkv,
-        bucket, D]`` into pool pages ``pids`` (of every local group);
+        bucket, D]`` into pool pages ``pids`` (of every local group, each
+        slot's part from the part at its view index: ``DataGroups.spread``);
         returns every page of it as ``[L, bucket / page, Hkv, page, D]``
-        views."""
+        views (over data groups, one at each view index)."""
         def pages(t):
             L, _, hkv, width, d = t.shape
             return t.reshape(L, hkv, width // self.page, self.page,
                              d).transpose(1, 2)
 
-        paged = {name: per_part(pages, small[name]) for name in self.cache}
-        if n:
-            ids = torch.tensor(pids[:n], device=self.device)
-            for _params, pool in self._pools():
-                for name, c in pool.items():
+        groups = self._groups
+        ids = torch.tensor(pids[:n], device=self.device)
+        if groups is None:
+            paged = {name: per_part(pages, small[name]) for name in self.cache}
+            for name, c in self.cache.items():
+                if n:
                     c[:, ids] = per_part(lambda t: t[:, :n], paged[name])
+            return paged
+        paged = {name: {k: pages(t) for k, t in small[name].items()}
+                 for name in self.cache}
+        for g in groups.local:
+            for j, k in groups.members[g]:
+                for name, c in self.cache.items():
+                    if n:
+                        c.parts[j][:, ids] = paged[name][k][:, :n]
         return paged
 
     # --------------------------------------------------------- admission
@@ -327,8 +329,12 @@ class PagedSlotServer(SlotServer):
         _logits, small = self._prefill_bucket(
             tokens, _bucket(plen, self.buckets))
         paged = self._file_pages(small, pids, n_full)
-        tails = {name: (per_part(lambda t: t[:, n_full].clone(), p)
-                        if plen % self.page else None)
+        def tail(t):
+            return t[:, n_full].clone()
+
+        tails = {name: (None if not plen % self.page else
+                        per_part(tail, p) if self._groups is None else
+                        {k: tail(t) for k, t in p.items()})
                  for name, p in paged.items()}
         self._commit(n_full)
         for p in pids:
@@ -382,16 +388,29 @@ class PagedSlotServer(SlotServer):
         (_shared, tail_k, tail_v), plen = self._prefixes[prefix]
         table = torch.from_numpy(row[None]).to(self.device)
         tokens = self._padded(suffix, _bucket(len(suffix), self.buckets))
-        out = None
-        for params, pool in self._pools():
+        own0 = int(row[plen // self.page])
+        groups = self._groups
+
+        def ingest(params, pool, tails):
             if tail_k is not None:
-                own0 = int(row[plen // self.page])
-                pool["k"][:, own0] = tail_k
-                pool["v"][:, own0] = tail_v
-            logits, _ = paged_chunk_step(params, pool, table, tokens, plen,
-                                         self.cfg, self.rope)
-            out = logits[:, len(suffix) - 1] if out is None else out
-        return out
+                pool["k"][:, own0], pool["v"][:, own0] = tails
+            return paged_chunk_step(params, pool, table, tokens, plen,
+                                    self.cfg, self.rope)[0]
+
+        if groups is None:
+            logits = ingest(self.params, self.cache, (tail_k, tail_v))
+        else:
+            # Every group's pool takes the suffix's pages, each slot's part
+            # the tail at its view index.
+            def tails_of(g):
+                return tuple(None if t is None else HeadSplit(
+                    [t[k] for _, k in groups.members[g]], 2)
+                    for t in (tail_k, tail_v))
+
+            outs = groups.each(range(groups.size), lambda view, g: ingest(
+                view, groups.cache_of(self.cache, g), tails_of(g)))
+            logits = outs[min(outs)]
+        return logits[:, len(suffix) - 1]
 
     # ------------------------------------------------------------ decode
     def _run_chunk(self):

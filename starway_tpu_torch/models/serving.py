@@ -40,7 +40,11 @@ dropless (``moe_capacity_factor >= n_experts``, models/moe.py
 ``require_dropless``): slots that share a decode step share its expert
 capacity.  The server takes any sharded serving tree (models/sharded.py:
 the rows cut over the data axes, each slot's kv heads, each slot's
-experts over ``"ep"``).  Subclasses (the paged server, models/paged.py)
+experts over ``"ep"``): a data group's slots may sit in several
+processes; admission prefills on the groups of ``DataGroups.cover``,
+which give each process a part at each of its slots' view indices, and
+files the rows into the slot's group.  Subclasses (the paged server,
+models/paged.py)
 replace the cache through the hooks
 ``_make_cache``, ``_post_init``, ``_on_slot_freed``, ``_decode_one``,
 ``_admit_plain``, ``_admit_prefixed``, ``_admissible`` and
@@ -56,7 +60,7 @@ import numpy as np
 import torch
 
 from .generate import (_sample, decode_step, init_cache, init_rolling_cache,
-                       prefill, prefill_rolling)
+                       prefill, prefill_rolling, rolling_plan)
 from .llama import (LlamaConfig, cfg_rope_tables, params_device,
                     resolve_longrope)
 from .moe import require_dropless
@@ -191,15 +195,11 @@ class SlotServer:
 
         dev = self.device
         # Admission prefills one request: over a tree with data axes it
-        # runs on one data group's slots (the groups' views share the
-        # model's shards) and its rows are filed into the slot's group.
+        # runs on the groups of DataGroups.cover (the groups' views share
+        # the model's shards) and its rows are filed into the slot's group.
         from .sharded import data_groups
 
         self._groups = data_groups(params, cfg)
-        if self._groups is not None:
-            self._groups.check_rows(n_slots)
-        self._admit_params = (params if self._groups is None else
-                              self._groups.views[self._groups.local[0]])
         self.cache = self._make_cache()
         self.token = torch.zeros(n_slots, dtype=torch.long, device=dev)
         self.pos = torch.zeros(n_slots, dtype=torch.int32, device=dev)
@@ -252,13 +252,28 @@ class SlotServer:
         padded[0, :len(tokens)] = torch.from_numpy(tokens)
         return padded.to(self.device)
 
+    def _on_cover(self, fn, bodies: int = 1):
+        """``fn(params) -> (logits, cache)`` of one request over the tree;
+        over data groups, on the groups of ``DataGroups.cover``, whose
+        caches come back as one part at each view index of this process's
+        slots (``DataGroups.spread``; ``bodies`` the passes of ``fn``, for
+        the gathers of a process that runs no group in a round)."""
+        groups = self._groups
+        if groups is None:
+            return fn(self.params)
+        outs = groups.each(groups.cover(), lambda view, g: fn(view),
+                           lambda view: groups.post_gathers(view, bodies))
+        return (outs[min(outs)][0],
+                groups.spread({g: c for g, (_, c) in outs.items()}))
+
     def _prefill_bucket(self, tokens: np.ndarray, width: int):
         """Prefill ``tokens`` padded to ``width``: ``(logits [1, V] at the
-        last real token, cache [L, 1, Hkv, width, ...])``."""
+        last real token, cache [L, 1, Hkv, width, ...])`` (over data
+        groups, the cache as :meth:`_on_cover` gives it)."""
         last = torch.tensor([len(tokens) - 1], device=self.device)
-        return prefill(self._admit_params, self.cfg,
-                       self._padded(tokens, width), width,
-                       logit_positions=last)
+        padded = self._padded(tokens, width)
+        return self._on_cover(lambda p: prefill(
+            p, self.cfg, padded, width, logit_positions=last))
 
     def _check_prefix_tokens(self, tokens) -> np.ndarray:
         if self.rolling:
@@ -355,11 +370,16 @@ class SlotServer:
     def _admit_plain(self, slot: int, prompt: np.ndarray):
         """Prefill ``prompt`` into ``slot``; returns its first token."""
         if self.rolling:
-            logits, small = _rolling_prefill_state(self._admit_params,
-                                                   self.cfg, prompt)
+            chunks = len(rolling_plan(len(prompt), self.cfg.sliding_window,
+                                      widths=ROLLING_ADMIT_WIDTHS))
+            logits, small = self._on_cover(lambda p: _rolling_prefill_state(
+                p, self.cfg, prompt), chunks)
         else:
             logits, small = self._prefill_bucket(
                 prompt, _bucket(len(prompt), self.buckets))
+        if self._groups is not None:
+            self._groups.fill(self.cache, small, self.n_slots, slot)
+            return _sample(logits, self.generator, *self.sampling)[0]
         return _write_slot_and_sample(self.cache, small, logits, slot,
                                       self.generator, *self.sampling)
 
@@ -372,15 +392,35 @@ class SlotServer:
         from .speculative import chunk_decode_step
 
         small, plen = self._prefixes[prefix]
-        rows = {name: t[:, slot:slot + 1] for name, t in self.cache.items()}
-        for name, row in rows.items():
-            row[:, :, :, :plen] = small[name][:, :, :, :plen]
         # Suffix columns past its length are junk at positions above the
         # cursor: masked out of every real token's attention and
         # overwritten by decode before the cursor reaches them.
         tokens = self._padded(suffix, _bucket(len(suffix), self.buckets))
-        logits, _ = chunk_decode_step(self._admit_params, rows, tokens, plen,
-                                      self.cfg, self.rope)
+        groups = self._groups
+        if groups is None:
+            rows = {name: t[:, slot:slot + 1]
+                    for name, t in self.cache.items()}
+            for name, row in rows.items():
+                row[:, :, :, :plen] = small[name][:, :, :, :plen]
+            logits, _ = chunk_decode_step(self.params, rows, tokens, plen,
+                                          self.cfg, self.rope)
+        else:
+            # The slot's own group ingests into its rows; every process
+            # receives the logits.
+            groups.fill(self.cache, small, self.n_slots, slot, plen)
+            g = groups.group_rows(self.n_slots, slot)
+            blocks = [(0, 0)] * groups.size
+            blocks[g] = (0, 1)
+            lo = groups.rows(self.n_slots, g).start
+
+            def ingest(view, g, _rows):
+                rows = {name: t[:, slot - lo:slot - lo + 1] for name, t in
+                        groups.cache_of(self.cache, g).items()}
+                return chunk_decode_step(view, rows, tokens, plen, self.cfg,
+                                         self.rope)[0]
+
+            logits = groups.run(1, ingest, tuple(tokens.shape[1:])
+                                + (self.cfg.vocab_size,), blocks=blocks)
         return _sample(logits[:, len(suffix) - 1], self.generator,
                        *self.sampling)[0]
 

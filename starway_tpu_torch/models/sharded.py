@@ -61,10 +61,13 @@ decode and paged kernels run at the slot's head count, and over ``"ep"``
 each slot runs its own experts (models/moe.py ``make_expert_view``: no
 expert leaf is gathered).  Every process runs the same loop on the same
 requests, and the logits of the rows are gathered over the data axes, so
-every process samples the same tokens.  A data group whose slots sit in
-several processes is refused (ROADMAP.md), and so is a batch with fewer
-rows than data groups where a leaf split over a data axis is gathered
-across processes: the group with no rows would miss the gathers.
+every process samples the same tokens.  A data group's slots may sit in
+several processes: its view is then a mesh across them, and the groups
+run in rounds in which every process that holds a group's slots runs it.
+Where a leaf split over a data axis is gathered across processes, a
+process with no rows in a round (a batch with fewer rows than data
+groups, or a round none of its groups runs in) posts the gathers of the
+groups that run and computes nothing.
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ from typing import Optional
 import torch
 
 from ..ops import collectives as col
-from ..parallel.sharding import Mesh, join_blocks, local_shards
+from ..parallel.sharding import AxisSlice, Mesh, join_blocks, local_shards
 from ..reshard.api import ShardedTensor, SlotSharding
 from .llama import matmul_w, moe_ffn, rmsnorm
 
@@ -361,23 +364,41 @@ class SlotTree:
                                     device=h.device) for h in out]
         return out
 
-    def head(self, hs: list, cfg) -> list:
-        """Final norm and ``lm_head``: each slot's float32 logits (a
-        vocab-split head gathered over its kept axes)."""
-        w_leaf = (self.leaves.get(("lm_head",))
-                  or self.leaves[("lm_head", "q")])
+    def _head_weights(self) -> tuple:
+        """Each local slot's ``lm_head`` (a W8A16 ``{"q", "s"}`` pair) and
+        final norm, gathered in this order."""
         if ("lm_head",) in self.leaves:
             ws = self._values("lm_head")
         else:
             ws = [{"q": q, "s": s} for q, s in
                   zip(self._values("lm_head", "q"),
                       self._values("lm_head", "s"))]
+        return ws, self._values("final_norm")
+
+    def head(self, hs: list, cfg) -> list:
+        """Final norm and ``lm_head``: each slot's float32 logits (a
+        vocab-split head gathered over its kept axes)."""
+        w_leaf = (self.leaves.get(("lm_head",))
+                  or self.leaves[("lm_head", "q")])
+        ws, norms = self._head_weights()
         out = [matmul_w(rmsnorm(h, n, cfg.norm_eps), w).float()
-               for h, n, w in zip(hs, self._values("final_norm"), ws)]
+               for h, n, w in zip(hs, norms, ws)]
         for a in reversed(_kept(w_leaf.spec, len(w_leaf.spec) - 1,
                                 self.keep)):
             out = col.all_gather(out, self.mesh, a, -1)
         return out
+
+    def post_gathers(self, n_layers: int, bodies: int = 1) -> None:
+        """Gather every leaf as ``bodies`` passes of the decode paths over
+        ``n_layers`` layers and one head would (the embedding, each
+        layer's leaves, ``lm_head`` and the final norm), computing nothing:
+        a process with no rows joins the gathers that the data groups with
+        rows wait in (:meth:`DataGroups.each`)."""
+        for _ in range(bodies):
+            self._values("embed")
+            for i in range(n_layers):
+                self.layer(i)
+        self._head_weights()
 
     # ---------------------------------------------------- the batch
 
@@ -562,39 +583,49 @@ class DataGroups:
     """The data groups of a serving tree: the slots at one coordinate of
     its data axes (:func:`serving_axes`), which hold one block of the
     batch rows (row-major over the data axes, in the blocks of
-    :func:`row_blocks`).  Each group this process holds has a view of the
-    tree (``views[g]``: the tree over the group's slots, on a mesh of the
-    model's axes, sharing the shards' storage; a leaf split over a data
-    axis is a :class:`_GroupLeaf`, gathered a layer at a time).  A
-    group's slots are held by one process.
+    :func:`row_blocks`).  Each group this process holds slots of has a
+    view of the tree (``views[g]``: the tree over the group's slots, on
+    the mesh of the model's axes at the group's data coordinates,
+    parallel/sharding.py ``AxisSlice``, sharing this process's shards; a
+    leaf split over a data axis is a :class:`_GroupLeaf`, gathered a
+    layer at a time).  A group's slots may sit in several processes, a
+    process holding any number of them: the group's collectives then run
+    across those processes, as the tree's do.
 
-    Every group runs every row where ``cfg`` routes a MoE over the whole
-    batch (:func:`routes_whole_batch`).  Where a leaf split over a data
-    axis is gathered across processes, every group must join every
-    gather, so a batch that leaves a group no rows is refused
-    (:meth:`check_rows`)."""
+    The groups run in rounds (:meth:`each`): all the processes that hold
+    a group's slots run it in the same round, and no process runs two
+    groups in one round, so the hops of a group that spans processes
+    meet.  Where a leaf split over a data axis is gathered across
+    processes (``gathers_across``), each gather spans the whole mesh, so
+    a process that runs no group in a round (its groups' blocks of the
+    batch are empty, or none of them runs in that round) posts the
+    gathers of one group's run instead (:meth:`SlotTree.post_gathers`)
+    and computes nothing.  Every group runs every row where ``cfg``
+    routes a MoE over the whole batch (:func:`routes_whole_batch`)."""
 
     def __init__(self, params: dict, mesh, axes: tuple, cfg=None):
-        self.mesh, self.axes = mesh, axes
+        self.mesh, self.axes, self.cfg = mesh, axes, cfg
         self.size = math.prod(mesh.shape[a] for a in axes)
         self.every_row = routes_whole_batch(cfg)
         self.group_of = [_group_of(mesh, axes, i) for i in range(mesh.size)]
+        self.slots_of = [[] for _ in range(self.size)]
+        for i in range(mesh.size):
+            self.slots_of[self.group_of[i]].append(i)
+        # The processes (ranks of the mesh's group) that hold each group.
+        self.holders = [frozenset(mesh.slots[i].rank for i in slots)
+                        for slots in self.slots_of]
         local = list(mesh.local_slots)
         self.local = sorted({self.group_of[i] for i in local})
-        self.sub = Mesh({a: n for a, n in mesh.shape.items() if a not in axes},
-                        mesh.device)
-        self.members = {}  # g -> [(local part index, parent slot index)]
+        # g -> [(local part index, the slot's index in the group's view)]
+        self.members = {g: [(local.index(i), k)
+                            for k, i in enumerate(self.slots_of[g])
+                            if i in mesh.local_slots] for g in self.local}
+        self.views = {}
         for g in self.local:
-            slots = [i for i in range(mesh.size) if self.group_of[i] == g]
-            if any(i not in mesh.local_slots for i in slots):
-                raise NotImplementedError(
-                    f"serving over {mesh.shape} on {mesh.world} processes: "
-                    f"a data group's slots must be held by one process "
-                    f"(ROADMAP.md, Queue 1)")
-            self.members[g] = [(local.index(i), i) for i in slots]
-        self.views = {g: _group_view(params, mesh, self.sub,
-                                     [i for _, i in self.members[g]],
-                                     axes) for g in self.local}
+            first = mesh.slot_coords(self.slots_of[g][0])
+            sub = AxisSlice(mesh, tuple(axes), tuple(first[a] for a in axes))
+            self.views[g] = _group_view(params, mesh, sub, self.slots_of[g],
+                                        axes)
         self.gathers_across = mesh.world > 1 and any(
             isinstance(leaf, _GroupLeaf) for v in self.views.values()
             for leaf in _walk(v))
@@ -603,19 +634,95 @@ class DataGroups:
         """``(lo, hi)`` of each group's rows of a batch of ``batch``."""
         return row_blocks(batch, self.size, self.every_row)
 
-    def check_rows(self, batch: int) -> None:
-        """Refuse a batch of ``batch`` rows that leaves a group none while
-        the groups' leaves are gathered across processes: that group
-        would skip the gathers the others wait in."""
-        if self.gathers_across and not self.every_row and batch < self.size:
-            raise NotImplementedError(
-                f"{batch} row(s) over {self.size} data groups whose leaves "
-                f"are gathered across processes: a group with no rows "
-                f"would miss the gathers (ROADMAP.md, Queue 1)")
-
     def rows(self, batch: int, g: int) -> slice:
         """Group ``g``'s block of a batch of ``batch`` rows."""
         return slice(*self.blocks(batch)[g])
+
+    def group_rows(self, batch: int, row: int) -> int:
+        """The group whose block of a batch of ``batch`` rows holds
+        ``row`` (the first such, where every group runs every row)."""
+        return next(g for g, (lo, hi) in enumerate(self.blocks(batch))
+                    if lo <= row < hi)
+
+    def _rounds(self, groups) -> list:
+        """The groups of ``groups`` in rounds: each in the first round in
+        which none of its processes runs another group."""
+        rounds, busy = [], []
+        for g in groups:
+            r = next((r for r, b in enumerate(busy)
+                      if not b & self.holders[g]), len(rounds))
+            if r == len(rounds):
+                rounds.append([])
+                busy.append(frozenset())
+            rounds[r].append(g)
+            busy[r] |= self.holders[g]
+        return rounds
+
+    def post_gathers(self, view, bodies: int = 1) -> None:
+        """The gathers of one run of the decode paths (``bodies`` passes
+        of the embedding and the layers, one head) over ``view``."""
+        tree = SlotTree(view, moe_fn=serving_moe(view, self.cfg))
+        tree.post_gathers(self.cfg.n_layers, bodies)
+
+    def each(self, groups, fn, ghost=None) -> dict:
+        """``{g: fn(view, g)}`` of the groups of ``groups`` that this
+        process holds slots of, run in rounds (the class docstring);
+        where the leaves are gathered across processes, ``ghost(view)``
+        (default :meth:`post_gathers`) in each round this process runs no
+        group."""
+        out = {}
+        for round_groups in self._rounds(groups):
+            mine = [g for g in round_groups if g in self.members]
+            if mine:
+                out[mine[0]] = fn(self.views[mine[0]], mine[0])
+            elif self.gathers_across:
+                (ghost or self.post_gathers)(self.views[self.local[0]])
+        return out
+
+    def cover(self) -> list:
+        """Groups whose runs give every process a part at each view index
+        of its slots (the slots at one index of every group hold the same
+        shards of the replicated weights): the groups covering the most
+        (process, index) pairs not yet covered, first, until all are;
+        over one process, the first group."""
+        need = {(self.mesh.slots[i].rank, k)
+                for slots in self.slots_of for k, i in enumerate(slots)}
+        out = []
+        while need:
+            gain = [len(need & {(self.mesh.slots[i].rank, k)
+                                for k, i in enumerate(slots)})
+                    for slots in self.slots_of]
+            g = gain.index(max(gain))
+            out.append(g)
+            need -= {(self.mesh.slots[i].rank, k)
+                     for k, i in enumerate(self.slots_of[g])}
+        return sorted(out)
+
+    def spread(self, caches: dict) -> dict:
+        """``{name: {view index: part}}`` of the caches that the local
+        groups of :meth:`cover` made (``{g: cache}``)."""
+        out = {}
+        for g, cache in caches.items():
+            for p, (_j, k) in enumerate(self.members[g]):
+                for name, c in cache.items():
+                    out.setdefault(name, {}).setdefault(k, c.parts[p])
+        return out
+
+    def fill(self, cache: dict, parts: dict, batch: int, row: int,
+             width: Optional[int] = None) -> None:
+        """Copy one row's :meth:`spread` ``parts`` into row ``row`` of a
+        cache of ``batch`` rows (positions ``:width`` of dimension 3), in
+        the parts of every local group whose block holds the row."""
+        for g in self.local:
+            lo, hi = self.blocks(batch)[g]
+            if not lo <= row < hi:
+                continue
+            for j, k in self.members[g]:
+                for name, c in cache.items():
+                    src = parts[name][k]
+                    w = src.shape[3] if width is None else width
+                    c.parts[j][:, row - lo:row - lo + 1, :, :w] = \
+                        src[:, :, :, :w]
 
     def cache_of(self, cache: dict, g: int) -> dict:
         """Group ``g``'s parts of a cache (its rows, every head)."""
@@ -630,34 +737,38 @@ class DataGroups:
         rows = [None] * len(self.mesh.local_slots)
         for g, cache in caches.items():
             r = self.rows(batch, g)
-            for k, (j, _) in enumerate(self.members[g]):
+            for p, (j, _) in enumerate(self.members[g]):
                 rows[j] = (r.start, r.stop)
                 for name in first:
-                    parts[name][j] = cache[name].parts[k]
+                    parts[name][j] = cache[name].parts[p]
         return {name: HeadSplit(parts[name], c.dim, rows, batch, c.heads)
                 for name, c in first.items()}
 
-    def run(self, batch: int, fn, tail: tuple):
-        """``fn(view, g, rows)`` of every local group whose block of the
-        ``batch`` rows is not empty; its output (the group's rows on dim
-        0, ``tail`` the trailing shape, float32) gathered over the data
-        axes into the whole batch's, which every process receives.  The
-        blocks are padded to the longest for the gather.  Where every
-        group runs every row, each computes the whole batch's output and
-        the first local group's is returned."""
-        self.check_rows(batch)
+    def run(self, batch: int, fn, tail: tuple, ghost=None, blocks=None):
+        """``fn(view, g, rows)`` of every group whose block of the
+        ``batch`` rows (``blocks``, default :meth:`blocks`) is not empty,
+        in the rounds of :meth:`each` (``ghost`` as there); its output
+        (the group's rows on dim 0, ``tail`` the trailing shape, float32)
+        gathered over the data axes into the whole batch's, which every
+        process receives.  The blocks are padded to the longest for the
+        gather.  Where every group runs every row, each computes the whole
+        batch's output and the first local group's is returned."""
         if self.every_row:
-            outs = [fn(self.views[g], g, slice(0, batch))
-                    for g in self.local]
-            return outs[0]
-        blocks = self.blocks(batch)
-        most = blocks[0][1] - blocks[0][0]
-        outs = {}
+            outs = self.each(range(self.size),
+                             lambda view, g: fn(view, g, slice(0, batch)),
+                             ghost)
+            return outs[min(outs)]
+        blocks = self.blocks(batch) if blocks is None else blocks
+        most = max(hi - lo for lo, hi in blocks)
+        outs = self.each([g for g, (lo, hi) in enumerate(blocks) if hi > lo],
+                         lambda view, g: fn(view, g, slice(*blocks[g])),
+                         ghost)
         for g in self.local:
             lo, hi = blocks[g]
-            out = (fn(self.views[g], g, slice(lo, hi)) if hi > lo else
-                   torch.zeros((0,) + tuple(tail), dtype=torch.float32,
-                               device=self.mesh.device))
+            out = outs.get(g)
+            if out is None:
+                out = torch.zeros((0,) + tuple(tail), dtype=torch.float32,
+                                  device=self.mesh.device)
             if hi - lo < most:
                 out = torch.cat([out, out.new_zeros(
                     (most - (hi - lo),) + tuple(out.shape[1:]))])
@@ -666,7 +777,7 @@ class DataGroups:
         for a in reversed(self.axes):
             vals = col.all_gather(vals, self.mesh, a, 0)
         whole = vals[0]
-        if batch % self.size:
+        if any(hi - lo < most for lo, hi in blocks):
             whole = torch.cat([whole[g * most:g * most + hi - lo]
                                for g, (lo, hi) in enumerate(blocks)])
         return whole
@@ -674,8 +785,9 @@ class DataGroups:
 
 class _GroupLeaf:
     """A leaf split over the data axes as a data group's view holds it:
-    the tree's leaf ``x`` over ``parent``, the group's ``slots`` (their
-    parent indices, in the view's order) and the view's ``sharding`` (the
+    the tree's leaf ``x`` over ``parent``, the group's ``slots`` that
+    this process holds (their parent indices, in the view's order) and
+    the view's ``sharding`` (the
     spec of ``x`` without the data axes, over the view's mesh).
     :class:`_Leaf` gathers it over the data axes before each use."""
 
@@ -691,8 +803,9 @@ class _GroupLeaf:
 
 def _group_view(params, mesh, sub, slots: list, axes: tuple):
     """``params`` over the slots ``slots`` of ``mesh`` (one data group, in
-    order) as a tree over ``sub``: the same shard tensors, new shardings;
-    a leaf split over the data ``axes`` as a :class:`_GroupLeaf`."""
+    order) as a tree over ``sub``: this process's shard tensors, new
+    shardings; a leaf split over the data ``axes`` as a
+    :class:`_GroupLeaf`."""
     if isinstance(params, dict):
         return {k: _group_view(v, mesh, sub, slots, axes)
                 for k, v in params.items()}
@@ -710,10 +823,11 @@ def _group_view(params, mesh, sub, slots: list, axes: tuple):
         kept.append(names[0] if len(names) == 1 else (names or None))
     sharding = SlotSharding(sub, tuple(kept))
     if tuple(kept) != tuple(spec):
-        return _GroupLeaf(params, mesh, slots, sharding)
+        return _GroupLeaf(params, mesh, [slots[k] for k in sub.local_slots],
+                          sharding)
     return ShardedTensor(params.shape, params.dtype, sharding,
-                         {sub.slots[k]: params.shards[mesh.slots[i]]
-                          for k, i in enumerate(slots)})
+                         {sub.slots[k]: params.shards[mesh.slots[slots[k]]]
+                          for k in sub.local_slots})
 
 
 def data_groups(params: dict, cfg=None) -> Optional[DataGroups]:

@@ -5,7 +5,8 @@ ctypes by ``core/native.py``.  This package keeps its own copy of the
 engine's source (``starway_tpu_torch/native/sw_engine.{cpp,h}``, the
 JAX package's ``native/`` one with the pull negotiated under "cudaipc")
 and compiles it with g++ into ``build/starway_tpu_torch/_sw_native.so``
-under the repository root the first time the engine is asked for,
+under the repository root (:func:`build_dir`: in an installed tree, the
+package's own ``_build/``) the first time the engine is asked for,
 rebuilding it when the source is newer than the artifact.  It never loads
 the JAX package's build, whose artifact and lock live elsewhere.
 
@@ -26,7 +27,21 @@ from pathlib import Path
 _ROOT = Path(__file__).resolve().parent.parent
 _SRC = _ROOT / "starway_tpu_torch" / "native" / "sw_engine.cpp"
 _HDR = _ROOT / "starway_tpu_torch" / "native" / "sw_engine.h"
-_OUT = _ROOT / "build" / "starway_tpu_torch" / "_sw_native.so"
+
+
+def build_dir(root=None) -> Path:
+    """Where the package's builds go (the engine's copy here, the CUDA
+    kernels in ops/_build.py): ``build/starway_tpu_torch/`` under the root
+    of a checkout or an unpacked sdist (``root``, default the tree this
+    package lives in, with its ``pyproject.toml``); in an installed tree,
+    whose parent is ``site-packages``, ``_build/`` inside the package."""
+    if root is not None or (_ROOT / "pyproject.toml").exists():
+        return Path(_ROOT if root is None else root) / "build" / \
+            "starway_tpu_torch"
+    return _ROOT / "starway_tpu_torch" / "_build"
+
+
+_OUT = build_dir() / "_sw_native.so"
 _LOG = _OUT.with_name("_sw_native.build.log")
 _LOCK = _OUT.with_name("_sw_native.lock")
 
@@ -35,10 +50,10 @@ _BUILD_TIMEOUT_S = 300
 
 def artifact(root=None) -> Path:
     """The engine artifact of the tree at ``root`` (default: the tree this
-    package lives in): ``build/starway_tpu_torch/_sw_native.so``."""
+    package lives in): ``_sw_native.so`` in its :func:`build_dir`."""
     if root is None:
         return _OUT
-    return Path(root) / "build" / "starway_tpu_torch" / "_sw_native.so"
+    return build_dir(root) / "_sw_native.so"
 
 
 def _sources(root=None) -> tuple:

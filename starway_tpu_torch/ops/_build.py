@@ -2,8 +2,9 @@
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into one shared library with a plain C interface,
-``build/starway_tpu_torch/libkernels.so`` under the repository root, the
-first time a kernel is used.  The sources compile in parallel (one
+``build/starway_tpu_torch/libkernels.so`` under the repository root (in
+an installed tree, the package's own ``_build/``: native_build.py
+``build_dir``), the first time a kernel is used.  The sources compile in parallel (one
 ``nvcc`` each, all started together) and link once.  A stamp beside the
 library holds a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once.
@@ -26,8 +27,10 @@ import threading
 import time
 from pathlib import Path
 
+from ..native_build import build_dir
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "starway_tpu_torch"
+BUILD_DIR = build_dir()
 LIB_NAME = "libkernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]

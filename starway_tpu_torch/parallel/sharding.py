@@ -19,8 +19,8 @@ that crosses to another process goes through ``torch.distributed``
 ``NamedSharding`` and ``device_put``: a ``ShardedTensor`` holds this
 process's boxes, slots whose boxes are equal sharing one tensor.
 :class:`AxisSlice` is the mesh of the slots at one coordinate of an axis
-(a pipeline stage's slots), over which the collectives of the other axes
-run.
+(a pipeline stage's slots), or of several (a data group's slots), over
+which the collectives of the other axes run.
 """
 
 from __future__ import annotations
@@ -140,34 +140,48 @@ def make_mesh(axes: dict, device=None, group=None) -> Mesh:
                 group)
 
 
-class AxisSlice:
-    """The slots of ``mesh`` at coordinate ``coord`` of ``axis``, as a mesh
-    of the other axes (``lax``'s view of the other axes inside one shard
-    of ``axis``): slot ``k`` is the ``k``-th such slot of ``mesh`` in
-    order, so the collectives of ops/collectives.py run along the other
-    axes among them, across processes as on ``mesh``."""
+class AxisSlice(SlotMesh):
+    """The slots of ``mesh`` at coordinate ``coord`` of ``axis`` (or, with
+    a tuple of axes and one of coordinates, at those coordinates of every
+    axis named), as a mesh of the other axes (``lax``'s view of the other
+    axes inside one shard of ``axis``): slot ``k`` is the ``k``-th such
+    slot of ``mesh`` in order, so the collectives of ops/collectives.py
+    run along the other axes among them, across processes as on
+    ``mesh``.  It is a ``SlotMesh``, so a ``ShardedTensor`` may live on it
+    (a data group's view of a serving tree, models/sharded.py).  A
+    process may hold any number of its slots, none included."""
 
-    def __init__(self, mesh: Mesh, axis: str, coord: int):
+    def __init__(self, mesh: Mesh, axis, coord):
         self.parent, self.axis, self.coord = mesh, axis, coord
-        self.shape = {a: n for a, n in mesh.shape.items() if a != axis}
-        self.axis_names = tuple(self.shape)
-        self.size = math.prod(self.shape.values())
+        fixed = (dict(zip(axis, coord)) if isinstance(axis, tuple)
+                 else {axis: coord})
+        self.size = math.prod(n for a, n in mesh.shape.items()
+                              if a not in fixed)
+        self._of = [i for i in range(mesh.size)
+                    if all(mesh.slot_coords(i)[a] == c
+                           for a, c in fixed.items())]
+        super().__init__({a: n for a, n in mesh.shape.items()
+                          if a not in fixed}, devices=mesh.device,
+                         ranks=[mesh.slots[i].rank for i in self._of])
+        self.fixed = fixed
         self.device, self.group = mesh.device, mesh.group
         self.rank, self.world = mesh.rank, mesh.world
-        self._of = [i for i in range(mesh.size)
-                    if mesh.slot_coords(i)[axis] == coord]
         mine = [k for k, i in enumerate(self._of) if i in mesh.local_slots]
         # A process's slots are contiguous in the mesh, so in the slice.
         self.local_slots = range(mine[0], mine[-1] + 1) if mine else range(0)
 
+    def parent_index(self, index: int) -> int:
+        """The index in ``mesh`` of slot ``index``."""
+        return self._of[index]
+
     def slot_coords(self, index: int) -> dict:
         c = self.parent.slot_coords(self._of[index])
-        del c[self.axis]
+        for a in self.fixed:
+            del c[a]
         return c
 
     def slot_at(self, coords: dict) -> int:
-        return self._of.index(self.parent.slot_at(
-            {**coords, self.axis: self.coord}))
+        return self._of.index(self.parent.slot_at({**coords, **self.fixed}))
 
     def rank_of(self, index: int) -> int:
         return self.parent.rank_of(self._of[index])
@@ -177,7 +191,7 @@ class AxisSlice:
         return range(seen[0], seen[-1] + 1)
 
     def __repr__(self):
-        return f"AxisSlice({self.parent!r}, {self.axis}={self.coord})"
+        return f"AxisSlice({self.parent!r}, {self.fixed})"
 
 
 def mesh_sharding(mesh: Mesh, *spec) -> SlotSharding:

@@ -1,5 +1,8 @@
 """Time of a call on an NVIDIA GPU, and the work an attention call does.
 
+:func:`card_name` is the card's name and power limit, which every time
+kept beside a number names.
+
 :func:`event_ms` times one call between CUDA events (its host enqueue
 included).  :func:`graph_us` times ``n`` calls captured in one CUDA graph
 (no host enqueue in the figure), as a decode step sees a short call: many
@@ -15,6 +18,17 @@ import statistics
 
 import numpy as np
 import torch
+
+
+def card_name() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:

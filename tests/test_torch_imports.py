@@ -118,15 +118,37 @@ def test_scan_covers_the_parallel_layer():
 
 
 def test_scan_covers_the_twins():
-    """The port's twins: one for each of examples/*.py and for the
-    transport's three soak and bench scripts."""
+    """The port's twins: one for each of examples/*.py, for the
+    transport's three soak and bench scripts, and for the kernel bench and
+    the baseline collector."""
     scanned = {p.relative_to(REPO).as_posix() for p in _port_files()}
     examples = {f"examples/torch/{p.name}" for p in
                 (REPO / "examples").glob("*.py")}
     scripts = {f"scripts/torch/{name}" for name in (
-        "session_chaos.py", "paired_bench.py", "integrity_bench.py")}
+        "session_chaos.py", "paired_bench.py", "integrity_bench.py",
+        "kernel_bench.py", "collect_baseline.py")}
     assert len(examples) == 12
     assert examples | scripts <= scanned
+
+
+SHELL_TWINS = ("release_smoke.sh", "onchip_refresh.sh", "gpu_watchdog.sh")
+
+
+@pytest.mark.parametrize("name", SHELL_TWINS)
+def test_shell_twins_call_only_the_port(name):
+    """The shell twins of scripts/*.sh run the port alone: every module
+    they name is ``starway_tpu_torch``'s, every script one of
+    scripts/torch/, and none imports jax."""
+    import re
+
+    text = (REPO / "scripts" / "torch" / name).read_text()
+    code = "\n".join(line.split("#", 1)[0] for line in text.splitlines())
+    modules = re.findall(r"\bstarway_tpu\w*", code)
+    assert set(modules) <= {"starway_tpu_torch"}, modules
+    assert not re.search(r"\bimport jax|\bjax\.|\boptax\b", code)
+    scripts = re.findall(r"scripts/[\w/]+\.(?:py|sh)", code)
+    assert all(s.startswith("scripts/torch/") for s in scripts), scripts
+    assert modules or scripts
 
 
 def test_scan_covers_the_transport():

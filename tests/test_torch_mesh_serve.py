@@ -57,8 +57,8 @@ from starway_tpu_torch.models.speculative import draft_from_truncation
 from starway_tpu_torch.ops import collectives as col
 from starway_tpu_torch.ops.quantize import quantize_params
 from starway_tpu_torch.parallel import fsdp_specs, make_mesh, shard_tree
-from torch_port_util import (SERVE_REQS, save_tree, serve_runs,
-                             tree_to_numpy)
+from torch_port_util import (SERVE_REQS, one_row_runs, save_tree,
+                             serve_runs, span_runs, tree_to_numpy)
 
 TESTS = Path(__file__).resolve().parent
 MOE = dict(n_experts=4, moe_top_k=2, moe_swiglu=True, moe_capacity_factor=4.0)
@@ -332,15 +332,14 @@ def test_fsdp_across_two_processes(tmp_path):
     """Two gloo processes, one fsdp slot each, serve the ``fsdp_specs``
     tree (its leaves gathered across the processes): both servers and
     ``generate()`` bit-equal to one process.  One row over the two data
-    groups would leave a process out of the gathers the other waits in:
-    ``generate()`` and ``SlotServer`` refuse it in both processes, naming
-    ROADMAP.md, and neither hangs."""
+    groups (``generate()`` of one prompt, a one-slot ``SlotServer``) is
+    bit-equal to one process too: the group with no rows posts the
+    gathers that the other waits in, and neither process hangs."""
     runs = _two_processes(tmp_path, "fsdp=2", "fsdp")
     one = serve_runs({"fsdp": 2}, str(tmp_path), fsdp=True)
-    assert len(one) == 2 * len(SERVE_REQS) + 1
+    one.update(one_row_runs({"fsdp": 2}, str(tmp_path)))
+    assert len(one) == 2 * len(SERVE_REQS) + 1 + 3
     for got in runs:
-        for name in ("generate", "server"):
-            assert "ROADMAP.md" in str(got.pop(f"refused/{name}"))
         assert sorted(got) == sorted(one)
         for key in one:
             np.testing.assert_array_equal(got[key], one[key], err_msg=key)
@@ -349,14 +348,17 @@ def test_fsdp_across_two_processes(tmp_path):
 def test_paged_over_tp_across_two_processes(tmp_path):
     """Two gloo processes, one tp slot each, run the paged server (a
     prefix, its pages shared) on the same requests: their tokens and
-    pages in use are bit-equal to each other's and to one process's; a
-    tree whose data groups' slots sit in both processes is refused
-    naming ROADMAP.md."""
+    pages in use are bit-equal to each other's and to one process's.  So
+    are the dense and paged servers and ``generate()`` over
+    ``{"tp": 2, "dp": 2}``, whose data groups' slots each sit in both
+    processes (pages in use included)."""
     runs = _two_processes(tmp_path, "tp=2", "paged")
     one = serve_runs(TP, str(tmp_path), paged=True)
     assert len(one) == len(SERVE_REQS) + 1
+    one.update({f"span/{k}": v for k, v in
+                span_runs({"tp": 2, "dp": 2}, str(tmp_path)).items()})
+    assert len(one) == 3 * len(SERVE_REQS) + 3
     for got in runs:
-        assert "ROADMAP.md" in str(got.pop("refused"))
         assert sorted(got) == sorted(one)
         for key in one:
             np.testing.assert_array_equal(got[key], one[key], err_msg=key)

@@ -705,15 +705,41 @@ def serve_runs(shape: dict, folder: str, group=None,
     return out
 
 
+def one_row_runs(shape: dict, folder: str, group=None) -> dict:
+    """One row over the two data groups of an ``fsdp_specs`` tree on a mesh
+    of ``shape`` (debug widths, float32, the weights of
+    ``folder/params.npz``, ``group`` as in :func:`serve_runs`): the
+    tokens of ``generate()`` on the first prompt of :data:`SERVE_PROMPT`
+    and of a one-slot ``SlotServer`` on :data:`SERVE_REQS`.  Over two
+    processes the group with no rows posts the gathers of the other."""
+    from starway_tpu_torch.models import LlamaConfig, SlotServer, generate
+    from starway_tpu_torch.parallel import fsdp_specs, make_mesh, shard_tree
+
+    cfg = LlamaConfig.preset("debug")
+    params = params_from_numpy(load_tree(f"{folder}/params.npz"),
+                               device="cpu")
+    mesh = make_mesh(shape, device="cpu", group=group)
+    tree = shard_tree(params, mesh, fsdp_specs(params, mesh))
+    out = {"one/generate": generate(tree, cfg,
+                                    torch.tensor(SERVE_PROMPT[:1]),
+                                    4).numpy()}
+    srv = SlotServer(tree, cfg, n_slots=1, max_len=32, chunk=4)
+    rids = [srv.submit(p, m) for p, m in SERVE_REQS[:2]]
+    done = srv.run()
+    out.update({f"one/server/{i}": done[rid] for i, rid in enumerate(rids)})
+    return out
+
+
 def serve_worker(rank: int, world: int, port: int, folder: str,
                  shape: str, kind: str = "dense") -> None:
     """One process of a gloo run of :func:`serve_runs` (``shape`` as
-    ``"dp=2,tp=2"``; ``kind`` "dense", "paged" or "fsdp"), written to
-    ``out<rank>.npz`` in ``folder``.  A paged run also records what a
-    serving tree over ``{"tp": 2, "dp": 2}`` raises, whose data groups'
-    slots sit in both processes; an fsdp run what one row over its two
-    data groups raises in ``generate()`` and ``SlotServer``, whose
-    leaves are gathered across the processes."""
+    ``"dp=2,tp=2"``; ``kind`` "dense", "paged", "fsdp" or "span"),
+    written to ``out<rank>.npz`` in ``folder``.  A paged run also records
+    the dense and paged servers over ``{"tp": 2, "dp": 2}`` (under
+    ``span/``), whose data groups' slots each sit in both processes; an
+    fsdp run also :func:`one_row_runs`, one row over its two data groups
+    with the leaves gathered across the processes; a span run the dense
+    and paged servers over ``shape`` (under ``dense/`` and ``paged/``)."""
     import torch.distributed as dist
 
     mesh_shape = {k: int(v) for k, v in
@@ -721,49 +747,29 @@ def serve_worker(rank: int, world: int, port: int, folder: str,
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
     try:
-        out = serve_runs(mesh_shape, folder, dist.group.WORLD,
-                         paged=kind == "paged", fsdp=kind == "fsdp")
+        if kind == "span":
+            out = span_runs(mesh_shape, folder, dist.group.WORLD)
+        else:
+            out = serve_runs(mesh_shape, folder, dist.group.WORLD,
+                             paged=kind == "paged", fsdp=kind == "fsdp")
         if kind == "paged":
-            from starway_tpu_torch.models import (LlamaConfig, SlotServer,
-                                                  param_specs)
-            from starway_tpu_torch.parallel import make_mesh, shard_tree
-
-            cfg = LlamaConfig.preset("debug")
-            params = params_from_numpy(load_tree(f"{folder}/params.npz"),
-                                       device="cpu")
-            mesh = make_mesh({"tp": 2, "dp": 2}, device="cpu",
-                             group=dist.group.WORLD)
-            try:
-                SlotServer(shard_tree(params, mesh, param_specs(cfg)), cfg,
-                           n_slots=2, max_len=32)
-                out["refused"] = np.asarray("")
-            except NotImplementedError as e:
-                out["refused"] = np.asarray(str(e))
+            out.update({f"span/{k}": v for k, v in span_runs(
+                {"tp": 2, "dp": 2}, folder, dist.group.WORLD).items()})
         if kind == "fsdp":
-            from starway_tpu_torch.models import (LlamaConfig, SlotServer,
-                                                  generate)
-            from starway_tpu_torch.parallel import (fsdp_specs, make_mesh,
-                                                    shard_tree)
-
-            cfg = LlamaConfig.preset("debug")
-            params = params_from_numpy(load_tree(f"{folder}/params.npz"),
-                                       device="cpu")
-            mesh = make_mesh(mesh_shape, device="cpu",
-                             group=dist.group.WORLD)
-            tree = shard_tree(params, mesh, fsdp_specs(params, mesh))
-            for name, fn in (
-                    ("generate", lambda: generate(
-                        tree, cfg, torch.tensor(SERVE_PROMPT[:1]), 2)),
-                    ("server", lambda: SlotServer(tree, cfg, n_slots=1,
-                                                  max_len=32))):
-                try:
-                    fn()
-                    out[f"refused/{name}"] = np.asarray("")
-                except NotImplementedError as e:
-                    out[f"refused/{name}"] = np.asarray(str(e))
+            out.update(one_row_runs(mesh_shape, folder, dist.group.WORLD))
         np.savez(f"{folder}/out{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
+
+
+def span_runs(shape: dict, folder: str, group=None) -> dict:
+    """:func:`serve_runs` dense (under ``dense/``) and paged (under
+    ``paged/``) over a mesh of ``shape``."""
+    out = {f"dense/{k}": v for k, v in
+           serve_runs(shape, folder, group).items()}
+    out.update({f"paged/{k}": v for k, v in
+                serve_runs(shape, folder, group, paged=True).items()})
+    return out
 
 
 # The port's twins of examples/ (examples/torch/*.py) run from the repo
