@@ -315,6 +315,13 @@ GRAD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 # The design of the kernels that dispatch by dtype, for the kernels line
 # (csrc/flash_bwd.cu, csrc/decode_attention.cu, csrc/paged_attention.cu).
 MMA_ROUTE = "cuda (mma.sync bf16; FMA float32)"
+# The flash forward's and the ring step's partial's routes (ops/flash.py
+# fwd_route) and the kernel the main paths run.
+FWD_ROUTES = ("cuda: bf16 at head sizes 64 and 128 wgmma + TMA "
+              "(csrc/flash_fwd_wgmma.cu flash_fwd_wgmma_kernel, "
+              "flash_partial_wgmma_kernel); bf16 at 16 "
+              "and 32 mma.sync (csrc/flash_fwd.cu); float32 FMA")
+WGMMA_FWD_KERNEL = "flash_fwd_wgmma_kernel"
 # A float32 train step through 2 layers at full width, kernels against the
 # plain attention: the attention gradients differ in summation order, and
 # the 4096- and 14336-wide float32 matmuls carry that into every leaf.
@@ -704,8 +711,9 @@ def flash_forward_rows(dev, randn) -> dict:
         f"{admit['bound_ms']:.4f} ms")
     timed = by_shape[1]
     return dict(
-        name="flash_attention_fwd", route="cuda",
-        source="starway_tpu_torch/csrc/flash_fwd.cu",
+        name="flash_attention_fwd", route="cuda", kernel=WGMMA_FWD_KERNEL,
+        source="starway_tpu_torch/csrc/flash_fwd_wgmma.cu",
+        design=FWD_ROUTES,
         replaces="starway_tpu/ops/pallas_attention.py:124 (_fwd_kernel)",
         max_abs_err=max(r["max_abs_err"] for r in by_shape
                         + list(per_bucket.values())),
@@ -713,7 +721,7 @@ def flash_forward_rows(dev, randn) -> dict:
                                   "library_ms", "graph_ms",
                                   "library_graph_ms")},
         timed_at=f"B=1 Hq={HQ} Hkv={HKV} D={D} S=2048 causal bf16 "
-                 f"(flash_fwd_mma_kernel), by events around one call; "
+                 f"({WGMMA_FWD_KERNEL}), by events around one call; "
                  f"graph_ms is device ms a call in a CUDA graph; by_shape "
                  f"has every shape",
         by_shape=by_shape,
@@ -758,8 +766,7 @@ def gemv_rows(dev, randn) -> dict:
     import torch
 
     from starway_tpu_torch.ops.gemv import (BF16_ATOL, BF16_ULPS, _n_sms,
-                                            early_launch, gemv_plan,
-                                            int8_matmul,
+                                            int8_matmul, launch_plan,
                                             int8_matmul_reference,
                                             tolerance_share)
     from starway_tpu_torch.ops.quantize import quantize_weight
@@ -799,12 +806,14 @@ def gemv_rows(dev, randn) -> dict:
             n_bytes = d * f + 4 * f + 2 * m * d + 2 * m * f
             flops = 2 * m * d * f
             b_ms, b_by = bound(n_bytes, flops)
-            regime, splits = gemv_plan(m, d, f, n_sms)
-            early = early_launch(regime, m, f, splits, n_sms)
+            plan = launch_plan(m, d, f, n_sms, static=True)
+            regime, splits = plan[0], plan[4]
+            early = plan[1] == 3
+            route = "wgmma" if plan[1] == 4 else "mma.sync"
             rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if b_by == "operations"
                     else f"{n_bytes / ms / 1e6:.1f} GB/s")
-            how = f"{regime}, {splits} splits" + (", early launch" if early
-                                                  else "")
+            how = f"{regime} on {route}, {splits} splits" + (
+                ", early launch" if early else "")
             log(f"int8_matmul {name} M={m} D={d} F={f} ({how}): max_abs_err "
                 f"{err:.3e}, {excess:.3f} of the tolerance (max({BF16_ATOL}, "
                 f"{BF16_ULPS} bf16 ulps of |want|)); {ms:.4f} ms ({rate}, "
@@ -818,7 +827,7 @@ def gemv_rows(dev, randn) -> dict:
                                      f"version at M={m} D={d} F={f}")
             table[(m, d, f)] = dict(
                 shape=name, m=m, d=d, f=f, regime=regime, splits=splits,
-                early_launch=early,
+                early_launch=early, route=route,
                 ms=ms, library_ms=lib, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, bound_share=b_ms / ms, max_abs_err=err,
                 tol_share=excess, host_us=host_us, library_host_us=lib_host_us,
@@ -858,15 +867,29 @@ def gemv_rows(dev, randn) -> dict:
         f"{chain['library_ms']:.4f} ms "
         f"({chain['ms'] / chain['library_ms']:.2f}x)")
     timed = table[(8, 4096, 14336)]
+    pre = table[(512, 4096, 14336)]
     return dict(
-        name="int8_matmul", route="cuda",
+        name="int8_matmul", route="cuda", kernel="gemv_decode_kernel",
         source="starway_tpu_torch/csrc/int8_gemv.cu",
+        design="cuda: decode regime (M <= 32) mma.sync "
+               "(csrc/int8_gemv.cu gemv_decode_kernel); prefill regime "
+               "wgmma + TMA (csrc/w8a16_wgmma.cu w8a16_wgmma_kernel) where "
+               "TMA takes the operands, else mma.sync (gemv_prefill_kernel); "
+               "float32 FMA",
         replaces="starway_tpu/ops/pallas_gemv.py:32 (_gemv_kernel)",
         max_abs_err=worst, tol_share=worst_excess,
         **{k: timed[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
         timed_at="M=8 D=4096 F=14336 bf16 (decode regime), device ms a "
-                 "call, weight cold",
+                 "call, weight cold; prefill has the prefill regime's row",
+        prefill=dict(
+            kernel="w8a16_wgmma_kernel", route="cuda",
+            source="starway_tpu_torch/csrc/w8a16_wgmma.cu",
+            **{k: pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "max_abs_err",
+                                    "tol_share", "splits")},
+            timed_at="M=512 D=4096 F=14336 bf16 (prefill regime), device "
+                     "ms a call, weight cold"),
         rows=[dict(r) for r in table.values()], qkv_chain=chain)
 
 
@@ -1423,7 +1446,9 @@ def ring_kernel_rows(dev, randn):
     src = "starway_tpu_torch/csrc/"
     return {
         "flash_partial": dict(
-            name="flash_partial", route="cuda", source=src + "flash_fwd.cu",
+            name="flash_partial", route="cuda",
+            kernel="flash_partial_wgmma_kernel",
+            source=src + "flash_fwd_wgmma.cu", design=FWD_ROUTES,
             replaces="starway_tpu/ops/pallas_attention.py:580 "
                      "(_partial_kernel, entry flash_partial :640)",
             max_abs_err=worst["fwd"], ms=by_case["past"]["ms"],
@@ -2292,7 +2317,8 @@ def phase_train_ring_parity(dev):
 
 
 PTXAS_SOURCES = ("flash_bwd.cu", "flash_fwd.cu", "int8_gemv.cu",
-                 "decode_attention.cu", "paged_attention.cu")
+                 "decode_attention.cu", "paged_attention.cu",
+                 "flash_fwd_wgmma.cu", "w8a16_wgmma.cu")
 
 
 def start_ptxas_report(build):
@@ -2322,6 +2348,12 @@ def ptxas_kernel(mangled: str):
     if k:
         return (f"{k.group(1)} bf16 D={k.group(2)} "
                 f"rows={64 * int(k.group(3))}")
+    k = re.search(r"flash_(fwd|partial)_wgmma_kernelILi(\d+)E", mangled)
+    if k:
+        return f"{k.group(1)} wgmma bf16 D={k.group(2)} rows=64"
+    k = re.search(r"w8a16_wgmma_kernelILi(\d+)E", mangled)
+    if k:
+        return f"gemv prefill wgmma {k.group(1)}x256"
     k = re.search(r"gemv_(decode|prefill)_kernelILi(\d+)E(?:Li(\d+)E)?"
                   r"Lb([01])E(?:Lb([01])E)?", mangled)
     if k:
@@ -6913,6 +6945,14 @@ def main() -> int:
     if not (by_regime["decode"] > 0 and by_regime["prefill"] > 0):
         raise AssertionError("the W8A16 run did not launch the GEMV in both "
                              "regimes")
+    # The admissions' GEMVs and attention run on Hopper's wgmma kernels
+    # (csrc/w8a16_wgmma.cu, csrc/flash_fwd_wgmma.cu): every prefill launch
+    # and every forward of the bf16 and int8 runs.
+    if not (c5["int8_matmul/wgmma"] == by_regime["prefill"]
+            and c5["flash_forward/wgmma"] == c5["flash_forward"]
+            and c4["flash_forward/wgmma"] == c4["flash_forward"]):
+        raise AssertionError(f"the serving runs did not take the wgmma "
+                             f"kernels: {c4}, {c5}")
     check_first_logits(qparams, cfg8, reqs[0][0], 2048)
     del qparams
     torch.cuda.empty_cache()
@@ -7070,9 +7110,11 @@ def main() -> int:
     rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
     rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
     for key, kind in (("flash_forward", "fwd"), ("flash_partial", "partial")):
-        rows[key]["registers"] = {k: r for k, r in regs["flash_fwd.cu"].items()
-                                  if k.startswith(kind + " ")}
-    rows["int8_matmul"]["registers"] = regs["int8_gemv.cu"]
+        rows[key]["registers"] = {
+            k: r for src in ("flash_fwd_wgmma.cu", "flash_fwd.cu")
+            for k, r in regs[src].items() if k.startswith(kind + " ")}
+    rows["int8_matmul"]["registers"] = {**regs["w8a16_wgmma.cu"],
+                                        **regs["int8_gemv.cu"]}
     rows["decode_attention"]["registers"] = regs["decode_attention.cu"]
     rows["paged_decode_attention"]["registers"] = regs["paged_attention.cu"]
 
@@ -7105,6 +7147,8 @@ def main() -> int:
     for key, row in rows.items():
         row = dict(row)
         row["launches"] = main_counts[key]
+        if f"{key}/wgmma" in main_counts:  # of them, on the wgmma kernel
+            row["launches_wgmma"] = main_counts[f"{key}/wgmma"]
         for phase, c in ((18, c18), (19, c19), (20, c20), (21, c21),
                          (22, c22), (23, c23), (24, c24), (25, c25),
                          (26, c26), (28, c28), (29, c29)):

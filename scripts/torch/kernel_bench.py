@@ -315,6 +315,58 @@ def bench_gemv_int8(m=1, d=4096, f=14336, iters: int = 32):
                 f"{ms_b * 1e3:.1f} us ({by_b / ms_b / 1e6:.0f} GB/s)")
 
 
+def bench_gemv_int8_prefill(m=512, d=4096, f=14336, iters: int = 32):
+    """#4's prefill regime (csrc/w8a16_wgmma.cu at the main paths' shapes),
+    gate/up of llama3-8b at an admission of 512 tokens, against
+    ``torch.matmul`` on the dequantized bf16 weight; both on cold copies
+    of their weight, as :func:`bench_gemv_int8`."""
+    from starway_tpu_torch.ops.gemv import int8_matmul
+    from starway_tpu_torch.ops.quantize import quantize_weight
+    from starway_tpu_torch.utils.cuda_timing import cold_copies, graph_us
+
+    x = _randn(m, d, seed=15)
+    qw = quantize_weight(_randn(d, f, seed=16) * d ** -0.5)
+    wq, s = qw["q"], qw["s"]
+    w = (wq.float() * s).to(torch.bfloat16)
+    if DEV.type == "cuda":
+        ms_q = graph_us(lambda c: int8_matmul(x, c, s, static_weight=True),
+                        cold_copies(wq), n=iters) / 1e3
+        ms_b = graph_us(lambda c: torch.matmul(x, c), cold_copies(w),
+                        n=iters) / 1e3
+    else:
+        ms_q = wall_ms(lambda: int8_matmul(x, wq, s, static_weight=True),
+                       iters)
+        ms_b = wall_ms(lambda: torch.matmul(x, w), iters)
+    flops = 2 * m * d * f
+    return _row("gemv_int8_prefill_vs_matmul", round(ms_b / ms_q, 3),
+                "x_vs_bf16",
+                f"m={m} d={d} f={f}: int8 {ms_q:.4f} ms "
+                f"({flops / ms_q / 1e9:.1f} TFLOP/s) vs bf16 torch.matmul "
+                f"{ms_b:.4f} ms ({flops / ms_b / 1e9:.1f} TFLOP/s)",
+                ms=ms_q, library_ms=ms_b)
+
+
+def bench_flash_partial(t=1024, hq=32, hkv=8, d=128, q_offset=1024,
+                        kv_offset=0, iters: int = 8):
+    """#7 (csrc/flash_fwd_wgmma.cu at the main paths' heads): one ring
+    step's partial over train-ring's past block (every key visible),
+    against SDPA with no mask on the same q, k, v (which returns o, not
+    (o, m, l))."""
+    from starway_tpu_torch.ops.flash import flash_partial
+
+    q, k, v = _qkv(1, hq, hkv, t, d)
+    ms = device_ms(lambda: flash_partial(q, k, v, q_offset, kv_offset),
+                   iters)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True), iters)
+    flops = _attn_flops(1, hq, t, d, False)
+    return _row("flash_partial_tflops", round(flops / ms / 1e9, 2),
+                "TFLOP/s", f"B=1 Hq={hq} Hkv={hkv} T={t} D={d} bf16, past "
+                f"block (q_offset {q_offset}, kv_offset {kv_offset}): "
+                f"{ms:.4f} ms/iter, SDPA (no mask) {lib:.4f} ms "
+                f"({ms / lib:.2f}x)", ms=ms, library_ms=lib)
+
+
 # ------------------------------------------------------------ the models
 
 SERVE_WIDTHS = dict(d_model=1024, n_layers=8, n_heads=8, n_kv_heads=2,
@@ -732,6 +784,18 @@ BENCHES = {
     "spec_verify": bench_spec_verify,
 }
 
+# Rows of the port alone (no twin in scripts/kernel_bench.py): the
+# kernels that lost most to their library call, each beside it.  "all"
+# runs them; their rehearsal sizes are in PORT_REHEARSAL_KW.
+PORT_BENCHES = {
+    "gemv_int8_prefill": bench_gemv_int8_prefill,
+    "flash_partial": bench_flash_partial,
+}
+PORT_REHEARSAL_KW = {
+    "gemv_int8_prefill": dict(m=64, d=256, f=512, iters=2),
+    "flash_partial": dict(t=128, q_offset=128, iters=2),
+}
+
 # The rows "all" leaves out: the sweeps, the end-to-end serving rows and
 # the model-scale train step, each run alone by scripts/torch/
 # onchip_refresh.sh.
@@ -768,15 +832,16 @@ def main(argv=None) -> int:
         CARD = "cpu (plain versions" + (", rehearsal sizes)" if rehearsal
                                         else ")")
     torch.set_grad_enabled(False)
+    benches = {**BENCHES, **PORT_BENCHES}
     if args.which == "all":
-        names = [n for n in BENCHES
+        names = [n for n in benches
                  if not n.endswith("_tune") and n not in HEAVY]
     else:
         names = args.which.split(",")
-    unknown = [n for n in names if n != "check" and n not in BENCHES]
+    unknown = [n for n in names if n != "check" and n not in benches]
     if unknown:
         ap.error(f"unknown rows {unknown}; choose from check, all, "
-                 f"{', '.join(BENCHES)}")
+                 f"{', '.join(benches)}")
     exit_code = 0
     for name in names:
         if name == "check":
@@ -786,9 +851,9 @@ def main(argv=None) -> int:
             continue
         kw = {"iters": args.iters} if args.iters else {}
         if rehearsal:
-            kw.update(REHEARSAL_KW.get(name, {}))
+            kw.update({**REHEARSAL_KW, **PORT_REHEARSAL_KW}.get(name, {}))
         try:
-            row = BENCHES[name](**kw)
+            row = benches[name](**kw)
         except Exception as e:  # keep going; the failure is a row
             row = {"metric": name, "card": CARD,
                    "error": f"{type(e).__name__}: {e}"[:300]}

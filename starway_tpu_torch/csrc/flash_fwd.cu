@@ -34,7 +34,8 @@
 // live_range), where the last live kv tile of a block can lie before the
 // kv shard: such a block runs no tile at all.
 //
-// bfloat16 inputs: tensor cores (flash_fwd_mma_kernel,
+// bfloat16 inputs at head sizes 16 and 32 (64 and 128 run
+// csrc/flash_fwd_wgmma.cu): tensor cores (flash_fwd_mma_kernel,
 // flash_partial_mma_kernel; one tile loop, flash_tiles_mma), the forward
 // of FlashAttention-2 on mma.sync.m16n8k16 bf16 -> f32, as the backward's
 // pass B (csrc/flash_bwd.cu) without dO and delta.  128 threads, 4 warps;
@@ -68,11 +69,9 @@
 // the end, in a fixed order, so the results are bit-for-bit repeatable.
 // Under causal masking the heaviest q tiles go first (q tile gridDim.y - 1
 // - blockIdx.y), and in a 128-row tile the m-tiles of the upper half skip
-// the kv tiles that are dead for it.  Shared memory at D = 128: 5 (64
-// rows) or 6 (128 rows) tiles of 64 x 136 bf16, 85 or 102 KB a block, two
-// blocks an SM.  Registers a thread (nvcc -Xptxas -v for sm_90a) at D =
-// 128, 64- / 128-row tiles: forward 175 / 246, partial 173 / 250; no
-// spills at any compiled head size.
+// the kv tiles that are dead for it.  Shared memory at D = 32: 5 (64
+// rows) or 6 (128 rows) tiles of 64 x 40 bf16.  Registers and spills:
+// chip_smoke.py's ptxas report ("fwd bf16 D=32 rows=128" and so on).
 //
 // float32 inputs: the FMA tile loop (flash_fwd_kernel, flash_partial_kernel;
 // register-tiled 4 x 4 scores and 4 x D/16 accumulators a thread, tiles
@@ -82,14 +81,12 @@
 // dispatch is by dtype, not a fallback: a bf16 tensor always reaches the
 // tensor cores.
 //
-// Beyond mma.sync (a later change): wgmma fed by TMA, as FlashAttention-3
-// does.  s = q k^T maps onto wgmma.m64n64k16 with q from shared memory (or
-// registers) and K as a K-major B; acc += p @ v takes p from registers
-// (the register-A form, whose fragment is the accumulator layout, as here)
-// and V as an MN-major B (the transpose bit, legal for 16-bit types).  The
-// kv tiles would come by TMA into a two- or three-stage ring guarded by
-// mbarriers and filled by one producer warp, with two consumer warpgroups
-// ping-ponging so that one's softmax overlaps the other's products.
+// Hopper's own route: bf16 calls at head sizes 64 and 128 run
+// csrc/flash_fwd_wgmma.cu (wgmma fed by TMA: a producer warp
+// fills a ring of K/V tiles under mbarriers, a consumer warpgroup of 64 q
+// rows computes s = q k^T from shared memory and acc += p v with p from
+// registers and V as an MN-major B; ops/flash.py fwd_route).  This file's
+// bf16 kernels take head sizes 16 and 32.
 #include <math_constants.h>
 
 #include "flash_tiles.cuh"
@@ -651,14 +648,17 @@ void launch_fma(const FwdArgs& a) {
 
 // bf16 inputs reach the tensor-core kernels at the q-tile height the
 // caller planned (ops/flash.py fwd_q_rows), float32 inputs the FMA loop.
-// 128-row tiles exist for D >= 32 (at D = 16 ptxas spills them).
+// bf16 at D 64 and 128 is csrc/flash_fwd_wgmma.cu's; 128-row tiles exist
+// for D = 32 (at D = 16 ptxas spills them).
 template <int D, bool kPartial>
 int launch(const FwdArgs& a, int is_bf16) {
   if (!is_bf16) {
     launch_fma<D, kPartial>(a);
+  } else if constexpr (D > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
   } else if (a.q_rows == kBQ) {
     launch_mma<D, 1, kPartial>(a);
-  } else if constexpr (D >= 32) {
+  } else if constexpr (D == 32) {
     if (a.q_rows != 2 * kBQ) return static_cast<int>(cudaErrorInvalidValue);
     launch_mma<D, 2, kPartial>(a);
   } else {
@@ -686,9 +686,10 @@ int run(const FwdArgs& a, int d, int is_bf16) {
 }  // namespace
 
 // q [B, Hq, S, D], k/v [B, Hkv, Skv, D], o like q, lse [B, Hq, S] float32.
-// D in {16, 32, 64, 128}; window 0 for none; q_rows the q-tile height of
-// the bf16 kernels (64, or 128 at D >= 32).  Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for an unsupported D or q_rows).
+// D in {16, 32, 64, 128} for float32, {16, 32} for bf16; window 0 for none;
+// q_rows the q-tile height of the bf16 kernels (64, or 128 at D = 32).
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported D or q_rows).
 extern "C" int sw_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int b, int hq, int hkv,
                             int s_len, int kv_len, int d, int causal,

@@ -31,7 +31,11 @@
 //   start while the kernel ahead finishes and load their first weight
 //   round (read-only) before griddepcontrol.wait, so a GEMV's launch and
 //   first loads hide behind the one before it (k behind q, v behind k).
-// * Prefill regime (bf16, M > 32): gemv_prefill_kernel, a BM x BN x 64
+// * Prefill regime (bf16, M > 32): on Hopper's wgmma fed by TMA in
+//   csrc/w8a16_wgmma.cu wherever TMA takes the operands (D % 8 == 0, F %
+//   16 == 0, 16-byte aligned bases: ops/gemv.py prefill_route), every
+//   projection of the serving paths; here, for the rest,
+//   gemv_prefill_kernel, a BM x BN x 64
 //   block tile (BM 64 or 128, BN 256, or 128 on small grids) on warps of
 //   (BM / 2) x 64.  x and the
 //   int8 weight tile enter by 16-byte cp.async into a 4-stage ring; x

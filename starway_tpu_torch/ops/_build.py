@@ -46,11 +46,14 @@ SIGNATURES = {
     "sw_decode_attention_smem": ([I] * 5, ctypes.c_size_t),
     "sw_flash_fwd": ([P] * 5 + [I] * 8 + [F, I, I, P], ctypes.c_int),
     "sw_flash_partial": ([P] * 6 + [I] * 10 + [F, I, I, P], ctypes.c_int),
+    "sw_flash_fwd_wgmma": ([P] * 5 + [I] * 8 + [F, P], ctypes.c_int),
+    "sw_flash_partial_wgmma": ([P] * 6 + [I] * 10 + [F, P], ctypes.c_int),
     "sw_flash_bwd_dkv": ([P] * 8 + [I] * 10 + [F, I, I, P], ctypes.c_int),
     "sw_flash_bwd_dkv_split": ([P] * 8 + [I] * 10 + [F, I, I, I, P],
                                ctypes.c_int),
     "sw_flash_bwd_dq": ([P] * 7 + [I] * 10 + [F, I, I, P], ctypes.c_int),
     "sw_int8_matmul": ([P] * 4 + [I] * 10 + [P], ctypes.c_int),
+    "sw_int8_matmul_wgmma": ([P] * 4 + [I] * 6 + [P], ctypes.c_int),
     "sw_paged_attention": ([P] * 5 + [I] * 2 + [P] + [I] * 8
                            + [F, I, I, P], ctypes.c_int),
     "sw_paged_attention_fma": ([P] * 5 + [I] * 2 + [P] * 4 + [I] * 8

@@ -13,6 +13,11 @@ when its grid is too small for the card (:func:`dkv_splits`).
 ``torch.autograd.Function`` whose backward is the two kernels, as the JAX
 package's ``custom_vjp`` is.
 
+A bf16 forward or partial of head size 64 or 128 runs the kernel on
+Hopper's wgmma fed by TMA (csrc/flash_fwd_wgmma.cu); head sizes 16 and
+32 the mma.sync kernel (:func:`fwd_route`, from the shapes).  Every
+kernel takes 16-byte aligned bases and refuses others.
+
 A ring step (parallel/ring_attention.py) runs :func:`flash_partial`, the
 unnormalised partial ``(o, m, l)`` of q against one kv shard at global
 offsets, and :func:`flash_partial_bwd`, the same two backward passes at
@@ -54,7 +59,8 @@ def _check_args(q, k, v, causal, window):
 
 def _check_kernel_args(tensors, name):
     """What the CUDA kernels take: one device, contiguous, bf16 or f32,
-    a compiled head size."""
+    a compiled head size, bases on the 16-byte grid (the kernels copy
+    16-byte chunks: TMA boxes, cp.async)."""
     q = tensors[0]
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q must be bfloat16 or float32, got {q.dtype}")
@@ -66,10 +72,27 @@ def _check_kernel_args(tensors, name):
             raise ValueError(f"tensor on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte aligned tensors")
 
 
 N_SMS = 132   # SMs of an H100 SXM: the plans' count where no card is named
 TILE = 64     # rows of the kernels' q and kv tiles
+WGMMA_HEAD_DIMS = (64, 128)  # the wgmma forward's compiled head sizes
+
+
+def fwd_route(bf16: bool, head_dim: int) -> str:
+    """The forward and partial kernel a call takes: "wgmma" (csrc/
+    flash_fwd_wgmma.cu, TMA and wgmma) for bf16 at a head size of
+    ``WGMMA_HEAD_DIMS`` (TMA's strides, D * 2 and S * D * 2 bytes, are
+    multiples of 16 there; its bases, as every kernel's here, are
+    16-byte aligned or refused by ``_check_kernel_args``), "mma"
+    (csrc/flash_fwd.cu, mma.sync) for bf16 at the other head sizes, "fma"
+    for float32.  Decided from the arguments alone, never from a failed
+    launch."""
+    if not bf16:
+        return "fma"
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma"
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,23 +100,29 @@ def _n_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def q_heights(head_dim: int) -> tuple:
+    """The q-tile heights the bf16 forward and partial kernels have at
+    ``head_dim``: 64 rows for the wgmma kernel (64 and 128: two blocks
+    an SM, which beat blocks of 128 rows at every main-path shape on the
+    H100), 64 and 128 for the mma.sync kernel at 32, 64 at 16 (ptxas
+    spills the taller tile there)."""
+    return (TILE, 2 * TILE) if head_dim == 32 else (TILE,)
+
+
 def fwd_q_rows(b: int, hq: int, s_len: int, kv_len: int, causal: bool,
                window: Optional[int] = None, q_offset: int = 0,
                kv_offset: int = 0, n_sms: int = N_SMS,
                head_dim: int = 128) -> int:
-    """The q-tile height of the bf16 forward and partial kernels: 128 rows
-    (each warp two 16-row m-tiles, so every K/V tile staged from L2 serves
-    twice the rows) when the grid at that height keeps the card's
-    ``n_sms`` SMs busy, else 64.  Blocks of equal work (every row sees
-    every key: no causal mask, or a ring step's past block) run side by
-    side, so a block for every other SM will do; under a causal diagonal
-    the heaviest blocks walk twice the average, and it takes two blocks
-    an SM for the heaviest-first order to balance them.  On an H100 SXM:
-    128 rows for prefill and training at S >= 2048, the ring's past block
-    (T = 1024) and zigzag's unmasked half shards (T = 512); 64 for
-    admission buckets up to 1024 and the ring's diagonal block.  Head
-    sizes below 32 keep 64 rows (the kernels have no taller tile there)."""
-    if head_dim < 32:
+    """The q-tile height of the bf16 forward and partial kernels, of
+    :func:`q_heights`: where the kernel has two, 128 rows (each warp two
+    16-row m-tiles, so every K/V tile staged from L2 serves twice the
+    rows) when the grid at that height keeps the card's ``n_sms`` SMs
+    busy, else 64.  Blocks of equal work (every row sees every key: no
+    causal mask, or a ring step's past block) run side by side, so a
+    block for every other SM will do; under a causal diagonal the
+    heaviest blocks walk twice the average, and it takes two blocks an SM
+    for the heaviest-first order to balance them."""
+    if 2 * TILE not in q_heights(head_dim):
         return TILE
     blocks = b * hq * -(-s_len // (2 * TILE))
     full = not causal or (window is None
@@ -159,27 +188,39 @@ def flash_forward(q, k, v, *, causal: bool = False,
         sm_scale = 1.0 / (d ** 0.5)
     rows = fwd_q_rows(b, hq, s_len, k.shape[2], causal, window,
                       n_sms=_n_sms(q.device.index), head_dim=d)
+    route = fwd_route(q.dtype == torch.bfloat16, d)
     out = _launch_forward(q, k, v, rows, causal, sm_scale, window)
     flash_forward.launches += 1
+    flash_forward.wgmma_launches += route == "wgmma"
     return out
 
 
 flash_forward.launches = 0
+flash_forward.wgmma_launches = 0  # of them, on csrc/flash_fwd_wgmma.cu
 
 
 def _launch_forward(q, k, v, rows, causal, sm_scale, window):
-    """The forward kernel on checked CUDA tensors at ``rows``-row q tiles
-    (bf16; float32 has one tiling), uncounted: :func:`flash_forward`'s
-    launch, and the tests' and the sweep's (ops/flash_sweep.py) at the
-    height :func:`fwd_q_rows` does not pick."""
+    """The forward kernel (:func:`fwd_route`'s) on checked CUDA tensors at
+    ``rows``-row q tiles (bf16; float32 has one tiling), uncounted:
+    :func:`flash_forward`'s launch, and the tests' and the sweep's
+    (ops/flash_sweep.py) at a height of :func:`q_heights` that
+    :func:`fwd_q_rows` does not pick."""
     b, hq, s_len, d = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    route = fwd_route(bf16, d)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, s_len), dtype=torch.float32, device=q.device)
-    err = _build.library().sw_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, hq, k.shape[1], s_len, k.shape[2], d, int(causal),
-        0 if window is None else int(window), float(sm_scale),
-        int(q.dtype == torch.bfloat16), rows, _build.stream_ptr(q))
+    lib = _build.library()
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, hq, k.shape[1], s_len, k.shape[2], d,
+            int(causal), 0 if window is None else int(window),
+            float(sm_scale))
+    if rows not in q_heights(d):
+        raise ValueError(f"no {rows}-row q tiles at head_dim {d}")
+    if route == "wgmma":
+        err = lib.sw_flash_fwd_wgmma(*head, _build.stream_ptr(q))
+    else:
+        err = lib.sw_flash_fwd(*head, int(bf16), rows, _build.stream_ptr(q))
     _build.check(err, "flash_forward")
     return o, lse
 
@@ -436,13 +477,16 @@ def flash_partial(q, k, v, q_offset: int, kv_offset: int, *,
     b, hq, s_len, d = q.shape
     rows = fwd_q_rows(b, hq, s_len, k.shape[2], causal, window, q_offset,
                       kv_offset, _n_sms(q.device.index), d)
+    route = fwd_route(q.dtype == torch.bfloat16, d)
     out = _launch_partial(q, k, v, q_offset, kv_offset, rows, causal,
                           sm_scale, window)
     flash_partial.launches += 1
+    flash_partial.wgmma_launches += route == "wgmma"
     return out
 
 
 flash_partial.launches = 0
+flash_partial.wgmma_launches = 0  # of them, on csrc/flash_fwd_wgmma.cu
 
 
 def _launch_partial(q, k, v, q_offset, kv_offset, rows, causal, sm_scale,
@@ -450,16 +494,24 @@ def _launch_partial(q, k, v, q_offset, kv_offset, rows, causal, sm_scale,
     """The partial kernel on checked CUDA tensors at ``rows``-row q tiles,
     uncounted, as :func:`_launch_forward`."""
     b, hq, s_len, d = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    route = fwd_route(bf16, d)
     f32 = dict(dtype=torch.float32, device=q.device)
     o = torch.empty(q.shape, **f32)
     m = torch.empty((b, hq, s_len), **f32)
     l = torch.empty((b, hq, s_len), **f32)
-    err = _build.library().sw_flash_partial(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
-        l.data_ptr(), b, hq, k.shape[1], s_len, k.shape[2], d, int(causal),
-        0 if window is None else int(window), int(q_offset), int(kv_offset),
-        float(sm_scale), int(q.dtype == torch.bfloat16), rows,
-        _build.stream_ptr(q))
+    lib = _build.library()
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), b, hq, k.shape[1], s_len, k.shape[2],
+            d, int(causal), 0 if window is None else int(window),
+            int(q_offset), int(kv_offset), float(sm_scale))
+    if rows not in q_heights(d):
+        raise ValueError(f"no {rows}-row q tiles at head_dim {d}")
+    if route == "wgmma":
+        err = lib.sw_flash_partial_wgmma(*head, _build.stream_ptr(q))
+    else:
+        err = lib.sw_flash_partial(*head, int(bf16), rows,
+                                   _build.stream_ptr(q))
     _build.check(err, "flash_partial")
     return o, m, l
 

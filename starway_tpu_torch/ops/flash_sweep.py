@@ -10,10 +10,11 @@ B = 1 and every admission bucket S = 128 ... 2048, at B = 2 and S = 2048
 yardstick); the partial at train-ring's shard (T = 1024: a past block,
 the diagonal, a band edge with window 700, a block whose first 512 rows
 see no key) and zigzag's half shards (T = 512: an unmasked hi-lo pair, a
-diagonal half).  At each shape, 64- and 128-row q tiles are each held
-against the plain version (o, or a partial's o / l, to 2e-2; lse and m to
-1e-3) and timed as device ms a call (utils/cuda_timing.py graph_us: 20
-calls in one CUDA graph), beside the height the plan picks.  Prints one
+diagonal half).  At each shape, each q-tile height the kernel has at D
+(flash.q_heights: the wgmma kernel has 64 rows) is held against the plain
+version (o, or a partial's o / l, to 2e-2; lse and m to 1e-3) and timed
+as device ms a call (utils/cuda_timing.py graph_us: 20 calls in one CUDA
+graph), beside the height the plan picks.  Prints one
 line a shape and a JSON line of all of them.  Needs an NVIDIA GPU.
 chip_smoke.py times the planned kernels beside SDPA.
 """
@@ -29,7 +30,6 @@ from . import flash
 from ..utils.cuda_timing import graph_us, visible_pairs
 
 HQ, HKV, D = 32, 8, 128
-Q_ROWS = (64, 128)
 FORWARD = [(1, s) for s in (128, 256, 512, 1024, 2048)] + [(2, 2048),
                                                            (1, 4096)]
 # (name, T, q_offset, kv_offset, window, causal)
@@ -50,7 +50,7 @@ def forward_row(randn, n_sms: int, b: int, s: int) -> dict:
     o_r, lse_r = flash.flash_forward_reference(q, k, v, causal=True)
     scale = D ** -0.5
     ms = {}
-    for rows in Q_ROWS:
+    for rows in flash.q_heights(D):
         def call(_=None, rows=rows):
             return flash._launch_forward(q, k, v, rows, True, scale, None)
 
@@ -73,7 +73,7 @@ def partial_row(randn, n_sms: int, name, t, q_off, kv_off, window,
     live = l_r > 0
     scale = D ** -0.5
     ms = {}
-    for rows in Q_ROWS:
+    for rows in flash.q_heights(D):
         def call(_=None, rows=rows):
             return flash._launch_partial(q, k, v, q_off, kv_off, rows, causal,
                                          scale, window)

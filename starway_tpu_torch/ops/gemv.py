@@ -17,6 +17,12 @@ second kernel, and two calls give identical bits.  For a static weight
 kernel is a programmatic dependent launch that starts streaming its
 weight while the kernel ahead finishes.  A float32 x takes the FMA
 kernel ("fma").
+
+The prefill regime runs on Hopper's wgmma fed by TMA
+(csrc/w8a16_wgmma.cu, planned by :func:`wgmma_plan`) wherever TMA takes
+the operands (:func:`prefill_route`: D % 8 == 0, F % 16 == 0, 16-byte
+aligned bases), which every projection of the serving paths meets; the
+mma.sync prefill kernel (planned by :func:`gemv_plan`) takes the rest.
 """
 
 from __future__ import annotations
@@ -110,6 +116,33 @@ def gemv_plan(m: int, d: int, f: int, n_sms: int) -> tuple[str, int]:
     return regime, _cdiv(d, split_chunk(d, regime, want))
 
 
+WGMMA_TILE_F = 256  # F columns a block of the wgmma kernel, 128 a consumer
+
+
+def prefill_route(d: int, f: int, aligned: bool = True) -> str:
+    """The prefill regime's kernel: "wgmma" (csrc/w8a16_wgmma.cu) where TMA
+    takes the operands, x's rows (D * 2 bytes) and the weight's (F bytes)
+    multiples of 16 bytes (D % 8 == 0, F % 16 == 0) and every base 16-byte
+    aligned (``aligned``), else "mma" (csrc/int8_gemv.cu).  Decided from
+    the arguments alone, never from a failed launch."""
+    return "wgmma" if aligned and d % 8 == 0 and f % 16 == 0 else "mma"
+
+
+def wgmma_plan(m: int, d: int, f: int, n_sms: int) -> tuple[int, int]:
+    """(tile_m, splits) of the wgmma prefill kernel: 64 rows of x a block
+    up to M = 64, else 128, by ``WGMMA_TILE_F`` columns; D split (chunks
+    of whole 64-row stages, up to ``MAX_SPLITS["prefill"]``, one cluster)
+    as many ways as keep the grid within one wave of a block an SM (a
+    block of 384 threads and ~130 KB of shared memory holds an SM), where
+    the unsplit grid is under one."""
+    tile_m = 64 if m <= 64 else 128
+    tiles = _cdiv(m, tile_m) * _cdiv(f, WGMMA_TILE_F)
+    want = max(1, min(MAX_SPLITS["prefill"], n_sms // tiles))
+    if want <= 1:
+        return tile_m, 1
+    return tile_m, _cdiv(d, split_chunk(d, "prefill", want))
+
+
 def early_launch(regime: str, m: int, f: int, splits: int,
                  n_sms: int) -> bool:
     """Whether the decode kernel of a static weight goes out as a
@@ -174,49 +207,71 @@ def _n_sms(index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _launch_plan(m: int, d: int, f: int, bf16: bool, static: bool,
-                 index: int):
-    """:func:`make_plan` of the plan :func:`gemv_plan` picks for one call,
-    launched early where :func:`early_launch` says so and the weight is
-    static; cached, as a decode step makes ~225."""
+                 index: int, aligned: bool = True):
+    """:func:`launch_plan` on the card ``index``; cached, as a decode step
+    makes ~225 calls."""
+    return launch_plan(m, d, f, _n_sms(index), bf16=bf16, static=static,
+                       aligned=aligned)
+
+
+def launch_plan(m: int, d: int, f: int, n_sms: int, *, bf16: bool = True,
+                static: bool = False, aligned: bool = True) -> tuple:
+    """:func:`make_plan` of the plan for one call on a card of ``n_sms``
+    SMs: the prefill regime on the kernel :func:`prefill_route` picks
+    (wgmma: :func:`wgmma_plan`), else :func:`gemv_plan`'s, launched early
+    where :func:`early_launch` says so and the weight is ``static``."""
     if not bf16:
         return "fma", 0, 0, 0, 1, d
-    n_sms = _n_sms(index)
     regime, splits = gemv_plan(m, d, f, n_sms)
+    if regime == "prefill" and prefill_route(d, f, aligned) == "wgmma":
+        tile_m, splits = wgmma_plan(m, d, f, n_sms)
+        return make_plan(regime, d, splits, (tile_m, WGMMA_TILE_F), False,
+                         "wgmma")
     tile = prefill_tile(m, f, n_sms) if regime == "prefill" else (0, 0)
     early = static and early_launch(regime, m, f, splits, n_sms)
     return make_plan(regime, d, splits, tile, early)
 
 
-def make_plan(regime: str, d: int, splits: int, tile, early: bool) -> tuple:
+def make_plan(regime: str, d: int, splits: int, tile, early: bool,
+              route: str = "mma") -> tuple:
     """(regime, its code for the C entry point, prefill tile rows and
     columns, splits, chunk) of a bf16 launch.  Codes: 1 decode, 3 decode
-    as an early launch (``early``), 2 prefill."""
-    code = (3 if early else 1) if regime == "decode" else 2
+    as an early launch (``early``), 2 prefill on mma.sync, 4 prefill on
+    wgmma (``route``)."""
+    if regime == "decode":
+        code = 3 if early else 1
+    else:
+        code = 4 if route == "wgmma" else 2
     return (regime, code, *tile, splits, split_chunk(d, regime, splits))
 
 
 def int8_matmul(x, wq, scale, *, static_weight: bool = False):
     """``x [M, D] @ (wq int8 [D, F] * scale f32 [F]) -> [M, F]``.
 
-    CUDA tensors launch the kernels (csrc/int8_gemv.cu) in the regime of
-    :func:`gemv_plan`, CPU tensors take :func:`int8_matmul_reference`.
+    CUDA tensors launch the kernels (csrc/int8_gemv.cu, and for the
+    prefill regime csrc/w8a16_wgmma.cu where :func:`prefill_route` says so)
+    in the plan of :func:`launch_plan`, CPU tensors take
+    :func:`int8_matmul_reference`.
     ``static_weight``: nothing writes ``wq`` while calls run (a served
     model's parameters), so the decode kernel may read it before the
     kernel ahead in the stream has finished (:func:`early_launch`)."""
     _check_args(x, wq, scale)
     if not x.is_cuda:
         return int8_matmul_reference(x, wq, scale)
+    aligned = (x.data_ptr() | wq.data_ptr() | scale.data_ptr()) % 16 == 0
     plan = _launch_plan(x.shape[0], x.shape[1], wq.shape[1],
                         x.dtype == torch.bfloat16, static_weight,
-                        x.device.index or 0)
+                        x.device.index or 0, aligned)
     out = launch(x, wq, scale, plan)
     int8_matmul.launches += 1
     int8_matmul.regime_launches[plan[0]] += 1
+    int8_matmul.wgmma_launches += plan[1] == 4
     return out
 
 
 int8_matmul.launches = 0
 int8_matmul.regime_launches = dict.fromkeys(REGIMES, 0)
+int8_matmul.wgmma_launches = 0  # prefill launches on csrc/w8a16_wgmma.cu
 
 
 def launch(x, wq, scale, plan):
@@ -238,6 +293,12 @@ def launch(x, wq, scale, plan):
         return out
     regime, code, tile_m, tile_n, splits, chunk = plan
     xp, wp = x.data_ptr(), wq.data_ptr()
+    if code == 4:
+        err = _build.library().sw_int8_matmul_wgmma(
+            xp, wp, scale.data_ptr(), out.data_ptr(), m, d, f, tile_m,
+            splits, chunk, _build.stream_ptr(x))
+        _build.check(err, "int8_matmul")
+        return out
     vec = f % 16 == 0 and wp % 16 == 0  # 16-byte weight loads
     if regime == "decode":  # and 8-byte loads of x
         vec = vec and d % 4 == 0 and xp % 8 == 0

@@ -83,6 +83,27 @@ def test_rehearsal_prints_one_row_each():
         assert row["card"].startswith("cpu"), row
 
 
+def test_port_rows_rehearse():
+    """The rows of the port alone (``PORT_BENCHES``: #4's prefill regime
+    and #7's past block, each beside its library call) run their exact
+    code path on the CPU at ``PORT_REHEARSAL_KW`` sizes, and "all" runs
+    them."""
+    twin = _twin()
+    assert set(twin.PORT_BENCHES) == set(twin.PORT_REHEARSAL_KW) == {
+        "gemv_int8_prefill", "flash_partial"}
+    assert not set(twin.PORT_BENCHES) & set(twin.BENCHES)
+    r = _run([str(TWINS / "kernel_bench.py"), "--which",
+              "gemv_int8_prefill,flash_partial"],
+             {"STARWAY_BENCH_REHEARSAL": "1"})
+    assert r.returncode == 0, r.stdout + r.stderr
+    rows = [json.loads(line) for line in r.stdout.splitlines()]
+    assert [row["metric"] for row in rows] == [
+        "gemv_int8_prefill_vs_matmul", "flash_partial_tflops"]
+    for row in rows:
+        assert "error" not in row and row["device"] == "cpu", row
+        assert row["ms"] > 0 and row["library_ms"] > 0
+
+
 def test_collect_baseline_on_the_cpu():
     """The five configurations at --quick sizes: the table's five rows and
     one JSON row naming them."""
@@ -103,7 +124,8 @@ def test_collect_baseline_on_the_cpu():
     ["kernel_bench.py", "--which", "matmul"],
     ["collect_baseline.py"],
     ["release_smoke.sh"],
-], ids=["kernel_bench", "collect_baseline", "release_smoke"])
+    ["kernel_pair.py", "--tree", "."],
+], ids=["kernel_bench", "collect_baseline", "release_smoke", "kernel_pair"])
 def test_twins_refuse_without_a_card(args, tmp_path):
     if args[0].endswith(".sh"):
         cmd = ["bash", str(TWINS / args[0]), str(tmp_path / "work")]

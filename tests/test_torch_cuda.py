@@ -37,7 +37,7 @@ from starway_tpu_torch.ops.flash import (flash_backward,
 from starway_tpu_torch.ops.gemv import (gemv_plan, int8_matmul,
                                         int8_matmul_reference,
                                         int8_matmul_split_reference,
-                                        split_chunk, tolerance_share)
+                                        launch_plan, tolerance_share)
 from starway_tpu_torch.ops.quantize import quantize_kv
 
 pytestmark = pytest.mark.cuda
@@ -277,14 +277,29 @@ FLASH_MAIN_PATH = [(2, 32, 8, 1000, 1000, 128, True, None),
 
 
 def _q_tilings(dtype, d):
-    """The q-tile heights to hold beside the planned one: bf16 runs 64- or
-    128-row tiles (the latter at D >= 32) as ops/flash.py fwd_q_rows plans
-    them from the shapes, so each is held at every shape (launched
-    directly at that height); float32 has the FMA loop's one, which the
-    wrapper's call holds."""
+    """The q-tile heights to hold beside the planned one: bf16 runs the
+    heights ops/flash.py q_heights gives (64 rows on the wgmma kernel at
+    head sizes 64 and 128; 64 or 128 on mma.sync at 32, as fwd_q_rows
+    plans them; 64 at 16), so each is held at every shape (launched
+    directly); float32 has the FMA loop's one, which the wrapper's call
+    holds."""
     if dtype != torch.bfloat16:
         return ()
-    return (64, 128) if d >= 32 else (64,)
+    return flash_ops.q_heights(d)
+
+
+def _misalign(t):
+    """A copy of ``t`` whose base is 8 bytes off the 16-byte grid (TMA
+    refuses it): the GEMV routes it to the mma.sync kernel, the flash
+    wrappers refuse it."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    off = 8 // t.element_size()
+    if flat.data_ptr() % 16:
+        off += 8 // t.element_size()
+    out = flat[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 8
+    return out
 
 
 @pytest.mark.parametrize(
@@ -294,8 +309,10 @@ def _q_tilings(dtype, d):
 def test_flash_kernel_matches_plain(dev, dtype, b, hq, hkv, s, skv, d,
                                     causal, window):
     """The forward against flash_forward_reference (bf16 inputs on the
-    tensor-core kernel as planned and at both q-tile heights, float32 on
-    the FMA loop); one launch a call of the wrapper."""
+    tensor-core kernels as planned and at both q-tile heights, float32 on
+    the FMA loop); one launch a call of the wrapper,
+    on the wgmma kernel exactly when fwd_route says so (bf16 at D 64 or
+    128).  A q off the 16-byte grid is refused before any launch."""
     rng = np.random.default_rng(1)
     q = _randn(rng, (b, hq, s, d), dtype, dev)
     k = _randn(rng, (b, hkv, skv, d), dtype, dev)
@@ -303,8 +320,14 @@ def test_flash_kernel_matches_plain(dev, dtype, b, hq, hkv, s, skv, d,
     o_ref, lse_ref = flash_forward_reference(q, k, v, causal=causal,
                                              window=window)
     before = flash_forward.launches
+    before_w = flash_forward.wgmma_launches
     outs = [flash_forward(q, k, v, causal=causal, window=window)]
     torch.cuda.synchronize()
+    assert flash_forward.launches == before + 1
+    wgmma = dtype == torch.bfloat16 and d in flash_ops.WGMMA_HEAD_DIMS
+    assert flash_forward.wgmma_launches == before_w + wgmma
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_forward(_misalign(q), k, v, causal=causal, window=window)
     assert flash_forward.launches == before + 1
     outs += [flash_ops._launch_forward(q, k, v, rows, causal, d ** -0.5,
                                        window)
@@ -327,7 +350,11 @@ def _gemv_operands(seed, m, d, f, dtype, dev):
 # Both sides of the decode/prefill crossover (M = 32 | 33), split and
 # unsplit D, 128- and 256-column prefill tiles (the last case takes 256),
 # ragged M, D and F, and element-load paths: F % 16 != 0 (1000, 333, 520,
-# 4001), D % 8 != 0 (300, 12) and D % 4 != 0 (201).
+# 4001), D % 8 != 0 (300, 12) and D % 4 != 0 (201).  The bf16 prefill
+# cases whose rows TMA takes (D % 8 == 0, F % 16 == 0) run the wgmma
+# kernel, ragged M, D and the last 256-column tile included; the rest
+# the mma.sync kernel, and so does every case with ``misaligned`` x.
+@pytest.mark.parametrize("misaligned", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,d,f", [(1, 64, 128), (8, 200, 1000),
                                    (40, 96, 333), (130, 256, 520),
@@ -336,11 +363,18 @@ def _gemv_operands(seed, m, d, f, dtype, dev):
                                    (16, 1024, 256), (17, 512, 384),
                                    (24, 201, 160), (64, 12, 4096),
                                    (65, 1000, 2048), (300, 520, 1040),
-                                   (1030, 520, 4001)])
-def test_int8_matmul_kernel_matches_plain(dev, dtype, m, d, f):
+                                   (1030, 520, 4001), (100, 200, 4000),
+                                   (33, 64, 272)])
+def test_int8_matmul_kernel_matches_plain(dev, dtype, m, d, f, misaligned):
     x, wq, scale = _gemv_operands(2, m, d, f, dtype, dev)
+    if misaligned:
+        x = _misalign(x)
+    before = int8_matmul.wgmma_launches
     got = int8_matmul(x, wq, scale)
     torch.cuda.synchronize()
+    wgmma = (dtype == torch.bfloat16 and m > 32 and d % 8 == 0
+             and f % 16 == 0 and not misaligned)
+    assert int8_matmul.wgmma_launches == before + wgmma
     want = int8_matmul_reference(x, wq, scale)
     assert_gemv_close(got, want)
 
@@ -355,29 +389,41 @@ def assert_gemv_close(got, want):
     assert share <= 1, f"worst element at {share:.3f} of its tolerance"
 
 
-@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize("m", [8, 64, 512])
 @pytest.mark.parametrize("d,f", [(4096, 4096), (4096, 1024), (4096, 14336),
-                                 (14336, 4096), (4096, 128256)])
+                                 (14336, 4096), (4096, 128256),
+                                 (4096, 2048), (2048, 4096), (4096, 512),
+                                 (2048, 1024), (4096, 7168), (7168, 4096),
+                                 (2048, 14336), (14336, 2048),
+                                 (4096, 64128), (2048, 128256)])
 def test_int8_matmul_main_path_shapes(dev, m, d, f):
-    """llama3-8b's projections and lm_head at decode M=8 and prefill
-    M=512, bf16: the regime gemv_plan picks launches, and the result
-    matches the plain version and the split sum in the kernel's order."""
+    """llama3-8b's projections and lm_head, whole and at the tp halves of
+    F and of D, at decode M=8 and prefill M=64 and 512, bf16: the regime
+    gemv_plan picks launches (the prefill regime on the wgmma kernel, as
+    ops/gemv.py launch_plan plans it), and the result matches the plain
+    version and the split sum in the kernel's order."""
     x, wq, scale = _gemv_operands(4, m, d, f, torch.bfloat16, dev)
-    regime, splits = gemv_plan(
-        m, d, f, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    regime, splits = gemv_plan(m, d, f, n_sms)
     assert regime == ("decode" if m == 8 else "prefill")
+    plan = launch_plan(m, d, f, n_sms, static=True)
+    assert plan[1] == (4 if regime == "prefill" else 3)
     before = dict(int8_matmul.regime_launches)
-    got = int8_matmul(x, wq, scale)
+    before_w = int8_matmul.wgmma_launches
+    got = int8_matmul(x, wq, scale, static_weight=True)
     torch.cuda.synchronize()
     assert int8_matmul.regime_launches[regime] == before[regime] + 1
+    assert int8_matmul.wgmma_launches == before_w + (regime == "prefill")
     assert_gemv_close(got, int8_matmul_reference(x, wq, scale))
     assert_gemv_close(got, int8_matmul_split_reference(
-        x, wq, scale, split_chunk(d, regime, splits)))
+        x, wq, scale, plan[-1]))
 
 
 @pytest.mark.parametrize("m,d,f", [(8, 4096, 4096), (8, 4096, 128256),
                                    (24, 14336, 1024), (512, 4096, 4096),
-                                   (96, 1024, 2000), (2048, 4096, 1024)])
+                                   (96, 1024, 2000), (2048, 4096, 1024),
+                                   (512, 4096, 14336), (512, 4096, 1024),
+                                   (64, 14336, 2048)])
 def test_int8_matmul_bf16_is_deterministic(dev, m, d, f):
     """Two bf16 calls on the same inputs give identical bits in both
     regimes, split or not: no atomics, partials summed in split order."""
@@ -565,16 +611,17 @@ def test_flash_backward_bf16_is_deterministic(dev, b, s, hq, hkv):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("d", [128, 64])
 @pytest.mark.parametrize("kernel", ["forward", "partial"])
-def test_flash_forward_bf16_is_deterministic(dev, kernel):
+def test_flash_forward_bf16_is_deterministic(dev, kernel, d):
     """Two bf16 calls of the forward (B=2, S=2048, causal) or of the ring
-    step's partial (a past block and a diagonal one, T=1024; 128- and
-    64-row q tiles as planned) on the same inputs give identical bits:
-    each row's sums are taken in a fixed order."""
+    step's partial (a past block and a diagonal one, T=1024) on the same
+    inputs give identical bits: each row's sums are taken in a fixed
+    order (the wgmma kernel at both of its head sizes)."""
     rng = np.random.default_rng(14)
     b, s = (2, 2048) if kernel == "forward" else (1, 1024)
-    q = _randn(rng, (b, 32, s, 128), torch.bfloat16, dev)
-    k, v = (_randn(rng, (b, 8, s, 128), torch.bfloat16, dev)
+    q = _randn(rng, (b, 32, s, d), torch.bfloat16, dev)
+    k, v = (_randn(rng, (b, 8, s, d), torch.bfloat16, dev)
             for _ in range(2))
     if kernel == "forward":
         calls = [lambda: flash_forward(q, k, v, causal=True)]
@@ -632,6 +679,7 @@ RING_STEPS = [(130, 0, None, True), (130, 130, None, True),
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 32),
                                      (torch.bfloat16, 64),
                                      (torch.bfloat16, 128)])
 @pytest.mark.parametrize("q_off,kv_off,window,causal", RING_STEPS)
@@ -640,8 +688,9 @@ def test_flash_partial_kernel_matches_plain(dev, dtype, d, q_off, kv_off,
     """The ring step's partial against flash_partial_reference, GQA 4:1:
     o / l to the output tolerance, m and l to float32 summation order, and
     rows that see no key exactly the identity (o = 0, m = NEG_BIG, l = 0);
-    one launch a call of the wrapper.  bf16 as planned and at both q-tile
-    heights, and also at the main paths' head size."""
+    one launch a call of the wrapper, bf16 on the wgmma kernel at head
+    sizes 64 and 128 (on mma.sync at 32).  bf16 as planned and at both
+    q-tile heights, and also at the main paths' head size."""
     rng = np.random.default_rng(9)
     t = 130
     q = _randn(rng, (2, 8, t, d), dtype, dev)
@@ -652,9 +701,12 @@ def test_flash_partial_kernel_matches_plain(dev, dtype, d, q_off, kv_off,
     dead = l_r == 0
     live = ~dead
     before = flash_partial.launches
+    before_w = flash_partial.wgmma_launches
     outs = [flash_partial(q, k, v, q_off, kv_off, **kw)]
     torch.cuda.synchronize()
     assert flash_partial.launches == before + 1
+    assert flash_partial.wgmma_launches == before_w + (
+        dtype == torch.bfloat16 and d in flash_ops.WGMMA_HEAD_DIMS)
     outs += [flash_ops._launch_partial(q, k, v, q_off, kv_off, rows, causal,
                                        d ** -0.5, window)
              for rows in _q_tilings(dtype, d)]

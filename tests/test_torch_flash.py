@@ -182,30 +182,41 @@ def test_dkv_splits_follow_the_cards_sm_count():
 
 
 def test_fwd_q_rows_on_the_main_paths_shapes():
-    """The bf16 forward's q-tile height (ops/flash.py fwd_q_rows), llama3-8b
-    heads on an H100 SXM's 132 SMs: 128 rows for prefill and training at
-    S >= 2048 and for the ring's past block, 64 where the 128-row grid
+    """The bf16 forward's q-tile height (ops/flash.py fwd_q_rows) on an
+    H100 SXM's 132 SMs.  The wgmma kernel (head sizes 64 and 128, the
+    main paths' llama3-8b heads) has 64-row tiles only, two blocks an SM;
+    head size 16 keeps 64 rows.  Where the kernel has two heights (the
+    mma.sync kernel at head size 32): 128 rows for prefill and training
+    at S >= 2048 and for the ring's past block, 64 where the 128-row grid
     would not keep the card busy (admission buckets up to 1024, the
     ring's diagonal and partly dead blocks); blocks of equal work (a past
-    block, zigzag's unmasked half shards) need a block for every other SM,
-    a causal diagonal two blocks an SM.  Head size 16 keeps 64 rows."""
-    assert tflash.fwd_q_rows(1, 32, 2048, 2048, True) == 128
-    assert tflash.fwd_q_rows(2, 32, 2048, 2048, True) == 128
-    assert tflash.fwd_q_rows(1, 32, 4096, 4096, True) == 128
+    block, zigzag's unmasked half shards) need a block for every other
+    SM, a causal diagonal two blocks an SM."""
+    assert tflash.q_heights(128) == tflash.q_heights(64) == (64,)
+    assert tflash.q_heights(32) == (64, 128) and tflash.q_heights(16) == (64,)
+    for s in (128, 512, 1024, 2048, 4096):
+        for d in (64, 128):
+            assert tflash.fwd_q_rows(1, 32, s, s, True, head_dim=d) == 64
+            assert tflash.fwd_q_rows(2, 32, s, s, False, head_dim=d) == 64
+    d32 = dict(head_dim=32)
+    assert tflash.fwd_q_rows(1, 32, 2048, 2048, True, **d32) == 128
+    assert tflash.fwd_q_rows(2, 32, 2048, 2048, True, **d32) == 128
+    assert tflash.fwd_q_rows(1, 32, 4096, 4096, True, **d32) == 128
     for s in (128, 256, 512, 1024):
-        assert tflash.fwd_q_rows(1, 32, s, s, True) == 64
-    ring = dict(b=1, hq=32, s_len=1024, kv_len=1024, causal=True)
+        assert tflash.fwd_q_rows(1, 32, s, s, True, **d32) == 64
+    ring = dict(b=1, hq=32, s_len=1024, kv_len=1024, causal=True, **d32)
     assert tflash.fwd_q_rows(**ring, q_offset=1024, kv_offset=0) == 128
     assert tflash.fwd_q_rows(**ring, q_offset=1024, kv_offset=1024) == 64
     assert tflash.fwd_q_rows(**ring, q_offset=0, kv_offset=512) == 64
     assert tflash.fwd_q_rows(**ring, window=700, q_offset=1024,
                              kv_offset=0) == 64
-    assert tflash.fwd_q_rows(1, 32, 512, 512, False) == 128
-    assert tflash.fwd_q_rows(1, 32, 128, 128, False) == 64
-    assert tflash.fwd_q_rows(1, 32, 1024, 1024, False, n_sms=514) == 64
-    assert tflash.fwd_q_rows(1, 32, 2048, 2048, True, n_sms=257) == 64
-    assert tflash.fwd_q_rows(1, 32, 2048, 2048, True, n_sms=114) == 128
-    for d, rows in ((16, 64), (32, 128), (64, 128), (128, 128)):
+    assert tflash.fwd_q_rows(1, 32, 512, 512, False, **d32) == 128
+    assert tflash.fwd_q_rows(1, 32, 128, 128, False, **d32) == 64
+    assert tflash.fwd_q_rows(1, 32, 1024, 1024, False, n_sms=514,
+                             **d32) == 64
+    assert tflash.fwd_q_rows(1, 32, 2048, 2048, True, n_sms=257, **d32) == 64
+    assert tflash.fwd_q_rows(1, 32, 2048, 2048, True, n_sms=114, **d32) == 128
+    for d, rows in ((16, 64), (32, 128), (64, 64), (128, 64)):
         assert tflash.fwd_q_rows(2, 32, 2048, 2048, True, head_dim=d) == rows
 
 
@@ -244,3 +255,37 @@ def test_dkv_split_partials_sum_to_the_whole(causal, window, n_split):
     for got, want in ((dk_sum, dk), (dv_sum, dv)):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_fwd_route_by_head_size(d):
+    """The forward and the ring step's partial run on the wgmma kernel
+    (csrc/flash_fwd_wgmma.cu) for bf16 at the main paths' head sizes (128:
+    llama3-8b, Mistral-7B, Mixtral; 64), on the mma.sync kernel for heads
+    of 16 and 32, and on the FMA loop for float32."""
+    want = "wgmma" if d in (64, 128) else "mma"
+    assert tflash.fwd_route(True, d) == want
+    assert tflash.fwd_route(False, d) == "fma"
+    assert tflash.WGMMA_HEAD_DIMS == (64, 128)
+
+
+def test_flash_kernels_refuse_a_misaligned_base():
+    """A view whose base is off the 16-byte grid (TMA's boxes and the
+    mma.sync kernels' cp.async chunks both need it) is refused with a
+    ValueError before any launch; the routes are decided from the
+    arguments, never from a failed launch."""
+    import inspect
+
+    n = 2 * 4 * 64 * 128
+    base = torch.zeros(8 + n, dtype=torch.bfloat16)
+    assert base.data_ptr() % 16 == 0
+    q = base[4:4 + n].view(2, 4, 64, 128)
+    assert q.data_ptr() % 16 == 8
+    k = v = base[8:].view(2, 4, 64, 128)
+    tflash._check_kernel_args((k, k, v), "flash_forward")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tflash._check_kernel_args((q, k, v), "flash_forward")
+    for fn in (tflash.flash_forward, tflash._launch_forward,
+               tflash.flash_partial, tflash._launch_partial):
+        src = inspect.getsource(fn)
+        assert "try:" not in src and "except" not in src, fn.__name__

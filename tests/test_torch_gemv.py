@@ -220,3 +220,85 @@ def test_gemv_split_partials_sum_to_the_whole(m, d, f):
     got = tgemv.int8_matmul_split_reference(x, wq, scale, chunk)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-6 * want.abs().max().item())
+
+
+# The main paths' W8A16 projections (llama3-8b's wq/wo, wk/wv, gate/up,
+# down, lm_head), each also at the tp halves of F and of D.
+WGMMA_SHAPES = [(d // dd, f // ff) for d, f in PROJ + [LM_HEAD]
+                for dd, ff in ((1, 1), (1, 2), (2, 1))]
+
+
+@pytest.mark.parametrize("m", [64, 128, 512, 1024, 2048])
+@pytest.mark.parametrize("d,f", WGMMA_SHAPES)
+def test_main_path_prefill_shapes_take_the_wgmma_kernel(m, d, f):
+    """Every main-path projection in the prefill regime, whole and at the
+    tp halves, launches csrc/w8a16_wgmma.cu (code 4) at wgmma_plan's tile
+    and split; the decode regime keeps its mma.sync kernel and plan."""
+    assert tgemv.prefill_route(d, f) == "wgmma"
+    tile_m, splits = tgemv.wgmma_plan(m, d, f, 132)
+    plan = tgemv.launch_plan(m, d, f, 132, static=True)
+    assert plan == ("prefill", 4, tile_m, tgemv.WGMMA_TILE_F, splits,
+                    tgemv.split_chunk(d, "prefill", splits))
+    decode = tgemv.launch_plan(8, d, f, 132, static=True)
+    assert decode[:2] == ("decode", 3)
+    assert decode == tgemv.make_plan(
+        "decode", d, tgemv.gemv_plan(8, d, f, 132)[1], (0, 0), True)
+
+
+@pytest.mark.parametrize("n_sms", [132, 114])
+@pytest.mark.parametrize("m", [33, 64, 65, 128, 512, 2048])
+def test_wgmma_plan_tiles_and_splits(n_sms, m):
+    """The wgmma kernel's tile is 64 rows of x up to M = 64, else 128, by
+    256 columns of F (two consumer warpgroups of 128); a grid under one
+    wave of a block an SM splits D into whole 64-row stages, as many ways
+    (up to 8, one cluster) as keep it within the wave, every chunk
+    non-empty; a grid of a wave or more is not split."""
+    for d, f in WGMMA_SHAPES:
+        tile_m, splits = tgemv.wgmma_plan(m, d, f, n_sms)
+        assert tile_m == (64 if m <= 64 else 128)
+        tiles = -(-m // tile_m) * -(-f // tgemv.WGMMA_TILE_F)
+        chunk = tgemv.split_chunk(d, "prefill", splits)
+        assert chunk % 64 == 0 and -(-d // chunk) == splits
+        assert 1 <= splits <= tgemv.MAX_SPLITS["prefill"]
+        if tiles >= n_sms:
+            assert splits == 1
+        else:
+            assert tiles * splits <= n_sms
+            want = min(tgemv.MAX_SPLITS["prefill"], n_sms // tiles)
+            assert splits == -(-d // tgemv.split_chunk(d, "prefill", want))
+    assert tgemv.wgmma_plan(512, 4096, 14336, 132) == (128, 1)
+    assert tgemv.wgmma_plan(512, 14336, 4096, 132) == (128, 2)
+    assert tgemv.wgmma_plan(512, 4096, 1024, 132) == (128, 8)
+    assert tgemv.wgmma_plan(64, 4096, 1024, 132) == (64, 8)
+
+
+@pytest.mark.parametrize("m,d,f,aligned", [
+    (512, 4100, 4096, True),    # x's rows: 8200 bytes, not a multiple of 16
+    (512, 4096, 1000, True),    # the weight's rows: 1000 bytes
+    (130, 256, 520, True),
+    (40, 300, 333, True),
+    (512, 4096, 14336, False),  # a base off the 16-byte grid
+    (100, 12, 4096, True)])
+def test_strides_tma_refuses_route_to_the_mma_kernel(m, d, f, aligned):
+    """Operands TMA refuses (a row stride that is not a multiple of 16
+    bytes, a base that is not 16-byte aligned) take the mma.sync prefill
+    kernel (code 2) under gemv_plan's plan; code 4 is never planned for
+    them."""
+    assert tgemv.prefill_route(d, f, aligned) == "mma"
+    plan = tgemv.launch_plan(m, d, f, 132, aligned=aligned)
+    regime, splits = tgemv.gemv_plan(m, d, f, 132)
+    assert plan == tgemv.make_plan(regime, d, splits,
+                                   tgemv.prefill_tile(m, f, 132), False)
+    assert plan[1] == 2
+    assert tgemv.launch_plan(m, d, f, 132, bf16=False)[0] == "fma"
+
+
+def test_no_fallback_around_a_launch():
+    """A failed build or launch raises: the wrapper and its launcher catch
+    nothing, so no call carries on with another kernel or the plain
+    version."""
+    import inspect
+
+    for fn in (tgemv.int8_matmul, tgemv.launch, tgemv.launch_plan):
+        src = inspect.getsource(fn)
+        assert "try:" not in src and "except" not in src, fn.__name__
