@@ -322,6 +322,13 @@ FWD_ROUTES = ("cuda: bf16 at head sizes 64 and 128 wgmma + TMA "
               "flash_partial_wgmma_kernel); bf16 at 16 "
               "and 32 mma.sync (csrc/flash_fwd.cu); float32 FMA")
 WGMMA_FWD_KERNEL = "flash_fwd_wgmma_kernel"
+# The flash backward's routes (ops/flash.py bwd_route) and the kernels the
+# main paths run.
+BWD_ROUTES = ("cuda: bf16 at head sizes 64 and 128 wgmma + TMA "
+              "(csrc/flash_bwd_wgmma.cu flash_bwd_dkv_wgmma_kernel, "
+              "flash_bwd_dq_wgmma_kernel); bf16 at 16 and 32 mma.sync, "
+              "float32 FMA (csrc/flash_bwd.cu)")
+BWD_WRAPPERS = ("flash_backward_dkv", "flash_backward_dq", "flash_partial_bwd")
 # A float32 train step through 2 layers at full width, kernels against the
 # plain attention: the attention gradients differ in summation order, and
 # the 4096- and 14336-wide float32 matmuls carry that into every leaf.
@@ -340,6 +347,20 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     from starway_tpu_torch.utils.cuda_timing import event_ms
 
     return event_ms(fn, iters, warmup)
+
+
+def assert_bwd_route(counts: dict, wide_bf16: bool, label: str) -> None:
+    """One run's backward launches (``counts``, counted from 0) took the
+    wgmma kernels (csrc/flash_bwd_wgmma.cu) exactly when the run is bf16 at
+    a head size of 64 or 128 (``wide_bf16``, ops/flash.py bwd_route): all
+    of them, or none."""
+    for name in BWD_WRAPPERS:
+        want = counts.get(name, 0) if wide_bf16 else 0
+        if counts.get(f"{name}/wgmma", 0) != want:
+            raise AssertionError(
+                f"{label}: {counts.get(f'{name}/wgmma', 0)} of "
+                f"{counts.get(name, 0)} {name} launches on the wgmma "
+                f"kernels, not {want}")
 
 
 def bound(n_bytes: float, n_flops: float):
@@ -1151,12 +1172,15 @@ def flash_backward_rows(dev, randn):
     import torch
     import torch.nn.functional as F
 
+    from starway_tpu_torch.ops import flash as flash_ops
     from starway_tpu_torch.ops.flash import (flash_backward,
+                                             flash_backward_delta,
+                                             flash_backward_delta_reference,
                                              flash_backward_dkv,
                                              flash_backward_dq,
                                              flash_backward_reference,
                                              flash_forward)
-    from starway_tpu_torch.utils.cuda_timing import visible_pairs
+    from starway_tpu_torch.utils.cuda_timing import graph_us, visible_pairs
 
     HQ, HKV = 32, 8
     cases = [(2, HQ, HKV, 2048, 128, True, None, torch.bfloat16),
@@ -1175,9 +1199,17 @@ def flash_backward_rows(dev, randn):
                                                         dtype=dt)
         kw = dict(causal=causal, window=window)
         o, lse = flash_forward(q, k, v, **kw)
+        before = [getattr(flash_ops, n).wgmma_launches for n in BWD_WRAPPERS]
         got = flash_backward(q, k, v, o, lse, do, **kw)
         want = flash_backward_reference(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
+        wgmma = flash_ops.bwd_route(dt == torch.bfloat16, d) == "wgmma"
+        moved = [getattr(flash_ops, n).wgmma_launches - b
+                 for n, b in zip(BWD_WRAPPERS, before)]
+        if moved != [int(wgmma), int(wgmma), 0]:
+            raise AssertionError(f"flash_backward {dt} D={d}: the wgmma "
+                                 f"counts moved {moved}, bwd_route says "
+                                 f"{wgmma}")
         tol = GRAD_REL_TOL[str(dt).removeprefix("torch.")]
         rel = [((g.float() - w.float()).abs().max()
                 / w.float().abs().max()).item() for g, w in zip(got, want)]
@@ -1194,7 +1226,17 @@ def flash_backward_rows(dev, randn):
                                  "version")
         if s_len < 2048:
             continue
-        delta = (do.float() * o.float()).sum(dim=-1)
+        delta = flash_backward_delta(o, do)
+        delta_want = flash_backward_delta_reference(o, do)
+        torch.cuda.synchronize()
+        delta_err = (delta - delta_want).abs().max().item()
+        delta_tol = 1e-5 * delta_want.abs().max().item()
+        log(f"  flash_backward_delta: max_abs_err {delta_err:.3e} (tol "
+            f"{delta_tol:.3e}: float32 sums of {d} products in another "
+            f"order)")
+        if not delta_err <= delta_tol:
+            raise AssertionError("flash_backward_delta disagrees with its "
+                                 "plain version")
         kkw = dict(kw, sm_scale=d ** -0.5)
         dkv_ms = cuda_ms(lambda: flash_backward_dkv(q, k, v, do, lse, delta,
                                                     **kkw))
@@ -1209,6 +1251,17 @@ def flash_backward_rows(dev, randn):
             lib = cuda_ms(lambda: torch.autograd.grad(
                 o_lib, leaves, do, retain_graph=True))
             del o_lib, leaves
+        # Device ms in a CUDA graph: both passes with the delta reduction
+        # (flash_backward), and SDPA's backward as its forward and
+        # backward captured whole (autograd's backward runs on the
+        # capturing stream) less its forward.
+        pair_graph = graph_us(lambda _: flash_backward(q, k, v, o, lse, do,
+                                                       **kw), [None]) / 1e3
+        lib_graph = (graph_us(lambda _: sdpa_fwd_bwd(q, k, v, do, causal),
+                              [None])
+                     - graph_us(lambda _: F.scaled_dot_product_attention(
+                         q, k, v, is_causal=causal, enable_gqa=True),
+                         [None])) / 1e3
         # One product: 2 * D flops per visible pair and q head.  Bytes:
         # q, dO, k, v, lse and delta read once, the gradients written once.
         # Each pass is bound by its own outputs: dK/dV needs s, dp, dv and
@@ -1222,6 +1275,9 @@ def flash_backward_rows(dev, randn):
         dq_b = bound(io + es * q.numel(), 3 * flops)
         pair_b = bound(io + es * (q.numel() + 2 * k.numel()), 5 * flops)
         rates = bwd_rates(dkv_ms + dq_ms, flops, lib)
+        log(f"  device ms a call in a CUDA graph: flash_backward (delta and "
+            f"both passes) {pair_graph:.4f}, SDPA's backward "
+            f"{lib_graph:.4f} ({pair_graph / lib_graph:.2f}x)")
         log(f"  timed: dK/dV {dkv_ms:.4f} ms (bound {dkv_b[0]:.4f} ms, "
             f"{dkv_b[1]}, {4 * flops / dkv_ms / 1e9:.1f} TFLOP/s), dQ "
             f"{dq_ms:.4f} ms (bound {dq_b[0]:.4f} ms, {dq_b[1]}, "
@@ -1235,8 +1291,26 @@ def flash_backward_rows(dev, randn):
               f"plain_ms and library_ms cover both passes")
         row = dict(timed_at=at, both_passes_ms=dkv_ms + dq_ms,
                    both_passes_bound_ms=pair_b[0], plain_ms=plain,
-                   library_ms=lib, **rates)
+                   library_ms=lib, graph_ms_with_delta=pair_graph,
+                   library_graph_ms=lib_graph, **rates)
         if (b, s_len) == (2, 2048):
+            # delta: dO and O read once, delta written once.
+            delta_b = bound(2 * es * q.numel() + 4 * b * hq * s_len, 0)
+            timed["delta"] = dict(
+                max_abs_err=delta_err,
+                ms=cuda_ms(lambda: flash_backward_delta(o, do)),
+                graph_ms=graph_us(lambda _: flash_backward_delta(o, do),
+                                  [None]) / 1e3,
+                plain_ms=cuda_ms(lambda: flash_backward_delta_reference(
+                    o, do)),
+                bound_ms=delta_b[0], bound_by=delta_b[1],
+                timed_at=f"B={b} Hq={hq} S={s_len} D={d} bf16; ms by "
+                         f"events around one call, graph_ms device ms a "
+                         f"call in a CUDA graph")
+            log(f"  flash_backward_delta {timed['delta']['ms']:.4f} ms, "
+                f"device {timed['delta']['graph_ms']:.4f} ms (bound "
+                f"{delta_b[0]:.4f} ms, {delta_b[1]}), plain (float32 "
+                f"copies) {timed['delta']['plain_ms']:.4f} ms")
             timed["dkv"] = dict(row, ms=dkv_ms, bound_ms=dkv_b[0],
                                 bound_by=dkv_b[1])
             timed["dq"] = dict(row, ms=dq_ms, bound_ms=dq_b[0],
@@ -1245,19 +1319,44 @@ def flash_backward_rows(dev, randn):
             timed["long"] = dict(row, dkv_ms=dkv_ms, dq_ms=dq_ms)
         del q, k, v, do, o, lse, got, want, delta
         torch.cuda.empty_cache()
-    src = "starway_tpu_torch/csrc/flash_bwd.cu"
+    src = "starway_tpu_torch/csrc/flash_bwd_wgmma.cu"
     return {
+        "flash_backward_delta": dict(
+            name="flash_attention_bwd_delta", route="cuda",
+            kernel="flash_bwd_delta_kernel",
+            source="starway_tpu_torch/csrc/flash_bwd.cu",
+            replaces="none: the jnp reduction of "
+                     "starway_tpu/ops/pallas_attention.py:560 (_bwd_impl's "
+                     "delta, an XLA fusion on the TPU)",
+            library_ms=None, **timed["delta"]),
         "flash_backward_dkv": dict(
-            name="flash_attention_bwd_dkv", route=MMA_ROUTE, source=src,
+            name="flash_attention_bwd_dkv", route="cuda",
+            kernel="flash_bwd_dkv_wgmma_kernel", source=src,
+            design=BWD_ROUTES,
             replaces="starway_tpu/ops/pallas_attention.py:309 "
                      "(_bwd_dkv_kernel)",
             max_abs_err=worst["dkv"], **timed["dkv"],
             at_b1_s4096=timed["long"]),
         "flash_backward_dq": dict(
-            name="flash_attention_bwd_dq", route=MMA_ROUTE, source=src,
+            name="flash_attention_bwd_dq", route="cuda",
+            kernel="flash_bwd_dq_wgmma_kernel", source=src,
+            design=BWD_ROUTES,
             replaces="starway_tpu/ops/pallas_attention.py:364 "
                      "(_bwd_dq_kernel)",
             max_abs_err=worst["dq"], **timed["dq"])}
+
+
+def sdpa_fwd_bwd(q, k, v, do, causal: bool):
+    """SDPA's forward and backward in one call (the library's backward is
+    timed as this less the forward): gradients of q, k, v."""
+    import torch
+    import torch.nn.functional as F
+
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, leaves, do)
 
 
 def bwd_rates(ms: float, flops: float, library_ms: float) -> dict:
@@ -1288,6 +1387,7 @@ def ring_kernel_rows(dev, randn):
     import torch
     import torch.nn.functional as F
 
+    from starway_tpu_torch.ops import flash as flash_ops
     from starway_tpu_torch.ops.attention import NEG_BIG
     from starway_tpu_torch.ops.flash import (_n_sms, flash_partial,
                                              flash_partial_bwd,
@@ -1337,10 +1437,14 @@ def ring_kernel_rows(dev, randn):
         lse = torch.where(live, m + torch.log(l.clamp(min=1e-30)),
                           torch.zeros_like(m))
         delta = (do.float() * o / l.clamp(min=1e-30)[..., None]).sum(-1)
+        before = flash_partial_bwd.wgmma_launches
         g = flash_partial_bwd(q, do, k, v, lse, delta, q_off, kv_off, **kw)
         g_r = flash_partial_bwd_reference(q, do, k, v, lse, delta, q_off,
                                           kv_off, **kw)
         torch.cuda.synchronize()
+        if flash_partial_bwd.wgmma_launches != before + 1:
+            raise AssertionError(f"flash_partial_bwd ({name}) did not take "
+                                 f"the wgmma kernels")
         rel = []
         for a, b in zip(g, g_r):
             scale = b.abs().max().item()
@@ -1425,6 +1529,12 @@ def ring_kernel_rows(dev, randn):
                 timed["bwd_lib"] = cuda_ms(lambda: torch.autograd.grad(
                     o_lib, leaves, do, retain_graph=True))
                 del o_lib, leaves
+            timed["bwd_graph"] = graph_us(
+                lambda _: flash_partial_bwd(q, do, k, v, lse, delta, q_off,
+                                            kv_off, **kw), [None]) / 1e3
+            timed["bwd_lib_graph"] = (
+                graph_us(lambda _: sdpa_fwd_bwd(q, k, v, do, False), [None])
+                - graph_us(library, [None])) / 1e3
         del q, do, k, v, o, m, l, o_r, m_r, l_r, g, g_r
     past = by_case["past"]
     past["bwd_vs_library"] = past["bwd_ms"] / timed["bwd_lib"]
@@ -1437,7 +1547,8 @@ def ring_kernel_rows(dev, randn):
         f"{past['bwd_tflops_5']:.1f} TFLOP/s on 7 / 5 products, "
         f"{past['bwd_vs_library']:.2f}x the library's time), plain "
         f"{timed['bwd_plain']:.4f} ms, library (SDPA backward) "
-        f"{timed['bwd_lib']:.4f} ms")
+        f"{timed['bwd_lib']:.4f} ms; device ms a call in a CUDA graph "
+        f"{timed['bwd_graph']:.4f}, SDPA's backward {timed['bwd_lib_graph']:.4f}")
     torch.cuda.empty_cache()
     del full
     at = (f"B=1 Hq={HQ} Hkv={HKV} D={D} T=Tkv={T} bf16, past block (q_off "
@@ -1459,15 +1570,17 @@ def ring_kernel_rows(dev, randn):
                           "ms a call in a CUDA graph",
             by_offset=by_case),
         "flash_partial_bwd": dict(
-            name="flash_partial_bwd", route=MMA_ROUTE,
-            source=src + "flash_bwd.cu",
+            name="flash_partial_bwd", route="cuda",
+            kernel="flash_bwd_dkv_wgmma_kernel, flash_bwd_dq_wgmma_kernel",
+            source=src + "flash_bwd_wgmma.cu", design=BWD_ROUTES,
             replaces="starway_tpu/ops/pallas_attention.py:734 "
                      "(flash_partial_bwd, through _run_bwd_passes :406)",
             max_abs_err=worst["bwd"], ms=by_case["past"]["bwd_ms"],
             plain_ms=timed["bwd_plain"], bound_ms=timed["bwd_b"][0],
             bound_by=timed["bwd_b"][1], library_ms=timed["bwd_lib"],
             tflops_7=past["bwd_tflops_7"], tflops_5=past["bwd_tflops_5"],
-            vs_library=past["bwd_vs_library"],
+            vs_library=past["bwd_vs_library"], graph_ms=timed["bwd_graph"],
+            library_graph_ms=timed["bwd_lib_graph"],
             timed_at=at + "; both passes, float32 outputs; max_abs_err is "
                           "relative to max |grad|")}
 
@@ -2318,7 +2431,7 @@ def phase_train_ring_parity(dev):
 
 PTXAS_SOURCES = ("flash_bwd.cu", "flash_fwd.cu", "int8_gemv.cu",
                  "decode_attention.cu", "paged_attention.cu",
-                 "flash_fwd_wgmma.cu", "w8a16_wgmma.cu")
+                 "flash_fwd_wgmma.cu", "w8a16_wgmma.cu", "flash_bwd_wgmma.cu")
 
 
 def start_ptxas_report(build):
@@ -2348,6 +2461,11 @@ def ptxas_kernel(mangled: str):
     if k:
         return (f"{k.group(1)} bf16 D={k.group(2)} "
                 f"rows={64 * int(k.group(3))}")
+    k = re.search(r"flash_bwd_(dkv|dq)_wgmma_kernelILi(\d+)E(\w+?)EEv",
+                  mangled)
+    if k:
+        to = "f32" if k.group(3) == "f" else "bf16"
+        return f"{k.group(1)} wgmma {to} D={k.group(2)}"
     k = re.search(r"flash_(fwd|partial)_wgmma_kernelILi(\d+)E", mangled)
     if k:
         return f"{k.group(1)} wgmma bf16 D={k.group(2)} rows=64"
@@ -5085,6 +5203,7 @@ def phase_mixtral_train(dev, card: str) -> tuple:
                                               spec["ep_steps"])
     ep_counts = launch_counts()
     counts = {k: counts[k] + ep_counts[k] for k in counts}
+    assert_bwd_route(counts, True, "mixtral-train")
     ep_med = statistics.median(ep_ms[1:]) if len(ep_ms) > 1 else ep_ms[0]
     st["ep"] = dict(losses=ep_losses, median_step_ms=ep_med,
                     step_ms=ep_ms, over_global=ep_med / med,
@@ -5109,6 +5228,7 @@ def phase_mixtral_train(dev, card: str) -> tuple:
     loss, grads = value_and_grad(params32, batch32, cfg32)
     torch.cuda.synchronize()
     par_counts = launch_counts()
+    assert_bwd_route(par_counts, False, "mixtral-train-parity")
     counts = {k: counts[k] + par_counts[k] for k in counts}
 
     def plain(q, k, v):
@@ -5758,7 +5878,7 @@ def phase_dptp_serve(dev, card: str, reqs, done4, st4, st5,
 MESH_SERVE_PRESET = "llama3-8b"
 MESH_SERVE_TP = {"tp": 2}
 MESH_SERVE_EP = {"ep": 2, "tp": 2}
-MIXTRAL_EP_LAYERS = 8      # of 32: 23.7 GB of bf16 weights, twice held
+MIXTRAL_EP_LAYERS = 6      # of 32: 17.8 GB of bf16 weights, twice held
 # The requests rolling-tp serves, indices into PARITY_REQS (phase 19's
 # three at their budgets: 4000 + 160 wraps the cache, 4500 starts past
 # it), the 700-token one twice to fill the four slots.
@@ -6985,10 +7105,16 @@ def main() -> int:
     st7, c7 = phase_train(dev)
     log(f"  {st7}")
     log(f"  launches {c7}")
+    # The training paths' backward runs on Hopper's wgmma kernels
+    # (csrc/flash_bwd_wgmma.cu) wherever it is bf16 at head size 64 or 128:
+    # phases 11, 13, 22, 23 and 25 (llama3-8b and Mixtral heads of 128);
+    # phase 28's twins train float32 heads of 16, on the FMA loop.
+    assert_bwd_route(c7, True, "train-bf16")
     st8 = phase_train_parity(dev)
 
     # 13 + 14: the training path with ring attention, then its parity.
     st_ring, c_ring = phase_train_ring(dev)
+    assert_bwd_route(c_ring, True, "train-ring")
     st_rp = phase_train_ring_parity(dev)
 
     # 15: the transport's main path on the card (the monitor armed for one
@@ -7052,6 +7178,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t23 = time.perf_counter()
     st_mesh, c23 = phase_mesh_train(dev, card)
+    assert_bwd_route(c23, True, "mesh-train")
     gc.collect()
     torch.cuda.empty_cache()
     t24 = time.perf_counter()
@@ -7067,6 +7194,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t25 = time.perf_counter()
     st_pp, c25 = phase_pipeline(dev, card)
+    assert_bwd_route(c25, True, "pipeline")
     log(f"[pipeline] phase 25 took {time.perf_counter() - t25:.1f} s")
 
     # 26: serving over dp x tp; 27: the static-analysis gate.
@@ -7086,6 +7214,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t28 = time.perf_counter()
     st_ex, c28 = phase_examples()
+    assert_bwd_route(c28, False, "examples")
     t_ex = time.perf_counter() - t28
     log(f"[examples] phase 28 took {t_ex:.1f} s")
 
@@ -7107,8 +7236,12 @@ def main() -> int:
     log(f"[bench-twins] phase 30 took {t_bt:.1f} s")
 
     regs = finish_ptxas_report(ptxas)
-    rows["flash_backward_dkv"]["registers"] = regs["flash_bwd.cu"]
-    rows["flash_backward_dq"]["registers"] = regs["flash_bwd.cu"]
+    bwd_regs = {**regs["flash_bwd_wgmma.cu"], **regs["flash_bwd.cu"]}
+    for key, kinds in (("flash_backward_dkv", ("dkv",)),
+                       ("flash_backward_dq", ("dq",)),
+                       ("flash_partial_bwd", ("dkv", "dq"))):
+        rows[key]["registers"] = {k: r for k, r in bwd_regs.items()
+                                  if k.split()[0] in kinds}
     for key, kind in (("flash_forward", "fwd"), ("flash_partial", "partial")):
         rows[key]["registers"] = {
             k: r for src in ("flash_fwd_wgmma.cu", "flash_fwd.cu")

@@ -1,14 +1,22 @@
 """Paired times of the kernels that lost most to a PyTorch call: #3 (the
 flash forward, B=1 S=2048 causal, llama3-8b heads), #7 (one ring step's
-partial over train-ring's past block, T=1024) and #4's prefill regime (the
-W8A16 GEMV, gate/up 4096 x 14336 at M=512), each beside its library call
-(SDPA, ``torch.matmul`` on the dequantized weight) on the same inputs.
+partial over train-ring's past block, T=1024), #4's prefill regime (the
+W8A16 GEMV, gate/up 4096 x 14336 at M=512), #5 and #6 (``flash_bwd``: the
+backward at B=2 S=2048 causal, llama3-8b heads, both passes and the delta
+reduction; ``flash_bwd_dkv`` and ``flash_bwd_dq``, each pass alone) and
+#8 (``flash_partial_bwd``: the ring step's backward over train-ring's
+past block), each beside its library call (SDPA, ``torch.matmul`` on the
+dequantized weight, SDPA's backward; none for a pass alone) on the same
+inputs.
 
 Each kernel is timed as device ms a call (20 calls in one CUDA graph,
 ``utils/cuda_timing.py`` ``graph_us``; the GEMV on cold copies of its
 weight, as ``chip_smoke.py`` phase 3 times it) and by CUDA events around
-one call.  Only the public wrappers are called, so the script times
-whichever tree's package it is pointed at:
+one call.  SDPA's backward is timed as its forward and backward in one
+call (captured whole, so that autograd's backward runs on the capturing
+stream) less its forward alone, each timed the same way.  Only the public
+wrappers are called, so the script times whichever tree's package it is
+pointed at:
 
     python scripts/torch/kernel_pair.py --tree .           # one JSON line
     python scripts/torch/kernel_pair.py --against PARENT --repeats 5
@@ -29,7 +37,8 @@ import statistics
 import subprocess
 import sys
 
-ROWS = ("flash_fwd", "flash_partial", "gemv_prefill")
+ROWS = ("flash_fwd", "flash_partial", "gemv_prefill", "flash_bwd",
+        "flash_bwd_dkv", "flash_bwd_dq", "flash_partial_bwd")
 
 
 def measure(tree: str) -> dict:
@@ -37,7 +46,10 @@ def measure(tree: str) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from starway_tpu_torch.ops.flash import flash_forward, flash_partial
+    from starway_tpu_torch.ops.flash import (flash_backward,
+                                             flash_backward_dkv,
+                                             flash_backward_dq, flash_forward,
+                                             flash_partial, flash_partial_bwd)
     from starway_tpu_torch.ops.gemv import int8_matmul
     from starway_tpu_torch.ops.quantize import quantize_weight
     from starway_tpu_torch.utils.cuda_timing import (card_name, cold_copies,
@@ -52,12 +64,35 @@ def measure(tree: str) -> dict:
 
     out = {"tree": os.path.abspath(tree), "card": card_name()}
 
-    def row(name, ours, library, copies=(None,), lib_copies=(None,)):
-        out[name] = dict(
-            ms=graph_us(ours, list(copies)) / 1e3,
+    def row(name, ours, library, copies=(None,), lib_copies=(None,),
+            library_less=None):
+        """``library_less``: a part of the library call timed apart and
+        taken off its times (SDPA's forward, where the library call is its
+        forward and backward)."""
+        out[name] = dict(ms=graph_us(ours, list(copies)) / 1e3,
+                         events_ms=event_ms(lambda: ours(copies[0])))
+        if library is None:
+            return
+        out[name].update(
             library_ms=graph_us(library, list(lib_copies)) / 1e3,
-            events_ms=event_ms(lambda: ours(copies[0])),
             library_events_ms=event_ms(lambda: library(lib_copies[0])))
+        if library_less is not None:
+            out[name]["library_ms"] -= graph_us(library_less, [None]) / 1e3
+            out[name]["library_events_ms"] -= event_ms(library_less)
+
+    def sdpa_fwd_bwd(q, k, v, do, causal):
+        def call(_=None):
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                o = F.scaled_dot_product_attention(
+                    *leaves, is_causal=causal, enable_gqa=True)
+                return torch.autograd.grad(o, leaves, do)
+
+        def fwd(_=None):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+
+        return call, fwd
 
     hq, hkv, d = 32, 8, 128
     q, k, v = randn(1, hq, 2048, d), randn(1, hkv, 2048, d), randn(
@@ -69,6 +104,27 @@ def measure(tree: str) -> dict:
     row("flash_partial", lambda _: flash_partial(q, k, v, 1024, 0),
         lambda _: F.scaled_dot_product_attention(q, k, v, enable_gqa=True))
     del q, k, v
+    q, k, v, do = (randn(2, h, 2048, d) for h in (hq, hkv, hkv, hq))
+    o, lse = flash_forward(q, k, v, causal=True)
+    lib, lib_fwd = sdpa_fwd_bwd(q, k, v, do, True)
+    row("flash_bwd",
+        lambda _: flash_backward(q, k, v, o, lse, do, causal=True), lib,
+        library_less=lib_fwd)
+    delta = (do.float() * o.float()).sum(-1)
+    kw = dict(causal=True, sm_scale=d ** -0.5)
+    row("flash_bwd_dkv",
+        lambda _: flash_backward_dkv(q, k, v, do, lse, delta, **kw), None)
+    row("flash_bwd_dq",
+        lambda _: flash_backward_dq(q, k, v, do, lse, delta, **kw), None)
+    q, k, v, do = (x[:1, :, :1024].contiguous() for x in (q, k, v, do))
+    o, m, l = flash_partial(q, k, v, 1024, 0)
+    lse = m + torch.log(l)
+    delta = (do.float() * o / l[..., None]).sum(-1)
+    lib, lib_fwd = sdpa_fwd_bwd(q, k, v, do, False)
+    row("flash_partial_bwd",
+        lambda _: flash_partial_bwd(q, do, k, v, lse, delta, 1024, 0), lib,
+        library_less=lib_fwd)
+    del q, k, v, do, o, lse, m, l, delta
     m, dd, f = 512, 4096, 14336
     x = randn(m, dd)
     w = quantize_weight(torch.randn(dd, f, generator=gen, device=dev)

@@ -46,7 +46,9 @@
 // recompute s and dp (pass A 4 products, pass B 3), which buys dk/dv and
 // dq with no atomics and no [S, S] matrix in device memory.
 //
-// bfloat16 inputs: tensor cores (flash_bwd_dkv_mma_kernel,
+// bfloat16 inputs at head sizes 64 and 128: csrc/flash_bwd_wgmma.cu
+// (Hopper's wgmma fed by TMA; ops/flash.py bwd_route).  bfloat16 inputs at
+// 16 and 32: tensor cores (flash_bwd_dkv_mma_kernel,
 // flash_bwd_dq_mma_kernel), in the style of FlashAttention-2.  128 threads,
 // 4 warps; each warp owns 16 rows of the block's stationary tile (keys in
 // pass A, q rows in pass B) and all D columns of its accumulators.  Every
@@ -57,43 +59,33 @@
 // already the A fragments of dv += p^T dO and dk += ds^T q: two adjacent
 // m16n8 accumulator tiles are one m16k16 A fragment, with no shared-memory
 // round trip.  Pass B keeps ds in registers the same way for dq += ds k.
-// The scores are formed 32 columns at a time (16 + 16 floats a thread), so
-// at D = 128 a thread holds 2 x 64 accumulator floats in pass A (64 in
-// pass B) and the scores beside them.  Tiles are staged by 16-byte
+// The scores are formed 32 columns at a time.  Tiles are staged by 16-byte
 // cp.async.cg (rows past the end zero-filled with a src-size of 0, never
 // read), with rows padded to D + 8 bf16 so that ldmatrix's eight rows fall
 // in distinct 16-byte bank groups; the stationary tiles are loaded once,
 // and the walked tiles (plus the lse / delta rows in pass A) are double-
 // buffered: the next live tile's copy is in flight while this one is
-// computed.  Shared memory at D = 128: 6 tiles of 64 x 136 bf16 + 1 KB =
-// 103 KB a block, two blocks an SM.  Registers a thread (nvcc -Xptxas -v
-// for sm_90a): pass A 248 at D = 128 (168 at 64, 128 at 32, 96 at 16),
-// pass B 173 (128, 96, 96); no spills, no stack frame.  Both fit two
-// blocks (8 warps) an SM.  Blocks are ordered heaviest first under causal
-// masking: pass A's low kv tiles and pass B's high q tiles walk the most
-// tiles, and the tile index is the grid's y so that every head's heavy
-// tiles go first.
+// computed.  Registers a thread (nvcc -Xptxas -v for sm_90a): pass A 128 at
+// D = 32, 96 at 16, pass B 96 at both; no spills.  Blocks are ordered
+// heaviest first under causal masking: pass A's low kv tiles and pass B's
+// high q tiles walk the most tiles, and the tile index is the grid's y so
+// that every head's heavy tiles go first.
+//
+// delta = rowsum(dO * O), which both passes read, is a kernel of its own
+// here (flash_bwd_delta_kernel, every head size and both types): the JAX
+// package computes it with one fused XLA pass (pallas_attention.py:560),
+// and PyTorch's eager version, float32 copies of dO and O multiplied and
+// summed, moves ten times the bytes it needs.  It is bound by bytes (dO
+// and O read once, 16 bytes a thread); the D / 8 (bf16) or D / 4
+// (float32) threads of a row add their sums in a fixed order.
 //
 // float32 inputs: the FMA tile loop (flash_bwd_dkv_kernel,
 // flash_bwd_dq_kernel; register-tiled 4 x 4 scores and 4 x D/16
 // accumulators a thread, tiles widened in shared memory).  The float32
 // paths are the parity checks, held at 1e-4 to 1e-5 of the plain version;
 // TF32 tensor cores keep ~3 decimal digits and would not meet that.  The
-// dispatch is by dtype, not a fallback: a bf16 tensor always reaches the
-// tensor cores.
-//
-// Beyond mma.sync (a later change): wgmma fed by TMA.  Every product maps
-// onto wgmma.m64nNk16 with B from shared memory.  Pass A's s^T = K q^T
-// and dp^T = V dO^T take K / V as a K-major A and q / dO as a K-major B;
-// dv += p^T dO and dk += ds^T q take p^T / ds^T from registers (the
-// register-A form, whose fragment is the accumulator layout, as here) and
-// dO / q as an MN-major B (the transpose bit, legal for 16-bit types).
-// Pass B alike, with K as an MN-major B for dq += ds k.  Tiles would come
-// by TMA (128-byte swizzle) into a two- or three-stage ring guarded by
-// mbarriers and filled by one producer warp, with one consumer warpgroup
-// per 64 stationary rows (dk/dv 2 x 64 floats a thread, as now).  The
-// hard part is the shared-memory layouts and descriptors of the MN-major
-// operands, which this version's ldmatrix.trans sidesteps.
+// dispatch is by dtype and head size, not a fallback: a bf16 tensor always
+// reaches the tensor cores.
 #include <type_traits>
 
 #include "flash_tiles.cuh"  // tiles, liveness, staging (shared)
@@ -714,6 +706,53 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma_kernel(
   }
 }
 
+// ------------------------------------------------------------------ delta
+
+// delta[r] = sum over d of dO[r, d] * O[r, d] in float32, rows of D values.
+template <typename T, int D>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(
+    const T* __restrict__ dout, const T* __restrict__ o,
+    float* __restrict__ delta, int rows) {
+  constexpr int V = 16 / sizeof(T);  // values a thread
+  constexpr int TR = D / V;          // threads a row: 2 .. 32
+  const int row = blockIdx.x * (256 / TR) + threadIdx.x / TR;
+  const int lane = threadIdx.x % TR;
+  float sum = 0.f;
+  if (row < rows) {
+    const size_t at = static_cast<size_t>(row) * D + lane * V;
+    const uint4 a = *reinterpret_cast<const uint4*>(dout + at);
+    const uint4 b = *reinterpret_cast<const uint4*>(o + at);
+    const T* x = reinterpret_cast<const T*>(&a);
+    const T* y = reinterpret_cast<const T*>(&b);
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      sum = fmaf(sw_to_float(x[i]), sw_to_float(y[i]), sum);
+  }
+#pragma unroll
+  for (int off = TR / 2; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < rows && lane == 0) delta[row] = sum;
+}
+
+template <typename T>
+int launch_delta(const void* dout, const void* o, void* delta, int rows,
+                 int d, cudaStream_t stream) {
+  const auto go = [&](auto kernel, int per_block) {
+    kernel<<<(rows + per_block - 1) / per_block, 256, 0, stream>>>(
+        static_cast<const T*>(dout), static_cast<const T*>(o),
+        static_cast<float*>(delta), rows);
+    return static_cast<int>(cudaGetLastError());
+  };
+  constexpr int V = 16 / sizeof(T);
+  switch (d) {
+    case 16: return go(flash_bwd_delta_kernel<T, 16>, 256 * V / 16);
+    case 32: return go(flash_bwd_delta_kernel<T, 32>, 256 * V / 32);
+    case 64: return go(flash_bwd_delta_kernel<T, 64>, 256 * V / 64);
+    case 128: return go(flash_bwd_delta_kernel<T, 128>, 256 * V / 128);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // ---------------------------------------------------------------- launch
 
 struct Args {
@@ -769,6 +808,8 @@ int launch_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 at head sizes 16 and 32 (64 and 128 are csrc/flash_bwd_wgmma.cu's),
+// float32 at every head size.
 template <typename T, typename TO, bool kDkv>
 int dispatch(const Args& a, int d) {
   switch (d) {
@@ -776,13 +817,14 @@ int dispatch(const Args& a, int d) {
       return kDkv ? launch_dkv<T, TO, 16>(a) : launch_dq<T, TO, 16>(a);
     case 32:
       return kDkv ? launch_dkv<T, TO, 32>(a) : launch_dq<T, TO, 32>(a);
-    case 64:
-      return kDkv ? launch_dkv<T, TO, 64>(a) : launch_dq<T, TO, 64>(a);
-    case 128:
-      return kDkv ? launch_dkv<T, TO, 128>(a) : launch_dq<T, TO, 128>(a);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
   }
+  if constexpr (std::is_same_v<T, float>) {
+    if (d == 64)
+      return kDkv ? launch_dkv<T, TO, 64>(a) : launch_dq<T, TO, 64>(a);
+    if (d == 128)
+      return kDkv ? launch_dkv<T, TO, 128>(a) : launch_dq<T, TO, 128>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Output type: the input's, or float32 when ``out_f32`` (a ring step, or
@@ -802,7 +844,9 @@ int run(const Args& a, int d, int out_f32, int is_bf16) {
 // float32; writes dk/dv [n_split, B, Hkv, Skv, D]: split z holds the sum
 // over query heads [z * n_rep / n_split, (z + 1) * n_rep / n_split) of
 // each kv head.  n_split must divide n_rep, and above 1 the outputs must
-// be float32 (out_f32).  Returns cudaGetLastError() after the launch
+// be float32 (out_f32).  D in {16, 32} for bf16, {16, 32, 64, 128} for
+// float32; window 0 for none; q_off/kv_off are the global positions of
+// row 0 of q and of k.  Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for an unsupported D or split).
 extern "C" int sw_flash_bwd_dkv_split(
     const void* q, const void* k, const void* v, const void* dout,
@@ -818,22 +862,8 @@ extern "C" int sw_flash_bwd_dkv_split(
   return run<true>(a, d, out_f32, is_bf16);
 }
 
-// Pass A.  Same inputs; writes dk/dv [B, Hkv, Skv, D] in the input dtype,
-// or in float32 when out_f32.  D in {16, 32, 64, 128}; window 0 for none;
-// q_off/kv_off are the global positions of row 0 of q and of k.
-extern "C" int sw_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dk, void* dv, int b,
-                                int hq, int hkv, int s_len, int kv_len, int d,
-                                int causal, int window, int q_off, int kv_off,
-                                float sm_scale, int out_f32, int is_bf16,
-                                void* stream) {
-  return sw_flash_bwd_dkv_split(q, k, v, dout, lse, delta, dk, dv, b, hq, hkv,
-                                s_len, kv_len, d, causal, window, q_off,
-                                kv_off, sm_scale, out_f32, is_bf16, 1, stream);
-}
-
-// Pass B.  Same inputs as pass A; writes dq [B, Hq, S, D].
+// Pass B.  Same inputs as pass A; writes dq [B, Hq, S, D] in the input
+// dtype, or in float32 when out_f32.
 extern "C" int sw_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq, int b, int hq,
@@ -845,4 +875,14 @@ extern "C" int sw_flash_bwd_dq(const void* q, const void* k, const void* v,
                s_len, kv_len, causal, window, q_off, kv_off, sm_scale, 1,
                static_cast<cudaStream_t>(stream)};
   return run<false>(a, d, out_f32, is_bf16);
+}
+
+// delta = rowsum(dO * O): dout and o [rows, D] bf16 (is_bf16) or float32,
+// 16-byte aligned, D in {16, 32, 64, 128}; writes delta [rows] float32.
+extern "C" int sw_flash_bwd_delta(const void* dout, const void* o,
+                                  void* delta, int rows, int d, int is_bf16,
+                                  void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_delta<bf16>(dout, o, delta, rows, d, st)
+                 : launch_delta<float>(dout, o, delta, rows, d, st);
 }

@@ -249,14 +249,6 @@ __device__ __forceinline__ void flash_tiles_wgmma(
       acc[4 * j + 3] *= corr[1];
     }
   };
-  // p in bf16: score n8 tiles 2 kq and 2 kq + 1 are k-step kq of p v.
-  auto pack = [](const float (&sc)[32], uint32_t (&pa)[4][4]) {
-#pragma unroll
-    for (int kq = 0; kq < 4; ++kq)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pa[kq][r] = pack_bf16(sc[8 * kq + 2 * r], sc[8 * kq + 2 * r + 1]);
-  };
 
   if (n_steps > 0) {
     // Step it's scores run on the tensor cores while step it - 1's p v
@@ -270,7 +262,7 @@ __device__ __forceinline__ void flash_tiles_wgmma(
     fence_regs(sc);
     release(k_empty(stage(0)));
     softmax(0, sc, corr);
-    pack(sc, pa);
+    pack_frags(sc, pa);  // p in bf16: the A fragments of p v
     for (int it = 1; it < n_steps; ++it) {
       scores(it, sc);
       products(it - 1, pa);
@@ -282,7 +274,7 @@ __device__ __forceinline__ void flash_tiles_wgmma(
       fence_regs(acc);
       release(v_empty(stage(it - 1)));
       rescale(corr);
-      pack(sc, pa);
+      pack_frags(sc, pa);
     }
     products(n_steps - 1, pa);
     wgmma_wait<0>();
@@ -359,17 +351,6 @@ struct Args {
   float sm_scale;
   cudaStream_t stream;
 };
-
-// [B * H, S, D] bf16 read in boxes of 64 columns x 64 rows.
-bool head_map(CUtensorMap* map, const void* p, int bh, int s, int d) {
-  const uint64_t dims[3] = {static_cast<uint64_t>(d),
-                            static_cast<uint64_t>(s),
-                            static_cast<uint64_t>(bh)};
-  const uint64_t strides[2] = {2ull * d, 2ull * d * s};
-  const uint32_t box[3] = {64, 64, 1};
-  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, p, dims,
-                    strides, box);
-}
 
 template <int D, bool kPartial>
 int launch(const Args& a) {

@@ -1,13 +1,13 @@
-// Hopper's own tensor cores and copies for csrc/w8a16_wgmma.cu and
-// csrc/flash_fwd_wgmma.cu: TMA tensor maps (encoded on the host, cached),
-// TMA loads and mbarriers, warpgroup matrix multiplies (wgmma) with their
-// shared-memory descriptors, register reallocation between warpgroups
-// (setmaxnreg), and the cluster barrier.  Every tile a kernel reads by TMA
-// is a box of 64 bf16 (or 128 int8) columns, 128 bytes a row, stored with
-// the 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r & 7)), the
-// layout wgmma's descriptors name as "128B".  Everything sits in an
-// anonymous namespace: each source that includes this gets its own copy,
-// its tensor-map cache included.
+// Hopper's own tensor cores and copies for csrc/w8a16_wgmma.cu,
+// csrc/flash_fwd_wgmma.cu and csrc/flash_bwd_wgmma.cu: TMA tensor maps
+// (encoded on the host, cached), TMA loads and mbarriers, warpgroup
+// matrix multiplies (wgmma) with their shared-memory descriptors, register
+// reallocation between warpgroups (setmaxnreg), and the cluster barrier.
+// Every tile a kernel reads by TMA is a box of 64 bf16 (or 128 int8)
+// columns, 128 bytes a row, stored with the 128-byte swizzle (16-byte chunk
+// c of row r at chunk c ^ (r & 7)), the layout wgmma's descriptors name as
+// "128B".  Everything sits in an anonymous namespace: each source that
+// includes this gets its own copy, its tensor-map cache included.
 #pragma once
 
 // CUtensorMap and its enums only: nothing links libcuda.
@@ -97,6 +97,19 @@ inline bool tensor_map(CUtensorMap* out, CUtensorMapDataType type, int rank,
   return true;
 }
 
+// A [B * H, S, D] bf16 tensor (the flash kernels' q, k, v, dO) read in
+// boxes of 64 columns x 64 rows of one head: rows past S read as zeros,
+// and no box crosses into the next head.
+inline bool head_map(CUtensorMap* map, const void* p, int bh, int s, int d) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(d),
+                            static_cast<uint64_t>(s),
+                            static_cast<uint64_t>(bh)};
+  const uint64_t strides[2] = {2ull * d, 2ull * d * s};
+  const uint32_t box[3] = {64, 64, 1};
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, p, dims,
+                    strides, box);
+}
+
 // ``K``'s dynamic shared memory limit, set once (the attribute is the
 // kernel's, not the launch's).
 template <auto K>
@@ -133,6 +146,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
                                                uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// The phase also waits for ``bytes`` of TMA; this thread does not arrive.
+__device__ __forceinline__ void mbar_expect_bytes(uint32_t bar,
+                                                  uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
                : "memory");
 }
 
@@ -241,6 +262,18 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A [64 x 64] accumulator (mma.sync's m16n8 tiles side by side) rounded
+// to bf16 as the register A fragments of a product over its 64 columns:
+// n8 tiles 2 kq and 2 kq + 1 are k-step kq.
+__device__ __forceinline__ void pack_frags(const float (&x)[32],
+                                           uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kq][r] = pack_bf16(x[8 * kq + 2 * r], x[8 * kq + 2 * r + 1]);
 }
 
 // d[64 x 64] (+)= a[64 x 16] b[16 x 64], a and b from shared memory, both

@@ -1,9 +1,9 @@
 """Attention, quantization and the hand-written CUDA kernels of the port:
 ``decode.decode_attention``, ``paged.paged_decode_attention``,
-``flash.flash_forward``, ``flash.flash_backward_dkv`` /
-``flash.flash_backward_dq``, the ring step's ``flash.flash_partial`` and
-``flash.flash_partial_bwd``, and ``gemv.int8_matmul``, each beside its
-plain PyTorch version.  ``collectives`` rotates sequence shards around a
+``flash.flash_forward``, ``flash.flash_backward_delta``,
+``flash.flash_backward_dkv`` / ``flash.flash_backward_dq``, the ring
+step's ``flash.flash_partial`` and ``flash.flash_partial_bwd``, and
+``gemv.int8_matmul``, each beside its plain PyTorch version.  ``collectives`` rotates sequence shards around a
 mesh axis (parallel/sharding.py).
 
 Importing these modules builds nothing; the kernels compile on first use
@@ -12,14 +12,16 @@ Importing these modules builds nothing; the kernels compile on first use
 
 def _wrappers() -> dict:
     from .decode import decode_attention
-    from .flash import (flash_backward_dkv, flash_backward_dq, flash_forward,
-                        flash_partial, flash_partial_bwd)
+    from .flash import (flash_backward_delta, flash_backward_dkv,
+                        flash_backward_dq, flash_forward, flash_partial,
+                        flash_partial_bwd)
     from .gemv import int8_matmul
     from .paged import paged_decode_attention
 
     return {"decode_attention": decode_attention,
             "paged_decode_attention": paged_decode_attention,
             "flash_forward": flash_forward,
+            "flash_backward_delta": flash_backward_delta,
             "flash_backward_dkv": flash_backward_dkv,
             "flash_backward_dq": flash_backward_dq,
             "flash_partial": flash_partial,

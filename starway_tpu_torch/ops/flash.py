@@ -1,5 +1,5 @@
 """Flash attention, forward and backward, and the ring step's partials:
-the hand-written CUDA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) and
+the hand-written CUDA kernels (csrc/flash_fwd*.cu, csrc/flash_bwd*.cu) and
 their plain PyTorch versions.
 
 Layouts: ``q [B, Hq, S, D]``, ``k/v [B, Hkv, Skv, D]`` (grouped kv is
@@ -13,10 +13,11 @@ when its grid is too small for the card (:func:`dkv_splits`).
 ``torch.autograd.Function`` whose backward is the two kernels, as the JAX
 package's ``custom_vjp`` is.
 
-A bf16 forward or partial of head size 64 or 128 runs the kernel on
-Hopper's wgmma fed by TMA (csrc/flash_fwd_wgmma.cu); head sizes 16 and
-32 the mma.sync kernel (:func:`fwd_route`, from the shapes).  Every
-kernel takes 16-byte aligned bases and refuses others.
+A bf16 forward, partial or backward of head size 64 or 128 runs the
+kernels on Hopper's wgmma fed by TMA (csrc/flash_fwd_wgmma.cu,
+csrc/flash_bwd_wgmma.cu); head sizes 16 and 32 the mma.sync kernels
+(:func:`fwd_route`, :func:`bwd_route`, from the shapes).  Every kernel
+takes 16-byte aligned bases of q, k, v and dO and refuses others.
 
 A ring step (parallel/ring_attention.py) runs :func:`flash_partial`, the
 unnormalised partial ``(o, m, l)`` of q against one kv shard at global
@@ -93,6 +94,17 @@ def fwd_route(bf16: bool, head_dim: int) -> str:
     if not bf16:
         return "fma"
     return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma"
+
+
+def bwd_route(bf16: bool, head_dim: int) -> str:
+    """The backward passes' kernels (both passes of :func:`flash_backward`
+    and :func:`flash_partial_bwd`): "wgmma" (csrc/flash_bwd_wgmma.cu, TMA
+    and wgmma) for bf16 at a head size of ``WGMMA_HEAD_DIMS``, "mma"
+    (csrc/flash_bwd.cu, mma.sync) for bf16 at the other head sizes, "fma"
+    (csrc/flash_bwd.cu) for float32: the forward's split, for the same
+    reasons (:func:`fwd_route`).  Decided from the arguments alone, never
+    from a failed launch."""
+    return fwd_route(bf16, head_dim)
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,14 +290,24 @@ def flash_backward_reference(q, k, v, o, lse, do, *, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# The library's entries of each backward pass by route: pass A ("dkv",
+# which takes a split count) and pass B ("dq").
+_BWD_ENTRIES = {
+    "wgmma": {"dkv": "sw_flash_bwd_dkv_wgmma", "dq": "sw_flash_bwd_dq_wgmma"},
+    "mma": {"dkv": "sw_flash_bwd_dkv_split", "dq": "sw_flash_bwd_dq"},
+    "fma": {"dkv": "sw_flash_bwd_dkv_split", "dq": "sw_flash_bwd_dq"},
+}
+
+
 def _bwd_launcher(q, k, v, do, lse, delta, causal, window, sm_scale,
                   q_offset, kv_offset):
-    """``launch(entry, out_ptrs, out_f32, *extra)``: one backward pass
-    (``entry`` of the library) into the outputs at ``out_ptrs``, float32
-    when ``out_f32`` (a ring step or a split pass A) else the input dtype;
-    ``extra`` are the entry's arguments after ``is_bf16`` (a split's
-    count).  The arguments both passes share are read once: a ring calls
-    the passes 2 n^2 + n times a layer, and the host's time counts."""
+    """``(launch, route)``: ``launch(pass_, out_ptrs, out_f32, n_split=1)``
+    runs one backward pass ("dkv" split ``n_split`` ways over query heads,
+    or "dq") on :func:`bwd_route`'s kernels into the outputs at
+    ``out_ptrs``, float32 when ``out_f32`` (a ring step or a split pass A)
+    else the input dtype.  The arguments both passes share are read once:
+    a ring calls the passes 2 n^2 + n times a layer, and the host's time
+    counts."""
     lib = _build.library()
     b, hq, s_len, d = q.shape
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -293,23 +315,30 @@ def _bwd_launcher(q, k, v, do, lse, delta, causal, window, sm_scale,
     tail = (b, hq, k.shape[1], s_len, k.shape[2], d, int(causal),
             0 if window is None else int(window), int(q_offset),
             int(kv_offset), float(sm_scale))
-    is_bf16 = int(q.dtype == torch.bfloat16)
+    bf16 = q.dtype == torch.bfloat16
+    route = bwd_route(bf16, d)
+    entries = _BWD_ENTRIES[route]
+    # The mma.sync / FMA entries take the input type; the wgmma ones bf16.
+    typed = () if route == "wgmma" else (int(bf16),)
     stream = _build.stream_ptr(q)
 
-    def launch(entry, out_ptrs, out_f32, *extra):
-        err = getattr(lib, entry)(*head, *out_ptrs, *tail, int(out_f32),
-                                  is_bf16, *extra, stream)
-        _build.check(err, entry)
+    def launch(pass_, out_ptrs, out_f32, n_split=1):
+        split = (n_split,) if pass_ == "dkv" else ()
+        err = getattr(lib, entries[pass_])(*head, *out_ptrs, *tail,
+                                           int(out_f32), *typed, *split,
+                                           stream)
+        _build.check(err, entries[pass_])
 
-    return launch
+    return launch, route
 
 
 def dkv_splits(b: int, hkv: int, kv_len: int, n_rep: int,
                n_sms: int = N_SMS) -> int:
     """How many ways pass A splits each kv head's walk over its ``n_rep``
     query heads: 1 when its grid (kv tiles x B * Hkv blocks) already
-    holds two blocks for each of the card's ``n_sms`` SMs, else the least
-    divisor of ``n_rep`` that brings it there (``n_rep`` at most).  On an
+    holds two blocks for each of the card's ``n_sms`` SMs (both pass A
+    kernels, mma.sync and wgmma, run 64-key blocks two to an SM), else the
+    least divisor of ``n_rep`` that brings it there (``n_rep`` at most).  On an
     H100 SXM (132 SMs) a ring shard (T = 1024, B = 1, 8 kv heads: 128
     blocks) splits 4 ways; plain training at B = 2, S = 2048 (512 blocks)
     does not split."""
@@ -330,13 +359,13 @@ def _dkv(launch, k, n_rep, out_dtype):
     if n == 1:
         dk = torch.empty(k.shape, dtype=out_dtype, device=k.device)
         dv = torch.empty_like(dk)
-        launch("sw_flash_bwd_dkv", (dk.data_ptr(), dv.data_ptr()),
+        launch("dkv", (dk.data_ptr(), dv.data_ptr()),
                out_dtype == torch.float32)
         return dk, dv
     part = torch.empty((2, n, *k.shape), dtype=torch.float32,
                        device=k.device)
     ptr = part.data_ptr()
-    launch("sw_flash_bwd_dkv_split", (ptr, ptr + 4 * n * k.numel()), True, n)
+    launch("dkv", (ptr, ptr + 4 * n * k.numel()), True, n)
     dk, dv = part.sum(dim=1).to(out_dtype).unbind(0)
     return dk, dv
 
@@ -357,16 +386,18 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, causal: bool = False,
                        sm_scale: float, window: Optional[int] = None):
     """Pass A of the backward on CUDA tensors: ``(dk, dv)`` in k's dtype,
     from ``lse`` and ``delta = rowsum(dO * O)`` (both ``[B, Hq, S]``
-    float32)."""
+    float32), on :func:`bwd_route`'s kernel."""
     _check_bwd(q, k, v, do, lse, delta, "flash_backward_dkv")
-    launch = _bwd_launcher(q, k, v, do, lse, delta, causal, window, sm_scale,
-                           0, 0)
+    launch, route = _bwd_launcher(q, k, v, do, lse, delta, causal, window,
+                                  sm_scale, 0, 0)
     dk, dv = _dkv(launch, k, q.shape[1] // k.shape[1], k.dtype)
     flash_backward_dkv.launches += 1
+    flash_backward_dkv.wgmma_launches += route == "wgmma"
     return dk, dv
 
 
 flash_backward_dkv.launches = 0
+flash_backward_dkv.wgmma_launches = 0  # of them, on csrc/flash_bwd_wgmma.cu
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = False,
@@ -375,13 +406,48 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = False,
     arguments are pass A's."""
     _check_bwd(q, k, v, do, lse, delta, "flash_backward_dq")
     dq = torch.empty_like(q)
-    _bwd_launcher(q, k, v, do, lse, delta, causal, window, sm_scale, 0, 0)(
-        "sw_flash_bwd_dq", (dq.data_ptr(),), q.dtype == torch.float32)
+    launch, route = _bwd_launcher(q, k, v, do, lse, delta, causal, window,
+                                  sm_scale, 0, 0)
+    launch("dq", (dq.data_ptr(),), q.dtype == torch.float32)
     flash_backward_dq.launches += 1
+    flash_backward_dq.wgmma_launches += route == "wgmma"
     return dq
 
 
 flash_backward_dq.launches = 0
+flash_backward_dq.wgmma_launches = 0  # of them, on csrc/flash_bwd_wgmma.cu
+
+
+def flash_backward_delta_reference(o, do):
+    """``delta = rowsum(dO * O)`` in plain PyTorch, on any device: float32
+    ``[B, H, S]`` from float32 copies, as the JAX package's ``_bwd_impl``
+    computes it."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_backward_delta(o, do):
+    """``delta = rowsum(dO * O)``, float32 ``[B, H, S]``, which both
+    backward passes read.  CUDA tensors launch the kernel
+    (csrc/flash_bwd.cu ``flash_bwd_delta_kernel``: dO and O read once,
+    summed in float32 in a fixed order), CPU tensors take
+    :func:`flash_backward_delta_reference`."""
+    if not o.is_cuda:
+        return flash_backward_delta_reference(o, do)
+    _check_kernel_args((o, do), "flash_backward_delta")
+    if do.shape != o.shape or do.dtype != o.dtype:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} does not match O "
+                         f"{tuple(o.shape)} {o.dtype}")
+    d = o.shape[-1]
+    delta = torch.empty(o.shape[:-1], dtype=torch.float32, device=o.device)
+    err = _build.library().sw_flash_bwd_delta(
+        do.data_ptr(), o.data_ptr(), delta.data_ptr(), o.numel() // d, d,
+        int(o.dtype == torch.bfloat16), _build.stream_ptr(o))
+    _build.check(err, "flash_backward_delta")
+    flash_backward_delta.launches += 1
+    return delta
+
+
+flash_backward_delta.launches = 0
 
 
 def flash_backward(q, k, v, o, lse, do, *, causal: bool = False,
@@ -389,15 +455,16 @@ def flash_backward(q, k, v, o, lse, do, *, causal: bool = False,
                    window: Optional[int] = None):
     """Gradients ``(dq, dk, dv)`` of flash attention from the forward's
     ``o`` and ``lse`` and the output gradient ``do``.  CUDA tensors launch
-    the two kernels (csrc/flash_bwd.cu) after one float32 reduction for
-    ``delta``; CPU tensors take :func:`flash_backward_reference`."""
+    the two kernels (:func:`bwd_route`'s) after
+    :func:`flash_backward_delta`'s; CPU tensors take
+    :func:`flash_backward_reference`."""
     _check_args(q, k, v, causal, window)
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     if not q.is_cuda:
         return flash_backward_reference(q, k, v, o, lse, do, causal=causal,
                                         sm_scale=sm_scale, window=window)
-    delta = (do.float() * o.float()).sum(dim=-1)
+    delta = flash_backward_delta(o, do)
     kw = dict(causal=causal, sm_scale=sm_scale, window=window)
     dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, **kw)
     return flash_backward_dq(q, k, v, do, lse, delta, **kw), dk, dv
@@ -539,8 +606,8 @@ def flash_partial_bwd(q, do, k, v, lse, delta, q_offset: int, kv_offset: int,
     and ``delta = rowsum(dO * O)`` (``[B, Hq, T]`` float32): with global
     statistics each step's contribution is its slice of the full gradient,
     so the contributions sum across the ring.  CUDA tensors launch both
-    backward kernels (csrc/flash_bwd.cu) with float32 outputs, counted as
-    one launch of this wrapper; CPU tensors take
+    backward kernels (:func:`bwd_route`'s) with float32 outputs, counted
+    as one launch of this wrapper; CPU tensors take
     :func:`flash_partial_bwd_reference`."""
     _check_args(q, k, v, causal, window)
     if sm_scale is None:
@@ -550,13 +617,15 @@ def flash_partial_bwd(q, do, k, v, lse, delta, q_offset: int, kv_offset: int,
                                            kv_offset, causal=causal,
                                            sm_scale=sm_scale, window=window)
     _check_bwd(q, k, v, do, lse, delta, "flash_partial_bwd")
-    launch = _bwd_launcher(q, k, v, do, lse, delta, causal, window, sm_scale,
-                           q_offset, kv_offset)
+    launch, route = _bwd_launcher(q, k, v, do, lse, delta, causal, window,
+                                  sm_scale, q_offset, kv_offset)
     dk, dv = _dkv(launch, k, q.shape[1] // k.shape[1], torch.float32)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    launch("sw_flash_bwd_dq", (dq.data_ptr(),), True)
+    launch("dq", (dq.data_ptr(),), True)
     flash_partial_bwd.launches += 1
+    flash_partial_bwd.wgmma_launches += route == "wgmma"
     return dq, dk, dv
 
 
 flash_partial_bwd.launches = 0
+flash_partial_bwd.wgmma_launches = 0  # of them, on csrc/flash_bwd_wgmma.cu

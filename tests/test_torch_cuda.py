@@ -565,25 +565,32 @@ def test_paged_and_prefix_servers_on_cuda_match_generate(dev):
     (1, True, None, 1000, 128, 8, 8), (1, True, None, 1000, 128, 8, 2),
     (1, True, None, 1000, 128, 8, 1), (1, True, None, 2048, 128, 8, 8),
     (1, True, None, 2048, 128, 8, 2), (1, True, None, 2048, 128, 8, 1),
-    (1, True, 100, 1000, 128, 8, 2)])
+    (1, True, 100, 1000, 128, 8, 2), (1, True, 33, 200, 64, 8, 2),
+    (1, True, None, 1000, 64, 8, 1), (2, False, None, 130, 64, 8, 2)])
 def test_flash_backward_kernels_match_plain(dev, dtype, b, causal, window, s,
                                             d, hq, hkv):
     """Both backward passes against flash_backward_reference: causal and
     not, windows (one ending inside a tile), uneven S, GQA 8:1, 4:1, 2:1
     and 1:1, every compiled head size, grids small enough that pass A
     splits its query heads (ops/flash.py dkv_splits) and the training
-    shapes' per-sequence length; each pass launches once."""
+    shapes' per-sequence length; each pass launches once, on the wgmma
+    kernels exactly when bwd_route says so (bf16 at D 64 or 128)."""
     rng = np.random.default_rng(4)
     q = _randn(rng, (b, hq, s, d), dtype, dev)
     k = _randn(rng, (b, hkv, s, d), dtype, dev)
     v = _randn(rng, (b, hkv, s, d), dtype, dev)
     do = _randn(rng, (b, hq, s, d), dtype, dev)
     o, lse = flash_forward(q, k, v, causal=causal, window=window)
-    before = (flash_backward_dkv.launches, flash_backward_dq.launches)
+    before = (flash_backward_dkv.launches, flash_backward_dq.launches,
+              flash_backward_dkv.wgmma_launches,
+              flash_backward_dq.wgmma_launches)
     got = flash_backward(q, k, v, o, lse, do, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert (flash_backward_dkv.launches, flash_backward_dq.launches) == (
-        before[0] + 1, before[1] + 1)
+    wgmma = int(flash_ops.bwd_route(dtype == torch.bfloat16, d) == "wgmma")
+    assert (flash_backward_dkv.launches, flash_backward_dq.launches,
+            flash_backward_dkv.wgmma_launches,
+            flash_backward_dq.wgmma_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + wgmma, before[3] + wgmma)
     want = flash_backward_reference(q, k, v, o, lse, do, causal=causal,
                                     window=window)
     rel = 1e-4 if dtype == torch.float32 else 1e-2
@@ -593,20 +600,25 @@ def test_flash_backward_kernels_match_plain(dev, dtype, b, causal, window, s,
                                    atol=rel * w.float().abs().max().item())
 
 
-@pytest.mark.parametrize("b,s,hq,hkv", [(2, 2048, 32, 8), (1, 1000, 8, 2)])
-def test_flash_backward_bf16_is_deterministic(dev, b, s, hq, hkv):
+@pytest.mark.parametrize("b,s,hq,hkv,d", [(2, 2048, 32, 8, 128),
+                                          (1, 1000, 8, 2, 128),
+                                          (1, 1024, 32, 8, 64)])
+def test_flash_backward_bf16_is_deterministic(dev, b, s, hq, hkv, d):
     """Two bf16 backward calls on the same inputs give identical bits: no
     atomics, and a split pass A sums its partials in a fixed order (the
-    second shape splits, the first does not)."""
+    second and third shapes split, the first does not); the wgmma
+    kernels at both of their head sizes."""
     rng = np.random.default_rng(13)
-    q, do = (_randn(rng, (b, hq, s, 128), torch.bfloat16, dev)
+    q, do = (_randn(rng, (b, hq, s, d), torch.bfloat16, dev)
              for _ in range(2))
-    k, v = (_randn(rng, (b, hkv, s, 128), torch.bfloat16, dev)
+    k, v = (_randn(rng, (b, hkv, s, d), torch.bfloat16, dev)
             for _ in range(2))
     o, lse = flash_forward(q, k, v, causal=True)
+    before = flash_backward_dkv.wgmma_launches
     first = flash_backward(q, k, v, o, lse, do, causal=True)
     second = flash_backward(q, k, v, o, lse, do, causal=True)
     torch.cuda.synchronize()
+    assert flash_backward_dkv.wgmma_launches == before + 2
     for a, b_ in zip(first, second):
         assert torch.equal(a, b_)
 
@@ -742,12 +754,15 @@ def test_flash_partial_bwd_kernels_match_plain(dev, dtype, q_off, kv_off,
     kw = dict(causal=causal, window=window)
     before = (flash_partial_bwd.launches, flash_backward_dkv.launches,
               flash_backward_dq.launches)
+    before_w = flash_partial_bwd.wgmma_launches
     got = flash_partial_bwd(q, do, k, v, lse, delta, q_off, kv_off, **kw)
     torch.cuda.synchronize()
     assert (flash_partial_bwd.launches, flash_backward_dkv.launches,
             flash_backward_dq.launches) == (before[0] + 1, *before[1:])
     want = flash_partial_bwd_reference(q, do, k, v, lse, delta, q_off,
                                        kv_off, **kw)
+    assert flash_partial_bwd.wgmma_launches == before_w + (
+        flash_ops.bwd_route(dtype == torch.bfloat16, d) == "wgmma")
     rel = 1e-4 if dtype == torch.float32 else 1e-2
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
@@ -758,25 +773,89 @@ def test_flash_partial_bwd_kernels_match_plain(dev, dtype, q_off, kv_off,
         torch.testing.assert_close(g, w, rtol=0, atol=rel * scale)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_backward_keeps_the_input_dtype(dev, dtype):
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128)])
+def test_flash_backward_keeps_the_input_dtype(dev, dtype, d):
     """The plain backward's passes write the input dtype after the ring
-    step's float32 outputs were added to the same kernels."""
+    step's float32 outputs were added to the same kernels (the wgmma
+    kernels' bf16 and float32 epilogues at D 64 and 128)."""
     rng = np.random.default_rng(11)
-    q, do = (_randn(rng, (1, 4, 96, 32), dtype, dev) for _ in range(2))
-    k, v = (_randn(rng, (1, 2, 96, 32), dtype, dev) for _ in range(2))
+    q, do = (_randn(rng, (1, 4, 96, d), dtype, dev) for _ in range(2))
+    k, v = (_randn(rng, (1, 2, 96, d), dtype, dev) for _ in range(2))
     o, lse = flash_forward(q, k, v, causal=True)
     delta = (do.float() * o.float()).sum(dim=-1)
     dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, causal=True,
-                                sm_scale=32 ** -0.5)
+                                sm_scale=d ** -0.5)
     dq = flash_backward_dq(q, k, v, do, lse, delta, causal=True,
-                           sm_scale=32 ** -0.5)
+                           sm_scale=d ** -0.5)
     f32 = flash_partial_bwd(q, do, k, v, lse, delta, 0, 0, causal=True)
     torch.cuda.synchronize()
     for g, w in zip((dq, dk, dv), f32):
         assert g.dtype == dtype and w.dtype == torch.float32
         torch.testing.assert_close(g.float(), w.to(dtype).float(), rtol=0,
                                    atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_backward_delta_kernel_matches_plain(dev, dtype, d):
+    """The delta kernel (rowsum(dO * O), float32) against its plain
+    version at every head size and both types, rows not a multiple of a
+    block's; one launch a call; bit-for-bit repeatable."""
+    rng = np.random.default_rng(17)
+    o, do = (_randn(rng, (2, 5, 77, d), dtype, dev) for _ in range(2))
+    before = flash_ops.flash_backward_delta.launches
+    got = flash_ops.flash_backward_delta(o, do)
+    again = flash_ops.flash_backward_delta(o, do)
+    want = flash_ops.flash_backward_delta_reference(o, do)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_backward_delta.launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_refuses_a_misaligned_base(dev, d):
+    """A q, k, v or dO off the 16-byte grid (TMA refuses its tensor map)
+    is refused by each backward wrapper with a ValueError before any
+    launch; lse and delta, which the kernels read by plain loads (a row of
+    a ragged S starts anywhere), are taken off the grid and give the
+    aligned call's bits."""
+    rng = np.random.default_rng(15)
+    q, do = (_randn(rng, (1, 8, 130, d), torch.bfloat16, dev)
+             for _ in range(2))
+    k, v = (_randn(rng, (1, 2, 130, d), torch.bfloat16, dev)
+            for _ in range(2))
+    lse = torch.from_numpy(rng.uniform(3.0, 5.0, (1, 8, 130)).astype(
+        np.float32)).to(dev)
+    delta = _randn(rng, (1, 8, 130), torch.float32, dev)
+    kw = dict(causal=True, sm_scale=d ** -0.5)
+    calls = {
+        "dkv": lambda *a: flash_backward_dkv(*a, **kw),
+        "dq": lambda *a: flash_backward_dq(*a, **kw),
+        "partial": lambda q_, k_, v_, do_, l_, dl_: flash_partial_bwd(
+            q_, do_, k_, v_, l_, dl_, 0, 0, **kw)}
+    counts = (flash_backward_dkv.launches, flash_backward_dq.launches,
+              flash_partial_bwd.launches)
+    args = [q, k, v, do, lse, delta]
+    for name, call in calls.items():
+        for i in range(4):
+            bad = list(args)
+            bad[i] = _misalign(args[i])
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                call(*bad)
+    assert counts == (flash_backward_dkv.launches, flash_backward_dq.launches,
+                      flash_partial_bwd.launches)
+    for name, call in calls.items():
+        want = call(*args)
+        got = call(q, k, v, do, _misalign(lse), _misalign(delta))
+        torch.cuda.synchronize()
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w), name
 
 
 @pytest.mark.parametrize("layout,window", [("ring", None), ("zigzag", None),

@@ -269,6 +269,86 @@ def test_fwd_route_by_head_size(d):
     assert tflash.WGMMA_HEAD_DIMS == (64, 128)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_flash_backward_delta_matches_jax(dtype):
+    """delta = rowsum(dO * O), which both backward passes read, against
+    the JAX package's ``_bwd_impl`` reduction on the same bf16 or float32
+    inputs (float32 sums: 1e-6 of the largest)."""
+    rng = np.random.default_rng(16)
+    o, do = (rng.standard_normal((2, 4, 70, 64), np.float32).astype(dtype)
+             for _ in range(2))
+    want = np.asarray(jnp.sum(jnp.asarray(do).astype(jnp.float32)
+                              * jnp.asarray(o).astype(jnp.float32), axis=-1))
+    t = {np.float32: torch.float32}.get(dtype, torch.bfloat16)
+    got = tflash.flash_backward_delta(
+        torch.from_numpy(o.astype(np.float32)).to(t),
+        torch.from_numpy(do.astype(np.float32)).to(t))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(to_numpy(got), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_bwd_route_by_head_size(d):
+    """Both backward passes (and the ring step's) run on the wgmma kernels
+    (csrc/flash_bwd_wgmma.cu) for bf16 at the main paths' head sizes (128:
+    llama3-8b, Mistral-7B, Mixtral; 64), on the mma.sync kernels for
+    heads of 16 and 32, and on the FMA loop for float32: the forward's
+    split."""
+    want = "wgmma" if d in (64, 128) else "mma"
+    assert tflash.bwd_route(True, d) == want
+    assert tflash.bwd_route(False, d) == "fma"
+    assert tflash.bwd_route(True, d) == tflash.fwd_route(True, d)
+    assert set(tflash._BWD_ENTRIES) == {"wgmma", "mma", "fma"}
+
+
+# (B, Hkv, S, n_rep, splits): plain training (B=2, S=2048, llama3-8b's 8
+# kv heads: 512 blocks of 64 keys), the ring's shard (T=1024: 128 blocks),
+# B=1 at S=4096 (512 blocks), Ulysses' and tp's shard heads.
+DKV_MAIN_PATH = [(2, 8, 2048, 4, 1), (1, 8, 1024, 4, 4), (1, 8, 4096, 4, 1),
+                 (1, 2, 4096, 4, 4), (1, 4, 512, 4, 4)]
+
+
+@pytest.mark.parametrize("b,hkv,s,n_rep,want", DKV_MAIN_PATH)
+def test_dkv_splits_for_the_wgmma_blocks(b, hkv, s, n_rep, want):
+    """The wgmma pass A keeps 64-key blocks, two an SM, so its split over
+    query heads is planned as the mma.sync kernel's was: the least divisor
+    of n_rep that brings the grid to two blocks for each of an H100 SXM's
+    132 SMs (264 blocks)."""
+    assert tflash.dkv_splits(b, hkv, s, n_rep) == want
+    blocks = -(-s // tflash.TILE) * b * hkv
+    assert blocks * want >= 2 * tflash.N_SMS or want == n_rep
+    assert want == 1 or blocks * (want // 2) < 2 * tflash.N_SMS
+
+
+def test_flash_backward_checks_refuse_a_misaligned_base():
+    """The backward wrappers' checks refuse q, k, v or dO off the 16-byte
+    grid (TMA's tensor maps need it) and take lse and delta anywhere on
+    their 4-byte grid (read by plain loads); the wrappers decide their
+    route from the arguments and have no fallback."""
+    import inspect
+
+    shape, rows = (1, 4, 64, 64), (1, 4, 64)
+    n = int(np.prod(shape))
+    base = torch.zeros(8 + n, dtype=torch.bfloat16)
+    ok = base[8:].view(shape)
+    bad = base[4:4 + n].view(shape)
+    assert ok.data_ptr() % 16 == 0 and bad.data_ptr() % 16 == 8
+    f32 = torch.zeros(1 + 4 * 64, dtype=torch.float32)
+    lse_off = f32[1:].view(rows)
+    assert lse_off.data_ptr() % 16 == 4
+    tflash._check_bwd(ok, ok, ok, ok, lse_off, lse_off, "flash_backward_dq")
+    for i in range(4):
+        args = [ok] * 4
+        args[i] = bad
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tflash._check_bwd(*args, lse_off, lse_off, "flash_backward_dq")
+    for fn in (tflash.flash_backward_dkv, tflash.flash_backward_dq,
+               tflash.flash_partial_bwd, tflash._bwd_launcher, tflash._dkv):
+        src = inspect.getsource(fn)
+        assert "try:" not in src and "except" not in src, fn.__name__
+
+
 def test_flash_kernels_refuse_a_misaligned_base():
     """A view whose base is off the 16-byte grid (TMA's boxes and the
     mma.sync kernels' cp.async chunks both need it) is refused with a
