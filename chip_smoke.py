@@ -315,6 +315,13 @@ GRAD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 # The design of the kernels that dispatch by dtype, for the kernels line
 # (csrc/flash_bwd.cu, csrc/decode_attention.cu, csrc/paged_attention.cu).
 MMA_ROUTE = "cuda (mma.sync bf16; FMA float32)"
+# Cached decode attention's routes (ops/decode.py tma_route) and the kernel
+# the serving paths run.
+DECODE_ROUTES = ("cuda: bf16 decode regime (n_rep * C <= 16 rows) at head "
+                 "sizes 64 and 128 TMA + wgmma, split over T past one "
+                 "cluster (csrc/decode_tma.cu decode_tma_kernel); other bf16 "
+                 "mma.sync (csrc/decode_attention.cu decode_mma_kernel); "
+                 "float32 FMA")
 # The flash forward's and the ring step's partial's routes (ops/flash.py
 # fwd_route) and the kernel the main paths run.
 FWD_ROUTES = ("cuda: bf16 at head sizes 64 and 128 wgmma + TMA "
@@ -363,6 +370,17 @@ def assert_bwd_route(counts: dict, wide_bf16: bool, label: str) -> None:
                 f"kernels, not {want}")
 
 
+def assert_decode_route(counts: dict, label: str) -> None:
+    """Every decode_attention launch of a run whose calls are all decode
+    steps (bf16 q, n_rep * C <= 16 rows, head size 64 or 128: ops/decode.py
+    tma_route) took csrc/decode_tma.cu, and there was at least one."""
+    n, tma = counts.get("decode_attention", 0), counts.get(
+        "decode_attention/tma", 0)
+    if not 0 < n == tma:
+        raise AssertionError(f"{label}: {tma} of {n} decode_attention "
+                             f"launches on csrc/decode_tma.cu")
+
+
 def bound(n_bytes: float, n_flops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / BF16_FLOPS * 1e3
@@ -374,6 +392,8 @@ def phase_kernels(dev):
     the kernels line (launch counts filled in later)."""
     import torch
 
+    from starway_tpu_torch.ops.attention import (SCALED_TOL,
+                                                 scaled_tolerance_share)
     from starway_tpu_torch.ops.decode import (decode_attention,
                                               decode_attention_reference)
     from starway_tpu_torch.ops.quantize import quantize_kv
@@ -391,7 +411,24 @@ def phase_kernels(dev):
     k16, v16 = randn(B, HKV, T, D), randn(B, HKV, T, D)
     k8, ks = quantize_kv(k16)
     v8, vs = quantize_kv(v16)
-    worst = 0.0
+    worst, worst_share = 0.0, 0.0
+    limit = (f"{SCALED_TOL[0]:g} |want| + {SCALED_TOL[1]:g} rms of want's "
+             f"row")
+
+    def held(label, got, want):
+        """got against want: within BF16_TOL and the scaled limit."""
+        nonlocal worst, worst_share
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        share = scaled_tolerance_share(got, want)
+        worst, worst_share = max(worst, err), max(worst_share, share)
+        log(f"decode_attention {label}: max_abs_err {err:.3e} (tol "
+            f"{BF16_TOL}), {share:.3f} of the limit {limit} (<= 1)")
+        if not (err <= BF16_TOL and share <= 1.0):
+            raise AssertionError(f"decode_attention disagrees with its "
+                                 f"plain version at {label}")
+
+    tma_before = decode_attention.tma_launches
     for n_q in (1, 4):
         q = randn(B, HQ, n_q, D)
         pos = torch.from_numpy(
@@ -402,36 +439,51 @@ def phase_kernels(dev):
                 kc, vc = (k8, v8) if quant else (k16, v16)
                 if quant:
                     kw.update(k_scale=ks, v_scale=vs)
-                got = decode_attention(q, kc, vc, pos, **kw)
-                want = decode_attention_reference(q, kc, vc, pos, **kw)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                worst = max(worst, err)
-                log(f"decode_attention C={n_q} int8={quant} window={window}: "
-                    f"max_abs_err {err:.3e} (tol {BF16_TOL})")
-                if not err <= BF16_TOL:
-                    raise AssertionError("decode_attention disagrees with "
-                                         "its plain version")
+                held(f"C={n_q} int8={quant} window={window}",
+                     decode_attention(q, kc, vc, pos, **kw),
+                     decode_attention_reference(q, kc, vc, pos, **kw))
                 if n_q == 1 and window is None and not quant:
                     plain = cuda_ms(lambda: decode_attention_reference(
                         q, kc, vc, pos, **kw), iters=5)
     del k16, v16, k8, v8, ks, vs
+    # The kernel bench's row: one row of 8 q / 2 kv heads over T = 8192 at
+    # its last position, split past one cluster (bf16 and int8 caches).
+    q, k, v = randn(1, 8, 1, D), randn(1, 2, 8192, D), randn(1, 2, 8192, D)
+    held("B=1 Hq=8 Hkv=2 T=8192", decode_attention(q, k, v, 8191),
+         decode_attention_reference(q, k, v, 8191))
+    plain_b1 = cuda_ms(lambda: decode_attention_reference(q, k, v, 8191),
+                       iters=5)
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    held("B=1 Hq=8 Hkv=2 T=8192 int8",
+         decode_attention(q, k8, v8, 8191, k_scale=ks, v_scale=vs),
+         decode_attention_reference(q, k8, v8, 8191, k_scale=ks, v_scale=vs))
+    if decode_attention.tma_launches != tma_before + 10:
+        raise AssertionError("phase 3's decode-regime calls did not all take "
+                             "csrc/decode_tma.cu")
+    del q, k, v, k8, v8, ks, vs
     worst = max(worst, row_tiled_decode(dev, randn))
     regimes = window_regime_rows(dev)
     worst = max([worst] + [r["max_abs_err"]
                            for r in regimes["decode_attention"]])
     paged_err, paged_plain = paged_rows(dev, randn, rng)
     timed = decode_timings(dev)
+    b1 = next(r for r in timed["decode_attention"]["shapes"]
+              if "Hkv=2" in r["shape"])
     rows["decode_attention"] = dict(
-        name="decode_attention", route=MMA_ROUTE,
-        source="starway_tpu_torch/csrc/decode_attention.cu",
+        name="decode_attention", route="cuda", kernel="decode_tma_kernel",
+        design=DECODE_ROUTES,
+        source="starway_tpu_torch/csrc/decode_tma.cu",
+        sources_other_regimes="starway_tpu_torch/csrc/decode_attention.cu",
         replaces="starway_tpu/ops/pallas_decode.py:150 "
                  "(_decode_stream_kernel; also :107 _decode_kernel)",
-        max_abs_err=worst, plain_ms=plain,
+        max_abs_err=worst, tol_share=worst_share, plain_ms=plain,
+        bench_shape=dict(shape=b1["shape"], ms=b1["ms"],
+                         bound_ms=b1["bound_ms"], plain_ms=plain_b1,
+                         library_ms=b1["library_ms"]),
         window_regimes=regimes["decode_attention"],
         **timed["decode_attention"])
     rows["paged_decode_attention"] = dict(
-        name="paged_decode_attention", route=MMA_ROUTE,
+        name="paged_decode_attention", route="cuda", design=MMA_ROUTE,
         source="starway_tpu_torch/csrc/paged_attention.cu",
         replaces="starway_tpu/ops/pallas_paged.py:46 (_paged_stream_kernel)",
         max_abs_err=paged_err, plain_ms=paged_plain,
@@ -2431,7 +2483,8 @@ def phase_train_ring_parity(dev):
 
 PTXAS_SOURCES = ("flash_bwd.cu", "flash_fwd.cu", "int8_gemv.cu",
                  "decode_attention.cu", "paged_attention.cu",
-                 "flash_fwd_wgmma.cu", "w8a16_wgmma.cu", "flash_bwd_wgmma.cu")
+                 "flash_fwd_wgmma.cu", "w8a16_wgmma.cu", "flash_bwd_wgmma.cu",
+                 "decode_tma.cu")
 
 
 def start_ptxas_report(build):
@@ -2469,6 +2522,11 @@ def ptxas_kernel(mangled: str):
     k = re.search(r"flash_(fwd|partial)_wgmma_kernelILi(\d+)E", mangled)
     if k:
         return f"{k.group(1)} wgmma bf16 D={k.group(2)} rows=64"
+    k = re.search(r"decode_tma_kernelI(13__nv_bfloat16|a)Li(\d+)ELi(\d+)E",
+                  mangled)
+    if k:
+        kv = "int8" if k.group(1) == "a" else "bf16"
+        return f"decode tma {kv} KV D={k.group(2)} N={k.group(3)}"
     k = re.search(r"w8a16_wgmma_kernelILi(\d+)E", mangled)
     if k:
         return f"gemv prefill wgmma {k.group(1)}x256"
@@ -2518,6 +2576,9 @@ def finish_ptxas_report(procs) -> dict:
                 regs[name] = (int(m.group(1)), *spill)
                 name = None
         out[src] = regs
+        for line in text.splitlines():  # e.g. wgmma serialized (C75xx)
+            if "warning" in line.lower():
+                log(f"[registers] {src}: {line.strip()}")
         log(f"[registers] {src} (ptxas, sm_90a): (registers a thread, spill "
             f"store bytes, spill load bytes) {regs}")
     return out
@@ -4496,8 +4557,12 @@ def phase_mistral(dev, card: str) -> tuple:
     log(f"[mistral] rolling SlotServer: n_slots 8, max_len "
         f"{MISTRAL_HORIZON}, chunk 8, {len(reqs)} requests of "
         f"{MISTRAL_BUDGET} tokens, prompts {MISTRAL_PROMPTS} cycled")
-    _done, st["serve"], srv = counted(counts, lambda: serve(
+    c_roll = {}
+    _done, st["serve"], srv = counted(c_roll, lambda: serve(
         params, cfg, reqs, max_len=MISTRAL_HORIZON))
+    assert_decode_route(c_roll, "phase 18 (mistral rolling server)")
+    for key, n in c_roll.items():
+        counts[key] = counts.get(key, 0) + n
     shape = tuple(srv.cache["k"].shape)
     del srv
     log(f"  {st['serve']}")
@@ -7073,6 +7138,10 @@ def main() -> int:
             and c4["flash_forward/wgmma"] == c4["flash_forward"]):
         raise AssertionError(f"the serving runs did not take the wgmma "
                              f"kernels: {c4}, {c5}")
+    # Every decode step's attention (C = 1, n_rep 4, D = 128: the decode
+    # regime) runs csrc/decode_tma.cu, bf16 and int8 caches alike.
+    assert_decode_route(c4, "phase 4 (serve-bf16)")
+    assert_decode_route(c5, "phase 7 (serve-int8)")
     check_first_logits(qparams, cfg8, reqs[0][0], 2048)
     del qparams
     torch.cuda.empty_cache()
@@ -7248,7 +7317,8 @@ def main() -> int:
             for k, r in regs[src].items() if k.startswith(kind + " ")}
     rows["int8_matmul"]["registers"] = {**regs["w8a16_wgmma.cu"],
                                         **regs["int8_gemv.cu"]}
-    rows["decode_attention"]["registers"] = regs["decode_attention.cu"]
+    rows["decode_attention"]["registers"] = {**regs["decode_tma.cu"],
+                                             **regs["decode_attention.cu"]}
     rows["paged_decode_attention"]["registers"] = regs["paged_attention.cu"]
 
     traced = {"serve-bf16": st4, "serve-paged": st_paged, "serve-int8": st5}
@@ -7282,6 +7352,8 @@ def main() -> int:
         row["launches"] = main_counts[key]
         if f"{key}/wgmma" in main_counts:  # of them, on the wgmma kernel
             row["launches_wgmma"] = main_counts[f"{key}/wgmma"]
+        if f"{key}/tma" in main_counts:  # of them, on csrc/decode_tma.cu
+            row["launches_tma"] = main_counts[f"{key}/tma"]
         for phase, c in ((18, c18), (19, c19), (20, c20), (21, c21),
                          (22, c22), (23, c23), (24, c24), (25, c25),
                          (26, c26), (28, c28), (29, c29)):

@@ -219,11 +219,12 @@ def bench_decode_tune(b=1, hq=8, hkv=2, t=8192, d=128, iters: int = 64):
     """#1's split over T swept (ops/decode_bench.py ``split_sweep``: the
     launch plan's split replaced by each count); one row a split and the
     best.  On the CPU the plain version ignores the split."""
-    from starway_tpu_torch.ops.decode import decode_attention, max_splits
+    from starway_tpu_torch.ops.decode import (TMA_MAX_SPLITS,
+                                              decode_attention)
 
     q, kc, vc, n_bytes = _decode_inputs(b, hq, hkv, t, d)
-    splits = [n for n in (1, 2, 4, 8, 16)
-              if n <= max_splits(d) and n * 64 <= t]
+    splits = [n for n in (1, 2, 4, 8, 16, 32, 64)
+              if n <= TMA_MAX_SPLITS and n * 64 <= t]
     if DEV.type == "cuda":
         from starway_tpu_torch.ops.decode_bench import split_sweep
 

@@ -22,24 +22,28 @@
 // call, on the tensor cores (csrc/decode_tiles.cuh attend_mma: 64-key
 // tiles streamed by cp.async into a 2-stage ring, mma.sync.m16n8k16 for
 // q k^T and p v, int8 widened to bf16 in registers; the decode regime
-// (n_rep * C <= 16 rows) splits each tile's keys over the warps, the
-// ingest regime runs 64-row tiles of 16 rows a warp; the split over T is
-// one thread block cluster whose blocks merge their partials over
-// distributed shared memory).  ops/decode.py decode_plan picks the regime
-// and the split from the shapes and the card's SM count; the kernel finds
-// each split's tiles from pos on the device.  Registers a thread (ptxas,
-// sm_90a, chip_smoke.py's register report) at D = 128: decode regime 146
-// (int8 caches 155), ingest 172 (177); no spills at any compiled head
-// size.  Shared memory at D = 128: 72 KB a decode block (three an SM), 85
-// KB an ingest block (two).
+// (n_rep * C <= 16 rows; here only at head sizes 16, 32 and 256) splits
+// each tile's keys over the warps, the ingest regime runs 64-row tiles of
+// 16 rows a warp; the split over T is one thread block cluster whose
+// blocks merge their partials over distributed shared memory).
+// ops/decode.py decode_plan picks the regime and the split from the
+// shapes and the card's SM count; the kernel finds each split's tiles
+// from pos on the device.  Registers a thread (ptxas, sm_90a,
+// chip_smoke.py's register report) at D = 128: ingest 172 (int8 caches
+// 177); no spills at any compiled head size.  Shared memory at D = 128:
+// 85 KB an ingest block (two an SM).
 //
 // float32 queries (the parity runs): the FMA loop, decode_partial_kernel
 // and decode_combine_kernel (partials in device memory).  The dispatch is
 // by dtype, not a fallback: a bf16 tensor always reaches the tensor cores.
 //
-// Beyond mma.sync (a later change): the K/V stream by TMA into an
-// mbarrier-guarded ring filled by one producer warp, and the ingest
-// regime's products on wgmma, as csrc/flash_fwd.cu's notes lay out.
+// The decode regime at head sizes 64 and 128 (every decode step of the
+// serving paths, and the chunk verify at C <= 4) runs csrc/decode_tma.cu
+// instead: the K/V stream by TMA into an mbarrier-guarded ring filled by
+// one producer warp, the products on wgmma, and a split over T past one
+// cluster (ops/decode.py tma_route).  This kernel keeps the ingest regime,
+// whose products could move onto csrc/flash_fwd_wgmma.cu's loop (a later
+// change), the head sizes 16, 32 and 256, and float32.
 //
 // Layouts: q [B, Hq, C, D] read as [B * Hkv, R = n_rep * C, D]; caches
 // [B * Hkv, T, D]; scales [B * Hkv, T] float32; pos [B] int32 (or one
@@ -78,18 +82,29 @@ __global__ void __launch_bounds__(kMmaThreads)
       pos, a.out + q0, a.rows, a.n_q, a.t_len, a.window, a.sm_scale);
 }
 
+// The decode regime at head sizes 64 and 128 is csrc/decode_tma.cu's.
+template <int D>
+constexpr bool has_decode_regime() {
+  return D != 64 && D != 128;
+}
+
 template <typename TKV, int D>
 int launch_mma(const DecodeArgs& a, int bh, int n_split, int decode,
                cudaStream_t st) {
-  using ShD = MmaShape<TKV, D, true>;
-  using ShI = MmaShape<TKV, D, false>;
-  const int rt = decode ? ShD::kRows : ShI::kRows;
-  const dim3 grid(n_split, (a.rows + rt - 1) / rt, bh);
-  if (decode)
+  if (!decode) {
+    using ShI = MmaShape<TKV, D, false>;
+    const dim3 grid(n_split, (a.rows + ShI::kRows - 1) / ShI::kRows, bh);
+    return launch_cluster(decode_mma_kernel<TKV, D, false>, grid, ShI::kSmem,
+                          st, a);
+  }
+  if constexpr (has_decode_regime<D>()) {
+    using ShD = MmaShape<TKV, D, true>;
+    const dim3 grid(n_split, (a.rows + ShD::kRows - 1) / ShD::kRows, bh);
     return launch_cluster(decode_mma_kernel<TKV, D, true>, grid, ShD::kSmem,
                           st, a);
-  return launch_cluster(decode_mma_kernel<TKV, D, false>, grid, ShI::kSmem,
-                        st, a);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename TKV>
@@ -120,10 +135,12 @@ size_t mma_smem(int decode, int d) {
                   : MmaShape<TKV, DD, false>::kSmem;
     SW_SMEM_CASE(16)
     SW_SMEM_CASE(32)
-    SW_SMEM_CASE(64)
-    SW_SMEM_CASE(128)
     SW_SMEM_CASE(256)
 #undef SW_SMEM_CASE
+    case 64:
+      return decode ? 0 : MmaShape<TKV, 64, false>::kSmem;
+    case 128:
+      return decode ? 0 : MmaShape<TKV, 128, false>::kSmem;
     default:
       return 0;
   }
@@ -213,9 +230,9 @@ extern "C" size_t sw_decode_attention_smem(int rows, int d, int q_bf16,
 // bfloat16 q [B, Hq, C, D] and output, caches bf16 (kv_int8 0) or int8
 // with float32 scales (1).  pos: int32 device pointer read at b *
 // pos_stride, or nullptr for pos_value at every row.  decode: 1 for the
-// decode regime (rows <= 16), 0 for the ingest regime.  n_split: blocks of
-// a cluster over T, 1 .. 16 (8 at d = 256).  window: 0 for none.  d in
-// {16, 32, 64, 128, 256}.  Returns the launch's error
+// decode regime (rows <= 16; d 16, 32 or 256), 0 for the ingest regime.
+// n_split: blocks of a cluster over T, 1 .. 16 (8 at d = 256).  window: 0
+// for none.  d in {16, 32, 64, 128, 256}.  Returns the launch's error
 // (cudaErrorInvalidValue for arguments out of range).
 extern "C" int sw_decode_attention(const void* q, const void* k,
                                    const void* v, const void* k_scale,

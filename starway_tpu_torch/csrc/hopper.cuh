@@ -1,13 +1,15 @@
 // Hopper's own tensor cores and copies for csrc/w8a16_wgmma.cu,
-// csrc/flash_fwd_wgmma.cu and csrc/flash_bwd_wgmma.cu: TMA tensor maps
-// (encoded on the host, cached), TMA loads and mbarriers, warpgroup
-// matrix multiplies (wgmma) with their shared-memory descriptors, register
-// reallocation between warpgroups (setmaxnreg), and the cluster barrier.
-// Every tile a kernel reads by TMA is a box of 64 bf16 (or 128 int8)
-// columns, 128 bytes a row, stored with the 128-byte swizzle (16-byte chunk
-// c of row r at chunk c ^ (r & 7)), the layout wgmma's descriptors name as
-// "128B".  Everything sits in an anonymous namespace: each source that
-// includes this gets its own copy, its tensor-map cache included.
+// csrc/flash_fwd_wgmma.cu, csrc/flash_bwd_wgmma.cu and csrc/decode_tma.cu:
+// TMA tensor maps (encoded on the host, cached), TMA loads and mbarriers,
+// warpgroup matrix multiplies (wgmma) with their shared-memory descriptors,
+// register reallocation between warpgroups (setmaxnreg), and the cluster
+// barrier.  Every tile a kernel reads by TMA is a box of 64 bf16 (or 128
+// int8) columns, 128 bytes a row, stored with the 128-byte swizzle (16-byte
+// chunk c of row r at chunk c ^ (r & 7)), the layout wgmma's descriptors
+// name as "128B"; the one exception, the decode kernel's int8 caches at
+// D = 64, has 64-byte rows under the 64-byte swizzle.  Everything sits in
+// an anonymous namespace: each source that includes this gets its own
+// copy, its tensor-map cache included.
 #pragma once
 
 // CUtensorMap and its enums only: nothing links libcuda.
@@ -53,20 +55,22 @@ inline EncodeTiled tensor_map_encoder() {
 
 // A tensor map of a row-major tensor of ``rank`` (2 or 3) dimensions,
 // innermost first (``dims``), with the byte strides of the outer ones, read
-// in boxes of ``box`` elements, 128-byte swizzled; elements out of bounds
-// read as zeros.  Encoding costs host time on paths that launch hundreds
+// in boxes of ``box`` elements, 128-byte swizzled (or as ``swizzle`` says);
+// elements out of bounds read as zeros.  Encoding costs host time on paths that launch hundreds
 // of kernels a step, so maps are cached by everything that defines them
 // (a static weight's hits on every call; the cache is dropped whole when it
 // grows past 4096 maps).  Returns false when the encoder refuses the map.
-inline bool tensor_map(CUtensorMap* out, CUtensorMapDataType type, int rank,
-                       const void* ptr, const uint64_t* dims,
-                       const uint64_t* strides, const uint32_t* box) {
+inline bool tensor_map(
+    CUtensorMap* out, CUtensorMapDataType type, int rank, const void* ptr,
+    const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Key = std::array<uint64_t, 12>;
   static std::mutex lock;
   static std::map<Key, CUtensorMap> cache;
   Key key{};
   key[0] = reinterpret_cast<uint64_t>(ptr);
-  key[1] = static_cast<uint64_t>(type) | (static_cast<uint64_t>(rank) << 32);
+  key[1] = static_cast<uint64_t>(type) | (static_cast<uint64_t>(rank) << 32) |
+           (static_cast<uint64_t>(swizzle) << 40);
   for (int i = 0; i < rank; ++i) {
     key[2 + i] = dims[i];
     key[5 + i] = box[i];
@@ -88,7 +92,7 @@ inline bool tensor_map(CUtensorMap* out, CUtensorMapDataType type, int rank,
     if (i + 1 < rank) s[i] = strides[i];
   }
   if (encode(out, type, rank, const_cast<void*>(ptr), d, s, b, e,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
@@ -108,6 +112,23 @@ inline bool head_map(CUtensorMap* map, const void* p, int bh, int s, int d) {
   const uint32_t box[3] = {64, 64, 1};
   return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, p, dims,
                     strides, box);
+}
+
+// A [B * H, S, D] int8 tensor (the decode kernel's int8 caches, D 64 or
+// 128) read in boxes of all D columns x 64 rows of one head, D bytes a
+// row: 128-byte swizzled at D = 128, 64-byte (16-byte chunk c of row r at
+// chunk c ^ ((r >> 1) & 3)) at D = 64.
+inline bool int8_head_map(CUtensorMap* map, const void* p, int bh, int s,
+                          int d) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(d),
+                            static_cast<uint64_t>(s),
+                            static_cast<uint64_t>(bh)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(d),
+                               static_cast<uint64_t>(d) * s};
+  const uint32_t box[3] = {static_cast<uint32_t>(d), 64, 1};
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, p, dims, strides,
+                    box, d == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // ``K``'s dynamic shared memory limit, set once (the attribute is the
@@ -365,6 +386,58 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
+}
+
+// The decode kernel's narrow products (csrc/decode_tma.cu): d[64 x N]
+// (+)= a[64 x 16] b[16 x N] with N = 8 or 16 (the query rows), b from
+// shared memory, K-major.  _ss: a from shared memory, K-major (TA 0) or
+// MN-major (TA 1); _rs: a from registers (the m16k16 fragment layout of
+// mma.sync, warp w of the warpgroup holding rows 16 w .. 16 w + 15).
+// scale_d 0 overwrites d.
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+}
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+}
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
 }
 
 }  // namespace

@@ -32,19 +32,21 @@ def _wrappers() -> dict:
 def launch_counts() -> dict:
     """Kernel launches counted by each wrapper since the last reset; for
     the wrappers with a route on Hopper's wgmma, also those launches under
-    "<name>/wgmma"."""
+    "<name>/wgmma" ("decode_attention/tma": csrc/decode_tma.cu's)."""
     counts = {}
     for name, fn in _wrappers().items():
         counts[name] = fn.launches
-        if hasattr(fn, "wgmma_launches"):
-            counts[f"{name}/wgmma"] = fn.wgmma_launches
+        for route in ("wgmma", "tma"):
+            if hasattr(fn, f"{route}_launches"):
+                counts[f"{name}/{route}"] = getattr(fn, f"{route}_launches")
     return counts
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "wgmma_launches"):
-            fn.wgmma_launches = 0
+        for route in ("wgmma", "tma"):
+            if hasattr(fn, f"{route}_launches"):
+                setattr(fn, f"{route}_launches", 0)
         if hasattr(fn, "regime_launches"):  # int8_matmul, by regime
             fn.regime_launches = dict.fromkeys(fn.regime_launches, 0)

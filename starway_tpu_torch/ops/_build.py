@@ -44,6 +44,9 @@ SIGNATURES = {
     "sw_decode_attention_fma": ([P] * 6 + [I] * 2 + [P] * 4 + [I] * 8
                                 + [F, I, P], ctypes.c_int),
     "sw_decode_attention_smem": ([I] * 5, ctypes.c_size_t),
+    "sw_decode_tma": ([P] * 6 + [I] * 2 + [P] * 2 + [I] * 7 + [F, I, I, P],
+                      ctypes.c_int),
+    "sw_decode_tma_smem": ([I] * 3, ctypes.c_size_t),
     "sw_flash_fwd": ([P] * 5 + [I] * 8 + [F, I, I, P], ctypes.c_int),
     "sw_flash_partial": ([P] * 6 + [I] * 10 + [F, I, I, P], ctypes.c_int),
     "sw_flash_fwd_wgmma": ([P] * 5 + [I] * 8 + [F, P], ctypes.c_int),

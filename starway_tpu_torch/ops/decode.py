@@ -1,18 +1,24 @@
 """Cached decode attention: the hand-written CUDA kernels
-(csrc/decode_attention.cu) and their plain PyTorch version.
+(csrc/decode_tma.cu, csrc/decode_attention.cu) and their plain PyTorch
+version.
 
 A thread block attends a tile of the ``n_rep * C`` query rows (the grouped
 heads of C consecutive positions) of one (batch row, kv head) against a
 share of the narrow cache's live tiles, reading each once.  bfloat16
-queries run on the tensor cores in one launch a call: :func:`decode_plan`
-picks the regime from the rows ("decode": at most 16, one m16 tile, the
-warps dividing each tile's keys; "ingest": 64-row tiles, 16 rows a warp)
-and the split over T from the grid and the card's SM count; the splits of
-a row tile are one thread block cluster that merges their partials on
-chip.  float32 queries (the parity runs) take the FMA loop: partials in
-device memory and a combine kernel.  See the kernel sources for what
-bounds them.  :func:`decode_attention` launches the kernels for CUDA
-tensors and takes :func:`decode_attention_reference` only for CPU tensors.
+queries run on the tensor cores in one launch a call.  The decode regime
+(at most 16 rows) at head sizes 64 and 128 (:func:`tma_route`) runs
+csrc/decode_tma.cu: tiles by TMA, products on ``wgmma``, and as many
+blocks over T as :func:`tma_plan` finds fill the card, merged through a
+workspace in split order.  Every other bf16 call runs
+csrc/decode_attention.cu's ``mma.sync`` kernel, in the regime and split
+that :func:`decode_plan` picks ("decode": one m16 tile of rows, the warps
+dividing each tile's keys; "ingest": 64-row tiles, 16 rows a warp), whose
+splits of a row tile are one thread block cluster that merges their
+partials on chip.  float32 queries (the parity runs) take the FMA loop:
+partials in device memory and a combine kernel.  See the kernel sources
+for what bounds them.  :func:`decode_attention` launches the kernels for
+CUDA tensors and takes :func:`decode_attention_reference` only for CPU
+tensors.
 
 Layouts follow models/generate.py: ``q [B, Hq, C, D]``, caches
 ``[B, Hkv, T, D]``, int8 scales ``[B, Hkv, T]`` float32.
@@ -41,6 +47,20 @@ REGIME_ROWS = {"decode": 16, "ingest": 64}  # query rows a block
 # --sweep).  At D = 256 both fit one an SM, and the split aims at three
 # for every four.
 SPLIT_PER_SM = {"decode": 2.0, "ingest": 1.5}
+# The TMA kernel (csrc/decode_tma.cu): its head sizes; the most splits
+# over T it merges (kMaxTmaSplits), the most that one block merges
+# (kSingleMerge: past it, groups of kMergeGroup first).  Its plan: about
+# TMA_TILES_PER_SPLIT tiles a split of the longest row, at least one block
+# for each SM, at most TMA_MAX_PER_SM blocks an SM (kBlocksPerSM fit at
+# once) and one split for every TMA_MIN_TILES tiles.  Measured on the H100
+# (PERF.md, the decode kernel's entry).
+TMA_HEAD_DIMS = (64, 128)
+TMA_MAX_SPLITS = 256
+TMA_SINGLE_MERGE = 32
+TMA_MERGE_GROUP = 8
+TMA_TILES_PER_SPLIT = 4
+TMA_MAX_PER_SM = 4
+TMA_MIN_TILES = 2
 FMA_TILE = 32  # keys per tile of the float32 loop (kFmaKeys)
 FMA_ROW_TILE = 64  # query rows per float32 block (kFmaRows)
 
@@ -68,6 +88,48 @@ def decode_plan(b: int, hkv: int, rows: int, t: int, d: int = 128,
     return regime, max(1, n_split)
 
 
+def tma_route(bf16: bool, rows: int, d: int) -> bool:
+    """Does a call with ``rows = n_rep * C`` query rows per (batch row, kv
+    head) at head size ``d`` run the TMA kernel (csrc/decode_tma.cu)?  bf16
+    q in the decode regime at head sizes 64 and 128; every other call runs
+    csrc/decode_attention.cu."""
+    return bf16 and rows <= DECODE_MAX_ROWS and d in TMA_HEAD_DIMS
+
+
+def tma_plan(b: int, hkv: int, t: int, n_sms: int = N_SMS) -> int:
+    """Blocks over T for each (batch row, kv head) of the TMA kernel over a
+    cache of capacity ``t``: enough that the longest row's share is about
+    ``TMA_TILES_PER_SPLIT`` tiles and that the grid has a block for each
+    of the card's ``n_sms`` SMs, at most ``TMA_MAX_PER_SM`` blocks an SM,
+    one split for every ``TMA_MIN_TILES`` tiles and ``TMA_MAX_SPLITS``;
+    between ``TMA_SINGLE_MERGE`` and twice it, ``TMA_SINGLE_MERGE`` (one
+    block's merge beats the two-level one there).  Nothing here depends
+    on ``pos``: each block finds its share of the live tiles on the
+    device, and a block left without one returns at once."""
+    units = b * hkv
+    tiles = -(-t // KEYS)
+    n = max(-(-tiles // TMA_TILES_PER_SPLIT), -(-n_sms // units))
+    n = min(n, TMA_MAX_PER_SM * n_sms // units,
+            -(-tiles // TMA_MIN_TILES), TMA_MAX_SPLITS)
+    n = max(1, n)
+    return TMA_SINGLE_MERGE if TMA_SINGLE_MERGE < n < 2 * TMA_SINGLE_MERGE \
+        else n
+
+
+def call_plan(b: int, hkv: int, rows: int, t: int, d: int = 128,
+              bf16: bool = True, n_sms: int = N_SMS,
+              tma: bool = True) -> tuple[str, int]:
+    """(regime, n_split) of a call: ("tma", :func:`tma_plan`) where
+    :func:`tma_route` says so (and ``tma``: the paged kernel has no TMA
+    route), else :func:`decode_plan`'s for bf16 q and ("fma",
+    :func:`split_count`) for float32."""
+    if tma and tma_route(bf16, rows, d):
+        return "tma", tma_plan(b, hkv, t, n_sms)
+    if bf16:
+        return decode_plan(b, hkv, rows, t, d, n_sms)
+    return "fma", split_count(b, hkv, rows, t, n_sms)
+
+
 def split_count(b: int, hkv: int, rows: int, t: int, n_sms: int) -> int:
     """Blocks over T per (batch row, kv head, row tile) of the float32
     loop: enough to give every SM a few blocks, and no more than the cache
@@ -86,22 +148,42 @@ def _card(index: int) -> tuple[int, int]:
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(b: int, hkv: int, rows: int, t: int, d: int, bf16: bool,
-                quant: bool, index: int) -> tuple[str, int]:
-    """The (regime, n_split) of a call on card ``index``: :func:`decode_plan`
-    for bf16 q, ("fma", :func:`split_count`) for float32; raises where a
-    block needs more shared memory than the card allows.  Cached: a decode
-    step makes 32 calls of one shape."""
+                quant: bool, index: int, tma: bool = True) -> tuple[str, int]:
+    """:func:`call_plan` on card ``index``; raises where a block needs
+    more shared memory than the card allows.  Cached: a decode step makes
+    32 calls of one shape."""
     n_sms, allowed = _card(index)
-    if bf16:
-        regime, n_split = decode_plan(b, hkv, rows, t, d, n_sms)
+    regime, n_split = call_plan(b, hkv, rows, t, d, bf16, n_sms, tma)
+    lib = _build.library()
+    if regime == "tma":
+        smem = lib.sw_decode_tma_smem(rows, d, int(quant))
     else:
-        regime, n_split = "fma", split_count(b, hkv, rows, t, n_sms)
-    smem = _build.library().sw_decode_attention_smem(
-        rows, d, int(bf16), int(quant), int(regime == "decode"))
+        smem = lib.sw_decode_attention_smem(
+            rows, d, int(bf16), int(quant), int(regime == "decode"))
     if smem > allowed:
         raise ValueError(f"head_dim {d} needs {smem} bytes of shared memory "
                          f"per block; the card allows {allowed}")
     return regime, n_split
+
+
+_workspaces: dict = {}  # (card, stream) -> the TMA kernel's float32 scratch
+
+
+def _workspace(device, stream: int, n: int) -> int:
+    """Pointer to at least ``n`` float32 of scratch for the partials of the
+    TMA kernel launched on ``stream``: one ``torch.empty`` buffer a (card,
+    stream), grown when a call needs more, so that a decode step's 32
+    calls allocate nothing.  A launch writes it only after its
+    ``griddepcontrol.wait``, that is after every kernel before it on the
+    stream has finished, so no two launches use it at once."""
+    key = (device.index, stream)
+    buf = _workspaces.get(key)
+    if buf is None or buf.numel() < n:
+        have = 0 if buf is None else buf.numel()
+        buf = torch.empty(max(n, 2 * have), dtype=torch.float32,
+                          device=device)
+        _workspaces[key] = buf
+    return buf.data_ptr()
 
 
 def pos_arg(pos, b: int, device) -> tuple:
@@ -216,11 +298,12 @@ def decode_attention(q, k_cache, v_cache, pos, *,
     int8 caches (ops/quantize.py).  ``stream`` chose between two grid
     schedules of the TPU kernel; one CUDA kernel serves both values.
 
-    CUDA tensors launch the kernels (csrc/decode_attention.cu): bf16 q
-    (bf16 or int8 caches) the tensor-core kernel at every compiled head
-    size, one launch a call, as :func:`decode_plan` plans it; float32 q
-    the FMA loop.  ``pos`` is read on the device only (:func:`pos_arg`).
-    CPU tensors take
+    CUDA tensors launch the kernels, one launch a call for bf16 q (bf16
+    or int8 caches): csrc/decode_tma.cu where :func:`tma_route` says so
+    (counted also in ``decode_attention.tma_launches``), planned by
+    :func:`tma_plan`, else csrc/decode_attention.cu's tensor-core kernel
+    as :func:`decode_plan` plans it; float32 q the FMA loop.  ``pos`` is
+    read on the device only (:func:`pos_arg`).  CPU tensors take
     :func:`decode_attention_reference`.
     """
     if stream not in (None, True, False):
@@ -263,6 +346,20 @@ def decode_attention(q, k_cache, v_cache, pos, *,
             None if pos_t is None else pos_t.data_ptr(), pos_stride,
             pos_value, out.data_ptr())
     win = 0 if window is None else int(window)
+    if regime == "tma":
+        stream = _build.stream_ptr(q)
+        part = None
+        if n_split > 1:  # the splits' partials, then their groups'
+            n_groups = (-(-n_split // TMA_MERGE_GROUP)
+                        if n_split > TMA_SINGLE_MERGE else 0)
+            part = _workspace(q.device, stream, b * hkv * (n_split + n_groups)
+                              * rows * (d + 2))
+        err = lib.sw_decode_tma(*head, part, b, hkv, rows, n_q, t, d, win,
+                                float(sm_scale), int(quant), n_split, stream)
+        _build.check(err, "decode_attention")
+        decode_attention.launches += 1
+        decode_attention.tma_launches += 1
+        return out
     if bf16:
         err = lib.sw_decode_attention(
             *head, b, hkv, rows, n_q, t, d, win, float(sm_scale), int(quant),
@@ -282,3 +379,4 @@ def decode_attention(q, k_cache, v_cache, pos, *,
 
 
 decode_attention.launches = 0
+decode_attention.tma_launches = 0  # of them, on csrc/decode_tma.cu

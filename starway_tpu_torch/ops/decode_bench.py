@@ -39,9 +39,9 @@ BF16_FLOPS = 989e12
 HQ, HKV, D = 32, 8, 128  # llama3-8b heads
 # Kernel names of the decode-attention functions in a trace, both dense
 # and paged, this version's and the float32 loop's.
-ATTN_KERNELS = ("decode_mma_kernel", "paged_mma_kernel",
-                "decode_partial_kernel", "paged_partial_kernel",
-                "decode_combine_kernel")
+ATTN_KERNELS = ("decode_tma_kernel", "decode_mma_kernel",
+                "paged_mma_kernel", "decode_partial_kernel",
+                "paged_partial_kernel", "decode_combine_kernel")
 
 
 def decode_work(pos, n_q: int, hkv: int, hq: int, d: int, kv_bytes: int = 2,
@@ -137,8 +137,12 @@ def time_call(ours, plain, caches, library, lib_caches, tol: float,
 
 
 def dense_row(gen, b: int, n_q: int, t: int, pos, quant: bool,
-              splits=(), tol: float = 2e-2) -> dict:
-    """#1 at B=b, C=n_q over a cache of t, bf16 q, bf16 or int8 caches."""
+              splits=(), tol: float = 2e-2, hq: int = HQ,
+              hkv: int = HKV) -> dict:
+    """#1 at B=b, C=n_q over a cache of t, bf16 q, bf16 or int8 caches,
+    hq / hkv heads.  Where every row sees the whole cache (C = 1 at pos t
+    - 1) SDPA runs without a mask, its fastest path for the same
+    function."""
     import torch.nn.functional as F
 
     from starway_tpu_torch.ops.decode import (decode_attention,
@@ -150,9 +154,10 @@ def dense_row(gen, b: int, n_q: int, t: int, pos, quant: bool,
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    q, k, v = randn(b, HQ, n_q, D), randn(b, HKV, t, D), randn(b, HKV, t, D)
+    q, k, v = randn(b, hq, n_q, D), randn(b, hkv, t, D), randn(b, hkv, t, D)
     pos_d = torch.as_tensor(pos, dtype=torch.int32, device=dev)
-    mask = _mask(pos_d, n_q, t, dev)
+    whole = n_q == 1 and all(p == t - 1 for p in pos)
+    mask = None if whole else _mask(pos_d, n_q, t, dev)
     lib_caches = _cold((k, v))
 
     def library(kc, vc):  # SDPA on bf16 caches
@@ -180,11 +185,13 @@ def dense_row(gen, b: int, n_q: int, t: int, pos, quant: bool,
             return decode_attention_reference(q, kc, vc, pos_d)
 
     row = time_call(ours, plain, caches, library, lib_caches, tol, splits)
-    n_bytes, flops = decode_work(pos, n_q, HKV, HQ, D, 1 if quant else 2,
+    n_bytes, flops = decode_work(pos, n_q, hkv, hq, D, 1 if quant else 2,
                                  quant)
+    heads = "" if (hq, hkv) == (HQ, HKV) else f" Hq={hq} Hkv={hkv}"
     return _finish(row, n_bytes, flops, kernel="decode_attention",
                    shape=f"B={b} T={t} C={n_q} {'int8' if quant else 'bf16'}"
-                         f" KV, pos {min(pos)}-{max(pos)}")
+                         f" KV{heads}, pos {min(pos)}-{max(pos)}"
+                         + (", SDPA unmasked" if whole else ""))
 
 
 def paged_row(gen, rng, b: int, n_q: int, pos, page: int = 64,
@@ -250,7 +257,8 @@ def kernel_rows(seed: int = 0, splits=()) -> list:
     """#1 and #9 at the serving paths' shapes (bf16, Hq 32, Hkv 8, D 128):
     dense B=8 T=2048 at C=1 (bf16 and int8 KV) and C=4 (a chunk verify),
     ragged positions; one row at C=128 at pos 1000 (a suffix ingest, T =
-    4096); paged 16 slots at C=1 and one slot at C=128, page 64.  With
+    4096); the kernel bench's row (B=1, Hq 8, Hkv 2, T=8192 at its last
+    position); paged 16 slots at C=1 and one slot at C=128, page 64.  With
     ``splits``, each also under every split over T listed."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.default_rng(seed)
@@ -259,6 +267,7 @@ def kernel_rows(seed: int = 0, splits=()) -> list:
             dense_row(gen, 8, 4, 2048, ragged, False, splits),
             dense_row(gen, 1, 128, 4096, [1000], False, splits),
             dense_row(gen, 8, 1, 2048, ragged, True, splits),
+            dense_row(gen, 1, 1, 8192, [8191], False, splits, hq=8, hkv=2),
             paged_row(gen, rng, 16, 1, rng.integers(100, 2001, 16),
                       splits=splits),
             paged_row(gen, rng, 1, 128, [1000], splits=splits)]

@@ -123,7 +123,7 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *,
                          "16-byte copies; they must be 16-byte aligned")
     bf16 = q.dtype == torch.bfloat16
     regime, n_split = launch_plan(b, hkv, rows, max_pages * page, d, bf16,
-                                  False, q.device.index or 0)
+                                  False, q.device.index or 0, False)
     lib = _build.library()
     out = torch.empty_like(q)
     pos_t, pos_stride, pos_value = pos_arg(pos, b, q.device)

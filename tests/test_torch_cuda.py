@@ -22,7 +22,8 @@ import torch
 from starway_tpu_torch.models import (LlamaConfig, PagedSlotServer,
                                       SlotServer, generate, init_params)
 from starway_tpu_torch.ops.decode import (decode_attention,
-                                          decode_attention_reference)
+                                          decode_attention_reference,
+                                          tma_plan, tma_route)
 from starway_tpu_torch.ops.paged import (paged_decode_attention,
                                          paged_decode_attention_reference)
 from starway_tpu_torch.ops import flash as flash_ops
@@ -234,22 +235,29 @@ def test_paged_kernel_matches_plain(dev, dtype, page, n_q, hq, hkv):
 @pytest.mark.parametrize("kernel,n_q", [("dense", 1), ("dense", 4),
                                         ("dense", 128), ("int8", 1),
                                         ("int8", 128), ("paged", 1),
-                                        ("paged", 128)])
+                                        ("paged", 128), ("dense-wide", 1),
+                                        ("int8-wide", 4)])
 def test_decode_kernels_bf16_are_deterministic(dev, kernel, n_q):
     """Two bf16 calls of the dense (bf16 or int8 cache) or the paged
     kernel at the main path's heads give identical bits: the splits'
-    partials are merged in split order, the warps' in warp order."""
+    partials are merged in split order, the warps' in warp order; "-wide":
+    one row of 8 q / 2 kv heads over T = 8192, split past one cluster
+    (ops/decode.py tma_plan: 64 blocks over T)."""
     rng = np.random.default_rng(15)
-    pos = [5, 1000, 2048 - n_q]
+    wide = kernel.endswith("-wide")
+    b, hq, hkv, t = (1, 8, 2, 8192) if wide else (3, 32, 8, 2048)
+    pos = [t - n_q] if wide else [5, 1000, 2048 - n_q]
     if kernel == "paged":
         args = _paged_case(rng, torch.bfloat16, dev, 64, n_q, 32, 8, pos)
         call = lambda: paged_decode_attention(*args)  # noqa: E731
     else:
-        q = _randn(rng, (3, 32, n_q, 128), torch.bfloat16, dev)
-        k, v = (_randn(rng, (3, 8, 2048, 128), torch.bfloat16, dev)
+        if wide:
+            assert tma_plan(b, hkv, t, _sms(dev)) > 16
+        q = _randn(rng, (b, hq, n_q, 128), torch.bfloat16, dev)
+        k, v = (_randn(rng, (b, hkv, t, 128), torch.bfloat16, dev)
                 for _ in range(2))
         kw = {}
-        if kernel == "int8":
+        if kernel.startswith("int8"):
             k, kw["k_scale"] = quantize_kv(k)
             v, kw["v_scale"] = quantize_kv(v)
         p = torch.tensor(pos, dtype=torch.int32, device=dev)
@@ -257,6 +265,110 @@ def test_decode_kernels_bf16_are_deterministic(dev, kernel, n_q):
     first, second = call(), call()
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+# (d, n_q, window, shape, circular): the TMA kernel's route (bf16 q, n_rep *
+# C <= 16 rows, D 64 and 128) at B x Hkv = 2 (one row of 8 q / 2 kv heads
+# over T = 8192: 64 blocks over T, past one cluster) and 64 (8 rows of the
+# main path's 32 / 8 heads over T = 2048: 4 blocks over T), C = 1 and 4,
+# with and without a window, and on a circular cache (T = W = 4096, pos
+# clamped to W - 1, no window).
+TMA_SHAPES = {"b1": (1, 8, 2, 8192), "b8": (8, 32, 8, 2048),
+              "ring": (3, 32, 8, 4096)}
+TMA_CASES = [(d, n_q, window, shape, False)
+             for d in (64, 128) for n_q in (1, 4)
+             for window, shape in ((None, "b1"), (700, "b1"), (None, "b8"),
+                                   (300, "b8"))] + [
+    (d, n_q, None, "ring", True) for d in (64, 128) for n_q in (1, 4)]
+
+
+def _tma_case(rng, d, n_q, shape, circular, dev):
+    b, hq, hkv, t = TMA_SHAPES[shape]
+    q = _randn(rng, (b, hq, n_q, d), torch.bfloat16, dev)
+    k = _randn(rng, (b, hkv, t, d), torch.bfloat16, dev)
+    v = _randn(rng, (b, hkv, t, d), torch.bfloat16, dev)
+    if circular:
+        pos = torch.tensor([t + 3, 5 * t + 1, 700], dtype=torch.int32,
+                           device=dev).clamp(max=t - n_q)
+    else:
+        pos = torch.from_numpy(rng.integers(0, t - n_q + 1, b).astype(
+            np.int32)).to(dev)
+        pos[0] = t - n_q  # one row sees the whole cache
+    return q, k, v, pos
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("d,n_q,window,shape,circular", TMA_CASES)
+def test_decode_tma_kernel_matches_plain(dev, quant, d, n_q, window, shape,
+                                         circular):
+    """csrc/decode_tma.cu against the plain version at the scaled limit
+    phase 3 holds it to (ops/attention.py SCALED_TOL), bf16 and int8
+    caches; each call is one launch, counted in tma_launches."""
+    rng = np.random.default_rng(21)
+    q, k, v, pos = _tma_case(rng, d, n_q, shape, circular, dev)
+    b, hkv = k.shape[:2]
+    assert tma_route(True, q.shape[1] // hkv * n_q, d)
+    kw = dict(window=window)
+    if quant:
+        k, kw["k_scale"] = quantize_kv(k)
+        v, kw["v_scale"] = quantize_kv(v)
+    before = (decode_attention.launches, decode_attention.tma_launches)
+    got = decode_attention(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches,
+            decode_attention.tma_launches) == (before[0] + 1, before[1] + 1)
+    want = decode_attention_reference(q, k, v, pos, **kw)
+    assert scaled_tolerance_share(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("d,n_q,window,shape", [(128, 1, None, "b1"),
+                                                (128, 4, 700, "b1"),
+                                                (64, 1, 300, "b8"),
+                                                (128, 4, None, "b8")])
+def test_decode_tma_kernel_ignores_dead_rows(dev, quant, d, n_q, window,
+                                             shape):
+    """Every cache row past a row's live keys and below its window holds
+    NaN (k, v and the int8 scales): the result is finite and equals the
+    plain version on the same cache with those rows zeroed, which the
+    function does not read."""
+    rng = np.random.default_rng(22)
+    q, k, v, pos = _tma_case(rng, d, n_q, shape, False, dev)
+    kw = dict(window=window)
+    if quant:
+        k, kw["k_scale"] = quantize_kv(k)
+        v, kw["v_scale"] = quantize_kv(v)
+    t = k.shape[2]
+    kp = torch.arange(t, device=dev)[None, :]
+    hi = pos[:, None].long() + n_q - 1
+    dead = kp > hi
+    if window is not None:
+        dead |= kp <= pos[:, None].long() - window
+    dead = dead[:, None, :].expand(k.shape[:3])
+    clean = [x.clone() for x in (k, v)]
+    if quant:
+        for x in clean:
+            x[dead] = 0
+        scales = {n: s.masked_fill(dead, 0.0) for n, s in kw.items()
+                  if n != "window"}
+        for n in scales:
+            kw[n].masked_fill_(dead, float("nan"))
+        want = decode_attention_reference(q, *clean, pos, window=window,
+                                          **scales)
+    else:
+        for x in clean:
+            x[dead] = 0
+        for x in (k, v):
+            x[dead] = float("nan")
+        want = decode_attention_reference(q, *clean, pos, window=window)
+    got = decode_attention(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert scaled_tolerance_share(got, want) <= 1.0
 
 
 # (b, hq, hkv, s, skv, d, causal, window): small shapes in both dtypes,

@@ -17,10 +17,15 @@ import jax.numpy as jnp
 
 from starway_tpu.ops.pallas_decode import decode_attention as jax_decode
 from starway_tpu.ops.quantize import quantize_kv as jax_quantize_kv
-from starway_tpu_torch.ops.decode import (KEYS, N_SMS, decode_attention,
+from starway_tpu_torch.ops.decode import (KEYS, N_SMS, TMA_MAX_PER_SM,
+                                          TMA_MAX_SPLITS, TMA_MERGE_GROUP,
+                                          TMA_MIN_TILES, TMA_SINGLE_MERGE,
+                                          TMA_TILES_PER_SPLIT,
+                                          call_plan, decode_attention,
                                           decode_attention_reference,
                                           decode_plan, launch_plan,
-                                          max_splits, pos_arg)
+                                          max_splits, pos_arg, tma_plan,
+                                          tma_route)
 from starway_tpu_torch.ops.attention import NEG_BIG, scaled_tolerance_share
 from torch_port_util import to_numpy, to_torch
 
@@ -101,40 +106,106 @@ def test_decode_plan_regime_by_rows(rows, regime):
     assert decode_plan(8, 8, rows, 2048)[0] == regime
 
 
-@pytest.mark.parametrize("b,c,t,want", [(8, 1, 2048, 4), (16, 1, 4096, 2),
-                                        (1, 1, 2048, 16), (1, 128, 4096, 3)])
+@pytest.mark.parametrize("b,c,t,want", [
+    (8, 1, 2048, ("tma", 8)), (16, 1, 4096, ("tma", 4)),
+    (1, 1, 2048, ("tma", 16)), (1, 4, 8192, ("tma", TMA_SINGLE_MERGE)),
+    (1, 128, 4096, ("ingest", 3))])
 def test_decode_plan_fills_the_card(b, c, t, want):
-    """llama3-8b heads (Hkv 8, n_rep 4) at the serving shapes: the split
-    over T is the largest that keeps the grid within two decode blocks (or
-    1.5 ingest blocks) for each of an H100 SXM's 132 SMs, unless the
-    cluster limit stops it first (one slot at C=1: 8 kv heads x 16 = 128
-    blocks), and stays a cluster that launches."""
-    regime, n_split = decode_plan(b, 8, 4 * c, t)
-    units = b * 8 * -(-4 * c // (16 if regime == "decode" else 64))
-    target = {"decode": 2.0, "ingest": 1.5}[regime] * N_SMS
-    assert n_split == want
-    assert 1 <= n_split <= max_splits(128) == 16
-    assert units * n_split <= target
-    assert units * (n_split + 1) > target or n_split == max_splits(128)
+    """llama3-8b heads (Hkv 8, n_rep 4) at the serving shapes: a call in
+    the decode regime takes the TMA kernel, whose split over T gives the
+    longest row's share about TMA_TILES_PER_SPLIT tiles and the grid a
+    block for each of an H100 SXM's 132 SMs, within TMA_MAX_PER_SM blocks
+    an SM and one split for every TMA_MIN_TILES tiles (one slot at C=1
+    over 2048: 32 tiles, 16 splits); the ingest regime keeps the cluster
+    kernel's plan (1.5 blocks an SM, at most max_splits)."""
+    regime, n_split = call_plan(b, 8, 4 * c, t)
+    assert (regime, n_split) == want
+    if regime == "tma":
+        tiles = -(-t // KEYS)
+        capped = (b * 8 * n_split > TMA_MAX_PER_SM * N_SMS - b * 8
+                  or n_split == -(-tiles // TMA_MIN_TILES)
+                  or n_split == TMA_SINGLE_MERGE)
+        assert b * 8 * n_split <= TMA_MAX_PER_SM * N_SMS
+        assert b * 8 * n_split >= N_SMS or capped
+        assert -(-tiles // n_split) <= TMA_TILES_PER_SPLIT or capped
+    else:
+        units = b * 8 * -(-4 * c // 64)
+        assert 1 <= n_split <= max_splits(128) == 16
+        assert units * n_split <= 1.5 * N_SMS < units * (n_split + 1)
 
 
 def test_decode_plan_limits():
-    """The split never exceeds the tiles the cache holds nor the cluster
-    limit at D=256 (8); a grid that already fills the card takes none."""
+    """The TMA kernel's split never exceeds one for every TMA_MIN_TILES
+    tiles the cache holds nor TMA_MAX_SPLITS, and a grid that already
+    fills the card takes none; the cluster kernel's, at the head sizes
+    and rows it keeps, never exceeds the tiles nor the cluster limit at
+    D=256 (8)."""
+    assert call_plan(1, 1, 4, 100) == ("tma", 1)  # 2 tiles
+    assert call_plan(1, 1, 4, 300) == ("tma", 3)  # 5 tiles
+    assert call_plan(1, 1, 4, 1 << 20) == ("tma", TMA_MAX_SPLITS)
+    assert call_plan(64, 8, 4, 2048) == ("tma", 1)
+    assert call_plan(1, 8, 4, 2048, d=64) == ("tma", 16)
+    assert call_plan(1, 2, 4, 4096) == ("tma", TMA_SINGLE_MERGE)
     assert decode_plan(1, 1, 4, 100)[1] == -(-100 // KEYS) == 2
-    assert decode_plan(1, 8, 4, 4096, d=256)[1] == max_splits(256) == 8
-    assert decode_plan(8, 8, 4, 4096, d=256)[1] == 1  # one block an SM
-    assert decode_plan(64, 8, 4, 2048)[1] == 1
-    assert decode_plan(1, 8, 4, 2048, d=64) == ("decode", 16)
-    assert decode_plan(8, 8, 512, 2048)[1] == 1
-    assert decode_plan(8, 8, 32, 2048) == ("ingest", 3)
+    assert call_plan(1, 8, 4, 4096, d=256) == ("decode", max_splits(256))
+    assert max_splits(256) == 8
+    assert call_plan(8, 8, 4, 4096, d=256) == ("decode", 1)  # one an SM
+    assert call_plan(1, 8, 4, 2048, d=32) == ("decode", 16)
+    assert call_plan(8, 8, 512, 2048)[1] == 1
+    assert call_plan(8, 8, 32, 2048) == ("ingest", 3)
+
+
+@pytest.mark.parametrize("units", [1, 2, 8, 16, 64])
+@pytest.mark.parametrize("t", [8192, 1 << 16])
+def test_tma_plan_fills_the_card(units, t):
+    """At every B x Hkv of the serving paths the TMA kernel's grid fills
+    the card's 132 SMs (at least one block each, at most TMA_MAX_PER_SM),
+    unless the cache has too few tiles (one split for every
+    TMA_MIN_TILES); it never splits past the tiles T holds.  Where B x Hkv
+    is small the split runs past one 16-block cluster: one row of 2 kv
+    heads over T=8192 launches over 100 blocks."""
+    for b, hkv in ((units, 1), (1, units)):
+        n = tma_plan(b, hkv, t)
+        tiles = -(-t // KEYS)
+        assert 1 <= n <= min(tiles, TMA_MAX_SPLITS)
+        assert units * n <= TMA_MAX_PER_SM * N_SMS
+        assert units * n >= N_SMS or n == -(-tiles // TMA_MIN_TILES)
+    assert tma_plan(1, 2, 8192) * 2 >= 100
+    assert tma_plan(1, 2, 8192) > max_splits(128)
+
+
+def test_paged_kernel_keeps_the_cluster_plan():
+    """The paged kernel (ops/paged.py) has no TMA route: its launches ask
+    for the cluster kernel's plan, whichever regime the rows give."""
+    for rows in (4, 16, 17):
+        assert call_plan(16, 8, rows, 4096, tma=False) == decode_plan(
+            16, 8, rows, 4096)
+    assert call_plan(16, 8, 4, 4096)[0] == "tma"
+    import starway_tpu_torch.ops.paged as paged
+    assert "q.device.index or 0, False)" in inspect.getsource(
+        paged.paged_decode_attention)
+
+
+@pytest.mark.parametrize("bf16,rows,d,want", [
+    (True, 4, 128, True), (True, 16, 128, True), (True, 8, 64, True),
+    (True, 17, 128, False), (True, 4, 32, False), (True, 4, 256, False),
+    (False, 4, 128, False)])
+def test_tma_route(bf16, rows, d, want):
+    """bf16 q in the decode regime (n_rep * C <= 16 rows) at head sizes 64
+    and 128 takes csrc/decode_tma.cu; the ingest regime, the other head
+    sizes and float32 keep csrc/decode_attention.cu."""
+    assert tma_route(bf16, rows, d) is want
+    assert (call_plan(8, 8, rows, 2048, d, bf16)[0] == "tma") is want
 
 
 def test_decode_plan_follows_the_named_card():
     """Without a card the plan is the H100 SXM's (132 SMs); the wrapper
     passes the SM count of q's card."""
-    assert decode_plan(8, 8, 4, 2048) == decode_plan(8, 8, 4, 2048,
-                                                     n_sms=132)
+    assert call_plan(8, 8, 4, 2048) == call_plan(8, 8, 4, 2048, n_sms=132)
+    assert call_plan(8, 8, 4, 2048, n_sms=114) == ("tma", 7)
+    assert call_plan(8, 8, 4, 2048, n_sms=264) == ("tma", 8)
+    assert call_plan(8, 8, 4, 2048, n_sms=16) == ("tma", 1)
+    assert tma_plan(1, 2, 65536, n_sms=78) == 156
     assert decode_plan(8, 8, 4, 2048, n_sms=114)[1] == 3
     assert decode_plan(8, 8, 4, 2048, n_sms=264)[1] == 8
     assert decode_plan(8, 8, 4, 2048, n_sms=16)[1] == 1
@@ -145,7 +216,7 @@ def test_decode_plan_takes_no_pos():
     each split's tiles from pos on the device, and the host never reads
     it (a read would stall the host-bound decode step and break CUDA-graph
     capture)."""
-    for fn in (decode_plan, launch_plan.__wrapped__):
+    for fn in (decode_plan, tma_plan, call_plan, launch_plan.__wrapped__):
         assert not any("pos" in name
                        for name in inspect.signature(fn).parameters)
 
@@ -179,36 +250,81 @@ def _partial(q, k, v, keep, sm_scale):
     return p @ v, m, p.sum(-1)
 
 
-@pytest.mark.parametrize("n_split,pos", [(4, [900, 37]), (16, [2000, 100]),
-                                         (5, [63, 64])])
-def test_split_shares_merge_to_the_whole(n_split, pos):
-    """The kernels' split over T in plain arithmetic: split z of n takes
-    live tiles [z T / n, (z + 1) T / n) of a row's T; each leaves an
-    (o, m, l) partial (the identity where its share is empty, as short
-    rows leave whole splits), and merging them in split order with weight
-    exp(m_z - M) gives the attention of the whole (float32, 1e-5)."""
+def _shares(kernel, n_tiles, n_split, reach):
+    """Each split's live tiles [lo, hi), in split order, for a row with
+    ``n_tiles`` live tiles of the ``reach`` a row can have: the cluster
+    kernel's (csrc/decode_tiles.cuh: [z T / n, (z + 1) T / n)) or the TMA
+    kernel's (csrc/decode_tma.cu: [z per, (z + 1) per), per =
+    ceil(reach / n), and only the first ceil(T / per) splits busy)."""
+    if kernel == "cluster":
+        return [(z * n_tiles // n_split, (z + 1) * n_tiles // n_split)
+                for z in range(n_split)]
+    per = -(-reach // n_split)
+    busy = -(-n_tiles // per)
+    return [(z * per, min((z + 1) * per, n_tiles)) for z in range(busy)]
+
+
+def _merge(parts):
+    """(o, m, l) partials merged in their order with weight exp(m_z - M),
+    as the kernels sum them: a partial of the same form."""
+    m_all = parts[0][1]
+    for _, m, _ in parts[1:]:
+        m_all = torch.maximum(m_all, m)
+    o = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for o_z, m, l_z in parts:
+        w = torch.exp(m - m_all)
+        o = o + o_z * w[:, None]
+        l = l + l_z * w
+    return o, m_all, l
+
+
+@pytest.mark.parametrize("kernel,n_split,pos", [
+    ("cluster", 4, [900, 37]), ("cluster", 16, [2000, 100]),
+    ("cluster", 5, [63, 64]), ("tma", 4, [900, 37]),
+    ("tma", 33, [8191, 2000, 100]), ("tma", 66, [8191, 4100, 63]),
+    ("tma", 256, [8191, 64])])
+def test_split_shares_merge_to_the_whole(kernel, n_split, pos):
+    """The kernels' split over T in plain arithmetic, in the order each
+    kernel merges: every split leaves an (o, m, l) partial (the cluster
+    kernel's short rows leave whole splits empty: the identity; the TMA
+    kernel sizes its shares from the longest row a cache of T = 8192 can
+    hold, so a short row takes few splits and none is empty), and merging
+    them in split order with weight exp(m_z - M) (the TMA kernel past
+    TMA_SINGLE_MERGE busy splits: each group of TMA_MERGE_GROUP in split
+    order, then the groups in group order) gives the attention of the
+    whole (float32, 1e-5), past one cluster too."""
     rng = np.random.default_rng(3)
-    d, t, sm = 16, 2048, 16 ** -0.5
+    d, t, sm = 16, 8192, 16 ** -0.5
     for p in pos:
         q = torch.from_numpy(rng.standard_normal((4, d), np.float32))
         k, v = (torch.from_numpy(rng.standard_normal((t, d), np.float32))
                 for _ in range(2))
         kp = torch.arange(t)
         n_tiles = -(-(p + 1) // KEYS)
-        parts, empty = [], 0
-        for z in range(n_split):
-            lo, hi = z * n_tiles // n_split, (z + 1) * n_tiles // n_split
-            empty += lo == hi
+        shares = _shares(kernel, n_tiles, n_split, -(-t // KEYS))
+        assert [lo for lo, _ in shares] == sorted(lo for lo, _ in shares)
+        assert sum(hi - lo for lo, hi in shares) == n_tiles
+        parts = []
+        for lo, hi in shares:
             keep = ((kp >= lo * KEYS) & (kp < hi * KEYS)
                     & (kp <= p))[None, :].expand(4, t)
             parts.append(_partial(q, k, v, keep, sm))
-        m_all = torch.stack([m for _, m, _ in parts]).amax(0)
-        o = sum(o * torch.exp(m - m_all)[:, None] for o, m, _ in parts)
-        l = sum(l * torch.exp(m - m_all) for _, m, l in parts)
+        if kernel == "tma" and len(parts) > TMA_SINGLE_MERGE:
+            # groups of TMA_MERGE_GROUP splits, then the groups, in order
+            parts = [_merge(parts[i:i + TMA_MERGE_GROUP])
+                     for i in range(0, len(parts), TMA_MERGE_GROUP)]
+        o, _, l = _merge(parts)
         want = torch.softmax(torch.where(kp[None, :] <= p, (q @ k.T) * sm,
                                          torch.tensor(-torch.inf)), -1) @ v
         torch.testing.assert_close(o / l[:, None], want, atol=1e-5, rtol=0)
-        assert empty == max(0, n_split - n_tiles)
+        empty = sum(lo == hi for lo, hi in shares)
+        if kernel == "cluster":
+            assert empty == max(0, n_split - n_tiles)
+        else:  # no empty share is merged; no share outgrows the longest row's
+            assert empty == 0 and len(shares) <= n_split
+            assert max(hi - lo for lo, hi in shares) <= -(-(t // KEYS)
+                                                        // n_split)
 
 
 def _online_softmax(q, k, v, pos, window, drop_tile=None):
