@@ -2625,8 +2625,9 @@ def use_transport(name: str) -> None:
 
 def expected_chunks(name: str, nbytes: int) -> tuple:
     """(chunks staged by the sender, chunks placed by the receiver) of one
-    cuda:0 -> cuda:0 send of ``nbytes``.  In process the snapshot is
-    copied on the card: neither is counted.  The C++ engine stages and
+    cuda:0 -> cuda:0 send of ``nbytes``.  In process a send to a posted
+    receive is one copy on the card, straight into the sink: neither is
+    counted (``inproc_copies`` counts it).  The C++ engine stages and
     places the whole payload once.  The Python engine stages chunk by
     chunk up to the rendezvous threshold and places chunk by chunk from
     two chunks up."""
@@ -2638,6 +2639,36 @@ def expected_chunks(name: str, nbytes: int) -> tuple:
     armed = nbytes >= 2 * CHUNK_BYTES
     return (chunks if armed and nbytes <= RNDV_BYTES else 1,
             chunks if armed else 1)
+
+
+@contextlib.contextmanager
+def inproc_copies():
+    """Counts, while inside, the device plane's copies (``device._copy``)
+    and the snapshots of device payloads (``DevicePayload.snapshot``)."""
+    from starway_tpu_torch import device
+
+    counts = {"copies": 0, "snapshots": 0}
+    copy, snapshot = device._copy, device.DevicePayload.snapshot
+
+    def counted_copy(*args):
+        counts["copies"] += 1
+        return copy(*args)
+
+    def counted_snapshot(self):
+        counts["snapshots"] += 1
+        return snapshot(self)
+
+    with mock.patch.object(device, "_copy", counted_copy), \
+            mock.patch.object(device.DevicePayload, "snapshot",
+                              counted_snapshot):
+        yield counts
+
+
+def check_copies(name: str, what: str, counts: dict, want: tuple) -> None:
+    got = (counts["copies"], counts["snapshots"])
+    if got != want:
+        raise AssertionError(f"{name} {what}: copies/snapshots {got}, "
+                             f"expected {want}")
 
 
 async def one_way(client, server, payload, sink, tag: int) -> float:
@@ -2690,19 +2721,31 @@ async def transport_checks(name: str, dev) -> dict:
     server, client, ep = await headline.connect_pair()
     out = {"sweep": []}
     wire = "device" if name == "inproc" else "staged"
+    inproc = name == "inproc"
     try:
-        for nbytes in SWEEP_SIZES:
-            warm, iters = sweep_iters(nbytes)
-            for host in (False, True):
-                fw, raw = await headline.pingpong(
-                    server, client, ep, nbytes, dev, dev, host, warm, iters,
-                    seed=nbytes)
-                row = headline.summary(fw, raw, nbytes)
-                row["mode"] = "host<->device" if host else "device<->device"
-                out["sweep"].append(row)
-            rtts = await host_pingpong(server, client, ep, nbytes, warm, iters)
-            out.setdefault("host_p50_us", {})[nbytes] = (
-                statistics.median(rtts) * 1e6)
+        trips = 0
+        with inproc_copies() as sweep_counts:
+            for nbytes in SWEEP_SIZES:
+                warm, iters = sweep_iters(nbytes)
+                for host in (False, True):
+                    fw, raw = await headline.pingpong(
+                        server, client, ep, nbytes, dev, dev, host, warm,
+                        iters, seed=nbytes)
+                    trips += warm + iters + 1  # and the checked pass
+                    row = headline.summary(fw, raw, nbytes)
+                    row["mode"] = ("host<->device" if host
+                                   else "device<->device")
+                    out["sweep"].append(row)
+                # host buffers both ways: no copy of the device plane
+                rtts = await host_pingpong(server, client, ep, nbytes, warm,
+                                           iters)
+                out.setdefault("host_p50_us", {})[nbytes] = (
+                    statistics.median(rtts) * 1e6)
+        if inproc:
+            # every receive of the sweep is posted before its send: one
+            # copy each way, straight into the receive, and no snapshot
+            check_copies(name, "sweep", sweep_counts, (2 * trips, 0))
+            out["copies"] = {"round_trips": trips, **sweep_counts}
 
         # chunk counts: one cuda:0 -> cuda:0 send per size
         counts = {}
@@ -2712,7 +2755,10 @@ async def transport_checks(name: str, dev) -> dict:
             sink = DeviceBuffer((nbytes,), torch.uint8, device=dev)
             client._client.stage_scope.reset()
             server._server.stage_scope.reset()
-            await one_way(client, server, src, sink, 0x61)
+            with inproc_copies() as one_counts:
+                await one_way(client, server, src, sink, 0x61)
+            if inproc:
+                check_copies(name, f"{nbytes} B posted", one_counts, (1, 0))
             staged = client._client.stage_scope.snapshot().get(
                 "stage", {}).get("count", 0)
             placed = server._server.stage_scope.snapshot().get(
@@ -2755,10 +2801,13 @@ async def transport_checks(name: str, dev) -> dict:
             src = torch.randint(0, 256, (nbytes,), dtype=torch.uint8,
                                 device=dev)
             want = src.clone()
-            await client.asend(src, 0x63)
-            src.zero_()
-            sink = DeviceBuffer((nbytes,), torch.uint8, device=dev)
-            got = await server.arecv(sink, 0x63, MASK)
+            with inproc_copies() as park_counts:
+                await client.asend(src, 0x63)
+                src.zero_()
+                sink = DeviceBuffer((nbytes,), torch.uint8, device=dev)
+                got = await server.arecv(sink, 0x63, MASK)
+            if inproc:  # it parks: snapshotted, then copied from the clone
+                check_copies(name, f"{nbytes} B parked", park_counts, (2, 1))
             if tuple(got) != (0x63, nbytes) or not torch.equal(sink.array,
                                                               want):
                 raise AssertionError(f"{name} {nbytes} B: overwriting the "
@@ -3240,6 +3289,9 @@ def phase_transport(dev, card: str) -> dict:
                     f"{row['vs_baseline']:.3f}")
             log(f"[transport] {name:9s} host<->host p50 us by size (the "
                 f"engine alone): {res['host_p50_us']}")
+            if "copies" in res:
+                log(f"[transport] {name} sweep copies {res['copies']} (two "
+                    f"a round trip, no snapshot, expected and held)")
             log(f"[transport] {name} chunks staged/placed {res['chunks']}; "
                 f"stages {res['stages']}")
         for name in ("inproc", "tcp"):

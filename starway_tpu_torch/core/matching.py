@@ -22,7 +22,8 @@ ride the same matcher with no jax dependency here:
   ``finalize_from_host()`` / ``accept_device()`` / optional
   ``accept_host()`` for complete-bytes-in-hand delivery, see device.py);
 * device payload: ``DevicePayload`` (``nbytes`` / ``as_host_view()`` /
-  ``.array``).
+  ``.array``; optional ``copy_into()`` for one copy straight into a posted
+  target and ``snapshot()`` for a message that parks, see device.py).
 
 Threading: the matcher is owned by a Worker and guarded by the worker's lock.
 All mutating methods return a list of zero-argument "fire" thunks (completed /
@@ -140,6 +141,12 @@ class InboundMsg:
 
 def _copy_complete(pr: PostedRecv, payload, length: int) -> None:
     """Move a fully-arrived payload into a posted receive target."""
+    direct = getattr(payload, "copy_into", None)
+    if direct is not None:
+        # The payload writes the target itself: one copy, ordered after
+        # both posts and complete on return (DevicePayload.copy_into).
+        direct(pr.buf, length)
+        return
     if _is_host(pr.buf):
         if _is_host(payload):
             pr.buf[:length] = payload
@@ -440,8 +447,11 @@ class TagMatcher:
             msg.spill = bytearray(payload)
         else:
             # Keep the array reference; no host copy unless a host receive
-            # eventually claims it.
-            msg.device_payload = payload
+            # eventually claims it.  A payload that can snapshot itself does
+            # so now, before the send completes: the sender may overwrite
+            # its tensor from then on (DevicePayload.snapshot).
+            park = getattr(payload, "snapshot", None)
+            msg.device_payload = payload if park is None else park()
         msg.complete = True
         self.unexpected.append(msg)
         return fires

@@ -11,12 +11,15 @@ enters through the same two duck-typed protocols as in the JAX package
   (``nbytes``, ``host_staging()``, ``staged()``, ``finalize_from_host()``,
   ``accept_host()``, ``accept_device()``).
 
-Four transfer paths, chosen per connection and payload:
+The transfer paths, chosen per connection and payload:
 
-* **in-process, device payload -> device sink**: the sender's tensor is
-  snapshotted on the card and the receiver copies the snapshot into its
-  sink's tensor (a peer copy between cards) -- no host staging.
-* **in-process, mixed host/device**: one copy at the boundary.
+* **in-process, device payload -> posted receive**: one copy from the
+  sender's tensor straight into the receive's memory -- the sink's tensor
+  (a peer copy between cards) or the host buffer -- no host staging.
+* **in-process, parked**: a device message that meets no posted receive
+  is snapshotted on the card when it parks; the receive that claims it
+  later copies the snapshot.
+* **in-process, host payload -> device sink**: one copy at the boundary.
 * **pulled (tcp, sm; Python engine)**: when both peers negotiated the
   pull (the ``cudaipc`` HELLO key), a small descriptor rides the stream
   and the receiver copies the sender's snapshot straight from its card
@@ -40,10 +43,11 @@ So this plane differs from the JAX package's in five rules:
   caller queued just before ``asend`` has written the payload before it is
   read, and one queued before ``arecv`` has read the sink before it is
   overwritten.  Tensors that cross streams get ``record_stream``.
-* **Snapshot.**  An in-process or pulled device send delivers a clone
-  made on the card at send time, and completes once the clone is
-  resident; the matcher may park the message before a receive claims it,
-  so the caller may overwrite its tensor as soon as the send completes.
+* **Snapshot.**  An in-process device send that meets a posted receive
+  completes once its one copy into the receive's memory has completed; one
+  that parks (no posted receive claims it) completes once a clone made on
+  the card is resident, as does a pulled send.  Either way the caller may
+  overwrite its tensor as soon as the send completes.
 * **Completion means resident.**  A receive completes only after the
   event of its last copy has completed.
 * **Pinned staging.**  Staging for a card is pinned host memory and goes
@@ -140,18 +144,27 @@ def _posted_event(t: torch.Tensor):
     return ev
 
 
-def _copy(dst: torch.Tensor, src: torch.Tensor, role: str, after=None):
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two flat ``uint8`` tensors share a byte of memory."""
+    if a.device != b.device or not a.numel() or not b.numel():
+        return False
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() and b0 < a0 + a.numel()
+
+
+def _copy(dst: torch.Tensor, src: torch.Tensor, role: str, *after):
     """``dst.copy_(src)``.  With a card on either side: queued on the
     ``role`` side stream of that card (the destination's when both are
-    cards) after the event ``after``; returns the copy's event.  Between
-    CPU tensors: done at once; returns None."""
+    cards) after every event of ``after`` (None entries skipped); returns
+    the copy's event.  Between CPU tensors: done at once; returns None."""
     dev = dst.device if dst.device.type == "cuda" else src.device
     if dev.type != "cuda":
         dst.copy_(src)
         return None
     stream = _side_stream(dev, role)
-    if after is not None:
-        stream.wait_event(after)
+    for event in after:
+        if event is not None:
+            stream.wait_event(event)
     with torch.cuda.stream(stream):
         dst.copy_(src, non_blocking=True)
     for t in (dst, src):
@@ -232,6 +245,22 @@ class _StagingPool:
 _staging_pool = _StagingPool()
 
 
+# A copy from a card into pageable host memory of at most this many bytes
+# goes through a pooled pinned buffer and a host memcpy: on an H100 host
+# that beat CUDA's own pageable copy at 64 KiB and 1 MiB and lost at
+# 16 MiB (PERF.md, "the in-process device send").
+_BOUNCE_MAX = 1 << 20
+
+
+def _d2h_bounce(src: torch.Tensor, dst: torch.Tensor) -> bool:
+    """Whether the copy of ``src`` into the host tensor ``dst`` goes
+    through a pinned buffer: ``src`` on a card, at most ``_BOUNCE_MAX``
+    bytes, ``dst`` pageable.  Module-level so tests can force it on CPU
+    tensors."""
+    return (src.device.type == "cuda" and src.numel() <= _BOUNCE_MAX
+            and not dst.is_pinned())
+
+
 def _rx_overlap_ok(device) -> bool:
     """Chunked receive placement (a copy to the card per completed chunk)
     only pays where the copy overlaps the remaining stream reads: on a
@@ -305,8 +334,8 @@ class DevicePayload:
     Two staging modes feed the framed stream:
 
     * ``as_host_view()`` -- one full-payload copy to host memory (the
-      in-process path to a host receive, and the fallback for engines
-      without chunked TX support).
+      fallback for engines without chunked TX support, and the payloads
+      that must be whole in host memory).
     * ``chunked(chunk_bytes)`` + ``host_chunk(pos)`` -- incremental copies
       to host memory: the TX pump asks for the chunk containing byte
       ``pos`` and the payload starts the copy of the NEXT chunk before
@@ -335,14 +364,46 @@ class DevicePayload:
 
     def snapshot(self) -> "DevicePayload":
         """Replace the tensor by a clone made on its card and wait until
-        the clone is resident (in-process sends: send completion then
-        licenses the caller to overwrite its tensor)."""
+        the clone is resident (a message that parks, and a pull's offer:
+        send completion then licenses the caller to overwrite its
+        tensor)."""
         clone = torch.empty_like(self.array)
         event = _copy(clone, self.array, "tx", self._posted)
         if event is not None:
             event.synchronize()
         self.array, self._posted = clone, None
         return self
+
+    def copy_into(self, target, length: int) -> None:
+        """In-process delivery to a posted receive: one copy from the
+        tensor straight into ``target`` -- a :class:`DeviceRecvSink`, or a
+        host buffer written through a CPU tensor that aliases it -- queued
+        after the events of both posts and complete before this returns,
+        so send completion still licenses the sender to overwrite its
+        tensor.  A target that shares memory with the tensor gets a
+        snapshot first.  A small copy into pageable host memory goes
+        through a pooled pinned buffer and a host memcpy, which is faster
+        there (:func:`_d2h_bounce`)."""
+        if isinstance(target, DeviceRecvSink):
+            if _overlaps(self.array, target._dst):
+                self.snapshot()
+            target.accept_device(self.array, self._posted)
+            return
+        t0 = time.perf_counter()
+        dst = _host_bytes(target, length)
+        if _overlaps(self.array, dst):
+            self.snapshot()
+        src = self.array[:length]
+        bounce = _d2h_bounce(src, dst)
+        buf = (_staging_pool.get(length, pinned=src.device.type == "cuda")
+               if bounce else dst)
+        event = _copy(buf, src, "tx", self._posted)
+        if event is not None:
+            event.synchronize()
+        if bounce:
+            dst.numpy()[:] = buf.numpy()
+            _staging_pool.put(buf)
+        _record_stage("stage", time.perf_counter() - t0, length, self.scope)
 
     def _to_host(self, off: int, nbytes: int):
         """Start the copy of bytes [off, off + nbytes) into fresh host
@@ -515,11 +576,14 @@ class DeviceRecvSink:
         self._complete()
         _record_stage("place", time.perf_counter() - t0, length, self.scope)
 
-    def accept_device(self, array: torch.Tensor) -> None:
-        """In-process delivery of a sender's snapshot: a copy on the card
-        (a peer copy between cards) into the tensor; never an alias."""
+    def accept_device(self, array: torch.Tensor, sent=None) -> None:
+        """In-process delivery of a sender's tensor or snapshot: a copy on
+        the card (a peer copy between cards) into the tensor, after the
+        sink's posted event and ``sent``, the event of the send's post
+        (None for a snapshot, which is resident); never an alias."""
         src = _flat_bytes(array)
-        self._last = _copy(self._dst[:src.numel()], src, "rx", self._posted)
+        self._last = _copy(self._dst[:src.numel()], src, "rx", self._posted,
+                           sent)
         self.devbuf.last_transport = "device"
         self._complete()
 
@@ -881,7 +945,8 @@ class RemoteMsg:
 
 
 def send_device(worker, conn, buffer, tag, done, fail):
-    """Route a device payload: a snapshot handed over in-process, a pull
+    """Route a device payload: handed over in-process (copied once into a
+    posted receive, snapshotted by the matcher where it parks), a pull
     when the peer negotiated one and a route reaches it, host staging
     otherwise."""
     from . import config
@@ -890,7 +955,7 @@ def send_device(worker, conn, buffer, tag, done, fail):
     payload = DevicePayload(src)
     payload.scope = getattr(worker, "stage_scope", None)
     if conn is not None and conn.kind == "inproc":
-        worker.submit_send(conn, payload.snapshot(), tag, done, fail, payload)
+        worker.submit_send(conn, payload, tag, done, fail, payload)
         return
     if (conn is not None and getattr(conn, "devpull_ok", False)
             and payload.nbytes >= config.devpull_threshold()):

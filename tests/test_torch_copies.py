@@ -195,6 +195,39 @@ EDITS = {
          '        self.cudaipc_peer = None\n'
          '        self._remote_msgs: set = set()\n'),
     ],
+    # The in-process device send copies once, straight into a posted
+    # receive (DevicePayload.copy_into), and snapshots only a message that
+    # parks (DevicePayload.snapshot): the JAX package hands an immutable
+    # array over and needs neither.
+    'core/matching.py': [
+        (# core/matching.py:24-25 (the device payload's duck type)
+         '* device payload: ``DevicePayload`` (``nbytes`` / ``as_host_view()`` /\n'
+         '  ``.array``).\n',
+         '* device payload: ``DevicePayload`` (``nbytes`` / ``as_host_view()`` /\n'
+         '  ``.array``; optional ``copy_into()`` for one copy straight into a posted\n'
+         '  target and ``snapshot()`` for a message that parks, see device.py).\n'),
+        (# core/matching.py:142 (_copy_complete: the one-copy delivery)
+         '    \"\"\"Move a fully-arrived payload into a posted receive target.\"\"\"\n'
+         '    if _is_host(pr.buf):\n',
+         '    \"\"\"Move a fully-arrived payload into a posted receive target.\"\"\"\n'
+         '    direct = getattr(payload, "copy_into", None)\n'
+         '    if direct is not None:\n'
+         '        # The payload writes the target itself: one copy, ordered after\n'
+         '        # both posts and complete on return (DevicePayload.copy_into).\n'
+         '        direct(pr.buf, length)\n'
+         '        return\n'
+         '    if _is_host(pr.buf):\n'),
+        (# core/matching.py:442-444 (deliver: the snapshot at park time)
+         '            # Keep the array reference; no host copy unless a host receive\n'
+         '            # eventually claims it.\n'
+         '            msg.device_payload = payload\n',
+         '            # Keep the array reference; no host copy unless a host receive\n'
+         '            # eventually claims it.  A payload that can snapshot itself does\n'
+         '            # so now, before the send completes: the sender may overwrite\n'
+         '            # its tensor from then on (DevicePayload.snapshot).\n'
+         '            park = getattr(payload, "snapshot", None)\n'
+         '            msg.device_payload = payload if park is None else park()\n'),
+    ],
     'benchmarks/scenarios.py': [
         (# benchmarks/scenarios.py:13-15
          'scenario a class with ``run_client`` / ``run_server`` coroutines; payloads may\n'

@@ -6,9 +6,10 @@ the JAX package, so the device plane runs here on CPU tensors.  The chunked
 receive placement is armed only for ``cuda`` targets; the tests that
 exercise it force it on, as tests/test_dataplane.py does.  Beyond the
 twins: a receive writes in place (a shorter one leaves the tail alone), an
-in-process send delivers a snapshot, a staging buffer is recycled only
-after the event of the last copy reading it, and dtypes map from torch,
-numpy and JAX names alike."""
+in-process send copies once into a posted receive and snapshots only a
+message that parks, a staging buffer is recycled only after the event of
+the last copy reading it, and dtypes map from torch, numpy and JAX names
+alike."""
 
 import asyncio
 import time
@@ -20,6 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from starway_tpu_torch import Client, DeviceBuffer, Server, device, perf
+from starway_tpu_torch.errors import REASON_TRUNCATED
 
 pytestmark = pytest.mark.asyncio
 
@@ -466,6 +468,109 @@ async def test_overwrite_after_send_delivers_the_original(port, transport,
         sink = DeviceBuffer((nbytes,), torch.uint8, device=CPU)
         assert await server.arecv(sink, 17, MASK) == (17, nbytes)
         assert torch.equal(sink.array, want)
+    finally:
+        await client.aclose()
+        await server.aclose()
+
+
+# case -> (receive posted before the send, target, sink bytes short of the
+# payload): "alias" receives into the sender's own memory.
+INPROC_CASES = {
+    "posted-sink": (True, "sink", 0),
+    "posted-host": (True, "host", 0),
+    "posted-host-bounced": (True, "host", 0),
+    "parked-sink": (False, "sink", 0),
+    "parked-host": (False, "host", 0),
+    "alias-sink": (True, "alias-sink", 0),
+    "alias-host": (True, "alias-host", 0),
+    "truncated-posted": (True, "sink", 1),
+    "truncated-parked": (False, "sink", 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INPROC_CASES))
+async def test_inproc_device_send_copies_once(port, monkeypatch, case):
+    """An in-process device send to a posted receive makes one copy,
+    straight into the receive's memory, ordered after the events of both
+    posts, and no snapshot; a message that parks is snapshotted once when
+    it parks and copied from the snapshot when claimed; a target sharing
+    the sender's memory gets the snapshot too; a truncated receive copies
+    nothing.  A small copy into pageable host memory on the card goes
+    through a pooled pinned buffer: still one copy of the device plane
+    (forced here on CPU tensors).  The sender zeroes its tensor as soon as the send completes
+    (but where it is the target): every receive still holds the original,
+    and ``last_transport`` says "device" wherever a sink received."""
+    posted, target, short = INPROC_CASES[case]
+    copies, snapshots = [], []
+    real_copy, real_snapshot = device._copy, device.DevicePayload.snapshot
+
+    def count_copy(dst, src, role, *after):
+        copies.append(after)
+        return real_copy(dst, src, role, *after)
+
+    def count_snapshot(self):
+        snapshots.append(self)
+        return real_snapshot(self)
+
+    marks = iter(range(1, 100))  # stand-ins for the events of the posts
+    monkeypatch.setattr(device, "_copy", count_copy)
+    monkeypatch.setattr(device.DevicePayload, "snapshot", count_snapshot)
+    monkeypatch.setattr(device, "_posted_event", lambda t: next(marks))
+    if case.endswith("bounced"):
+        pool = device._StagingPool()
+        monkeypatch.setattr(device, "_staging_pool", pool)
+        monkeypatch.setattr(device, "_d2h_bounce", lambda src, dst: True)
+    n = 4096
+    server, client, _ep = await _pair(port)
+    try:
+        src = _random_bytes(n, seed=3)
+        want = src.clone()
+        if target == "sink":
+            sink = DeviceBuffer((n - short,), torch.uint8, device=CPU)
+            sink.array.fill_(9)
+            out = sink.array
+        elif target == "host":
+            sink = out = np.zeros(n, dtype=np.uint8)
+        elif target == "alias-sink":
+            sink = DeviceBuffer((n,), torch.uint8, array=src)
+            out = sink.array
+        else:  # alias-host: a host view of the sender's own memory
+            sink = out = src.numpy()
+        before = torch.as_tensor(out).clone()
+        if posted:
+            fut = server.arecv(sink, 30, MASK)  # its post takes mark 1
+        await client.asend(src, 30)  # mark 2 into a posted sink, else 1
+        if not target.startswith("alias"):  # an alias's sink is the sender
+            src.zero_()
+        parked = (len(copies), len(snapshots))
+        if not posted:
+            fut = server.arecv(sink, 30, MASK)
+        if short:
+            with pytest.raises(Exception, match=REASON_TRUNCATED):
+                await fut
+            assert torch.equal(torch.as_tensor(out), before)
+            assert (len(copies), len(snapshots)) == parked
+            assert sink.last_transport is None
+            assert parked == ((0, 0) if posted else (1, 1))
+            return
+        assert await fut == (30, n)
+        assert torch.equal(torch.as_tensor(out), want)
+        if case.endswith("bounced"):  # the buffer went back to the pool
+            assert (pool.misses, pool.hits) == (1, 0)
+            assert pool.get(n) is not None and pool.hits == 1
+        if target in ("sink", "alias-sink"):
+            assert sink.last_transport == "device"
+        if posted and not target.startswith("alias"):
+            assert (len(copies), len(snapshots)) == (1, 0)
+            # the delivery waits on the send's post and, into a sink, on
+            # the receive's
+            assert sorted(e for e in copies[0] if e is not None) == (
+                [1, 2] if target == "sink" else [1])
+        else:
+            assert (len(copies), len(snapshots)) == (2, 1)
+            # a parked send snapshots before it completes; a posted one is
+            # delivered by then
+            assert parked == ((2, 1) if posted else (1, 1))
     finally:
         await client.aclose()
         await server.aclose()

@@ -153,6 +153,46 @@ async def test_overwrite_after_send(port, dev, transport, nbytes):
         await server.aclose()
 
 
+@pytest.mark.parametrize("into", ["sink", "host"])
+async def test_posted_receive_keeps_the_original_after_overwrite(
+        port, dev, monkeypatch, into):
+    """In process, with the receive posted first, the send is one copy
+    straight into the receive's memory.  The payload is written behind a
+    spin and sent with no synchronize; as soon as the send completes the
+    sender queues a spin and a ``zero_()`` on its stream.  The sink on the
+    card, or the host buffer, still holds the payload's values."""
+    monkeypatch.setenv("STARWAY_TLS", "inproc,tcp")
+    monkeypatch.setenv("STARWAY_NATIVE", "0")
+    monkeypatch.setenv("STARWAY_DEVPULL", "0")
+    server, client, _ep = await _pair(port)
+    try:
+        nbytes = 4 << 20
+        src = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        want = _random(nbytes, dev, seed=12)
+        if into == "sink":
+            sink = DeviceBuffer((nbytes,), torch.uint8, device=dev)
+        else:
+            sink = np.zeros(nbytes, dtype=np.uint8)
+        torch.cuda.synchronize()
+        fut = server.arecv(sink, 9, MASK)
+        torch.cuda._sleep(SPIN)
+        src.copy_(want)
+        await client.asend(src, 9)
+        torch.cuda._sleep(SPIN)
+        src.zero_()
+        assert await fut == (9, nbytes)
+        got = (sink.array if into == "sink"
+               else torch.from_numpy(sink).to(dev))
+        assert torch.equal(got, want)
+        if into == "sink":
+            assert sink.last_transport == "device"
+        torch.cuda.synchronize()
+        assert not bool(src.any())
+    finally:
+        await client.aclose()
+        await server.aclose()
+
+
 async def test_bf16_on_the_card(port, dev, transport):
     server, client, _ep = await _pair(port)
     try:
